@@ -1,0 +1,300 @@
+"""Film: sample accumulation, adaptive sampling and the render driver.
+
+Port of `cpupathtrace_tpu/integrator/film.py` (ref: src/worker.cpp:149-427).
+The driver launches chunks of `stats` samples for a whole pixel tile and
+applies the reference's stopping rule per pixel between chunks: a chunk
+mean is one Welford stats sample (worker.cpp:200-232), accepted pixels
+freeze. Up to ADAPTIVE_FUSE stats batches go out in one launch
+(render_chunk_batched) and are folded back one after another
+(_apply_stats_batches), so the estimator is that of one launch per batch.
+The biased candidate selection (worker.cpp:273-317) runs only with
+`allow_bias=True`.
+
+Rays are sample-major: ray s * P + p is sample s of pixel p. Dense scenes
+keep that order (the JAX package's Morton order serves only binned scenes).
+"""
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+
+from ..camera.camera import Camera, shoot_rays
+from ..core.config import RenderOptions
+from ..scene.scene import SceneData
+from .megakernel import megakernel_supported, trace_megakernel
+
+# Stats batches fused into one launch (the JAX package's PTX_ADAPTIVE_FUSE
+# default).
+ADAPTIVE_FUSE = 4
+# The all-frozen flag of launch L is read only after launch L + FLAG_LAG is
+# enqueued, so the device has work while the host waits on the flag.
+# Frozen pixels stop accumulating, so extra launches change nothing.
+FLAG_LAG = 1
+
+
+def pixel_camera_coords(options: RenderOptions, px, py):
+    """Pixel index -> [-1,1] sensor coordinates, y flipped
+    (ref: worker.cpp:166-171). numpy in, numpy out."""
+    x_cam = 2.0 * ((px + 0.5) / options.image_width - 0.5)
+    y_cam = -2.0 * ((py + 0.5) / options.image_height - 0.5)
+    return x_cam, y_cam
+
+
+def adaptive_constants(options: RenderOptions):
+    """The reference's batch constants, integer division preserved
+    (ref: worker.cpp:158-163)."""
+    min_sc = options.min_sample_count
+    max_sc = options.max_sample_count
+    stats = min(max(min_sc // 4, 1), 64)
+    candidate_batch = max(max(min_sc, max_sc // 4) // stats, 2)
+    check = (
+        min(max(min_sc // 2, (max_sc - min_sc) // 8, 8, stats), 1024) // stats
+    )
+    return stats, candidate_batch, check
+
+
+def _dispatch_trace(scene: SceneData, rays, options: RenderOptions,
+                    generator: torch.Generator):
+    """The dense megakernel: the CUDA kernel for rays on the card, its twin
+    for rays on the CPU. The kernel seed is drawn on the rays' device."""
+    if not megakernel_supported(scene):
+        raise NotImplementedError(
+            "scene exceeds the dense megakernel's limits; the binned path "
+            "and the wavefront fallback are ROADMAP.md Queue 1 slices 2 and 4"
+        )
+    seed = torch.randint(
+        0, 2**31 - 1, (1,), generator=generator, device=rays.origin.device,
+        dtype=torch.int32,
+    )
+    return trace_megakernel(scene, rays, options, seed)
+
+
+def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp):
+    xs = x_cam.repeat(spp)
+    ys = y_cam.repeat(spp)
+    rays = shoot_rays(
+        camera, xs, ys, 1.0 / options.image_width, 1.0 / options.image_height,
+        generator,
+    )
+    return _dispatch_trace(scene, rays, options, generator)
+
+
+def render_chunk(scene: SceneData, camera: Camera, options: RenderOptions,
+                 x_cam: torch.Tensor, y_cam: torch.Tensor,
+                 generator: torch.Generator, spp: int):
+    """Trace `spp` samples for P pixels; returns (sum [P,4], collected [P]
+    int32)."""
+    p = x_cam.shape[0]
+    spectrum, collected = _trace_samples(
+        scene, camera, options, x_cam, y_cam, generator, spp
+    )
+    spectrum = spectrum.reshape(spp, p, 4)
+    collected = collected.reshape(spp, p)
+    return (
+        torch.where(collected[..., None], spectrum, 0.0).sum(0),
+        collected.sum(0, dtype=torch.int32),
+    )
+
+
+def render_chunk_batched(scene: SceneData, camera: Camera,
+                         options: RenderOptions, x_cam: torch.Tensor,
+                         y_cam: torch.Tensor, generator: torch.Generator,
+                         spp_batch: int, k_batches: int):
+    """`k_batches` stats batches in ONE launch of k_batches * spp_batch
+    samples; returns per-batch (sums [K,P,4], counts [K,P])."""
+    p = x_cam.shape[0]
+    spectrum, collected = _trace_samples(
+        scene, camera, options, x_cam, y_cam, generator, spp_batch * k_batches
+    )
+    spectrum = spectrum.reshape(k_batches, spp_batch, p, 4)
+    collected = collected.reshape(k_batches, spp_batch, p)
+    return (
+        torch.where(collected[..., None], spectrum, 0.0).sum(1),
+        collected.sum(1, dtype=torch.int32),
+    )
+
+
+def _apply_stats_batches(s_b, coll_b, c0, pixel_sum, n_collected, frozen,
+                         accepted, remaining, stats_means, stats_valid,
+                         kb, min_sc, check):
+    """Fold `kb` stats-batch results into the adaptive state one after
+    another (ref: worker.cpp:200-259 Welford batches + consecutive-pass
+    rule). Returns the new state plus the all-frozen early-break flag (a
+    0-dim bool tensor)."""
+    stats_means = stats_means.clone()
+    stats_valid = stats_valid.clone()
+    for j in range(kb):
+        s = s_b[j]
+        coll = coll_b[j]
+        c = c0 + j
+        live = ~frozen
+        pixel_sum = torch.where(live[:, None], pixel_sum + s, pixel_sum)
+        n_collected = torch.where(live, n_collected + coll, n_collected)
+        chunk_mean = s / coll.clamp_min(1)[:, None]
+        chunk_ok = live & (coll > 0)
+        stats_means[:, c] = torch.where(chunk_ok[:, None], chunk_mean, 0.0)
+        stats_valid[:, c] = chunk_ok
+
+        ns = stats_valid.sum(1, dtype=torch.int32)
+        safe_ns = ns.clamp_min(1)
+        mean = torch.where(stats_valid[..., None], stats_means, 0.0).sum(1) / safe_ns[:, None]
+        dev = torch.where(stats_valid[..., None], stats_means - mean[:, None, :], 0.0)
+        m2 = (dev * dev).sum(1)
+        m2w = m2 / (ns - 1).clamp_min(1)[:, None]
+        stddev = torch.sqrt(m2w[..., 0] + m2w[..., 1] + m2w[..., 2])
+        mean_contrib = (mean[..., 0] + mean[..., 1] + mean[..., 2]) / 3.0
+
+        checkable = live & (n_collected >= min_sc) & (ns >= 2)
+        passed = checkable & (
+            (stddev < 1e-4) | (stddev / (3.0 * 3.0 * mean_contrib + 1e-5) < 0.2)
+        )
+        remaining = torch.where(
+            passed, remaining - 1,
+            torch.where(checkable, torch.full_like(remaining, check), remaining),
+        )
+        newly_accepted = passed & (remaining <= 0)
+        accepted = accepted | newly_accepted
+        frozen = frozen | newly_accepted
+    return (pixel_sum, n_collected, frozen, accepted, remaining,
+            stats_means, stats_valid, (frozen | accepted).all())
+
+
+def _candidate_select(stats_means, stats_valid, cbc, fallback, min_count):
+    """Biased candidate selection (ref: worker.cpp:273-317), vectorised:
+    candidates are consecutive groups of `cbc` stats batches; the lowest
+    stddev candidate wins, near ties are averaged in. Returns [P,4]."""
+    p, ns, _ = stats_means.shape
+    n_cand = math.ceil(ns / cbc)
+    pad = n_cand * cbc - ns
+    if pad:
+        stats_means = torch.nn.functional.pad(stats_means, (0, 0, 0, pad))
+        stats_valid = torch.nn.functional.pad(stats_valid, (0, pad))
+    g_means = stats_means.reshape(p, n_cand, cbc, 4)
+    g_valid = stats_valid.reshape(p, n_cand, cbc)
+
+    count = g_valid.sum(-1, dtype=torch.int32)
+    safe = count.clamp_min(1)
+    mean = torch.where(g_valid[..., None], g_means, 0.0).sum(2) / safe[..., None]
+    dev = torch.where(g_valid[..., None], g_means - mean[:, :, None, :], 0.0)
+    m2 = (dev * dev).sum(2)
+    m2w = m2 / safe[..., None]
+    stddev = torch.sqrt(m2w[..., 0] + m2w[..., 1] + m2w[..., 2])
+    stddev = torch.where(count >= min_count, stddev, float("inf"))
+
+    order = torch.argsort(stddev, dim=1, stable=True)
+    s_sorted = torch.gather(stddev, 1, order)
+    c_sorted = torch.gather(mean, 1, order[..., None].expand(-1, -1, 4))
+
+    any_valid = torch.isfinite(s_sorted[:, 0])
+    pixel = c_sorted[:, 0]
+    cur_s = s_sorted[:, 0]
+    still = any_valid
+    for i in range(1, n_cand):
+        ok = still & (s_sorted[:, i] < torch.maximum(cur_s + 0.005, cur_s * 1.01))
+        pixel = torch.where(ok[:, None], pixel + (c_sorted[:, i] - pixel) / (i + 1.0), pixel)
+        cur_s = torch.where(ok, s_sorted[:, i], cur_s)
+        still = ok
+    return torch.where(any_valid[:, None], pixel, fallback)
+
+
+def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
+                x_cam: torch.Tensor, y_cam: torch.Tensor,
+                generator: torch.Generator) -> torch.Tensor:
+    """Adaptive render of one pixel tile; returns [P,4] pixel values."""
+    p = x_cam.shape[0]
+    dev = x_cam.device
+    stats, cbc, check = adaptive_constants(options)
+    min_sc = max(options.min_sample_count, 2)
+    max_sc = options.max_sample_count
+    n_full = max_sc // stats
+    remainder = max_sc - n_full * stats
+
+    pixel_sum = torch.zeros((p, 4), device=dev)
+    n_collected = torch.zeros(p, dtype=torch.int32, device=dev)
+    frozen = torch.zeros(p, dtype=torch.bool, device=dev)
+    accepted = torch.zeros(p, dtype=torch.bool, device=dev)
+    remaining = torch.full((p,), check, dtype=torch.int32, device=dev)
+    stats_means = torch.zeros((p, max(n_full, 1), 4), device=dev)
+    stats_valid = torch.zeros((p, max(n_full, 1)), dtype=torch.bool, device=dev)
+
+    def single(spp):
+        return render_chunk(scene, camera, options, x_cam, y_cam, generator, spp)
+
+    pending_flags: list = []
+    n_launches = math.ceil(n_full / ADAPTIVE_FUSE) if n_full else 0
+    c0 = 0
+    for _ in range(n_launches):
+        kb = min(ADAPTIVE_FUSE, n_full - c0)
+        if kb == 1:
+            s, coll = single(stats)
+            s_b, coll_b = s[None], coll[None]
+        else:
+            s_b, coll_b = render_chunk_batched(
+                scene, camera, options, x_cam, y_cam, generator, stats, kb
+            )
+        (pixel_sum, n_collected, frozen, accepted, remaining,
+         stats_means, stats_valid, flag) = _apply_stats_batches(
+            s_b, coll_b, c0, pixel_sum, n_collected, frozen, accepted,
+            remaining, stats_means, stats_valid, kb=kb, min_sc=min_sc,
+            check=check,
+        )
+        c0 += kb
+        if max_sc > min_sc and c0 >= (min_sc // stats):
+            pending_flags.append(flag)
+            if len(pending_flags) > FLAG_LAG and bool(pending_flags.pop(0)):
+                break
+
+    if remainder > 0:
+        s, coll = single(remainder)
+        live = ~frozen
+        pixel_sum = torch.where(live[:, None], pixel_sum + s, pixel_sum)
+        n_collected = torch.where(live, n_collected + coll, n_collected)
+
+    pixel_value = pixel_sum / n_collected.clamp_min(1)[:, None]
+    if options.allow_bias:
+        min_count = max((cbc * 3) // 4, 2)
+        biased = _candidate_select(stats_means, stats_valid, cbc, pixel_value, min_count)
+        pixel_value = torch.where(accepted[:, None], pixel_value, biased)
+    # Pixels that never collected anything stay exactly zero.
+    return torch.where((n_collected > 0)[:, None], pixel_value, 0.0)
+
+
+def render(scene: SceneData, camera: Camera, options: RenderOptions,
+           seed: int = 0, progress_callback=None, rays_per_launch: int = 1 << 20,
+           device=None) -> np.ndarray:
+    """Full-frame render (ref: worker.cpp:389-427 processJob). Returns an
+    [H, W, 4] float32 image (RGB radiance + any-hit alpha). Runs on
+    `device` (default: the scene's); tiles of rows hold up to
+    `rays_per_launch` rays per stats batch."""
+    w, h = options.image_width, options.image_height
+    if w <= 0 or h <= 0:
+        return np.zeros((max(h, 0), max(w, 0), 4), np.float32)
+    dev = torch.device(device) if device is not None else scene.device
+    scene = scene.to(dev)
+    camera = camera.to(dev)
+    generator = torch.Generator(device=dev)
+    generator.manual_seed(int(seed))
+
+    stats, _, _ = adaptive_constants(options)
+    rows_per_tile = max(1, min(h, rays_per_launch // max(w * stats, 1)))
+    n_tiles = math.ceil(h / rows_per_tile)
+    px = np.arange(w, dtype=np.float32)
+    image = np.zeros((h, w, 4), np.float32)
+    for i in range(n_tiles):
+        y0 = i * rows_per_tile
+        rows = min(rows_per_tile, h - y0)
+        py = np.arange(y0, y0 + rows, dtype=np.float32)
+        xg, yg = np.meshgrid(px, py)
+        x_cam, y_cam = pixel_camera_coords(options, xg.ravel(), yg.ravel())
+        tile = render_tile(
+            scene, camera, options,
+            torch.from_numpy(np.ascontiguousarray(x_cam, np.float32)).to(dev),
+            torch.from_numpy(np.ascontiguousarray(y_cam, np.float32)).to(dev),
+            generator,
+        )
+        image[y0:y0 + rows] = tile.reshape(rows, w, 4).cpu().numpy()
+        if progress_callback is not None:
+            progress_callback(i + 1, n_tiles)
+    return image

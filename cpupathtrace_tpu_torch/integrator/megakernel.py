@@ -1,0 +1,750 @@
+"""The dense path-trace megakernel (K1) and its plain-torch twin.
+
+`trace_megakernel` runs the whole estimator for a batch of rays in one CUDA
+launch (csrc/megakernel.cu, the port of `_make_megakernel` in
+cpupathtrace_tpu/integrator/pallas_megakernel.py, while-loop form with
+n_super = 0): nearest hit, material, emission, roulette, NEE over the point
+lights and `em_k` CDF-drawn emitters with shadow rays, then the BSDF sample
+(Lambertian, Fresnel glass, mirror), up to `max_depth` bounces.
+
+`trace_megakernel_reference` is the twin: the same arithmetic in the same
+order over flat [R] tensors, with the same random stream (integrator/rng.py)
+and the same draw order. The tests hold it against the JAX kernel on the
+CPU; chip_smoke.py holds the CUDA kernel against it on the card. The wrapper
+calls it only for tensors that lie on the CPU: a CUDA tensor launches the
+kernel or raises.
+
+Both dense forms are covered: the pair-record form (1..128 triangles ride
+`scene.krn_big_pair`, spheres the sphere table) and the table form
+(triangle table + spheres; scenes without triangles).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import _build
+from ..accel.pair_record import C_MAT, C_N0, C_PRIM, REC_USED_COLS
+from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, SceneData
+from ..utils.math import PI
+from .rng import next_u01, seed_rng
+
+TRI_EPS = 1e-6
+PD_CUTOFF = 1e-20
+
+# Table row layouts (all f32), as pallas_megakernel.py:80-93:
+# tri: v0(0:3) e1(3:6) e2(6:9) cull(9) valid(10) n0(11:14) n1(14:17) n2(17:20)
+#      mat(20)
+TRI_COLS = 24
+# sph: center(0:3) radius(3) valid(4) mat(5)
+SPH_COLS = 8
+# mat: diffuse(0:3) specular(3:6) ior(6) emission(7:10) bsdf(10) one_way(11)
+MAT_COLS = 12
+# light (point): pos(0:3) spectrum(3:6)
+LGT_COLS = 8
+# emissive: cdf(0) sel_p(1) is_sphere(2) v0|center(3:6) e1|radius(6:9)
+# e2(9:12) face_normal(12:15) pd_area(15) cull(16) emission(17:20)
+EM_COLS = 24
+
+# H100 limits of the CUDA kernel. Every table lives in the block's shared
+# memory (at most 14.3 KB record + 48 KB triangle table + 2 KB spheres +
+# 12 KB materials + 2 KB lights + 24 KB emitters), and each row is one
+# per-thread loop iteration per bounce.
+MAX_REC_ROWS = 128
+MAX_TRI = 512
+MAX_SPH = 64
+MAX_MAT = 256
+MAX_LIGHTS = 64
+MAX_EM = 256
+
+
+def megakernel_supported(scene: SceneData) -> bool:
+    """True when the scene's tables fit the kernel's limits."""
+    if scene.accel != "dense":
+        return False
+    if scene.dense_pair:
+        tri_ok = scene.krn_big_pair.shape[0] <= MAX_REC_ROWS
+    else:
+        tri_ok = scene.tri_v0.shape[0] <= MAX_TRI
+    return (
+        tri_ok
+        and scene.sph_center.shape[0] <= MAX_SPH
+        and scene.num_materials <= MAX_MAT
+        and scene.n_point_lights <= MAX_LIGHTS
+        and scene.n_emissive <= MAX_EM
+    )
+
+
+def pack_tables(scene: SceneData):
+    """The kernel's tables (tri, sph, mat, lgt, em) on the scene's device,
+    equal to the JAX `_pack_tables` (pallas_megakernel.py:982-1098)."""
+    f32 = torch.float32
+    dev = scene.device
+
+    def col(x):
+        return x.to(f32)[:, None]
+
+    def zeros(n, c):
+        return torch.zeros((n, c), dtype=f32, device=dev)
+
+    tri_v0 = scene.tri_v0
+    n_rows = tri_v0.shape[0]
+    tri = torch.cat(
+        [
+            tri_v0, scene.tri_v1 - tri_v0, scene.tri_v2 - tri_v0,
+            col(scene.tri_cull), col(scene.tri_valid),
+            scene.tri_n0, scene.tri_n1, scene.tri_n2,
+            col(scene.tri_material), zeros(n_rows, TRI_COLS - 21),
+        ],
+        dim=1,
+    )
+    s_rows = scene.sph_center.shape[0]
+    sph = torch.cat(
+        [
+            scene.sph_center, col(scene.sph_radius), col(scene.sph_valid),
+            col(scene.sph_material), zeros(s_rows, SPH_COLS - 6),
+        ],
+        dim=1,
+    )
+    mat = torch.cat(
+        [
+            scene.mat_diffuse[:, :3], scene.mat_specular[:, :3],
+            col(scene.mat_ior), scene.mat_emission[:, :3],
+            col(scene.mat_bsdf), col(scene.mat_one_way),
+        ],
+        dim=1,
+    )
+    l_rows = scene.light_pos.shape[0]
+    lgt = torch.cat(
+        [scene.light_pos, scene.light_spectrum[:, :3], zeros(l_rows, LGT_COLS - 6)],
+        dim=1,
+    )
+    # Emissive rows fully pre-resolved (geometry, pdf, emission).
+    cdf = scene.emissive_cdf
+    e_rows = cdf.shape[0]
+    prob = torch.diff(torch.cat([torch.zeros(1, dtype=f32, device=dev), cdf]))
+    prim = scene.emissive_prim.long()
+    is_sph = prim >= scene.n_tri
+    ti = prim.clamp(0, n_rows - 1)
+    si = (prim - scene.n_tri).clamp(0, s_rows - 1)
+    v0 = torch.where(is_sph[:, None], scene.sph_center[si], tri_v0[ti])
+    e1t = scene.tri_v1[ti] - tri_v0[ti]
+    e2t = scene.tri_v2[ti] - tri_v0[ti]
+    radius = scene.sph_radius[si]
+    e1 = torch.where(
+        is_sph[:, None],
+        torch.stack([radius, torch.zeros_like(radius), torch.zeros_like(radius)], -1),
+        e1t,
+    )
+    e2 = torch.where(is_sph[:, None], torch.zeros_like(e2t), e2t)
+    fn = torch.stack(
+        [
+            e1t[:, 1] * e2t[:, 2] - e1t[:, 2] * e2t[:, 1],
+            e1t[:, 2] * e2t[:, 0] - e1t[:, 0] * e2t[:, 2],
+            e1t[:, 0] * e2t[:, 1] - e1t[:, 1] * e2t[:, 0],
+        ],
+        -1,
+    )
+    area2 = torch.sqrt(fn[:, 0] * fn[:, 0] + fn[:, 1] * fn[:, 1] + fn[:, 2] * fn[:, 2])
+    fn = fn / area2.clamp_min(1e-30)[:, None]
+    pd_area = torch.where(
+        is_sph,
+        1.0 / (4.0 * PI * (radius * radius)).clamp_min(1e-30),
+        1.0 / (area2 * 0.5).clamp_min(1e-30),
+    )
+    cull = torch.where(is_sph, torch.zeros_like(is_sph), scene.tri_cull[ti])
+    mid = torch.where(is_sph, scene.sph_material[si], scene.tri_material[ti]).long()
+    emission = scene.mat_emission[mid][:, :3]
+    em = torch.cat(
+        [
+            cdf[:, None], (prob * float(scene.emissive_sample_count))[:, None],
+            col(is_sph), v0, e1, e2, fn, pd_area[:, None], col(cull),
+            emission, zeros(e_rows, EM_COLS - 20),
+        ],
+        dim=1,
+    )
+    return tri, sph, mat, lgt, em
+
+
+# ---------------------------------------------------------------------------
+# The twin.
+# ---------------------------------------------------------------------------
+
+
+class _Ctx:
+    """Per-call constants of the twin: tables, forms and scalar divisors.
+    Divisors are 1-element tensors so a CUDA division stays a true
+    division (torch turns `x / python_scalar` into x * (1/c) there)."""
+
+    def __init__(self, scene, tables, options, device):
+        self.tri, self.sph, self.mat, self.lgt, self.em = tables
+        self.dense_pair = scene.dense_pair
+        self.rec = scene.krn_big_pair[:, :REC_USED_COLS] if self.dense_pair else None
+        self.n_tri = 0 if self.dense_pair else self.tri.shape[0]
+        self.n_sph = self.sph.shape[0]
+        self.n_lights = scene.n_point_lights
+        self.n_em = scene.n_emissive
+        self.em_k = scene.emissive_sample_count
+        self.cull_mode = scene.krn_big_cull_mode
+        self.eps = float(options.epsilon)
+
+        def c(v):
+            return torch.full((1,), v, dtype=torch.float32, device=device)
+
+        self.three, self.pi, self.two_pi = c(3.0), c(PI), c(2.0 * PI)
+
+
+def _table_nearest(ctx, ox, oy, oz, dx, dy, dz, n_tri):
+    """Nearest hit over the triangle table rows [0, n_tri) and then the
+    sphere table (`_intersect_tables`, pallas_megakernel.py:141-234).
+    Returns (t, prim, nx, ny, nz, mid) per ray; t = inf on a miss. A row
+    wins only by improving strictly, so the first of equal-t rows wins."""
+    n = ox.shape[0]
+    dev = ox.device
+    best_t = torch.full((n,), float("inf"), device=dev)
+    best_p = torch.full((n,), -1, dtype=torch.int64, device=dev)
+    nx = torch.zeros(n, device=dev)
+    ny = torch.ones(n, device=dev)
+    nz = torch.zeros(n, device=dev)
+    mid = torch.zeros(n, dtype=torch.int64, device=dev)
+    if n_tri:
+        tr = ctx.tri[:n_tri, :, None]  # [T, 24, 1] against [n] rays
+        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tr[:, j] for j in range(9))
+        px = dy * e2z - dz * e2y
+        py = dz * e2x - dx * e2z
+        pz = dx * e2y - dy * e2x
+        det = e1x * px + e1y * py + e1z * pz
+        is_cull = tr[:, 9] > 0.5
+        miss_det = torch.where(is_cull, det <= TRI_EPS, det.abs() <= TRI_EPS)
+        inv_det = torch.reciprocal(torch.where(miss_det, 1.0, det))
+        tx = ox - v0x
+        ty = oy - v0y
+        tz = oz - v0z
+        u = (tx * px + ty * py + tz * pz) * inv_det
+        qx = ty * e1z - tz * e1y
+        qy = tz * e1x - tx * e1z
+        qz = tx * e1y - ty * e1x
+        v = (dx * qx + dy * qy + dz * qz) * inv_det
+        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+        ok = (
+            (tr[:, 10] > 0.5) & ~miss_det
+            & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0)
+        )
+        key = torch.where(ok, t, float("inf"))
+        tmin, k = key.min(dim=0)
+        won = tmin < best_t
+        uk = u.gather(0, k[None])[0]
+        vk = v.gather(0, k[None])[0]
+        row = ctx.tri[k]
+        w0 = 1.0 - uk - vk
+        snx = w0 * row[:, 11] + uk * row[:, 14] + vk * row[:, 17]
+        sny = w0 * row[:, 12] + uk * row[:, 15] + vk * row[:, 18]
+        snz = w0 * row[:, 13] + uk * row[:, 16] + vk * row[:, 19]
+        inv = torch.rsqrt(snx * snx + sny * sny + snz * snz + 1e-30)
+        best_t = torch.where(won, tmin, best_t)
+        best_p = torch.where(won, k, best_p)
+        nx = torch.where(won, snx * inv, nx)
+        ny = torch.where(won, sny * inv, ny)
+        nz = torch.where(won, snz * inv, nz)
+        mid = torch.where(won, row[:, 20].long(), mid)
+
+    sp = ctx.sph[:, :, None]  # [S, 8, 1]
+    cx, cy, cz, r = sp[:, 0], sp[:, 1], sp[:, 2], sp[:, 3]
+    cox = ox - cx
+    coy = oy - cy
+    coz = oz - cz
+    dd = dx * cox + dy * coy + dz * coz
+    disc = dd * dd - (cox * cox + coy * coy + coz * coz) + r * r
+    t = -(dd + torch.sqrt(disc.clamp_min(0.0)))
+    ok = (sp[:, 4] > 0.5) & (disc >= 0.0) & (t >= 0.0)
+    key = torch.where(ok, t, float("inf"))
+    tmin, k = key.min(dim=0)
+    won = tmin < best_t
+    row = ctx.sph[k]
+    hx = ox + dx * tmin - row[:, 0]
+    hy = oy + dy * tmin - row[:, 1]
+    hz = oz + dz * tmin - row[:, 2]
+    inv = torch.rsqrt(hx * hx + hy * hy + hz * hz + 1e-30)
+    best_t = torch.where(won, tmin, best_t)
+    best_p = torch.where(won, k + n_tri, best_p)
+    nx = torch.where(won, hx * inv, nx)
+    ny = torch.where(won, hy * inv, ny)
+    nz = torch.where(won, hz * inv, nz)
+    mid = torch.where(won, row[:, 5].long(), mid)
+    return best_t, best_p, nx, ny, nz, mid
+
+
+def _table_occluded(ctx, ox, oy, oz, dx, dy, dz, n_tri, t_max):
+    """Shadow test over the tables: True where the nearest table hit lies
+    below t_max (pallas_megakernel.py:516-522: visible iff no hit or
+    nearest t >= dist - eps)."""
+    t, p, *_ = _table_nearest(ctx, ox, oy, oz, dx, dy, dz, n_tri)
+    return (p >= 0) & ~(t >= t_max)
+
+
+def _pair_quantities(rec, ox, oy, oz, dx, dy, dz, mx, my, mz, cull_mode):
+    """Sign-normalised Plücker quantities (sd, su, sv, st, ok) of every
+    record row against every ray, [T, n] (kernel_traverse.py:405-441)."""
+    c = [rec[:, j, None] for j in range(17)]
+    det = c[0] * dx + c[1] * dy + c[2] * dz
+    un = c[3] * mx + c[4] * my + c[5] * mz + c[6] * dx + c[7] * dy + c[8] * dz
+    vn = c[9] * mx + c[10] * my + c[11] * mz + c[12] * dx + c[13] * dy + c[14] * dz
+    tn = -(c[0] * ox + c[1] * oy + c[2] * oz) - c[15]
+    sgn = torch.where(det >= 0.0, 1.0, -1.0)
+    sd = det * sgn
+    su = un * sgn
+    sv = vn * sgn
+    st = tn * sgn
+    inside = torch.minimum(torch.minimum(torch.minimum(su, sv), sd - su - sv), st)
+    if cull_mode == 0:
+        ok = (inside >= 0.0) & (sd > TRI_EPS)
+    elif cull_mode == 1:
+        ok = (inside >= 0.0) & (det > TRI_EPS)
+    else:
+        ok = (inside >= 0.0) & (sd > TRI_EPS) & ((c[16] < 0.5) | (det > 0.0))
+    return sd, su, sv, st, ok
+
+
+def _moment(ox, oy, oz, dx, dy, dz):
+    return oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
+
+
+def _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit):
+    """Nearest hit of the pair record, improving strictly on `hit`
+    (pair_test_nearest, kernel_traverse.py:467-596): the lowest record
+    slot wins among equal t."""
+    bt, bp, nx, ny, nz, mid = hit
+    mx, my, mz = _moment(ox, oy, oz, dx, dy, dz)
+    sd, su, sv, st, ok = _pair_quantities(
+        ctx.rec, ox, oy, oz, dx, dy, dz, mx, my, mz, ctx.cull_mode
+    )
+    tv = st / torch.where(ok, sd, 1.0)
+    key = torch.where(ok & (tv < bt), tv, float("inf"))
+    tmin, k = key.min(dim=0)
+    won = tmin < bt
+    sdw = sd.gather(0, k[None])[0].clamp_min(1e-30)
+    uw = su.gather(0, k[None])[0] / sdw
+    vw = sv.gather(0, k[None])[0] / sdw
+    w0 = 1.0 - uw - vw
+    row = ctx.rec[k]
+    n0 = row[:, C_N0:C_N0 + 3]
+    n1 = row[:, C_N0 + 3:C_N0 + 6]
+    n2 = row[:, C_N0 + 6:C_N0 + 9]
+    snx = w0 * n0[:, 0] + uw * n1[:, 0] + vw * n2[:, 0]
+    sny = w0 * n0[:, 1] + uw * n1[:, 1] + vw * n2[:, 1]
+    snz = w0 * n0[:, 2] + uw * n1[:, 2] + vw * n2[:, 2]
+    inv = torch.rsqrt(snx * snx + sny * sny + snz * snz + 1e-30)
+    return (
+        torch.minimum(bt, tmin),
+        torch.where(won, row[:, C_PRIM].long(), bp),
+        torch.where(won, snx * inv, nx),
+        torch.where(won, sny * inv, ny),
+        torch.where(won, snz * inv, nz),
+        torch.where(won, row[:, C_MAT].long(), mid),
+    )
+
+
+def _pair_occluded(ctx, ox, oy, oz, dx, dy, dz, t_lim):
+    """Any-hit of the pair record below t_lim, division-free:
+    t < t_lim iff st < t_lim * sd (pair_test_anyhit, kernel_traverse.py:599)."""
+    mx, my, mz = _moment(ox, oy, oz, dx, dy, dz)
+    sd, _, _, st, ok = _pair_quantities(
+        ctx.rec, ox, oy, oz, dx, dy, dz, mx, my, mz, ctx.cull_mode
+    )
+    return (ok & (st < t_lim * sd)).any(dim=0)
+
+
+def _nearest(ctx, ox, oy, oz, dx, dy, dz):
+    if ctx.dense_pair:
+        hit = _table_nearest(ctx, ox, oy, oz, dx, dy, dz, 0)
+        return _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
+    return _table_nearest(ctx, ox, oy, oz, dx, dy, dz, ctx.n_tri)
+
+
+def _tangent_frame(nx, ny, nz):
+    """Branch-free tangent frame (pallas_megakernel.py:251-272)."""
+    has_x = nx.abs() > 0.0
+    has_y = ny.abs() > 0.0
+    dxv = torch.where(has_x, 0.0, torch.where(has_y, -ny, 1.0))
+    dyv = torch.where(has_x, -nx, torch.where(has_y, nz, 0.0))
+    dzv = torch.where(has_x, torch.where(has_y, ny, nz), 0.0)
+    inv = torch.rsqrt(dxv * dxv + dyv * dyv + dzv * dzv + 1e-30)
+    dxv, dyv, dzv = dxv * inv, dyv * inv, dzv * inv
+    b1x = dyv * nz - dzv * ny
+    b1y = dzv * nx - dxv * nz
+    b1z = dxv * ny - dyv * nx
+    inv1 = torch.rsqrt(b1x * b1x + b1y * b1y + b1z * b1z + 1e-30)
+    b1x, b1y, b1z = b1x * inv1, b1y * inv1, b1z * inv1
+    b2x = b1y * nz - b1z * ny
+    b2y = b1z * nx - b1x * nz
+    b2z = b1x * ny - b1y * nx
+    inv2 = torch.rsqrt(b2x * b2x + b2y * b2y + b2z * b2z + 1e-30)
+    return b1x, b1y, b1z, b2x * inv2, b2y * inv2, b2z * inv2
+
+
+def _bounce(ctx, depth, s):
+    """One bounce for the live rays held in dict `s` (all alive on entry):
+    the body of `_make_megakernel` (pallas_megakernel.py:412-876), dense
+    forms. Returns the live mask after the bounce; `s` is updated."""
+    eps = ctx.eps
+    ox, oy, oz, dx, dy, dz = s["ox"], s["oy"], s["oz"], s["dx"], s["dy"], s["dz"]
+    sr, sg, sb = s["sr"], s["sg"], s["sb"]
+    divisor, bounce_pd, contrib = s["divisor"], s["bounce_pd"], s["contrib"]
+    rng = s["rng"]
+
+    bt, bp, nx, ny, nz, mid = _nearest(ctx, ox, oy, oz, dx, dy, dz)
+    hit = bp >= 0
+    s["collected"] = s["collected"] | hit
+    t_hit = torch.where(hit, bt, 0.0)
+    pxp = ox + dx * t_hit
+    pyp = oy + dy * t_hit
+    pzp = oz + dz * t_hit
+
+    m = ctx.mat[mid]
+    md_r, md_g, md_b = m[:, 0], m[:, 1], m[:, 2]
+    ms_r, ms_g, ms_b = m[:, 3], m[:, 4], m[:, 5]
+    ior = m[:, 6]
+    me_r, me_g, me_b = m[:, 7], m[:, 8], m[:, 9]
+    one_way = m[:, 11] > 0.5
+    is_glass = m[:, 10] == float(BSDF_GLASS)
+    is_mirror = m[:, 10] == float(BSDF_MIRROR)
+    is_spec = is_glass | is_mirror
+
+    weight = torch.reciprocal(divisor * bounce_pd)
+    out_r = s["out_r"] + torch.where(hit, sr * me_r * weight, 0.0)
+    out_g = s["out_g"] + torch.where(hit, sg * me_g * weight, 0.0)
+    out_b = s["out_b"] + torch.where(hit, sb * me_b * weight, 0.0)
+
+    # Russian roulette, keyed on the loop index (ref: worker.cpp:67-70).
+    if depth + 1 <= 4:
+        bpv = torch.ones_like(sr)
+    else:
+        mean_s = (sr + sg + sb) / ctx.three
+        bpv = 0.1 + 0.1 * torch.minimum(contrib * mean_s, torch.ones_like(sr))
+    rng, u_rt = next_u01(rng)
+    do_bounce = u_rt < bpv
+
+    def nee(lx, ly, lz, ls_r, ls_g, ls_b, lpd, lvalid, acc):
+        tlx = lx - pxp
+        tly = ly - pyp
+        tlz = lz - pzp
+        dist2 = tlx * tlx + tly * tly + tlz * tlz
+        dist = torch.sqrt(dist2)
+        inv = torch.reciprocal(dist.clamp_min(1e-30))
+        ldx, ldy, ldz = tlx * inv, tly * inv, tlz * inv
+        sox = pxp + ldx * eps
+        soy = pyp + ldy * eps
+        soz = pzp + ldz * eps
+        occ = _table_occluded(
+            ctx, sox, soy, soz, ldx, ldy, ldz, ctx.n_tri, dist - eps
+        )
+        if ctx.dense_pair:
+            occ = occ | _pair_occluded(
+                ctx, sox, soy, soz, ldx, ldy, ldz, (dist - eps).clamp_min(0.0)
+            )
+        cos_s = (nx * ldx + ny * ldy + nz * ldz).clamp_min(0.0)
+        shade = cos_s / ctx.pi
+        use = hit & lvalid & ~occ & ~is_spec & (lpd > 0.0)
+        w = torch.where(use, shade / (divisor * bounce_pd * lpd), 0.0)
+        a_r, a_g, a_b = acc
+        return a_r + w * md_r * ls_r * sr, a_g + w * md_g * ls_g * sg, a_b + w * md_b * ls_b * sb
+
+    acc = (out_r, out_g, out_b)
+    all_valid = torch.ones_like(hit)
+    one = torch.ones_like(sr)
+    for li in range(ctx.n_lights):
+        lg = ctx.lgt[li]
+        acc = nee(lg[0], lg[1], lg[2], lg[3], lg[4], lg[5], one, all_valid, acc)
+
+    n_em = ctx.n_em
+    for _ in range(ctx.em_k):
+        rng, rsel = next_u01(rng)
+        rng, u1 = next_u01(rng)
+        rng, u2 = next_u01(rng)
+        # CDF lower bound (ref: scene.cpp:238-257); n_em - 1 when above.
+        sel = torch.searchsorted(ctx.em[:n_em, 0].contiguous(), rsel).clamp_max(n_em - 1)
+        e = ctx.em[sel]
+        sq = torch.sqrt(u1)
+        w2 = sq * (1.0 - u2)
+        w3 = sq * u2
+        theta = 2.0 * PI * u1
+        cphi = 1.0 - 2.0 * u2
+        sphi = torch.sqrt((1.0 - cphi * cphi).clamp_min(0.0))
+        ux_s = sphi * torch.cos(theta)
+        uy_s = sphi * torch.sin(theta)
+        uz_s = cphi
+        is_sph = e[:, 2] > 0.5
+        r_s = e[:, 6]
+        spx = torch.where(is_sph, e[:, 3] + r_s * ux_s, e[:, 3] + w2 * e[:, 6] + w3 * e[:, 9])
+        spy = torch.where(is_sph, e[:, 4] + r_s * uy_s, e[:, 4] + w2 * e[:, 7] + w3 * e[:, 10])
+        spz = torch.where(is_sph, e[:, 5] + r_s * uz_s, e[:, 5] + w2 * e[:, 8] + w3 * e[:, 11])
+        snx = torch.where(is_sph, ux_s, e[:, 12])
+        sny = torch.where(is_sph, uy_s, e[:, 13])
+        snz = torch.where(is_sph, uz_s, e[:, 14])
+        s_pd = e[:, 1] * e[:, 15]
+        cullm = e[:, 16] > 0.5
+        # Area -> solid angle (ref: scene.cpp:280).
+        tlx = spx - pxp
+        tly = spy - pyp
+        tlz = spz - pzp
+        dist2 = tlx * tlx + tly * tly + tlz * tlz
+        invd = torch.rsqrt(dist2.clamp_min(1e-30))
+        ldx, ldy, ldz = tlx * invd, tly * invd, tlz * invd
+        ldn = ldx * snx + ldy * sny + ldz * snz
+        adot = (-ldn).abs()
+        lvalid = (adot > 0.0) & (dist2 > 0.0) & (~cullm | (ldn < 0.0))
+        lpd = s_pd * dist2 / adot.clamp_min(1e-30)
+        acc = nee(spx, spy, spz, e[:, 17], e[:, 18], e[:, 19], lpd, lvalid, acc)
+    s["out_r"], s["out_g"], s["out_b"] = acc
+
+    # Roulette bookkeeping (ref: worker.cpp:106-110).
+    bounce_pd = torch.where(
+        hit, torch.where(do_bounce, bounce_pd * bpv, bounce_pd * (1.0 - bpv)), bounce_pd
+    )
+    cont = hit & do_bounce & (bounce_pd > PD_CUTOFF)
+
+    # ---- Propagate (ref: propagation.cpp) ----
+    rng, u1 = next_u01(rng)
+    rng, u2 = next_u01(rng)
+    rng, ub = next_u01(rng)
+
+    fac = torch.sqrt((1.0 - u2).clamp_min(0.0))
+    cos_t = torch.sqrt(u2)
+    ang = 2.0 * PI * u1
+    lx_t = fac * torch.cos(ang)
+    ly_t = fac * torch.sin(ang)
+    p_lam = 2.0 * cos_t / ctx.two_pi
+    b1x, b1y, b1z, b2x, b2y, b2z = _tangent_frame(nx, ny, nz)
+    ldx_l = b1x * lx_t + b2x * ly_t + nx * cos_t
+    ldy_l = b1y * lx_t + b2y * ly_t + ny * cos_t
+    ldz_l = b1z * lx_t + b2z * ly_t + nz * cos_t
+
+    # Glass (Fresnel unpolarised; ref: propagation.cpp:64-160).
+    ray_dot = -(dx * nx + dy * ny + dz * nz)
+    entering = ray_dot >= 0.0
+    ri_l = torch.where(entering, 1.0, ior)
+    ri_e = torch.where(entering, ior, 1.0)
+    adot = ray_dot.abs()
+    sin_i = torch.sqrt((1.0 - adot * adot).clamp_min(0.0))
+    sin_t = ri_l / ri_e * sin_i
+    tir = sin_t >= 1.0
+    cos_tt = torch.sqrt((1.0 - sin_t * sin_t).clamp_min(0.0))
+    r_par = (ri_e * adot - ri_l * cos_tt) / (ri_e * adot + ri_l * cos_tt)
+    r_perp = (ri_l * adot - ri_e * cos_tt) / (ri_l * adot + ri_e * cos_tt)
+    rat = torch.where(tir, 1.0, (r_par * r_par + r_perp * r_perp) * 0.5)
+    cos_tt = torch.where(tir, 0.0, cos_tt)
+    refl = ub < rat
+    sgn = torch.where(ray_dot < 0.0, -1.0, 1.0)
+    ddn = dx * nx * sgn + dy * ny * sgn + dz * nz * sgn
+    rx = dx - 2.0 * ddn * nx * sgn
+    ry = dy - 2.0 * ddn * ny * sgn
+    rz = dz - 2.0 * ddn * nz * sgn
+    ratio = ri_l / ri_e
+    fx = dx * ratio + nx * (ratio * adot - cos_tt) * sgn
+    fy = dy * ratio + ny * (ratio * adot - cos_tt) * sgn
+    fz = dz * ratio + nz * (ratio * adot - cos_tt) * sgn
+    invf = torch.rsqrt(fx * fx + fy * fy + fz * fz + 1e-30)
+    fx, fy, fz = fx * invf, fy * invf, fz * invf
+    gdx = torch.where(refl, rx, fx)
+    gdy = torch.where(refl, ry, fy)
+    gdz = torch.where(refl, rz, fz)
+    ri_fac = (ri_e * ri_e) / (ri_l * ri_l)
+    fac_glass = torch.where(refl, rat, ri_fac * (1.0 - rat))
+    p_glass = torch.where(refl, rat, 1.0 - rat)
+
+    # Mirror (ref: propagation.cpp:180-204).
+    unaligned = (dx * nx + dy * ny + dz * nz) > 0.0
+    pass_through = one_way & unaligned
+    flip = ~one_way & unaligned
+    msgn = torch.where(flip, -1.0, 1.0)
+    mdn = dx * nx * msgn + dy * ny * msgn + dz * nz * msgn
+    mx = torch.where(pass_through, dx, dx - 2.0 * mdn * nx * msgn)
+    my = torch.where(pass_through, dy, dy - 2.0 * mdn * ny * msgn)
+    mz = torch.where(pass_through, dz, dz - 2.0 * mdn * nz * msgn)
+
+    ndx = torch.where(is_glass, gdx, torch.where(is_mirror, mx, ldx_l))
+    ndy = torch.where(is_glass, gdy, torch.where(is_mirror, my, ldy_l))
+    ndz = torch.where(is_glass, gdz, torch.where(is_mirror, mz, ldz_l))
+    ray_factor = torch.where(is_glass, fac_glass, 1.0)
+    ray_pd = torch.where(is_glass, p_glass, torch.where(is_mirror, 1.0, p_lam))
+
+    # Bounce eval (non-synthetic getSpectrum).
+    cos_n = (nx * ndx + ny * ndy + nz * ndz).clamp_min(0.0)
+    shade_l = cos_n / ctx.pi
+    same_side = (dx * ndx + dy * ndy + dz * ndz) <= 0.0
+    mm = ~one_way | same_side
+
+    def mult(ms, md):
+        gl = torch.where(same_side, ms, md)
+        mi = torch.where(mm, ms, 1.0)
+        return torch.where(is_glass, gl, torch.where(is_mirror, mi, md))
+
+    shading = torch.where(is_spec, 1.0, shade_l)
+    divisor_new = (
+        divisor * (ray_pd / ray_factor.clamp_min(1e-30))
+        * torch.reciprocal(shading.clamp_min(1e-30))
+    )
+    divisor = torch.where(cont, divisor_new, divisor)
+    s["contrib"] = torch.where(cont, contrib * ray_factor * shading, contrib)
+    s["sr"] = torch.where(cont, mult(ms_r, md_r) * sr, sr)
+    s["sg"] = torch.where(cont, mult(ms_g, md_g) * sg, sg)
+    s["sb"] = torch.where(cont, mult(ms_b, md_b) * sb, sb)
+    s["divisor"] = divisor
+    s["bounce_pd"] = bounce_pd
+    s["rng"] = rng
+
+    alive = cont & (divisor > PD_CUTOFF)
+    s["ox"] = torch.where(alive, pxp + ndx * eps, ox)
+    s["oy"] = torch.where(alive, pyp + ndy * eps, oy)
+    s["oz"] = torch.where(alive, pzp + ndz * eps, oz)
+    s["dx"] = torch.where(alive, ndx, dx)
+    s["dy"] = torch.where(alive, ndy, dy)
+    s["dz"] = torch.where(alive, ndz, dz)
+    return alive
+
+
+_OUT_FIELDS = ("out_r", "out_g", "out_b", "collected")
+
+
+def trace_megakernel_reference(scene: SceneData, rays, options, seed, tables=None):
+    """The twin of the CUDA kernel: returns (spectrum [R,4] with alpha =
+    collected, collected [R] bool). A ray leaves the loop when it dies,
+    as a kernel thread does; dead rays never change their sums, so this
+    equals the TPU's whole-block exit."""
+    trace_megakernel_reference.calls += 1
+    origin, direction = rays.origin, rays.direction
+    dev = origin.device
+    if tables is None:
+        tables = pack_tables(scene.to(dev))
+    ctx = _Ctx(scene.to(dev), tables, options, dev)
+    n = origin.shape[0]
+    f32 = torch.float32
+    idx = torch.arange(n, device=dev)
+    ones = torch.ones(n, dtype=f32, device=dev)
+    zeros = torch.zeros(n, dtype=f32, device=dev)
+    s = {
+        "rng": seed_rng(seed, idx),
+        "ox": origin[:, 0], "oy": origin[:, 1], "oz": origin[:, 2],
+        "dx": direction[:, 0], "dy": direction[:, 1], "dz": direction[:, 2],
+        "sr": ones, "sg": ones, "sb": ones,
+        "out_r": zeros, "out_g": zeros, "out_b": zeros,
+        "divisor": ones, "bounce_pd": ones, "contrib": ones,
+        "collected": torch.zeros(n, dtype=torch.bool, device=dev),
+    }
+    out = {k: s[k].clone() for k in _OUT_FIELDS}
+    for depth in range(int(options.max_depth)):
+        if idx.numel() == 0:
+            break
+        alive = _bounce(ctx, depth, s)
+        for k in _OUT_FIELDS:
+            out[k][idx] = s[k]
+        idx = idx[alive]
+        s = {k: v[alive] for k, v in s.items()}
+    coll = out["collected"]
+    spectrum = torch.stack([out["out_r"], out["out_g"], out["out_b"], coll.to(f32)], -1)
+    return spectrum, coll
+
+
+trace_megakernel_reference.calls = 0
+
+
+# ---------------------------------------------------------------------------
+# The CUDA kernel's wrapper.
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_ARGTYPES = (
+    [_P, _P, _P, _I]  # origin, direction, spectrum, n_rays
+    + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
+    + [_P, _I, _I, _I]  # rec, rec_rows, rec_stride, cull_mode
+    + [_P, _I, ctypes.c_float, _P]  # seed, max_depth, epsilon, stream
+)
+
+
+def _library():
+    lib = _build.load("megakernel")
+    fn = lib.ptx_megakernel_launch
+    if fn.argtypes is None:
+        fn.argtypes = _ARGTYPES
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(name, t, device, dtype, ndim=None, cols=None):
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need a contiguous {dtype} tensor on {device}, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if ndim is not None and t.dim() != ndim:
+        raise ValueError(f"{name}: need {ndim} dims, got shape {tuple(t.shape)}")
+    if cols is not None and t.shape[-1] != cols:
+        raise ValueError(f"{name}: need {cols} columns, got shape {tuple(t.shape)}")
+
+
+def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
+    """Full-path trace of a ray batch: (spectrum [R,4] with alpha =
+    collected, collected [R] bool). `seed` is an int32 Python int or a
+    1-element tensor (read on the device, so drawing it costs no sync).
+    CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu."""
+    origin, direction = rays.origin, rays.direction
+    dev = origin.device
+    if dev.type == "cpu":
+        return trace_megakernel_reference(scene, rays, options, seed, tables)
+    if dev.type != "cuda":
+        raise ValueError(f"trace_megakernel: no kernel for device {dev}")
+    if not megakernel_supported(scene):
+        raise ValueError(
+            "trace_megakernel: scene exceeds the kernel's limits (see "
+            "megakernel_supported / PERF.md)"
+        )
+    _check("origin", origin, dev, torch.float32, 2, 3)
+    _check("direction", direction, dev, torch.float32, 2, 3)
+    if direction.shape[0] != origin.shape[0]:
+        raise ValueError("origin and direction differ in length")
+    if tables is None:
+        tables = pack_tables(scene.to(dev))
+    tri, sph, mat, lgt, em = tables
+    for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS),
+                       ("mat", mat, MAT_COLS), ("lgt", lgt, LGT_COLS),
+                       ("em", em, EM_COLS)):
+        _check(name, t, dev, torch.float32, 2, c)
+    if scene.dense_pair:
+        rec = scene.krn_big_pair.to(dev)
+        _check("krn_big_pair", rec, dev, torch.float32, 2)
+        rec_ptr, rec_rows, rec_stride = rec.data_ptr(), rec.shape[0], rec.shape[1]
+        n_tri = 0
+    else:
+        rec_ptr, rec_rows, rec_stride = None, 0, 0
+        n_tri = tri.shape[0]
+    if isinstance(seed, torch.Tensor):
+        seed_t = seed.to(device=dev, dtype=torch.int32).reshape(-1)[:1].contiguous()
+    else:
+        seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
+
+    n = origin.shape[0]
+    spectrum = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    # Temporaries made here (seed_t, tables) may be freed before the
+    # kernel runs: the caching allocator reuses memory in the order of
+    # the current stream, which the launch is on.
+    if n:
+        launch = _library()
+        with torch.cuda.device(dev):
+            err = launch(
+                origin.data_ptr(), direction.data_ptr(), spectrum.data_ptr(), n,
+                tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
+                mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
+                em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
+                rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode),
+                seed_t.data_ptr(), int(options.max_depth), float(options.epsilon),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
+        trace_megakernel.launches += 1
+    return spectrum, spectrum[:, 3] > 0.5
+
+
+trace_megakernel.launches = 0

@@ -1,0 +1,65 @@
+"""The megakernel's per-ray random stream: xorshift32 seeded through the
+murmur3 finaliser.
+
+Bit-exact port of `cpupathtrace_tpu/integrator/pallas_megakernel.py`
+`_seed_rng` / `_fmix32` / `_next_u01`. torch has no uint32 shifts, so states
+ride int64 tensors holding values in [0, 2^32), masked after every step,
+and 32-bit products are split so no int64 product overflows.
+
+The TPU kernel seeds each lane by (seed + pid * 1000003, row, lane) of its
+(64, 128) ray block; for global ray index i that is pid = i // 8192,
+row = (i // 128) % 64 and lane = i % 128 (csrc/megakernel.cu does the same).
+"""
+from __future__ import annotations
+
+import torch
+
+MASK32 = 0xFFFFFFFF
+BLOCK_ROWS = 64
+LANES = 128
+BLOCK_RAYS = BLOCK_ROWS * LANES
+PID_STRIDE = 1000003
+
+
+def mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """(a * b) mod 2^32 for int64 `a` in [0, 2^32) and a constant b."""
+    lo = (a & 0xFFFF) * b
+    hi = ((a >> 16) * b) & 0xFFFF
+    return (lo + (hi << 16)) & MASK32
+
+
+def fmix32(s: torch.Tensor) -> torch.Tensor:
+    """murmur3 finaliser, then force the state non-zero."""
+    s = s ^ (s >> 16)
+    s = mul32(s, 0x85EBCA6B)
+    s = s ^ (s >> 13)
+    s = mul32(s, 0xC2B2AE35)
+    s = s ^ (s >> 16)
+    return s | 1
+
+
+def seed_rng(seed, ray_index: torch.Tensor) -> torch.Tensor:
+    """Initial state of global ray `ray_index` (int64) for int32 `seed`
+    (a Python int or a 1-element tensor). `seed + pid * 1000003` wraps as
+    int32 and is then read as uint32, as on the TPU."""
+    pid = ray_index // BLOCK_RAYS
+    row = (ray_index // LANES) % BLOCK_ROWS
+    lane = ray_index % LANES
+    if isinstance(seed, torch.Tensor):
+        seed = seed.reshape(-1)[:1].to(device=ray_index.device, dtype=torch.int64)
+    s0 = (seed + pid * PID_STRIDE) & MASK32
+    s = (
+        mul32(s0, 2654435761)
+        ^ ((row * 40503 + 0x9E3779B9) & MASK32)
+        ^ ((lane * 2246822519 + 0x85EBCA6B) & MASK32)
+    )
+    return fmix32(s)
+
+
+def next_u01(state: torch.Tensor):
+    """Advance xorshift32; returns (state, float32 uniform in [0, 1))."""
+    state = state ^ ((state << 13) & MASK32)
+    state = state ^ (state >> 17)
+    state = state ^ ((state << 5) & MASK32)
+    u = (state >> 8).to(torch.float32) * (1.0 / (1 << 24))
+    return state, u
