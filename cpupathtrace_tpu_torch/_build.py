@@ -1,14 +1,18 @@
-"""Build the package's CUDA sources with nvcc on first use and load them
-with ctypes.
+"""Build the package's native sources on first use and load them with
+ctypes.
 
-Each `csrc/<name>.cu` becomes `_build/lib<name>_<digest>.so`, where the
+CUDA: each `csrc/<name>.cu` becomes `_build/lib<name>_<digest>.so` with
+nvcc. Host C++: each `csrc/<name>.cpp` becomes the same with g++. The
 digest covers every source under csrc/ and the flags, so an edited source
-is rebuilt and a built one is reused. The library has a plain C interface
-(no PyTorch headers), so a build takes seconds. `_build/` is git-ignored.
+is rebuilt and a built one is reused. The libraries have a plain C
+interface (no PyTorch headers), so a build takes seconds. `_build/` is
+git-ignored. `build_all` starts one compiler per source at once.
 
-Flags: sm_90a (Hopper), -O3, and --fmad=false so no product is fused into
-an add: the kernels then do the arithmetic of their plain-torch twins in
-the same order. No fast-math: sinf/cosf/sqrtf stay full precision.
+nvcc flags: sm_90a (Hopper), -O3, and --fmad=false so no product is fused
+into an add: the kernels then do the arithmetic of their plain-torch twins
+in the same order. No fast-math: sinf/cosf/sqrtf stay full precision.
+g++ flags: -O3 and -ffp-contract=off (no FMA contraction), as the JAX
+package's native library.
 """
 from __future__ import annotations
 
@@ -28,10 +32,11 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
+GXX_FLAGS = ("-O3", "-std=c++17", "-shared", "-fPIC", "-pthread", "-ffp-contract=off")
 
 _LIBS: dict[str, ctypes.CDLL] = {}
-# Per library: seconds the nvcc build took (0.0 when an existing build was
-# loaded) and the ptxas report (registers, shared memory, spills).
+# Per library: seconds the build took (0.0 when an existing build was
+# loaded) and, for CUDA, the ptxas report (registers, shared memory, spills).
 build_seconds: dict[str, float] = {}
 ptxas_report: dict[str, str] = {}
 
@@ -49,34 +54,76 @@ def _nvcc() -> str:
     return path
 
 
-def _digest() -> str:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+def _gxx() -> str:
+    path = shutil.which("g++")
+    if path is None:
+        raise RuntimeError("g++ not found: the host BVH builder needs a C++ compiler")
+    return path
+
+
+def _digest(flags) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
     for src in sorted(CSRC.iterdir()):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
+def _job(name: str):
+    """(output path, compiler command) of csrc/<name>.cu or .cpp."""
+    if (CSRC / f"{name}.cu").exists():
+        out = BUILD_DIR / f"lib{name}_{_digest(NVCC_FLAGS)}.so"
+        cmd = [_nvcc(), *NVCC_FLAGS, str(CSRC / f"{name}.cu")]
+    elif (CSRC / f"{name}.cpp").exists():
+        out = BUILD_DIR / f"lib{name}_{_digest(GXX_FLAGS)}.so"
+        cmd = [_gxx(), *GXX_FLAGS, str(CSRC / f"{name}.cpp")]
+    else:
+        raise FileNotFoundError(f"no csrc/{name}.cu or csrc/{name}.cpp")
+    return out, cmd
+
+
+def build_all(names) -> None:
+    """Build the named libraries that are not built yet, one compiler
+    process per source, all started together; raises if any fails."""
+    BUILD_DIR.mkdir(exist_ok=True)
+    running = []
+    for name in names:
+        out, cmd = _job(name)
+        build_seconds[name] = 0.0
+        if out.exists():
+            continue
+        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+        proc = subprocess.Popen(cmd + ["-o", str(tmp)], stdout=subprocess.PIPE,
+                                stderr=subprocess.PIPE, text=True)
+        running.append((name, out, tmp, proc, time.perf_counter()))
+    errors = []
+    for name, out, tmp, proc, t0 in running:
+        stdout, stderr = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"{name} ({proc.returncode}):\n{stdout}\n{stderr}")
+            continue
+        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
+        build_seconds[name] = time.perf_counter() - t0
+        ptxas_report[name] = stderr
+    if errors:
+        raise RuntimeError("build failed for " + "\n".join(errors))
+
+
 def load(name: str) -> ctypes.CDLL:
-    """The built library of csrc/<name>.cu, building it if needed."""
+    """The built library of csrc/<name>.cu or .cpp, building it if needed."""
     lib = _LIBS.get(name)
     if lib is not None:
         return lib
-    out = BUILD_DIR / f"lib{name}_{_digest()}.so"
-    build_seconds[name] = 0.0
+    out, _ = _job(name)
     if not out.exists():
-        BUILD_DIR.mkdir(exist_ok=True)
-        tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) for {name}:\n{proc.stdout}\n{proc.stderr}"
-            )
-        os.replace(tmp, out)  # atomic: concurrent builders never see half a file
-        build_seconds[name] = time.perf_counter() - t0
-        ptxas_report[name] = proc.stderr
+        build_all([name])
     lib = ctypes.CDLL(str(out))
     _LIBS[name] = lib
     return lib
+
+
+def load_host(name: str) -> ctypes.CDLL:
+    """The host (g++) library of csrc/<name>.cpp; raises if it is not C++."""
+    if not (CSRC / f"{name}.cpp").exists():
+        raise FileNotFoundError(f"no host source csrc/{name}.cpp")
+    return load(name)

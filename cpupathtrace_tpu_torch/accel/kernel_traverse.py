@@ -1,0 +1,504 @@
+"""The tiered cluster traversal (K3): table packing, its plain-torch
+version, and the standalone query (K4).
+
+Port of `cpupathtrace_tpu/accel/kernel_traverse.py`. The small-triangle
+partition of a binned scene is cut into clusters of up to 56 triangles,
+each packed as one pair record (one row per triangle of Plücker /
+Möller-Trumbore features, see accel/pair_record.py), and bounded by three
+tiers of boxes: cluster bounds in pages of GROUP = 32 clusters (one page
+per supercluster), supercluster bounds in pages of GROUP2 = 16 (one page
+per hyper), and the hyper bounds. A query passes the root gate (the union
+of the hypers), then descends hypers, superclusters and clusters whose
+slab entry lies below its bound, and pair-tests the records it reaches.
+
+Layouts on the device (the port's own, compact; the TPU pads every row to
+128 lanes):
+  * records [Cp, L, REC_COLS = 32] f32: columns 0-27 as the JAX columns
+    0-27, 28-31 zero; padding records carry prim = -1 and N = 0;
+  * bounds [..., BND_COLS = 8] f32 per box: lo3, hi3, valid, pad. The
+    half-record bounds of the TPU (its columns 28-34) are not carried.
+
+`traverse_clusters` / `traverse_clusters_anyhit` are the plain versions
+of the CUDA device functions in csrc/cluster_traverse.cuh (inlined in the
+bounce kernel K2 and launched alone by K4, `cluster_intersect`). They
+apply the same gates per ray (root, hyper, supercluster, cluster entry
+below the ray's initial bound), test the entered records in ascending
+cluster order and take the first strict minimum. The kernel also prunes
+each box against its running nearest t; that changes nothing but ties
+of exactly equal t across records (the same lowest cluster wins in both)
+and boxes whose slab entry rounds above a triangle's t on its face.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import numpy as np
+import torch
+
+from .. import _build
+from .pair_record import C_CULL, C_MAT, C_N0, C_PRIM, REC_USED_COLS
+
+GROUP = 32  # clusters per supercluster
+GROUP2 = 16  # superclusters per hyper page
+REC_COLS = 32  # record row width on the device (28 used)
+BND_COLS = 8  # bounds row: lo3 hi3 valid pad
+B_LO, B_HI, B_VALID = 0, 3, 6
+FLT_MAX = 3.4028234663852886e38
+TRI_EPS = 1e-6
+
+# Plain traversal chunking: at most this many (ray, box) entries or
+# (pair, slot) tests are held at once (the main path's 262,144 rays x
+# 4,128 clusters would be 4.3 GB of f32 entries in one piece).
+_CHUNK_ELEMS = 1 << 24
+
+
+# ---------------------------------------------------------------------------
+# Packing (numpy, at scene build).
+# ---------------------------------------------------------------------------
+
+
+def _pack_pair_records_batch(v0, v1, v2, cull, prim, n0, n1, n2, mat, out):
+    """Pack [C, L, ...] cluster arrays into the records `out` [C, L, >=28]
+    (kernel_traverse.py:_pack_pair_records_batch). The arithmetic is that
+    of the JAX package's native packer (ptx_native.cpp
+    ptx_pack_pair_records), which its builder runs: v0 . N is summed in
+    axis order from the first product, so a padding slot's zero keeps the
+    sign the C++ gives it."""
+    e1 = v1 - v0
+    e2 = v2 - v0
+    n = np.cross(e1, e2)
+    live = prim >= 0
+    n = np.where(live[..., None], n, 0.0)
+    blk = np.empty(v0.shape[:2] + (REC_USED_COLS,), np.float32)
+    blk[..., 0:3] = -n
+    blk[..., 3:6] = e2
+    blk[..., 6:9] = np.cross(v0, e2)
+    blk[..., 9:12] = -e1
+    blk[..., 12:15] = -np.cross(v0, e1)
+    blk[..., 15] = v0[..., 0] * n[..., 0] + v0[..., 1] * n[..., 1] + v0[..., 2] * n[..., 2]
+    blk[..., C_CULL] = cull
+    blk[..., C_PRIM] = prim
+    blk[..., C_MAT] = mat
+    blk[..., C_N0:C_N0 + 3] = n0
+    blk[..., C_N0 + 3:C_N0 + 6] = n1
+    blk[..., C_N0 + 6:C_N0 + 9] = n2
+    out[..., :REC_USED_COLS] = blk
+    return out
+
+
+def _reduce_bounds_rows(lo, hi, vmask):
+    """[N, G, 3] boxes -> [N, BND_COLS] rows reducing the group axis over
+    its valid members; empty groups carry valid = 0 and zero bounds."""
+    any_v = vmask.any(axis=1)
+    out = np.zeros((lo.shape[0], BND_COLS), np.float32)
+    out[:, B_LO:B_LO + 3] = np.where(
+        any_v[:, None], np.where(vmask[..., None], lo, np.inf).min(axis=1), 0.0
+    )
+    out[:, B_HI:B_HI + 3] = np.where(
+        any_v[:, None], np.where(vmask[..., None], hi, -np.inf).max(axis=1), 0.0
+    )
+    out[:, B_VALID] = any_v.astype(np.float32)
+    return out
+
+
+def tiers_from_cluster_bounds(clb):
+    """Supercluster pages [Hp, GROUP2, BND_COLS] and hyper bounds
+    [Hp8, BND_COLS] (Hp8 = Hp rounded up to 8) from the cluster-bounds
+    pages [S, GROUP, BND_COLS]."""
+    clb = np.asarray(clb, np.float32)
+    s = clb.shape[0]
+    sup_s = _reduce_bounds_rows(
+        clb[:, :, B_LO:B_LO + 3], clb[:, :, B_HI:B_HI + 3], clb[:, :, B_VALID] > 0.5
+    )
+    hp = -(-s // GROUP2)
+    sup = np.zeros((hp * GROUP2, BND_COLS), np.float32)
+    sup[:s] = sup_s
+    pages = sup.reshape(hp, GROUP2, BND_COLS)
+    hyp = np.zeros((-(-hp // 8) * 8, BND_COLS), np.float32)
+    hyp[:hp] = _reduce_bounds_rows(
+        pages[:, :, B_LO:B_LO + 3], pages[:, :, B_HI:B_HI + 3], pages[:, :, B_VALID] > 0.5
+    )
+    return pages, hyp
+
+
+def pack_kernel_tables_np(cl_v0, cl_v1, cl_v2, cl_cull, cl_prim,
+                          cl_n0, cl_n1, cl_n2, cl_mat, c_lo, c_hi):
+    """The traversal tiers from [C, L, ...] cluster arrays and the cluster
+    bounds [C, 3]: (records [Cp, L, REC_COLS], cluster bounds
+    [S, GROUP, BND_COLS], supercluster pages [Hp, GROUP2, BND_COLS],
+    hyper bounds [Hp8, BND_COLS]) with Cp = S * GROUP. Padding boxes carry
+    valid = 0 (padding clusters lo = +inf, hi = -inf) and are never
+    entered."""
+    v0 = np.asarray(cl_v0, np.float32)
+    c, l, _ = v0.shape
+    if l % 8:
+        raise ValueError(f"cluster_size {l} must be a multiple of 8")
+    prim = np.asarray(cl_prim, np.float32)
+    if prim.max(initial=0) >= 2 ** 24:
+        raise ValueError("the records carry prim ids as f32 (< 2^24)")
+    s = -(-c // GROUP)
+    cp = s * GROUP
+    rec = np.zeros((cp, l, REC_COLS), np.float32)
+    rec[c:, :, C_PRIM] = -1.0
+    _pack_pair_records_batch(
+        v0, np.asarray(cl_v1, np.float32), np.asarray(cl_v2, np.float32),
+        np.asarray(cl_cull, np.float32), prim,
+        np.asarray(cl_n0, np.float32), np.asarray(cl_n1, np.float32),
+        np.asarray(cl_n2, np.float32), np.asarray(cl_mat, np.float32),
+        out=rec[:c],
+    )
+    lo_p = np.full((cp, 3), np.inf, np.float32)
+    hi_p = np.full((cp, 3), -np.inf, np.float32)
+    lo_p[:c] = np.asarray(c_lo, np.float32)
+    hi_p[:c] = np.asarray(c_hi, np.float32)
+    valid = np.zeros(cp, np.float32)
+    valid[:c] = 1.0
+    clb = np.zeros((s, GROUP, BND_COLS), np.float32)
+    clb[:, :, B_LO:B_LO + 3] = lo_p.reshape(s, GROUP, 3)
+    clb[:, :, B_HI:B_HI + 3] = hi_p.reshape(s, GROUP, 3)
+    clb[:, :, B_VALID] = valid.reshape(s, GROUP)
+    sup, hyp = tiers_from_cluster_bounds(clb)
+    return rec, clb, sup, hyp
+
+
+def compact_kernel_tables(records, cl_bounds, sup_bounds, hyp_bounds):
+    """The JAX package's 128-lane tables in the port's compact layout:
+    record columns 0-27 (28-31 zero, dropping the TPU's half-record
+    bounds) and bounds columns 0-6 (7 zero)."""
+    def cut(a, used, cols):
+        a = np.asarray(a, np.float32)
+        out = np.zeros(a.shape[:-1] + (cols,), np.float32)
+        out[..., :used] = a[..., :used]
+        return out
+
+    return (cut(records, REC_USED_COLS, REC_COLS), cut(cl_bounds, 7, BND_COLS),
+            cut(sup_bounds, 7, BND_COLS), cut(hyp_bounds, 7, BND_COLS))
+
+
+# ---------------------------------------------------------------------------
+# The plain traversal (torch).
+# ---------------------------------------------------------------------------
+
+
+def _inv_dir(d):
+    """Slab-test inverse: zero components use FLT_MAX
+    (ref: src/scene/bounding_box.cpp:44-49)."""
+    nz = d.abs() > 0.0
+    return torch.where(nz, torch.reciprocal(torch.where(nz, d, 1.0)), FLT_MAX)
+
+
+def pair_slab_entries(bnd, ox, oy, oz, ix, iy, iz):
+    """Slab entries of every (box, ray) pair: [B, n] f32, the clamped entry
+    t where the ray meets a valid box, +inf otherwise. `bnd` [B, BND_COLS];
+    rays [n]. min/max propagate NaN, so a NaN entry enters nothing."""
+    b = [bnd[:, j, None] for j in range(7)]
+    t1x, t2x = (b[0] - ox) * ix, (b[3] - ox) * ix
+    t1y, t2y = (b[1] - oy) * iy, (b[4] - oy) * iy
+    t1z, t2z = (b[2] - oz) * iz, (b[5] - oz) * iz
+    tmin = torch.maximum(
+        torch.maximum(torch.minimum(t1x, t2x), torch.minimum(t1y, t2y)),
+        torch.minimum(t1z, t2z),
+    )
+    tmax = torch.minimum(
+        torch.minimum(torch.maximum(t1x, t2x), torch.maximum(t1y, t2y)),
+        torch.maximum(t1z, t2z),
+    )
+    miss = (b[6] < 0.5) | (tmax < 0.0) | (tmin > tmax)
+    return torch.where(miss, float("inf"), torch.maximum(tmin, torch.zeros_like(tmin)))
+
+
+def root_box(hyp):
+    """[1, BND_COLS] union of the valid hyper boxes (the root gate's box;
+    lo = +inf, hi = -inf when none is valid). Used by `_root_gate` and
+    handed to the CUDA kernels."""
+    valid = hyp[:, B_VALID:B_VALID + 1] > 0.5
+    lo = torch.where(valid, hyp[:, B_LO:B_LO + 3], float("inf")).amin(0)
+    hi = torch.where(valid, hyp[:, B_HI:B_HI + 3], float("-inf")).amax(0)
+    out = torch.zeros((1, BND_COLS), dtype=torch.float32, device=hyp.device)
+    out[0, B_LO:B_LO + 3] = lo
+    out[0, B_HI:B_HI + 3] = hi
+    out[0, B_VALID] = 1.0
+    return out
+
+
+def _root_gate(root, ox, oy, oz, ix, iy, iz, bound):
+    """Per ray: does it enter the root box closer than its bound?"""
+    return (pair_slab_entries(root, ox, oy, oz, ix, iy, iz)[0] < bound)
+
+
+def _candidates(tables, ox, oy, oz, dx, dy, dz, bound):
+    """Entered (ray, cluster) pairs of rays [n] under per-ray `bound`:
+    (ray index [P], cluster index [P]) sorted by ray, then cluster."""
+    rec, clb, sup, hyp, root = tables
+    ix, iy, iz = _inv_dir(dx), _inv_dir(dy), _inv_dir(dz)
+    gate = _root_gate(root, ox, oy, oz, ix, iy, iz, bound)
+    hp = sup.shape[0]
+    s_count = clb.shape[0]
+    h_ok = (pair_slab_entries(hyp[:hp], ox, oy, oz, ix, iy, iz) < bound) & gate
+    s_ok = pair_slab_entries(sup.reshape(-1, BND_COLS)[:s_count], ox, oy, oz, ix, iy, iz) < bound
+    s_ok &= h_ok.repeat_interleave(GROUP2, dim=0)[:s_count]
+    c_ok = pair_slab_entries(clb.reshape(-1, BND_COLS), ox, oy, oz, ix, iy, iz) < bound
+    c_ok &= s_ok.repeat_interleave(GROUP, dim=0)
+    ray, cl = c_ok.t().nonzero(as_tuple=True)
+    return ray, cl
+
+
+def _ray_chunks(n, n_boxes):
+    step = max(1, _CHUNK_ELEMS // max(n_boxes, 1))
+    return range(0, n, step), step
+
+
+def pair_quantities(c, ox, oy, oz, dx, dy, dz, mx, my, mz, cull_mode):
+    """Sign-normalised Plücker quantities (sd, su, sv, st, ok) of record
+    rows against rays (kernel_traverse.py:405-441). `c` holds the first 17
+    feature columns, shaped to broadcast against the rays: [T, 1] columns
+    against [n] rays give [T, n]."""
+    det = c[0] * dx + c[1] * dy + c[2] * dz
+    un = c[3] * mx + c[4] * my + c[5] * mz + c[6] * dx + c[7] * dy + c[8] * dz
+    vn = c[9] * mx + c[10] * my + c[11] * mz + c[12] * dx + c[13] * dy + c[14] * dz
+    tn = -(c[0] * ox + c[1] * oy + c[2] * oz) - c[15]
+    sgn = torch.where(det >= 0.0, 1.0, -1.0)
+    sd = det * sgn
+    su = un * sgn
+    sv = vn * sgn
+    st = tn * sgn
+    inside = torch.minimum(torch.minimum(torch.minimum(su, sv), sd - su - sv), st)
+    if cull_mode == 0:
+        ok = (inside >= 0.0) & (sd > TRI_EPS)
+    elif cull_mode == 1:
+        ok = (inside >= 0.0) & (det > TRI_EPS)
+    else:
+        ok = (inside >= 0.0) & (sd > TRI_EPS) & ((c[16] < 0.5) | (det > 0.0))
+    return sd, su, sv, st, ok
+
+
+def _pair_cols(rec_rows):
+    """The 17 feature columns of gathered record rows [P, L, >=17] as
+    [P, L] tensors, for pair_quantities against rays shaped [P, 1]."""
+    return [rec_rows[:, :, j] for j in range(17)]
+
+
+def traverse_clusters(tables, ox, oy, oz, dx, dy, dz, hit, cull_mode,
+                      active=None, want_normal_mat=True):
+    """Nearest hit over the cluster set, improving strictly on `hit` =
+    (best_t, best_p, nx, ny, nz, mid) per ray [n]. `active` (bool [n] or
+    None) masks the rays that query. Returns the updated tuple."""
+    bt, bp, nx, ny, nz, mid = hit
+    bound = bt if active is None else torch.where(active, bt, torch.zeros_like(bt))
+    rec = tables[0]
+    rec17 = rec[:, :, :17]  # the columns the pair test reads
+    n_boxes = rec.shape[0]
+    l = rec.shape[1]
+    best_t, best_p = bt.clone(), bp.clone()
+    nx, ny, nz, mid = nx.clone(), ny.clone(), nz.clone(), mid.clone()
+    starts, step = _ray_chunks(ox.shape[0], n_boxes)
+    for a in starts:
+        sl = slice(a, a + step)
+        ray, cl = _candidates(tables, ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl],
+                              bound[sl])
+        if ray.numel() == 0:
+            continue
+        ray = ray + a
+        p_step = max(1, _CHUNK_ELEMS // (l * 17))
+        for b in range(0, ray.numel(), p_step):
+            r = ray[b:b + p_step]
+            c = cl[b:b + p_step]
+            o = [v[r, None] for v in (ox, oy, oz, dx, dy, dz)]
+            mx = o[1] * o[5] - o[2] * o[4]
+            my = o[2] * o[3] - o[0] * o[5]
+            mz = o[0] * o[4] - o[1] * o[3]
+            sd, su, sv, st, ok = pair_quantities(_pair_cols(rec17[c]), *o, mx, my, mz, cull_mode)
+            tv = st / torch.where(ok, sd, 1.0)
+            key = torch.where(ok & (tv < bound[r, None]), tv, float("inf"))
+            tmin, slot = key.min(dim=1)  # the lowest slot among equal t
+            # Per ray, the lowest (cluster, slot) of strictly minimal t:
+            # pairs are ordered by ray then cluster, so that is the first
+            # pair whose t equals the ray's minimum, and the pair improves
+            # on the running best only if strictly below it.
+            ray_min = torch.full_like(best_t, float("inf")).scatter_reduce(
+                0, r, tmin, "amin"
+            )
+            first = torch.full_like(best_p, r.numel()).scatter_reduce(
+                0, r, torch.where(tmin == ray_min[r], torch.arange(r.numel(), device=r.device),
+                                  r.numel()), "amin"
+            )
+            won = (tmin < best_t[r]) & (first[r] == torch.arange(r.numel(), device=r.device))
+            w = won.nonzero(as_tuple=True)[0]
+            if w.numel() == 0:
+                continue
+            rw, sw = r[w], slot[w]
+            row = rec[c[w], sw]  # [W, REC_COLS]
+            best_t[rw] = tmin[w]
+            best_p[rw] = row[:, C_PRIM].long()
+            if want_normal_mat:
+                sdw = sd[w, sw].clamp_min(1e-30)
+                uw = su[w, sw] / sdw
+                vw = sv[w, sw] / sdw
+                w0 = 1.0 - uw - vw
+                n0, n1, n2 = (row[:, C_N0 + 3 * k:C_N0 + 3 * k + 3] for k in range(3))
+                snx = w0 * n0[:, 0] + uw * n1[:, 0] + vw * n2[:, 0]
+                sny = w0 * n0[:, 1] + uw * n1[:, 1] + vw * n2[:, 1]
+                snz = w0 * n0[:, 2] + uw * n1[:, 2] + vw * n2[:, 2]
+                inv = torch.rsqrt(snx * snx + sny * sny + snz * snz + 1e-30)
+                nx[rw] = snx * inv
+                ny[rw] = sny * inv
+                nz[rw] = snz * inv
+                mid[rw] = row[:, C_MAT].long()
+    return best_t, best_p, nx, ny, nz, mid
+
+
+def traverse_clusters_anyhit(tables, ox, oy, oz, dx, dy, dz, t_lim, cull_mode):
+    """Any-hit over the cluster set: True where some triangle hits at t in
+    [0, t_lim) (division-free: st < t_lim * sd). Rays with t_lim <= 0 do
+    not query."""
+    rec = tables[0]
+    rec17 = rec[:, :, :17]
+    occ = torch.zeros(ox.shape[0], dtype=torch.bool, device=ox.device)
+    starts, step = _ray_chunks(ox.shape[0], rec.shape[0])
+    for a in starts:
+        sl = slice(a, a + step)
+        ray, cl = _candidates(tables, ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl],
+                              t_lim[sl])
+        if ray.numel() == 0:
+            continue
+        ray = ray + a
+        p_step = max(1, _CHUNK_ELEMS // (rec.shape[1] * 17))
+        for b in range(0, ray.numel(), p_step):
+            r = ray[b:b + p_step]
+            o = [v[r, None] for v in (ox, oy, oz, dx, dy, dz)]
+            mx = o[1] * o[5] - o[2] * o[4]
+            my = o[2] * o[3] - o[0] * o[5]
+            mz = o[0] * o[4] - o[1] * o[3]
+            sd, _, _, st, ok = pair_quantities(
+                _pair_cols(rec17[cl[b:b + p_step]]), *o, mx, my, mz, cull_mode
+            )
+            hit = (ok & (st < t_lim[r, None] * sd)).any(dim=1)
+            occ[r[hit]] = True
+    return occ
+
+
+def kernel_tables(scene):
+    """(records, cluster bounds, supercluster pages, hyper bounds, root box)
+    of a binned scene on its device: the order the traversal takes them."""
+    return (scene.krn_records, scene.krn_cl_bounds, scene.krn_sup_bounds,
+            scene.krn_hyp_bounds, root_box(scene.krn_hyp_bounds))
+
+
+# ---------------------------------------------------------------------------
+# K4: the standalone query.
+# ---------------------------------------------------------------------------
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+def check_tensor(name, t, device, dtype, shape=None):
+    """Raise unless `t` is a contiguous `dtype` tensor on `device` whose
+    shape matches `shape` (None entries match any size): what a kernel
+    wrapper checks before it hands a pointer to a kernel."""
+    if t.device != device or t.dtype != dtype or not t.is_contiguous():
+        raise ValueError(
+            f"{name}: need a contiguous {dtype} tensor on {device}, got "
+            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
+        )
+    if shape is not None and (t.dim() != len(shape) or any(
+            s is not None and t.shape[i] != s for i, s in enumerate(shape))):
+        raise ValueError(f"{name}: need shape {shape}, got {tuple(t.shape)}")
+
+
+def check_tables(tables, device):
+    """Raise unless the traversal tables have the kernel's layout."""
+    rec, clb, sup, hyp, root = tables
+    check_tensor("krn_records", rec, device, torch.float32, (None, None, REC_COLS))
+    check_tensor("krn_cl_bounds", clb, device, torch.float32, (None, GROUP, BND_COLS))
+    check_tensor("krn_sup_bounds", sup, device, torch.float32, (None, GROUP2, BND_COLS))
+    check_tensor("krn_hyp_bounds", hyp, device, torch.float32, (None, BND_COLS))
+    check_tensor("root box", root, device, torch.float32, (1, BND_COLS))
+    if rec.shape[0] != clb.shape[0] * GROUP or hyp.shape[0] < sup.shape[0]:
+        raise ValueError("inconsistent traversal tier shapes")
+    if rec.shape[1] % 8 or rec.shape[1] > 128:
+        raise ValueError(f"record height {rec.shape[1]}: need a multiple of 8, <= 128")
+
+
+def table_args(tables):
+    """The tables as the kernels' C arguments: rec, n_rec, rec_rows, clb,
+    sup, n_pages, hyp, hyp_rows, root."""
+    rec, clb, sup, hyp, root = tables
+    return (rec.data_ptr(), rec.shape[0], rec.shape[1], clb.data_ptr(), sup.data_ptr(),
+            sup.shape[0], hyp.data_ptr(), hyp.shape[0], root.data_ptr())
+
+
+def _query_fn():
+    lib = _build.load("cluster_query")
+    fn = lib.ptx_cluster_query_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([_P, _P, _P, _P, _P, _I]  # origin direction t_lim t prim n
+                       + [_P, _I, _I, _P, _P, _I, _P, _I, _P]  # tables, root box
+                       + [_I, _I, _P])  # cull mode, any_hit, stream
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _limits(o, t_max):
+    r = o.shape[0]
+    if t_max is None:
+        return torch.full((r,), float("inf"), device=o.device)
+    return torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
+
+
+def cluster_intersect_reference(scene, o, d, t_max=None, any_hit=False):
+    """The plain version of `cluster_intersect`, on the device of `o`."""
+    cluster_intersect_reference.calls += 1
+    dev = o.device
+    r = o.shape[0]
+    lim = _limits(o, t_max)
+    tables = kernel_tables(scene.to(dev))
+    c = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
+    if any_hit:
+        occ = traverse_clusters_anyhit(tables, *c, lim, scene.krn_cull_mode)
+        return torch.where(occ, 1.0, -1.0), torch.where(occ, 0, -1).long()
+    z = torch.zeros(r, device=dev)
+    miss = torch.full((r,), -1, dtype=torch.int64, device=dev)
+    t, p, *_ = traverse_clusters(tables, *c, (lim, miss, z, z, z, miss),
+                                 scene.krn_cull_mode, want_normal_mat=False)
+    return torch.where(p >= 0, t, -1.0), p
+
+
+cluster_intersect_reference.calls = 0
+
+
+def cluster_intersect(scene, o, d, t_max=None, any_hit=False):
+    """Standalone query of the cluster set (the dense big-triangle and
+    sphere parts are not included), as `cluster_intersect_kernel` of the
+    JAX package. o, d: [R,3] f32 tensors. Returns (t [R], prim [R] i64),
+    -1 / -1 on a miss; for any_hit, t = 1.0 and prim = 0 where something
+    occludes in [0, t_max). CPU tensors take the plain version; CUDA
+    tensors launch K4 (csrc/cluster_query.cu)."""
+    dev = o.device
+    if dev.type == "cpu":
+        return cluster_intersect_reference(scene, o, d, t_max, any_hit)
+    if dev.type != "cuda":
+        raise ValueError(f"cluster_intersect: no kernel for device {dev}")
+    r = o.shape[0]
+    lim = _limits(o, t_max).contiguous()
+    tables = kernel_tables(scene.to(dev))
+    check_tensor("origin", o, dev, torch.float32, (r, 3))
+    check_tensor("direction", d, dev, torch.float32, (r, 3))
+    check_tensor("t_max", lim, dev, torch.float32, (r,))
+    check_tables(tables, dev)
+    t = torch.empty(r, dtype=torch.float32, device=dev)
+    p = torch.empty(r, dtype=torch.int32, device=dev)
+    if r:
+        with torch.cuda.device(dev):
+            err = _query_fn()(
+                o.data_ptr(), d.data_ptr(), lim.data_ptr(), t.data_ptr(), p.data_ptr(), r,
+                *table_args(tables), int(scene.krn_cull_mode), int(bool(any_hit)),
+                torch.cuda.current_stream(dev).cuda_stream,
+            )
+        if err:
+            raise RuntimeError(f"cluster_query launch failed: cudaError_t {err}")
+        cluster_intersect.launches += 1
+    return t, p.long()
+
+
+cluster_intersect.launches = 0

@@ -10,8 +10,10 @@ freeze. Up to ADAPTIVE_FUSE stats batches go out in one launch
 The biased candidate selection (worker.cpp:273-317) runs only with
 `allow_bias=True`.
 
-Rays are sample-major: ray s * P + p is sample s of pixel p. Dense scenes
-keep that order (the JAX package's Morton order serves only binned scenes).
+Rays are sample-major (ray s * P + p is sample s of pixel p), except for
+binned scenes on a CUDA device: there they launch pixel-major over the
+Morton-ordered pixels (`morton_perm`), so neighbouring rays start through
+neighbouring pixels, and the sums are scattered back (film.py:110-186).
 """
 from __future__ import annotations
 
@@ -24,6 +26,7 @@ from ..camera.camera import Camera, shoot_rays
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
 from .megakernel import megakernel_supported, trace_megakernel
+from .sorted_wavefront import trace_megakernel_sorted
 
 # Stats batches fused into one launch (the JAX package's PTX_ADAPTIVE_FUSE
 # default).
@@ -57,23 +60,52 @@ def adaptive_constants(options: RenderOptions):
 
 def _dispatch_trace(scene: SceneData, rays, options: RenderOptions,
                     generator: torch.Generator):
-    """The dense megakernel: the CUDA kernel for rays on the card, its twin
-    for rays on the CPU. The kernel seed is drawn on the rays' device."""
+    """The megakernel path (film.py:92-105): binned scenes go to the sorted
+    driver and its bounce kernel, dense scenes to the megakernel. CUDA
+    kernels for rays on the card, their twins for rays on the CPU. The
+    kernel seed is drawn on the rays' device."""
     if not megakernel_supported(scene):
         raise NotImplementedError(
-            "scene exceeds the dense megakernel's limits; the binned path "
-            "and the wavefront fallback are ROADMAP.md Queue 1 slices 2 and 4"
+            "scene exceeds the megakernels' limits; the wavefront fallback "
+            "that would render it is ROADMAP.md Queue 1 slice 4"
         )
     seed = torch.randint(
         0, 2**31 - 1, (1,), generator=generator, device=rays.origin.device,
         dtype=torch.int32,
     )
+    if scene.has_kernel_records:
+        return trace_megakernel_sorted(scene, rays, options, seed)
     return trace_megakernel(scene, rays, options, seed)
 
 
-def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp):
-    xs = x_cam.repeat(spp)
-    ys = y_cam.repeat(spp)
+def morton_perm(px: np.ndarray, py: np.ndarray) -> np.ndarray:
+    """Permutation sorting integer pixel coordinates into Morton (Z-curve)
+    order (film.py:110-126)."""
+    px = np.asarray(px, np.int64)
+    py = np.asarray(py, np.int64)
+    if px.size and (px.max() >= 1 << 16 or py.max() >= 1 << 16):
+        raise ValueError("morton_perm supports pixel coordinates < 65536")
+    code = np.zeros_like(px)
+    for b in range(16):
+        code |= ((px >> b) & 1) << (2 * b)
+        code |= ((py >> b) & 1) << (2 * b + 1)
+    return np.argsort(code, kind="stable")
+
+
+def use_pixel_order(scene: SceneData, device) -> bool:
+    """Morton pixel order pays only on the cluster traversal, on a CUDA
+    device."""
+    return scene.has_kernel_records and torch.device(device).type == "cuda"
+
+
+def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp,
+                   pixel_order=None):
+    if pixel_order is not None:
+        xs = x_cam[pixel_order].repeat_interleave(spp)
+        ys = y_cam[pixel_order].repeat_interleave(spp)
+    else:
+        xs = x_cam.repeat(spp)
+        ys = y_cam.repeat(spp)
     rays = shoot_rays(
         camera, xs, ys, 1.0 / options.image_width, 1.0 / options.image_height,
         generator,
@@ -83,13 +115,22 @@ def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp):
 
 def render_chunk(scene: SceneData, camera: Camera, options: RenderOptions,
                  x_cam: torch.Tensor, y_cam: torch.Tensor,
-                 generator: torch.Generator, spp: int):
+                 generator: torch.Generator, spp: int, pixel_order=None):
     """Trace `spp` samples for P pixels; returns (sum [P,4], collected [P]
-    int32)."""
+    int32). With `pixel_order` ([P] permutation, see morton_perm) the rays
+    launch pixel-major over the permuted pixels and the sums are scattered
+    back, so the result is positionally that of the plain call."""
     p = x_cam.shape[0]
     spectrum, collected = _trace_samples(
-        scene, camera, options, x_cam, y_cam, generator, spp
+        scene, camera, options, x_cam, y_cam, generator, spp, pixel_order
     )
+    if pixel_order is not None:
+        spectrum = spectrum.reshape(p, spp, 4)
+        collected = collected.reshape(p, spp)
+        s = torch.where(collected[..., None], spectrum, 0.0).sum(1)
+        c = collected.sum(1, dtype=torch.int32)
+        return (torch.zeros_like(s).index_copy_(0, pixel_order, s),
+                torch.zeros_like(c).index_copy_(0, pixel_order, c))
     spectrum = spectrum.reshape(spp, p, 4)
     collected = collected.reshape(spp, p)
     return (
@@ -101,13 +142,22 @@ def render_chunk(scene: SceneData, camera: Camera, options: RenderOptions,
 def render_chunk_batched(scene: SceneData, camera: Camera,
                          options: RenderOptions, x_cam: torch.Tensor,
                          y_cam: torch.Tensor, generator: torch.Generator,
-                         spp_batch: int, k_batches: int):
+                         spp_batch: int, k_batches: int, pixel_order=None):
     """`k_batches` stats batches in ONE launch of k_batches * spp_batch
     samples; returns per-batch (sums [K,P,4], counts [K,P])."""
     p = x_cam.shape[0]
     spectrum, collected = _trace_samples(
-        scene, camera, options, x_cam, y_cam, generator, spp_batch * k_batches
+        scene, camera, options, x_cam, y_cam, generator, spp_batch * k_batches,
+        pixel_order,
     )
+    if pixel_order is not None:
+        # Pixel-major: [P, K, spp_batch] sample groups per pixel.
+        spectrum = spectrum.reshape(p, k_batches, spp_batch, 4)
+        collected = collected.reshape(p, k_batches, spp_batch)
+        s = torch.where(collected[..., None], spectrum, 0.0).sum(2).movedim(0, 1)
+        c = collected.sum(2, dtype=torch.int32).movedim(0, 1)
+        return (torch.zeros_like(s).index_copy_(1, pixel_order, s),
+                torch.zeros_like(c).index_copy_(1, pixel_order, c))
     spectrum = spectrum.reshape(k_batches, spp_batch, p, 4)
     collected = collected.reshape(k_batches, spp_batch, p)
     return (
@@ -201,7 +251,7 @@ def _candidate_select(stats_means, stats_valid, cbc, fallback, min_count):
 
 def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
                 x_cam: torch.Tensor, y_cam: torch.Tensor,
-                generator: torch.Generator) -> torch.Tensor:
+                generator: torch.Generator, pixel_order=None) -> torch.Tensor:
     """Adaptive render of one pixel tile; returns [P,4] pixel values."""
     p = x_cam.shape[0]
     dev = x_cam.device
@@ -220,7 +270,8 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
     stats_valid = torch.zeros((p, max(n_full, 1)), dtype=torch.bool, device=dev)
 
     def single(spp):
-        return render_chunk(scene, camera, options, x_cam, y_cam, generator, spp)
+        return render_chunk(scene, camera, options, x_cam, y_cam, generator, spp,
+                            pixel_order)
 
     pending_flags: list = []
     n_launches = math.ceil(n_full / ADAPTIVE_FUSE) if n_full else 0
@@ -232,7 +283,8 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
             s_b, coll_b = s[None], coll[None]
         else:
             s_b, coll_b = render_chunk_batched(
-                scene, camera, options, x_cam, y_cam, generator, stats, kb
+                scene, camera, options, x_cam, y_cam, generator, stats, kb,
+                pixel_order,
             )
         (pixel_sum, n_collected, frozen, accepted, remaining,
          stats_means, stats_valid, flag) = _apply_stats_batches(
@@ -282,17 +334,25 @@ def render(scene: SceneData, camera: Camera, options: RenderOptions,
     n_tiles = math.ceil(h / rows_per_tile)
     px = np.arange(w, dtype=np.float32)
     image = np.zeros((h, w, 4), np.float32)
+    order = use_pixel_order(scene, dev)
+    perm_cache: dict = {}  # tile height -> device permutation
     for i in range(n_tiles):
         y0 = i * rows_per_tile
         rows = min(rows_per_tile, h - y0)
         py = np.arange(y0, y0 + rows, dtype=np.float32)
         xg, yg = np.meshgrid(px, py)
+        perm = None
+        if order:
+            perm = perm_cache.get(rows)
+            if perm is None:
+                perm = torch.from_numpy(morton_perm(xg.ravel(), yg.ravel() - y0)).to(dev)
+                perm_cache[rows] = perm
         x_cam, y_cam = pixel_camera_coords(options, xg.ravel(), yg.ravel())
         tile = render_tile(
             scene, camera, options,
             torch.from_numpy(np.ascontiguousarray(x_cam, np.float32)).to(dev),
             torch.from_numpy(np.ascontiguousarray(y_cam, np.float32)).to(dev),
-            generator,
+            generator, pixel_order=perm,
         )
         image[y0:y0 + rows] = tile.reshape(rows, w, 4).cpu().numpy()
         if progress_callback is not None:

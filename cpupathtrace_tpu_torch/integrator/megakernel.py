@@ -16,7 +16,12 @@ kernel or raises.
 
 Both dense forms are covered: the pair-record form (1..128 triangles ride
 `scene.krn_big_pair`, spheres the sphere table) and the table form
-(triangle table + spheres; scenes without triangles).
+(triangle table + spheres; scenes without triangles). The twin's bounce
+(`_bounce`) also serves binned scenes, with the cluster traversal of
+accel/kernel_traverse.py after the big-partition pair record: it is the
+plain version of the single-bounce kernel K2 (integrator/sorted_wavefront.py).
+K1's own binned form (the while loop with n_super > 0) is not ported
+(ROADMAP item 11): binned scenes run the sorted driver.
 """
 from __future__ import annotations
 
@@ -25,6 +30,13 @@ import ctypes
 import torch
 
 from .. import _build
+from ..accel.kernel_traverse import (
+    check_tensor,
+    kernel_tables,
+    pair_quantities,
+    traverse_clusters,
+    traverse_clusters_anyhit,
+)
 from ..accel.pair_record import C_MAT, C_N0, C_PRIM, REC_USED_COLS
 from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, SceneData
 from ..utils.math import PI
@@ -60,10 +72,16 @@ MAX_EM = 256
 
 
 def megakernel_supported(scene: SceneData) -> bool:
-    """True when the scene's tables fit the kernel's limits."""
-    if scene.accel != "dense":
+    """True when the scene's tables fit the kernels' limits. A binned
+    scene needs its traversal tiers, its big partition in the one pair
+    record, and its emitters in that dense part (pallas_megakernel.py:
+    957-979)."""
+    if scene.has_kernel_records:
+        tri_ok = (scene.dense_pair and scene.n_big <= MAX_REC_ROWS
+                  and scene.emissive_in_dense)
+    elif scene.accel != "dense":
         return False
-    if scene.dense_pair:
+    elif scene.dense_pair:
         tri_ok = scene.krn_big_pair.shape[0] <= MAX_REC_ROWS
     else:
         tri_ok = scene.tri_v0.shape[0] <= MAX_TRI
@@ -78,7 +96,8 @@ def megakernel_supported(scene: SceneData) -> bool:
 
 def pack_tables(scene: SceneData):
     """The kernel's tables (tri, sph, mat, lgt, em) on the scene's device,
-    equal to the JAX `_pack_tables` (pallas_megakernel.py:982-1098)."""
+    equal to the JAX `_pack_tables` (pallas_megakernel.py:982-1098). For a
+    binned scene the triangle table holds the big partition only."""
     f32 = torch.float32
     dev = scene.device
 
@@ -88,17 +107,28 @@ def pack_tables(scene: SceneData):
     def zeros(n, c):
         return torch.zeros((n, c), dtype=f32, device=dev)
 
-    tri_v0 = scene.tri_v0
-    n_rows = tri_v0.shape[0]
+    if scene.has_kernel_records:
+        idx = scene.big_prim.clamp_min(0).long()
+        tv0, tv1, tv2 = scene.big_v0, scene.big_v1, scene.big_v2
+        t_cull, t_valid = scene.big_cull, scene.big_prim >= 0
+        tn0, tn1, tn2 = scene.tri_n0[idx], scene.tri_n1[idx], scene.tri_n2[idx]
+        t_mat = scene.tri_material[idx]
+    else:
+        tv0, tv1, tv2 = scene.tri_v0, scene.tri_v1, scene.tri_v2
+        t_cull, t_valid = scene.tri_cull, scene.tri_valid
+        tn0, tn1, tn2 = scene.tri_n0, scene.tri_n1, scene.tri_n2
+        t_mat = scene.tri_material
     tri = torch.cat(
         [
-            tri_v0, scene.tri_v1 - tri_v0, scene.tri_v2 - tri_v0,
-            col(scene.tri_cull), col(scene.tri_valid),
-            scene.tri_n0, scene.tri_n1, scene.tri_n2,
-            col(scene.tri_material), zeros(n_rows, TRI_COLS - 21),
+            tv0, tv1 - tv0, tv2 - tv0, col(t_cull), col(t_valid),
+            tn0, tn1, tn2, col(t_mat), zeros(tv0.shape[0], TRI_COLS - 21),
         ],
         dim=1,
     )
+    # The emitter rows below resolve global prim ids through the full
+    # triangle arrays, binned or not.
+    tri_v0 = scene.tri_v0
+    n_rows = tri_v0.shape[0]
     s_rows = scene.sph_center.shape[0]
     sph = torch.cat(
         [
@@ -181,7 +211,11 @@ class _Ctx:
         self.tri, self.sph, self.mat, self.lgt, self.em = tables
         self.dense_pair = scene.dense_pair
         self.rec = scene.krn_big_pair[:, :REC_USED_COLS] if self.dense_pair else None
+        self.rec_cols = [self.rec[:, j, None] for j in range(17)] if self.dense_pair else None
         self.n_tri = 0 if self.dense_pair else self.tri.shape[0]
+        # Binned scenes: the cluster traversal tiers and their cull class.
+        self.clusters = kernel_tables(scene) if scene.has_kernel_records else None
+        self.krn_cull_mode = scene.krn_cull_mode
         self.n_sph = self.sph.shape[0]
         self.n_lights = scene.n_point_lights
         self.n_em = scene.n_emissive
@@ -283,29 +317,6 @@ def _table_occluded(ctx, ox, oy, oz, dx, dy, dz, n_tri, t_max):
     return (p >= 0) & ~(t >= t_max)
 
 
-def _pair_quantities(rec, ox, oy, oz, dx, dy, dz, mx, my, mz, cull_mode):
-    """Sign-normalised Plücker quantities (sd, su, sv, st, ok) of every
-    record row against every ray, [T, n] (kernel_traverse.py:405-441)."""
-    c = [rec[:, j, None] for j in range(17)]
-    det = c[0] * dx + c[1] * dy + c[2] * dz
-    un = c[3] * mx + c[4] * my + c[5] * mz + c[6] * dx + c[7] * dy + c[8] * dz
-    vn = c[9] * mx + c[10] * my + c[11] * mz + c[12] * dx + c[13] * dy + c[14] * dz
-    tn = -(c[0] * ox + c[1] * oy + c[2] * oz) - c[15]
-    sgn = torch.where(det >= 0.0, 1.0, -1.0)
-    sd = det * sgn
-    su = un * sgn
-    sv = vn * sgn
-    st = tn * sgn
-    inside = torch.minimum(torch.minimum(torch.minimum(su, sv), sd - su - sv), st)
-    if cull_mode == 0:
-        ok = (inside >= 0.0) & (sd > TRI_EPS)
-    elif cull_mode == 1:
-        ok = (inside >= 0.0) & (det > TRI_EPS)
-    else:
-        ok = (inside >= 0.0) & (sd > TRI_EPS) & ((c[16] < 0.5) | (det > 0.0))
-    return sd, su, sv, st, ok
-
-
 def _moment(ox, oy, oz, dx, dy, dz):
     return oy * dz - oz * dy, oz * dx - ox * dz, ox * dy - oy * dx
 
@@ -316,8 +327,8 @@ def _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit):
     slot wins among equal t."""
     bt, bp, nx, ny, nz, mid = hit
     mx, my, mz = _moment(ox, oy, oz, dx, dy, dz)
-    sd, su, sv, st, ok = _pair_quantities(
-        ctx.rec, ox, oy, oz, dx, dy, dz, mx, my, mz, ctx.cull_mode
+    sd, su, sv, st, ok = pair_quantities(
+        ctx.rec_cols, ox, oy, oz, dx, dy, dz, mx, my, mz, ctx.cull_mode
     )
     tv = st / torch.where(ok, sd, 1.0)
     key = torch.where(ok & (tv < bt), tv, float("inf"))
@@ -349,16 +360,22 @@ def _pair_occluded(ctx, ox, oy, oz, dx, dy, dz, t_lim):
     """Any-hit of the pair record below t_lim, division-free:
     t < t_lim iff st < t_lim * sd (pair_test_anyhit, kernel_traverse.py:599)."""
     mx, my, mz = _moment(ox, oy, oz, dx, dy, dz)
-    sd, _, _, st, ok = _pair_quantities(
-        ctx.rec, ox, oy, oz, dx, dy, dz, mx, my, mz, ctx.cull_mode
+    sd, _, _, st, ok = pair_quantities(
+        ctx.rec_cols, ox, oy, oz, dx, dy, dz, mx, my, mz, ctx.cull_mode
     )
     return (ok & (st < t_lim * sd)).any(dim=0)
 
 
 def _nearest(ctx, ox, oy, oz, dx, dy, dz):
+    """Spheres (and the triangle table), then the pair record, then the
+    clusters of a binned scene, each improving strictly on the last."""
     if ctx.dense_pair:
         hit = _table_nearest(ctx, ox, oy, oz, dx, dy, dz, 0)
-        return _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
+        hit = _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
+        if ctx.clusters is not None:
+            hit = traverse_clusters(ctx.clusters, ox, oy, oz, dx, dy, dz, hit,
+                                    ctx.krn_cull_mode)
+        return hit
     return _table_nearest(ctx, ox, oy, oz, dx, dy, dz, ctx.n_tri)
 
 
@@ -442,6 +459,14 @@ def _bounce(ctx, depth, s):
         if ctx.dense_pair:
             occ = occ | _pair_occluded(
                 ctx, sox, soy, soz, ldx, ldy, ldz, (dist - eps).clamp_min(0.0)
+            )
+        if ctx.clusters is not None:
+            # Only rays the dense parts left visible, on a vertex that
+            # takes the light, query the clusters (t_lim 0 = no query).
+            want = hit & lvalid & ~occ & ~is_spec & (lpd > 0.0)
+            t_lim = torch.where(want, dist - eps, torch.zeros_like(dist))
+            occ = occ | traverse_clusters_anyhit(
+                ctx.clusters, sox, soy, soz, ldx, ldy, ldz, t_lim, ctx.krn_cull_mode
             )
         cos_s = (nx * ldx + ny * ldy + nz * ldz).clamp_min(0.0)
         shade = cos_s / ctx.pi
@@ -672,18 +697,6 @@ def _library():
     return fn
 
 
-def _check(name, t, device, dtype, ndim=None, cols=None):
-    if t.device != device or t.dtype != dtype or not t.is_contiguous():
-        raise ValueError(
-            f"{name}: need a contiguous {dtype} tensor on {device}, got "
-            f"{t.dtype} on {t.device} (contiguous={t.is_contiguous()})"
-        )
-    if ndim is not None and t.dim() != ndim:
-        raise ValueError(f"{name}: need {ndim} dims, got shape {tuple(t.shape)}")
-    if cols is not None and t.shape[-1] != cols:
-        raise ValueError(f"{name}: need {cols} columns, got shape {tuple(t.shape)}")
-
-
 def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
     """Full-path trace of a ray batch: (spectrum [R,4] with alpha =
     collected, collected [R] bool). `seed` is an int32 Python int or a
@@ -695,25 +708,28 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
         return trace_megakernel_reference(scene, rays, options, seed, tables)
     if dev.type != "cuda":
         raise ValueError(f"trace_megakernel: no kernel for device {dev}")
+    if scene.has_kernel_records:
+        raise ValueError(
+            "trace_megakernel: binned scenes run the sorted driver "
+            "(integrator/sorted_wavefront.py); K1's binned form is ROADMAP item 11"
+        )
     if not megakernel_supported(scene):
         raise ValueError(
             "trace_megakernel: scene exceeds the kernel's limits (see "
             "megakernel_supported / PERF.md)"
         )
-    _check("origin", origin, dev, torch.float32, 2, 3)
-    _check("direction", direction, dev, torch.float32, 2, 3)
-    if direction.shape[0] != origin.shape[0]:
-        raise ValueError("origin and direction differ in length")
+    check_tensor("origin", origin, dev, torch.float32, (None, 3))
+    check_tensor("direction", direction, dev, torch.float32, (origin.shape[0], 3))
     if tables is None:
         tables = pack_tables(scene.to(dev))
     tri, sph, mat, lgt, em = tables
     for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS),
                        ("mat", mat, MAT_COLS), ("lgt", lgt, LGT_COLS),
                        ("em", em, EM_COLS)):
-        _check(name, t, dev, torch.float32, 2, c)
+        check_tensor(name, t, dev, torch.float32, (None, c))
     if scene.dense_pair:
         rec = scene.krn_big_pair.to(dev)
-        _check("krn_big_pair", rec, dev, torch.float32, 2)
+        check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
         rec_ptr, rec_rows, rec_stride = rec.data_ptr(), rec.shape[0], rec.shape[1]
         n_tri = 0
     else:

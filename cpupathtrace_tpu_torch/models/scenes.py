@@ -1,24 +1,34 @@
-"""Built-in scenes: the dense ones of `cpupathtrace_tpu/models/scenes.py`.
+"""Built-in scenes, the port of `cpupathtrace_tpu/models/scenes.py`.
 
-  * cornell_demo_scene(include_dragon=False): the demo app's Cornell-box
-    scene without its glass dragon: coloured walls, emissive ceiling panel,
-    blue mirror sphere, rotated stretched white box (ref: demo/main.cpp:36-205)
+  * cornell_demo_scene: the demo app's Cornell-box scene: coloured walls,
+    emissive ceiling panel, glass dragon (a 20k-triangle stand-in, which
+    makes the scene binned), blue mirror sphere, rotated stretched white
+    box (ref: demo/main.cpp:36-205)
   * bench_box_scene: the closed 2x2x2 box of the reference's renderSceneBox
     benchmark, 12 wall triangles + 2 emissive ceiling triangles
     (ref: benchmark/main.cpp:34-57)
+  * bench_dragon_scene: the same box with a glass dragon, IOR 1.5: the
+    renderSceneDragonBox benchmark (ref: benchmark/main.cpp:59-105)
 
-The dragon scenes are binned: ROADMAP.md Queue 1 slice 2.
+The reference's xyzrgb_dragon.obj is not in the repository; the dragon is
+the JAX package's procedural stand-in (a displaced UV sphere,
+`standin_dragon_arrays`), the same vertices bit for bit. Loading a real
+OBJ (`dragon_obj`) waits for the port of the OBJ parser.
 """
 from __future__ import annotations
 
 import math
+import time
 
 import numpy as np
 
 from ..camera.camera import APERTURE_CIRCULAR, Camera, make_camera
 from ..core.config import RenderOptions
 from ..scene.geometry import make_box, make_plane, transform_triangles
-from ..scene.scene import BSDF_MIRROR, SceneBuilder, SceneData
+from ..scene.mesh import mesh_from_arrays
+from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, BUILD_SECONDS, SceneBuilder, SceneData
+
+_NO_OBJ = "loading an OBJ mesh (load_mesh) is not ported yet; leave dragon_obj None"
 
 
 def cornell_demo_camera(width: int = 256, height: int = 256, device="cpu") -> Camera:
@@ -45,14 +55,10 @@ def cornell_demo_scene(
     include_dragon: bool = True,
     device="cpu",
 ) -> SceneData:
-    """The demo scene (ref: demo/main.cpp:50-205). Only
-    `include_dragon=False` builds in the port: the dragon makes the scene
-    binned."""
-    if include_dragon:
-        raise NotImplementedError(
-            "the demo's dragon makes the scene binned: ROADMAP.md Queue 1 "
-            "slice 2 (items 9-12); use include_dragon=False"
-        )
+    """The demo scene (ref: demo/main.cpp:50-205), with a `dragon_tris`
+    stand-in dragon unless `include_dragon` is False."""
+    if dragon_obj is not None:
+        raise NotImplementedError(_NO_OBJ)
     b = SceneBuilder()
     epsilon = 1e-3
     light_intensity = 1.0
@@ -78,6 +84,20 @@ def cornell_demo_scene(
     b.add_triangles(make_plane((-walls_x, ground_y, -walls_z), (-walls_x, ceiling_y, walls_z), True), red)
     b.add_triangles(make_plane((walls_x, ground_y, walls_z), (-walls_x, ceiling_y, walls_z), True), white)
     b.add_triangles(make_plane((walls_x, ground_y, walls_z), (walls_x, ceiling_y, -walls_z), True), green)
+
+    if include_dragon:
+        # Glass dragon, scale 0.005, offset (0.4, -0.8, -0.75), IOR 1.5
+        # (ref: demo/main.cpp:144-165).
+        glass = b.add_material(diffuse=(1, 1, 1, 1), ior=1.5, bsdf=BSDF_GLASS)
+        transform = np.array(
+            [
+                [0.005, 0, 0, 0.4],
+                [0, 0.005, 0, -0.8],
+                [0, 0, 0.005, -0.75],
+                [0, 0, 0, 1.0],
+            ]
+        )
+        b.add_triangles(_standin_dragon(dragon_tris, transform), glass)
 
     # Blue mirror sphere (ref: demo/main.cpp:168-177).
     mirror_blue = b.add_material(diffuse=(0, 0, 1, 1), bsdf=BSDF_MIRROR)
@@ -126,3 +146,94 @@ def bench_camera(device="cpu") -> Camera:
         focal_length=1.0, height=1.0, aspect_ratio=-1.0, device=device,
     )
 
+
+def _standin_dragon(dragon_tris, transform):
+    """The stand-in dragon as a TriangleBatch; its seconds go to
+    BUILD_SECONDS["mesh"]."""
+    t0 = time.perf_counter()
+    verts, faces = standin_dragon_arrays(dragon_tris)
+    tris = mesh_from_arrays(verts, faces, transform, cull_backface=False,
+                            smooth=True, as_batch=True)
+    BUILD_SECONDS["mesh"] = time.perf_counter() - t0
+    return tris
+
+
+def bench_dragon_scene(
+    dragon_obj: str | None = None,
+    dragon_tris: int = 200000,
+    accel: str | None = None,
+    lean: bool = False,
+    device="cpu",
+) -> SceneData:
+    """Box + glass dragon at scale 0.01, offset (0,-0.5,0)
+    (ref: benchmark/main.cpp:59-105)."""
+    if dragon_obj is not None:
+        raise NotImplementedError(_NO_OBJ)
+    b = SceneBuilder()
+    white = b.add_material(diffuse=(1, 1, 1, 1))
+    light = b.add_material(diffuse=(1, 1, 1, 1), emission=(1, 1, 1, 1))
+    glass = b.add_material(diffuse=(1, 1, 1, 1), ior=1.5, bsdf=BSDF_GLASS)
+    b.add_triangles(make_box((-1, -1, -1), (1, 1, 1)), white)
+    b.add_triangles(
+        make_plane((-0.25, 1.0 - 0.01, -0.25), (0.25, 1.0 - 0.01, 0.25), True), light
+    )
+    transform = np.array(
+        [[0.01, 0, 0, 0], [0, 0.01, 0, -0.5], [0, 0, 0.01, 0], [0, 0, 0, 1.0]]
+    )
+    b.add_triangles(_standin_dragon(dragon_tris, transform), glass)
+    return b.build(accel=accel, lean=lean, device=device)
+
+
+def standin_dragon_arrays(
+    target_tris: int = 200000, seed: int = 7
+) -> tuple[np.ndarray, np.ndarray]:
+    """The stand-in dragon as (verts [V,3] f64, faces [F,3] 0-based i64),
+    vertices rounded to 6 decimals, the precision of the JAX package's
+    OBJ text route."""
+    verts, faces = _standin_dragon_geometry(target_tris, seed)
+    return np.round(verts.reshape(-1, 3), 6), faces - 1
+
+
+def _standin_dragon_geometry(
+    target_tris: int, seed: int
+) -> tuple[np.ndarray, np.ndarray]:
+    """Raw stand-in geometry: verts [rows+1, cols, 3] f64 (unquantised)
+    and 1-based faces [F, 3] i64 (OBJ convention): a UV sphere displaced
+    by a few octaves of sinusoidal noise, stretched to a dragon-like
+    ~80-unit span."""
+    # A UV sphere with R rows and C columns has 2*R*C triangles.
+    rows = max(int(math.sqrt(target_tris / 4)), 3)
+    cols = 2 * rows
+    rng = np.random.default_rng(seed)
+    phases = rng.uniform(0, 2 * np.pi, size=(3, 3))
+
+    theta = np.linspace(0, np.pi, rows + 1)
+    phi = np.linspace(0, 2 * np.pi, cols, endpoint=False)
+    t, p = np.meshgrid(theta, phi, indexing="ij")
+    x = np.sin(t) * np.cos(p)
+    y = np.cos(t)
+    z = np.sin(t) * np.sin(p)
+    disp = np.zeros_like(x)
+    for o in range(3):
+        f = 2.0 ** (o + 1)
+        disp += (
+            np.sin(f * t + phases[o, 0])
+            * np.cos(f * p + phases[o, 1])
+            * (0.25 / f)
+        )
+    r = 1.0 + disp
+    verts = np.stack([x * r * 1.6, y * r * 0.9, z * r * 0.7], axis=-1) * 40.0
+
+    vid = np.arange((rows + 1) * cols).reshape(rows + 1, cols)
+    faces = []
+    for i in range(rows):
+        a = vid[i]
+        bb = vid[i + 1]
+        a_n = np.roll(a, -1)
+        b_n = np.roll(bb, -1)
+        if i > 0:  # skip the degenerate fan at the pole
+            faces.append(np.stack([a, bb, a_n], axis=-1))
+        if i < rows - 1:
+            faces.append(np.stack([a_n, bb, b_n], axis=-1))
+    faces = np.concatenate(faces, axis=0) + 1  # OBJ is 1-based
+    return verts, faces

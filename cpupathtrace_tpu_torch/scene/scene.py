@@ -1,24 +1,36 @@
 """Scene container (torch tensors on one device) and the host-side builder.
 
-Port of `cpupathtrace_tpu/scene/scene.py`, dense scenes only: primitive
-arrays (triangles 0..n_tri-1, spheres n_tri..), the material table, point
-lights, the emissive registry + CDF (ref: src/scene/scene.cpp:165-226), and
-the dense pair record that carries every triangle through the megakernel's
-pair test. Arrays are padded so no shape is zero-length; padding rows are
-masked by `tri_valid` / `sph_valid`.
+Port of `cpupathtrace_tpu/scene/scene.py`: primitive arrays (triangles
+0..n_tri-1, spheres n_tri..), the material table, point lights, the
+emissive registry + CDF (ref: src/scene/scene.cpp:165-226), the dense pair
+record, and for binned scenes the big/small partition and the in-kernel
+cluster traversal tiers. Arrays are padded so no shape is zero-length;
+padding rows are masked by `tri_valid` / `sph_valid`.
 
-The build is the numpy arithmetic of the JAX builder's dense branch
-(scene.py:342-440 and :719-734), so both packages give equal arrays
-(tests/test_torch_scene.py). Scenes that need another accelerator
-(more than `dense_threshold` primitives) are ROADMAP slice 2 and raise.
+The build is the numpy arithmetic of the JAX builder (dense branch
+scene.py:342-440 and :719-734; binned branch :442-514, :535-584, :630-642,
+:653-769), so both packages give equal arrays (tests/test_torch_scene.py,
+tests/test_torch_binned_scene.py). A binned build packs only the tables
+the megakernel path reads, as the JAX builder's `lean=True` does. The
+sweep, bvh and cluster accelerators are ROADMAP slice 4 and raise.
 """
 from __future__ import annotations
 
 import dataclasses
+import time
 
 import numpy as np
 import torch
 
+from ..accel.cluster import build_cluster_bvh
+from ..accel.kernel_traverse import (
+    BND_COLS,
+    GROUP,
+    GROUP2,
+    REC_COLS,
+    compact_kernel_tables,
+    pack_kernel_tables_np,
+)
 from ..accel.pair_record import cull_uniformity, pack_pair_record_np
 from ..utils.math import PI
 from .geometry import HostTriangle, TriangleBatch
@@ -28,12 +40,24 @@ BSDF_LAMBERTIAN = 0
 BSDF_GLASS = 1
 BSDF_MIRROR = 2
 
-_NOT_DENSE = (
-    "only dense scenes (<= dense_threshold primitives) build in the torch "
-    "port; binned/sweep/bvh scenes are ROADMAP.md Queue 1 slice 2 "
-    "(items 9-10, and the binned builder of item 22)"
+# Triangles per in-kernel cluster record (the JAX package's PTX_KRN_CLUSTER
+# default) and the small-partition size above which the in-kernel tables
+# are not packed (its PTX_KRN_MAX_TRIS default).
+KRN_CLUSTER = 56
+KRN_MAX_TRIS = 2 ** 21
+
+_NOT_PORTED = (
+    "the sweep, bvh and cluster accelerators (and the jnp wavefront that "
+    "renders them) are ROADMAP.md Queue 1 slice 4; the torch port builds "
+    "dense and binned scenes"
 )
 
+# Seconds of the last binned build, by stage: "bvh" (cluster cut),
+# "pack" (records and tiers), "upload" (tensors to the device). The scene
+# helpers of models/scenes.py add "mesh".
+BUILD_SECONDS: dict[str, float] = {}
+
+# Fields equal to the JAX SceneData's arrays, byte for byte.
 ARRAY_FIELDS = (
     "tri_v0", "tri_v1", "tri_v2", "tri_n0", "tri_n1", "tri_n2",
     "tri_cull", "tri_material", "tri_valid",
@@ -42,12 +66,18 @@ ARRAY_FIELDS = (
     "mat_bsdf", "mat_one_way",
     "light_pos", "light_spectrum",
     "emissive_prim", "emissive_cdf",
+    "big_v0", "big_v1", "big_v2", "big_cull", "big_prim",
+    "root_lo", "root_hi",
     "krn_big_pair",
 )
+# The traversal tiers in the port's compact layout (accel/kernel_traverse.py):
+# the JAX tables' used columns, byte for byte.
+KRN_FIELDS = ("krn_records", "krn_cl_bounds", "krn_sup_bounds", "krn_hyp_bounds")
 STATIC_FIELDS = (
     "n_tri", "n_sph", "n_point_lights", "n_emissive",
     "emissive_sample_count", "accel", "emissive_all_tri",
-    "krn_big_cull_mode",
+    "krn_big_cull_mode", "n_big", "krn_cluster_size", "krn_cull_mode",
+    "emissive_in_dense",
 )
 
 
@@ -76,9 +106,26 @@ class SceneData:
     light_spectrum: torch.Tensor  # [L,4]
     emissive_prim: torch.Tensor  # [E] i32 global prim index
     emissive_cdf: torch.Tensor  # [E] f32 inclusive prefix sums, last == 1
-    # Dense pair record [rows <= 128, 128] f32 (1 <= n_tri <= 128), or
-    # [1, 1] when the scene has no triangles.
+    # Binned partition: "big" triangles (walls, emitters) are tested for
+    # every ray through krn_big_pair; the small ones live in the clusters.
+    big_v0: torch.Tensor  # [B,3]
+    big_v1: torch.Tensor
+    big_v2: torch.Tensor
+    big_cull: torch.Tensor  # [B] bool
+    big_prim: torch.Tensor  # [B] i32 global triangle index, -1 padding
+    root_lo: torch.Tensor  # [3] bounds of the small partition
+    root_hi: torch.Tensor
+    # Pair record [rows <= 128, 128] f32 of the dense triangle set (dense
+    # scenes with 1..128 triangles) or of the big partition (binned
+    # scenes); [1, 1] when absent.
     krn_big_pair: torch.Tensor
+    # Traversal tiers (binned scenes; placeholders otherwise): records
+    # [Cp, L, 32], cluster bounds [S, 32, 8], supercluster pages
+    # [Hp, 16, 8], hyper bounds [Hp8, 8].
+    krn_records: torch.Tensor
+    krn_cl_bounds: torch.Tensor
+    krn_sup_bounds: torch.Tensor
+    krn_hyp_bounds: torch.Tensor
 
     n_tri: int
     n_sph: int
@@ -89,6 +136,12 @@ class SceneData:
     emissive_all_tri: bool
     # Cull class of the pair record (accel/pair_record.cull_uniformity).
     krn_big_cull_mode: int = -1
+    n_big: int = 0
+    krn_cluster_size: int = 0  # 0 = no traversal tiers
+    krn_cull_mode: int = -1  # cull class of the cluster records
+    # Every emissive primitive lives in the dense tables (binned scenes:
+    # the big partition).
+    emissive_in_dense: bool = True
 
     @property
     def n_prims(self) -> int:
@@ -104,33 +157,50 @@ class SceneData:
 
     @property
     def dense_pair(self) -> bool:
-        """True when the triangles ride the pair record (else the
-        triangle table; n_tri = 0 scenes)."""
+        """True when the dense triangles (all of them, or the big partition
+        of a binned scene) ride the pair record (else the triangle table;
+        n_tri = 0 scenes)."""
         return self.krn_big_pair.shape[0] > 1
+
+    @property
+    def has_kernel_records(self) -> bool:
+        """True when the in-kernel cluster traversal tiers are packed
+        (binned scenes)."""
+        return self.krn_cluster_size > 0
 
     def to(self, device) -> "SceneData":
         device = torch.device(device)
         if device == self.device:
             return self
         return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in ARRAY_FIELDS}
+            self, **{f: getattr(self, f).to(device) for f in ARRAY_FIELDS + KRN_FIELDS}
         )
+
+
+def _placeholder_tiers():
+    """Traversal tables of a scene without clusters (compact layout)."""
+    return (np.zeros((1, 8, REC_COLS), np.float32), np.zeros((1, GROUP, BND_COLS), np.float32),
+            np.zeros((1, GROUP2, BND_COLS), np.float32), np.zeros((8, BND_COLS), np.float32))
 
 
 def scene_from_numpy(arrays: dict, meta: dict, device="cpu") -> SceneData:
     """Carry a scene across from its numpy form: `arrays` maps field names
     to arrays (e.g. the JAX SceneData's fields through np.asarray; extra
-    fields are ignored), `meta` its static fields. Raises
-    NotImplementedError for scenes that are not dense."""
-    if meta.get("accel") != "dense" or meta.get("krn_cluster_size", 0):
-        raise NotImplementedError(_NOT_DENSE)
-    missing = [f for f in ARRAY_FIELDS if f not in arrays]
+    fields are ignored), `meta` its static fields. Traversal tables in the
+    JAX package's 128-lane layout are compacted. Raises
+    NotImplementedError for the accelerators the port has not got."""
+    if meta.get("accel") not in ("dense", "binned"):
+        raise NotImplementedError(f"accel {meta.get('accel')!r}: {_NOT_PORTED}")
+    missing = [f for f in ARRAY_FIELDS + KRN_FIELDS if f not in arrays]
     if missing:
         raise KeyError(f"scene arrays missing {missing}")
-    tensors = {
-        f: torch.from_numpy(np.array(arrays[f])).to(device)
-        for f in ARRAY_FIELDS
-    }
+    krn = [np.asarray(arrays[f]) for f in KRN_FIELDS]
+    if not meta.get("krn_cluster_size", 0):
+        krn = _placeholder_tiers()
+    elif krn[0].shape[-1] != REC_COLS or krn[1].shape[-1] != BND_COLS:
+        krn = compact_kernel_tables(*krn)
+    tensors = {f: torch.from_numpy(np.array(arrays[f])).to(device) for f in ARRAY_FIELDS}
+    tensors.update({f: torch.from_numpy(np.array(a)).to(device) for f, a in zip(KRN_FIELDS, krn)})
     static = {f: meta[f] for f in STATIC_FIELDS}
     return SceneData(**tensors, **static)
 
@@ -213,17 +283,20 @@ class SceneBuilder:
         dense_threshold: int = 128,
         accel: str | None = None,
         device="cpu",
+        binned_threshold: int = 4096,
+        big_diag_frac: float = 0.05,
+        lean: bool = False,
     ) -> SceneData:
-        """Pack the scene onto `device`. Only the dense accelerator exists
-        in the port: `accel` may be None (auto) or "dense"."""
+        """Pack the scene onto `device`. `accel` None picks as the JAX
+        builder does: "dense" up to `dense_threshold` primitives, "binned"
+        from `binned_threshold` small triangles, "sweep" in between (which
+        the port has not got: it raises, as do "bvh" and "cluster"). A
+        binned build packs only the megakernel tables (the JAX builder's
+        `lean`); `lean=True` also raises when the megakernel cannot serve
+        the scene, as the JAX builder's lean checks do."""
         f32 = np.float32
         n_tri = sum(len(b) for b in self._batches)
         n_sph = len(self._spheres)
-        if accel is None and n_tri + n_sph > dense_threshold:
-            accel = "binned/sweep"
-        if accel not in (None, "dense"):
-            raise NotImplementedError(f"accel {accel!r}: {_NOT_DENSE}")
-
         tpad = max(n_tri, 1)
         spad = max(n_sph, 1)
         tri_v = np.zeros((3, tpad, 3), f32)
@@ -309,11 +382,116 @@ class SceneBuilder:
         # Per-vertex NEE sample count (ref: src/scene/scene.cpp:226).
         emissive_sample_count = min(2 + int(np.log10(n_emissive + 1)), n_emissive)
 
-        # Dense pair record: the whole triangle set as ONE record
-        # (scene.py:719-734 of the JAX builder).
-        krn_big_pair = np.zeros((1, 1), f32)
+        # Big/small partition (scene.py:452-481): a triangle whose box
+        # diagonal exceeds big_diag_frac of the scene's is tested for every
+        # ray; emissive triangles (when few) are forced into that dense
+        # part, where the NEE tables resolve them.
+        lo_tri = np.minimum(np.minimum(tri_v[0], tri_v[1]), tri_v[2])
+        hi_tri = np.maximum(np.maximum(tri_v[0], tri_v[1]), tri_v[2])
+        lo_sph = sph_c - sph_r[:, None]
+        hi_sph = sph_c + sph_r[:, None]
+        n_prims = n_tri + n_sph
+        if n_tri > 0:
+            tri_diag = np.linalg.norm(hi_tri[:n_tri] - lo_tri[:n_tri], axis=1)
+            scene_lo = np.minimum(
+                lo_tri[:n_tri].min(axis=0),
+                lo_sph[:n_sph].min(axis=0) if n_sph else np.full(3, np.inf),
+            )
+            scene_hi = np.maximum(
+                hi_tri[:n_tri].max(axis=0),
+                hi_sph[:n_sph].max(axis=0) if n_sph else np.full(3, -np.inf),
+            )
+            scene_diag = float(np.linalg.norm(scene_hi - scene_lo))
+            big_mask = tri_diag > big_diag_frac * max(scene_diag, 1e-30)
+            em_tri = np.asarray([p for p in em_prims if p < n_tri], np.int64)
+            if em_tri.size and em_tri.size <= 256:
+                big_mask[em_tri] = True
+        else:
+            big_mask = np.zeros(0, bool)
+        n_small = int(n_tri - big_mask.sum())
+
+        # The accelerator rule (scene.py:483-514).
+        if accel is None:
+            if n_prims <= dense_threshold:
+                accel = "dense"
+            elif n_small >= binned_threshold:
+                accel = "binned"
+            else:
+                accel = "sweep"
+        if accel not in ("dense", "bvh", "cluster", "sweep", "binned"):
+            raise ValueError(f"unknown accel {accel!r}")
+        if accel == "binned" and n_small < 64:
+            accel = "sweep"  # degenerate partition
+        if accel in ("cluster", "sweep", "binned") and n_tri == 0:
+            accel = "dense" if n_prims <= dense_threshold else "bvh"
+        if lean and accel != "binned":
+            raise ValueError(
+                f"lean build requires the binned accel (got {accel!r}); "
+                "small scenes build their full tables in milliseconds"
+            )
+        if accel != "dense" and accel != "binned":
+            raise NotImplementedError(f"accel {accel!r}: {_NOT_PORTED}")
+
+        # Big-triangle dense set and the root of the small partition
+        # (binned only; empty rows otherwise).
+        n_big = 0
+        big_idx = np.zeros(0, np.int64)
+        root_lo = np.full(3, np.inf, f32)
+        root_hi = np.full(3, -np.inf, f32)
+        if accel == "binned":
+            small_idx = np.flatnonzero(~big_mask)
+            big_idx = np.flatnonzero(big_mask)
+            n_big = int(big_idx.shape[0])
+            root_lo = lo_tri[small_idx].min(axis=0).astype(f32)
+            root_hi = hi_tri[small_idx].max(axis=0).astype(f32)
+        bpad = max(n_big, 1)
+        big_v0 = np.zeros((bpad, 3), f32)
+        big_v1 = np.zeros((bpad, 3), f32)
+        big_v2 = np.zeros((bpad, 3), f32)
+        big_cull = np.zeros(bpad, bool)
+        big_prim = np.full(bpad, -1, np.int32)
+        if n_big:
+            big_v0[:n_big] = tri_v[0][big_idx]
+            big_v1[:n_big] = tri_v[1][big_idx]
+            big_v2[:n_big] = tri_v[2][big_idx]
+            big_cull[:n_big] = tri_cull[big_idx]
+            big_prim[:n_big] = big_idx
+
+        # In-kernel traversal tiers: a 56-triangle clustering of the small
+        # partition (scene.py:653-713). Dense scenes with 1..128 triangles
+        # run them all as one pair record (:719-734).
+        krn_cluster_size = 0
+        krn_cull_mode = -1
         krn_big_cull_mode = -1
-        if 1 <= n_tri <= 128:
+        krn_big_pair = np.zeros((1, 1), f32)
+        krn = _placeholder_tiers()
+        if accel == "binned" and n_small < KRN_MAX_TRIS:
+            t0 = time.perf_counter()
+            kcl = build_cluster_bvh(lo_tri[small_idx], hi_tri[small_idx],
+                                    cluster_size=KRN_CLUSTER)
+            t1 = time.perf_counter()
+            kmembers = np.where(
+                kcl.members >= 0, small_idx[np.maximum(kcl.members, 0)], -1
+            ).astype(np.int32)
+            kidx = np.maximum(kmembers, 0)
+            krn = pack_kernel_tables_np(
+                tri_v[0][kidx], tri_v[1][kidx], tri_v[2][kidx],
+                tri_cull[kidx] & (kmembers >= 0), kmembers,
+                tri_n[0][kidx], tri_n[1][kidx], tri_n[2][kidx],
+                tri_mat[kidx], kcl.c_lo, kcl.c_hi,
+            )
+            krn_cluster_size = KRN_CLUSTER
+            krn_cull_mode = cull_uniformity(tri_cull[kidx][kmembers >= 0])
+            if n_big <= 128:
+                bidx = np.maximum(big_prim, 0)
+                krn_big_pair = pack_pair_record_np(
+                    big_v0, big_v1, big_v2, big_cull, big_prim,
+                    tri_n[0][bidx], tri_n[1][bidx], tri_n[2][bidx], tri_mat[bidx],
+                )
+                krn_big_cull_mode = cull_uniformity(big_cull[big_prim >= 0])
+            BUILD_SECONDS["bvh"] = t1 - t0
+            BUILD_SECONDS["pack"] = time.perf_counter() - t1
+        elif accel == "dense" and 1 <= n_tri <= 128:
             prim = np.arange(tpad, dtype=np.int32)
             prim[n_tri:] = -1
             krn_big_pair = pack_pair_record_np(
@@ -322,6 +500,21 @@ class SceneBuilder:
                 tri_n[0], tri_n[1], tri_n[2], tri_mat,
             )
             krn_big_cull_mode = cull_uniformity(tri_cull[:n_tri])
+
+        emissive_in_dense = True
+        if accel == "binned":
+            emissive_in_dense = all(bool(big_mask[p]) for p in em_prims if p < n_tri)
+        if lean:
+            # A lean scene has no fallback intersector (scene.py:743-769).
+            problems = []
+            if krn_cluster_size == 0:
+                problems.append(f"small partition ({n_small} tris) exceeds {KRN_MAX_TRIS}")
+            if n_big > 128:
+                problems.append(f"big partition ({n_big} tris) exceeds the 128-row pair record")
+            if not emissive_in_dense:
+                problems.append("emissive prims outside the dense partition")
+            if problems:
+                raise ValueError("lean build cannot serve the megakernel: " + "; ".join(problems))
 
         arrays = dict(
             tri_v0=tri_v[0], tri_v1=tri_v[1], tri_v2=tri_v[2],
@@ -335,15 +528,27 @@ class SceneBuilder:
             mat_bsdf=mat_bsdf, mat_one_way=mat_one_way,
             light_pos=light_pos, light_spectrum=light_spec,
             emissive_prim=emissive_prim, emissive_cdf=emissive_cdf,
+            big_v0=big_v0, big_v1=big_v1, big_v2=big_v2, big_cull=big_cull,
+            big_prim=big_prim, root_lo=root_lo, root_hi=root_hi,
             krn_big_pair=krn_big_pair,
+            **dict(zip(KRN_FIELDS, krn)),
         )
         meta = dict(
             n_tri=n_tri, n_sph=n_sph,
             n_point_lights=len(self._point_lights),
             n_emissive=n_emissive,
             emissive_sample_count=emissive_sample_count,
-            accel="dense",
+            accel=accel,
             emissive_all_tri=bool(all(int(x) < n_tri for x in em_prims)),
             krn_big_cull_mode=int(krn_big_cull_mode),
+            n_big=n_big,
+            krn_cluster_size=int(krn_cluster_size),
+            krn_cull_mode=int(krn_cull_mode),
+            emissive_in_dense=bool(emissive_in_dense),
         )
-        return scene_from_numpy(arrays, meta, device)
+        t0 = time.perf_counter()
+        scene = scene_from_numpy(arrays, meta, device)
+        if torch.device(device).type == "cuda":
+            torch.cuda.synchronize(device)
+        BUILD_SECONDS["upload"] = time.perf_counter() - t0
+        return scene

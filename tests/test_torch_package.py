@@ -36,6 +36,10 @@ def _imported_roots(path):
 def test_sources_found():
     srcs = _sources()
     assert os.path.exists(srcs[0]) and len(srcs) > 15
+    # The binned path's modules are among the scanned sources.
+    rel = {os.path.relpath(p, PKG) for p in srcs[1:]}
+    assert {"accel/build.py", "accel/cluster.py", "accel/kernel_traverse.py",
+            "integrator/sorted_wavefront.py", "scene/mesh.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -57,5 +61,6 @@ def test_public_names_follow_the_jax_package():
 def test_kernel_sources_ship_without_binaries():
     csrc = os.path.join(PKG, "csrc")
     names = os.listdir(csrc)
-    assert "megakernel.cu" in names
+    assert {"megakernel.cu", "bounce.cu", "bounce_body.cuh", "cluster_query.cu",
+            "cluster_traverse.cuh", "bvh_build.cpp"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]

@@ -65,20 +65,27 @@ def test_pair_record_form_and_table_form():
 
 
 def test_non_dense_scenes_raise():
+    """The accelerators the port has not got (bvh, sweep, cluster: ROADMAP
+    slice 4) raise; dense and binned scenes build."""
     from cpupathtrace_tpu_torch.models.scenes import cornell_demo_scene
+    from cpupathtrace_tpu_torch.scene.geometry import make_box
 
     b = SceneBuilder()
     for i in range(129):
         b.add_sphere((float(i), 0.0, 0.0), 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         b.build()
+    for accel in ("sweep", "bvh", "cluster"):
+        with pytest.raises(NotImplementedError, match="slice 4"):
+            SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(accel=accel)
+    # The 2000-triangle demo dragon is a sweep scene under the accel rule.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SceneBuilder().build(accel="binned")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cornell_demo_scene()
+        cornell_demo_scene(dragon_tris=2000)
+    with pytest.raises(NotImplementedError, match="load_mesh"):
+        cornell_demo_scene(dragon_obj="dragon.obj")
     arrays, meta = jax_scene_numpy(build_scene("bench_box", "jax"))
     with pytest.raises(NotImplementedError):
-        scene_from_numpy(arrays, dict(meta, accel="binned"))
+        scene_from_numpy(arrays, dict(meta, accel="sweep"))
 
 
 def test_scene_to_device_roundtrip():

@@ -179,3 +179,195 @@ def port_megakernel(case: str, device="cpu", kernel=False):
         seed,
     )
     return spec.cpu().numpy()
+
+
+# ---------------------------------------------------------------------------
+# Binned scenes: the cluster traversal and the sorted driver.
+# ---------------------------------------------------------------------------
+
+SORTED_RAYS = 1024  # one TPU sorted-wavefront block (8 x 128 rays)
+SORTED_SEED = 1234
+SORTED_DEPTH = 4
+
+
+def dragon_scene(pkg: str, tris: int = 1200):
+    """bench_dragon_scene(dragon_tris=tris, accel="binned") of either package."""
+    if pkg == "jax":
+        from cpupathtrace_tpu.models.scenes import bench_dragon_scene
+    else:
+        from cpupathtrace_tpu_torch.models.scenes import bench_dragon_scene
+    return bench_dragon_scene(dragon_tris=tris, accel="binned")
+
+
+def mixed_cull_scene(pkg: str):
+    """tests/test_kernel_traverse.py's mixed-cull binned scene: a ground
+    plane (the big partition) and 400 random triangles, every other one
+    culling."""
+    if pkg == "jax":
+        from cpupathtrace_tpu.scene.geometry import HostTriangle, make_plane
+        from cpupathtrace_tpu.scene.scene import SceneBuilder
+    else:
+        from cpupathtrace_tpu_torch.scene.geometry import HostTriangle, make_plane
+        from cpupathtrace_tpu_torch.scene.scene import SceneBuilder
+    rng = np.random.default_rng(7)
+    b = SceneBuilder()
+    white = b.add_material(diffuse=(1, 1, 1, 1))
+    b.add_triangles(make_plane((30, -1.2, -30), (-30, -1.2, 30), True), white)
+    tris = []
+    for i in range(400):
+        c = rng.uniform(-0.8, 0.8, 3)
+        v = c + rng.normal(scale=0.15, size=(3, 3))
+        tris.append(HostTriangle(v[0], v[1], v[2], cull_backface=bool(i % 2)))
+    b.add_triangles(tris, white)
+    return b.build(accel="binned")
+
+
+def query_rays(n: int, seed: int):
+    """Rays from origins uniform in [-0.9, 0.9]^3 with uniform directions
+    (tests/test_kernel_traverse.py's inputs)."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+# Cluster-query cases: name -> (scene, rays seed, n, limit, any_hit).
+# limit: None (no bound), "uniform" (t_max ~ U(0.05, 1.5)) or "zero".
+QUERY_CASES = {
+    "nearest": ("dragon2000", 1, 2048, None, False),
+    "anyhit": ("dragon2000", 2, 2048, "uniform", True),
+    "inactive": ("dragon2000", 3, 1024, "zero", True),
+    "mixed_cull": ("mixed_cull", 7, 1024, None, False),
+}
+
+
+def query_inputs(case: str):
+    scene_name, seed, n, limit, any_hit = QUERY_CASES[case]
+    o, d = query_rays(n, seed)
+    lim = None
+    if limit == "uniform":
+        lim = np.random.default_rng(seed + 100).uniform(0.05, 1.5, n).astype(np.float32)
+    elif limit == "zero":
+        lim = np.zeros(n, np.float32)
+    return scene_name, o, d, lim, any_hit
+
+
+def query_scene(name: str, pkg: str):
+    return mixed_cull_scene(pkg) if name == "mixed_cull" else dragon_scene(pkg, 2000)
+
+
+def jax_cluster_query(case: str):
+    """JAX cluster_intersect_kernel (interpret mode) on a QUERY_CASES case:
+    (t [n] f32, prim [n] i32)."""
+    from cpupathtrace_tpu.accel.kernel_traverse import cluster_intersect_kernel
+
+    name, o, d, lim, any_hit = query_inputs(case)
+    t, p = cluster_intersect_kernel(query_scene(name, "jax"), o, d, t_max=lim,
+                                    any_hit=any_hit, interpret=True)
+    return np.asarray(t), np.asarray(p)
+
+
+def sorted_rays(n: int = SORTED_RAYS, seed: int = 0):
+    """Rays into the dragon from just inside the box's front wall."""
+    rng = np.random.default_rng(seed)
+    o = np.zeros((n, 3), np.float32)
+    o[:, 2] = -0.9
+    o[:, :2] = rng.uniform(-0.3, 0.3, (n, 2))
+    d = rng.normal(size=(n, 3))
+    d[:, 2] = np.abs(d[:, 2]) + 1.0
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d.astype(np.float32)
+
+
+def jax_bounce_states(depth: int = SORTED_DEPTH):
+    """The JAX single-bounce kernel `_bounce_call` (interpret mode) run
+    `depth` times from the fresh state of `sorted_rays` on the 1200-triangle
+    dragon, no sorting: [depth + 1, 18, n] f32 states in the port's layout
+    (plane 0 = the rng bits)."""
+    import jax
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.integrator.pallas_megakernel import _pack_tables
+    from cpupathtrace_tpu.integrator.sorted_wavefront import _bounce_call, _seed_rng_flat
+
+    scene = dragon_scene("jax")
+    o, d = sorted_rays()
+    n = o.shape[0]
+    tables = _pack_tables(scene) + (
+        scene.krn_sup_bounds, scene.krn_hyp_bounds, scene.krn_cl_bounds,
+        scene.krn_records, scene.krn_big_pair,
+    )
+    statics = dict(
+        n_tri=int(scene.big_v0.shape[0]), n_sph=int(scene.sph_center.shape[0]),
+        n_mat=int(scene.num_materials), n_lights=int(scene.n_point_lights),
+        n_em=int(scene.n_emissive), em_k=int(scene.emissive_sample_count),
+        epsilon=1e-3, n_super=int(scene.krn_cl_bounds.shape[0]), block_rows=8,
+        cull_mode=int(scene.krn_cull_mode), big_cull_mode=int(scene.krn_big_cull_mode),
+    )
+    ones = jnp.ones(n, jnp.float32)
+    zeros = jnp.zeros(n, jnp.float32)
+    st = (_seed_rng_flat(jnp.int32(SORTED_SEED), jnp.arange(n, dtype=jnp.int32)),
+          *(jnp.asarray(o[:, j]) for j in range(3)), *(jnp.asarray(d[:, j]) for j in range(3)),
+          ones, ones, ones, zeros, zeros, zeros, ones, ones, ones, zeros, ones)
+
+    def port_layout(st):
+        planes = [np.asarray(a).reshape(-1) for a in st]
+        planes[0] = planes[0].astype(np.uint32).view(np.float32)
+        return np.stack(planes)
+
+    states = [port_layout(st)]
+    with pallas_interpret():
+        for k in range(depth):
+            st2d = tuple(a.reshape(n // 128, 128) for a in st)
+            out = _bounce_call(tables, jnp.stack([jnp.int32(SORTED_SEED), jnp.int32(k)]),
+                               st2d, **statics)
+            st = tuple(a.reshape(-1) for a in out)
+            states.append(port_layout(st))
+    jax.block_until_ready(st)
+    return np.stack(states)
+
+
+def jax_sorted_trace(depth: int = SORTED_DEPTH):
+    """JAX trace_megakernel_sorted(sort=False), interpret mode, on
+    `sorted_rays` and the 1200-triangle dragon: spectrum [n, 4]."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.core.config import RenderOptions
+    from cpupathtrace_tpu.core.rays import Rays
+    from cpupathtrace_tpu.integrator.sorted_wavefront import trace_megakernel_sorted
+
+    o, d = sorted_rays()
+    with pallas_interpret():
+        spec, _ = trace_megakernel_sorted(
+            dragon_scene("jax"), Rays(jnp.asarray(o), jnp.asarray(d)),
+            RenderOptions(8, 8, 1, 1, max_depth=depth), SORTED_SEED, sort=False,
+        )
+    return np.asarray(spec)
+
+
+def f64_oracle(records, o, d, t_lim):
+    """float64 nearest hit over every live row of the port's records
+    [C, L, 32] (tests/test_kernel_traverse.py's oracle): (t, prim), -1 on
+    a miss; hits count only below t_lim."""
+    rec = np.asarray(records, np.float64)
+    prim = rec[..., 17].reshape(-1)
+    live = prim >= 0
+    f = rec.reshape(-1, rec.shape[-1])[live]
+    prim = prim[live]
+    o = o.astype(np.float64)
+    d = d.astype(np.float64)
+    m = np.cross(o, d)
+    det = d @ f[:, 0:3].T
+    un = m @ f[:, 3:6].T + d @ f[:, 6:9].T
+    vn = m @ f[:, 9:12].T + d @ f[:, 12:15].T
+    tn = -(o @ f[:, 0:3].T) - f[None, :, 15]
+    sgn = np.where(det >= 0, 1.0, -1.0)
+    sd, su, sv, st = det * sgn, un * sgn, vn * sgn, tn * sgn
+    ok = ((np.minimum(np.minimum(su, sv), sd - su - sv) >= 0) & (st >= 0) & (sd > 1e-6)
+          & ((f[None, :, 16] < 0.5) | (det > 0)))
+    tv = np.where(ok, st / np.where(ok, sd, 1.0), np.inf)
+    tv = np.where(tv < t_lim[:, None], tv, np.inf)
+    best = tv.min(axis=1)
+    hit = np.isfinite(best)
+    return np.where(hit, best, -1.0), np.where(hit, prim[tv.argmin(axis=1)], -1).astype(np.int32)
