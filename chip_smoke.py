@@ -29,6 +29,23 @@ Phases, one line each; any failure exits non-zero:
      frame, and K2's time beside the twin's on the frame's 262,144 rays
      at depth 1
  10. the demo scene with its 20k-triangle dragon (binned), as phase 6
+ 11. the dense query K5 against its plain version on 262,144 rays (the box
+     frame's camera rays and one bounce's worth of random rays in the box):
+     prim, hit and t equal on every ray; K5's and the plain version's ms
+ 12. the wavefront forward on the card (PTX_NO_MEGAKERNEL=1): golden parity
+     at 32x32 with phase 4's checks, and the box at 128x128 @ 16 spp,
+     max_depth 12 against K1's frame (mean within 4 standard errors), with
+     K5's launch count > 0 and no plain calls
+ 13. K2's record form against its twin on the box (dense) and the 200k
+     dragon (binned) at depths 0 and 5: the 18 planes and the record planes
+     of live rays equal, and the recording forward bit-equal to the plain
+ 14. renderSceneBoxGrad at full width (bench.py:253-260: 128x128 @ 16 spp,
+     max_depth 12, zero target) through `loss_and_grad`: ms per pass
+     (median of 3 batches of 5 after 2 warm passes), Mrays/s fwd+bwd, K2
+     record launches, peak memory, one profiled pass; the same pass with
+     PTX_DIFF_MEGAKERNEL=0 (the wavefront and K5); analytic vs finite
+     difference gradients for both routes at 32x32 @ 8 spp, max_depth 4
+ 15. inverse_render: 10 Adam steps at 32x32 @ 8 spp on the card
 Then one JSON line with the kernels' figures and, last, the result line.
 With --out, the demo PNGs and every measured figure are also written there.
 """
@@ -68,7 +85,22 @@ PATH_RAYS = 16384
 # above. Both kernels do their plain versions' float32 operations in the
 # same order; on an H100 they measured equal on every ray.
 QUERY_FRAC, QUERY_RTOL, PLANE_FRAC = 0.999, 1e-6, 0.999
-KERNELS = ("megakernel", "bounce", "cluster_query", "bvh_build")
+KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "bvh_build")
+# The least time the card could take for a kernel's work: the larger of
+# its bytes over HBM's rate
+# and its float32 operations over the FP32 peak (NVIDIA H100 SXM data
+# sheet), with the JAX package's work model (utils/roofline.py:84-116):
+# 64 flops per ray-primitive test, ~300 estimator flops per ray-bounce.
+H100_BYTES_S = 3.35e12
+H100_FP32_S = 67e12
+TEST_FLOPS = 64
+VERTEX_FLOPS = 300
+# renderSceneBoxGrad (bench.py:253-260) and the FD / inverse-rendering
+# checks on the card.
+GRAD_W = GRAD_H = 128
+GRAD_SPP = 16
+GRAD_DEPTH = 12
+K5_RAYS = 262144
 
 
 class SmokeFailure(RuntimeError):
@@ -191,7 +223,7 @@ def phase_golden(film, RenderOptions):
     return results
 
 
-def phase_main_path(pt, mk, scenes):
+def phase_main_path(pt, mk, sw, scenes):
     opts = pt.RenderOptions(BOX_W, BOX_H, BOX_SPP, BOX_SPP, epsilon=1e-3, max_depth=MAX_DEPTH)
     scene = scenes.bench_box_scene()
     camera = scenes.bench_camera()
@@ -239,23 +271,46 @@ def phase_main_path(pt, mk, scenes):
     agree = compare(k_spec, t_spec)
     check_agreement("main-path shape", agree)
     line("5 profile", **profile_frame(pt, scene, camera, opts))
+    n = int(rays.origin.shape[0])
+    ray_bounces, live = twin_ray_bounces(sw, sc, camera.to("cuda"), opts, n)
+    k1_bound = bound(n * (24 + 16), ray_bounces * (
+        tests_per_vertex(sc, sc.n_tri + sc.n_sph) * TEST_FLOPS + VERTEX_FLOPS))
     return dict(launches=launches, twin_calls=twin_calls, image_mean=mean,
                 frame_s=frames, frame_median_s=frame_s, mrays_per_s=mrays,
-                rays=int(rays.origin.shape[0]), kernel_ms=kernel_ms,
-                twin_ms=plain_ms, kernel_mrays_per_s=rays.origin.shape[0] / kernel_ms / 1e3,
-                agreement=agree)
+                rays=n, kernel_ms=kernel_ms,
+                twin_ms=plain_ms, kernel_mrays_per_s=n / kernel_ms / 1e3,
+                agreement=agree, ray_bounces=ray_bounces, twin_live_per_bounce=live, **k1_bound)
+
+
+def bound(nbytes, flops):
+    """bound_ms / bound_by of a kernel call that must move `nbytes` and do
+    `flops` float32 operations."""
+    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_FP32_S
+    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
+                bound_bytes=nbytes, bound_flops=flops)
+
+
+def tests_per_vertex(scene, n_prims):
+    """Primitive tests of one ray-bounce of the estimator: the nearest query
+    and one shadow query per point light and per emitter draw."""
+    return (1 + scene.n_point_lights + scene.emissive_sample_count) * n_prims
 
 
 def profile_frame(pt, scene, camera, opts, kernel="megakernel"):
-    """One main-path frame under torch.profiler: device time by kernel
-    name (top 6), the share of kernels named `kernel`, and the device's
-    busy share of the frame's wall time (the union of kernel intervals)."""
+    """One main-path frame under torch.profiler (see profile_run)."""
+    return profile_run(lambda: pt.render(scene, camera, opts, seed=7, device="cuda"), kernel)
+
+
+def profile_run(fn, kernel):
+    """fn() under torch.profiler: device time by kernel name (top 6), the
+    share of kernels named `kernel`, and the device's busy share of the
+    wall time (the union of kernel intervals)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         sync()
         t0 = time.perf_counter()
-        pt.render(scene, camera, opts, seed=7, device="cuda")
+        fn()
         sync()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
@@ -369,6 +424,10 @@ def phase_cluster_query(kt, scene):
     out["max_abs_err"] = max(out["nearest"]["max_abs_err"], out["any_hit"]["max_abs_err"])
     out["ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, o, d), 5)
     out["any_hit_ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, o, d, lim, any_hit=True), 5)
+    # Lower bound: each nearest hit tested at least one 56-triangle record
+    # (the traversal's visit counters are not ported).
+    out.update(bound(n * (24 + 4 + 8), out["nearest"]["hits"] * scene.krn_cluster_size
+                     * TEST_FLOPS))
     return out
 
 
@@ -499,13 +558,282 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     kernel_ms = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables), 5)
     profile = profile_frame(pt, scene, camera, opts, kernel="bounce_kernel")
     line("9 profile", **profile)
+    # Lower bound: the big-partition tests of each query and the estimator;
+    # the cluster tests are not counted (no visit counters).
+    live = agree["alive_in"]
+    k2_bound = bound(live * 144 + (n_paths - live) * 4, live * (
+        tests_per_vertex(scene, scene.n_big + scene.n_sph) * TEST_FLOPS + VERTEX_FLOPS))
     return dict(launches=launches, twin_calls=twin_calls, image_mean=mean, frame_s=frames,
                 frame_median_s=frame_s, mrays_per_s=n_paths / frame_s / 1e6, paths=n_paths,
                 bounces=len(timing["bounce_ms"]), bounce_ms=timing["bounce_ms"],
                 sort_gather_ms=timing["sort_ms"], driver_wall_ms=driver_s * 1e3,
                 driver_events_ms=events_ms, unsorted=unsorted,
                 kernel_ms=kernel_ms, twin_ms=plain_ms, agreement=agree,
-                busy_share=profile["busy_share"])
+                busy_share=profile["busy_share"], **k2_bound)
+
+
+def twin_ray_bounces(sw, scene, camera, opts, n_rays):
+    """Executed ray-bounces of a K1 frame of `n_rays` paths, from the live
+    counts of the twin's bounce at a reduced size (128x128 @ 1 spp, the
+    same estimator and stopping rules), scaled to `n_rays`."""
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+
+    small = RenderOptions(128, 128, 1, 1, epsilon=opts.epsilon, max_depth=opts.max_depth)
+    _, st = camera_state(sw, camera, small, 1, 3)
+    counts = []
+    for depth in range(int(opts.max_depth)):
+        live = int((st[17] > 0.5).sum())
+        if live == 0:
+            break
+        counts.append(live)
+        sw.bounce_reference(scene, st, depth, opts)
+    return sum(counts) * n_rays / st.shape[1], counts
+
+
+def phase_dense_query(oi, sw, scenes, RenderOptions):
+    """K5 through `dense_intersect` (counts zeroed just before, read just
+    after), then against its plain version on the same 262,144 rays."""
+    scene = scenes.bench_box_scene()
+    opts = RenderOptions(GRAD_W, GRAD_H, 8, 8)
+    rays, _ = camera_state(sw, scenes.bench_camera(), opts, 8, 11)
+    n_cam = rays.origin.shape[0]
+    rng = np.random.default_rng(2)
+    d2 = rng.normal(size=(K5_RAYS - n_cam, 3))
+    d2 /= np.linalg.norm(d2, axis=1, keepdims=True)
+    o = torch.cat([rays.origin, torch.tensor(rng.uniform(-0.95, 0.95, (K5_RAYS - n_cam, 3)),
+                                             dtype=torch.float32, device="cuda")])
+    d = torch.cat([rays.direction, torch.tensor(d2, dtype=torch.float32, device="cuda")])
+    oi.dense_intersect.launches = 0
+    oi.dense_intersect_reference.calls = 0
+    t_k, p_k = oi.dense_intersect(scene, o, d)
+    sync()
+    launches, plain_calls = oi.dense_intersect.launches, oi.dense_intersect_reference.calls
+    need(launches == 1 and plain_calls == 0,
+         f"dense query path: {launches} launches, {plain_calls} plain calls")
+    t_p, p_p = oi.dense_intersect_reference(scene, o, d)
+    res = dict(rays=K5_RAYS, camera_rays=n_cam, launches=launches, hits=int((p_p >= 0).sum()),
+               prim_equal=float((p_k == p_p).float().mean()),
+               hit_equal=float(((p_k >= 0) == (p_p >= 0)).float().mean()),
+               t_equal=float((t_k == t_p).float().mean()),
+               max_abs_err=float((t_k - t_p).abs().max()))
+    need(res["prim_equal"] == res["hit_equal"] == res["t_equal"] == 1.0,
+         f"K5 disagrees with its plain version: {res}")
+    tables = oi.dense_tables(scene)
+    res["ms"] = cuda_ms(lambda: oi.dense_intersect(scene, o, d, tables), 20)
+    res["plain_ms"] = cuda_ms(lambda: oi.dense_intersect_reference(scene, o, d, tables), 5)
+    res.update(bound(K5_RAYS * (24 + 8), K5_RAYS * (scene.n_tri + scene.n_sph) * TEST_FLOPS))
+    return res
+
+
+def phase_wavefront(pt, film, oi, mk, scenes, RenderOptions):
+    """The forward wavefront on the card (PTX_NO_MEGAKERNEL=1): golden
+    parity, then the box frame against K1's."""
+    opts = RenderOptions(GRAD_W, GRAD_H, GRAD_SPP, GRAD_SPP, epsilon=1e-3, max_depth=GRAD_DEPTH)
+    scene, camera = scenes.bench_box_scene(), scenes.bench_camera()
+    os.environ["PTX_NO_MEGAKERNEL"] = "1"
+    try:
+        oi.dense_intersect.launches = 0
+        oi.dense_intersect_reference.calls = 0
+        mk.trace_megakernel.launches = 0
+        golden_res = phase_golden(film, RenderOptions)
+        sync()
+        t0 = time.perf_counter()
+        img_w = pt.render(scene, camera, opts, seed=1, device="cuda")
+        sync()
+        frame_s = time.perf_counter() - t0
+        k5, plain, k1 = (oi.dense_intersect.launches, oi.dense_intersect_reference.calls,
+                         mk.trace_megakernel.launches)
+    finally:
+        del os.environ["PTX_NO_MEGAKERNEL"]
+    need(k5 > 0 and plain == 0 and k1 == 0,
+         f"wavefront path: K5 {k5} launches, {plain} plain calls, K1 {k1} launches")
+    img_k = pt.render(scene, camera, opts, seed=2, device="cuda")
+    need(np.isfinite(img_w).all() and bool((img_w[..., 3] == 1.0).all()), "wavefront box image")
+    diff_px = img_w[..., :3].mean(-1).astype(np.float64) - img_k[..., :3].mean(-1)
+    se = float(diff_px.std() / np.sqrt(diff_px.size))
+    res = dict(golden=golden_res, k5_launches=k5, plain_calls=plain, box_frame_s=frame_s,
+               box_mean_wavefront=float(img_w[..., :3].mean()),
+               box_mean_k1=float(img_k[..., :3].mean()), mean_diff=float(diff_px.mean()),
+               std_err=se)
+    need(abs(res["mean_diff"]) <= 4 * se, f"wavefront box frame differs from K1's: {res}")
+    return res
+
+
+def compare_records(rk, rt, live):
+    same = (rk[:, live].view(torch.int32) == rt[:, live].view(torch.int32)).float().mean(1)
+    return [round(float(v), 6) for v in same], float((rk[:, live] - rt[:, live]).abs().max())
+
+
+def phase_records(sw, mk, scenes, dragon, RenderOptions):
+    """K2's record form against its twin from the same state, dense (the
+    box) and binned (the 200k dragon); the recording forward against the
+    plain kernel."""
+    camera = scenes.bench_camera()
+    opts = RenderOptions(DRAGON_W, DRAGON_H, 1, 1, epsilon=1e-3, max_depth=MAX_DEPTH)
+    out = {}
+    for name, scene in (("box", scenes.bench_box_scene()), ("dragon", dragon)):
+        tables = mk.pack_tables(scene)
+        _, st = camera_state(sw, camera, opts, 1, 77)
+        n = st.shape[1]
+        nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+        for depth in (0, 5):
+            k, t, plain = st.clone(), st.clone(), st.clone()
+            rk = torch.empty((nd, n), device="cuda")
+            rt = torch.empty((nd, n), device="cuda")
+            sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
+            sw.bounce(scene, k, sd, opts, tables, records=rk)
+            sw.bounce(scene, plain, sd, opts, tables)
+            sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
+            sync()
+            res = compare_planes(k, t)
+            res["records_equal"], res["records_max_abs_err"] = compare_records(rk, rt, st[17] > 0.5)
+            res["recording_equals_plain"] = bool(torch.equal(k.view(torch.int32),
+                                                             plain.view(torch.int32)))
+            res["alive_in"] = int((st[17] > 0.5).sum())
+            out[f"{name}_depth{depth}"] = res
+            need(res["min_plane_equal"] == 1.0 and min(res["records_equal"]) == 1.0
+                 and res["recording_equals_plain"], f"K2 record form, {name} depth {depth}: {res}")
+            st = k
+    out["max_abs_err"] = max(max(v["max_abs_err"], v["records_max_abs_err"])
+                             for v in out.values())
+    return out
+
+
+def grad_checks(diff, golden, RenderOptions):
+    """Analytic vs central-difference gradients on the card at 32x32 @ 8
+    spp, max_depth 4 (test_diff.py:66's rtol 0.05, atol 1e-4), for the
+    route PTX_DIFF_MEGAKERNEL currently selects."""
+    scene, cam = golden.inward_box_scene(), golden.box_camera()
+    opts = RenderOptions(32, 32, 8, 8, max_depth=4)
+    target = diff.render_image_diff(scene, cam, opts, 99, 8).detach()
+    params = diff.get_material_params(scene)
+    _, g = diff.loss_and_grad(params, scene, cam, opts, target, 0, 8)
+    out = {}
+    for field, idx in (("mat_diffuse", (1, 0)), ("mat_emission", (2, 1))):
+        fd = diff.finite_difference_grad(params, scene, cam, opts, target, 0, 8, field, idx,
+                                         eps=2e-3)
+        an = float(g[field][idx])
+        out[f"{field}{list(idx)}"] = dict(analytic=an, fd=fd)
+        need(np.isfinite(an) and abs(an - fd) <= 1e-4 + 0.05 * abs(fd),
+             f"gradient vs FD on the card: {field}{idx} {an} vs {fd}")
+    return out
+
+
+def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions):
+    """renderSceneBoxGrad through loss_and_grad (bench.py:240-319), the
+    record route and then the wavefront route."""
+    scene, camera = scenes.bench_box_scene(), scenes.bench_camera()
+    opts = RenderOptions(GRAD_W, GRAD_H, GRAD_SPP, GRAD_SPP, epsilon=1e-3, max_depth=GRAD_DEPTH)
+    params = diff.get_material_params(scene)
+    target = torch.zeros((GRAD_W * GRAD_H, 4), device="cuda")
+    n_rays = GRAD_W * GRAD_H * GRAD_SPP
+
+    def one(key):
+        return diff.loss_and_grad(params, scene, camera, opts, target, key, GRAD_SPP)
+
+    def counts_zero():
+        sw.bounce.launches = sw.bounce.record_launches = sw.bounce_reference.calls = 0
+        oi.dense_intersect.launches = oi.dense_intersect_reference.calls = 0
+
+    def counts():
+        return dict(k2=sw.bounce.launches, k2_records=sw.bounce.record_launches,
+                    k2_twin=sw.bounce_reference.calls, k5=oi.dense_intersect.launches,
+                    k5_plain=oi.dense_intersect_reference.calls)
+
+    def run_route(batches, per_batch, warm):
+        counts_zero()
+        torch.cuda.reset_peak_memory_stats()
+        loss, g = one(5)
+        sync()
+        res = dict(counts=counts(), peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   loss=float(loss), grad_diffuse_wall=[float(v) for v in g["mat_diffuse"][1, :3]],
+                   grad_emission_panel=[float(v) for v in g["mat_emission"][2, :3]])
+        need(np.isfinite(res["loss"]) and all(torch.isfinite(v).all() for v in g.values())
+             and float(g["mat_diffuse"][1].abs().sum()) > 0, f"gradient pass: {res}")
+        for j in range(warm):
+            one(1000 + j)
+        sync()
+        batch_ms, i = [], 0
+        for _ in range(batches):
+            t0 = time.perf_counter()
+            for _ in range(per_batch):
+                one(i)
+                i += 1
+            sync()
+            batch_ms.append((time.perf_counter() - t0) / per_batch * 1e3)
+        med = float(np.median(batch_ms))
+        res.update(batch_ms_per_pass=batch_ms, ms_per_pass=med,
+                   mrays_per_s_fwd_bwd=n_rays / med / 1e3)
+        return res
+
+    out = {"rays_per_pass": n_rays}
+    out["replay"] = run_route(3, 5, 2)
+    c = out["replay"]["counts"]
+    need(c["k2_records"] > 0 and c["k2_twin"] == 0,
+         f"renderSceneBoxGrad did not run K2's record form alone: {c}")
+    out["replay"]["profile"] = profile_run(lambda: one(99), "bounce_kernel")
+    out["replay"]["fd"] = grad_checks(diff, golden, RenderOptions)
+    os.environ["PTX_DIFF_MEGAKERNEL"] = "0"
+    try:
+        out["wavefront"] = run_route(1, 3, 1)
+        c = out["wavefront"]["counts"]
+        need(c["k5"] > 0 and c["k5_plain"] == 0 and c["k2"] == 0,
+             f"renderSceneBoxGrad's wavefront route: {c}")
+        out["wavefront"]["profile"] = profile_run(lambda: one(98), "dense_query")
+        out["wavefront"]["fd"] = grad_checks(diff, golden, RenderOptions)
+    finally:
+        del os.environ["PTX_DIFF_MEGAKERNEL"]
+
+    # K2's record form alone on the pass's rays at depth 1, beside its twin.
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    tables = mk.pack_tables(scene)
+    _, st = camera_state(sw, camera, opts, GRAD_SPP, 5)
+    nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+    rec = torch.empty((nd, n_rays), device="cuda")
+    sw.bounce(scene, st, torch.tensor([5, 0], dtype=torch.int32, device="cuda"), opts, tables,
+              records=rec)
+    sd = torch.tensor([5, 1], dtype=torch.int32, device="cuda")
+    k, t = st.clone(), st.clone()
+    rk, rt = torch.empty_like(rec), torch.empty_like(rec)
+    sw.bounce(scene, k, sd, opts, tables, records=rk)
+    sync()
+    t0 = time.perf_counter()
+    sw.bounce_reference(scene, t, 1, opts, tables, records=rt)
+    sync()
+    kr = dict(plain_ms=(time.perf_counter() - t0) * 1e3, alive_in=int((st[17] > 0.5).sum()))
+    kr.update(compare_planes(k, t))
+    kr["records_equal"], kr["records_max_abs_err"] = compare_records(rk, rt, st[17] > 0.5)
+    need(kr["min_plane_equal"] == 1.0 and min(kr["records_equal"]) == 1.0,
+         f"K2 record form at the gradient pass's shape: {kr}")
+    copies = iter([st.clone() for _ in range(5)])
+    kr["ms"] = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables, records=rk), 5)
+    live = kr["alive_in"]
+    kr.update(bound(live * 144 + (n_rays - live) * 4 + n_rays * nd * 4,
+                    live * (tests_per_vertex(scene, scene.n_tri + scene.n_sph) * TEST_FLOPS
+                            + VERTEX_FLOPS)))
+    out["record_kernel"] = kr
+    return out
+
+
+def phase_inverse_render(diff, golden, RenderOptions):
+    """A few Adam steps of inverse_render on the card: the wall albedo from
+    0.3 toward the target's 1.0."""
+    scene, cam = golden.inward_box_scene(), golden.box_camera()
+    opts = RenderOptions(32, 32, 8, 8, max_depth=4)
+    target = diff.render_image_diff(scene, cam, opts, 7, 16).detach()
+    init = {"mat_diffuse": scene.mat_diffuse.clone()}
+    init["mat_diffuse"][1, :3] = 0.3
+    sync()
+    t0 = time.perf_counter()
+    rec, losses = diff.inverse_render(scene, cam, opts, target, init, steps=10,
+                                      learning_rate=0.05, spp=8)
+    sync()
+    res = dict(seconds=time.perf_counter() - t0, losses=[float(v) for v in losses],
+               albedo=[float(v) for v in rec["mat_diffuse"][1, :3]])
+    need(np.isfinite(losses).all() and losses[-1] < losses[0]
+         and min(res["albedo"]) > 0.3, f"inverse_render did not move: {res}")
+    return res
 
 
 def main():
@@ -524,7 +852,9 @@ def main():
     from cpupathtrace_tpu_torch.integrator import film
     from cpupathtrace_tpu_torch.integrator import megakernel as mk
     from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
-    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch import diff
+    from cpupathtrace_tpu_torch.models import golden, scenes
+    from cpupathtrace_tpu_torch.ops import intersect as oi
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -555,7 +885,7 @@ def main():
     line("3 kernel vs twin", **report["kernel_vs_twin"])
     report["golden"] = phase_golden(film, pt.RenderOptions)
     line("4 golden parity", **report["golden"])
-    report["main_path"] = phase_main_path(pt, mk, scenes)
+    report["main_path"] = phase_main_path(pt, mk, sw, scenes)
     line("5 main path", **report["main_path"])
     report["demo"] = phase_demo(pt, scenes, args.out)
     line("6 demo", **report["demo"])
@@ -577,40 +907,71 @@ def main():
          f"demo with dragon did not run the bounce kernel alone: {report['demo_dragon']}")
     line("10 demo with dragon", **report["demo_dragon"])
 
+    report["dense_query"] = phase_dense_query(oi, sw, scenes, pt.RenderOptions)
+    line("11 dense query vs plain", **report["dense_query"])
+    report["wavefront"] = phase_wavefront(pt, film, oi, mk, scenes, pt.RenderOptions)
+    line("12 wavefront forward", **report["wavefront"])
+    report["records"] = phase_records(sw, mk, scenes, dragon, pt.RenderOptions)
+    line("13 record form vs twin", **report["records"])
+    report["box_grad"] = phase_box_grad(diff, sw, oi, scenes, golden, pt.RenderOptions)
+    line("14 renderSceneBoxGrad", **report["box_grad"])
+    report["inverse_render"] = phase_inverse_render(diff, golden, pt.RenderOptions)
+    line("15 inverse_render", **report["inverse_render"])
+
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
     query = report["cluster_query"]
+    k5 = report["dense_query"]
+    grad = report["box_grad"]
+    krec = grad["record_kernel"]
+
+    def figures(d):
+        return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
+
+    k3 = ("K3, cpupathtrace_tpu_torch/csrc/cluster_traverse.cuh "
+          "(cpupathtrace_tpu/accel/kernel_traverse.py:1041,1106)")
     kernels = {"kernels": [{
-        "name": "megakernel",
-        "route": "cuda",
+        "name": "megakernel", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/megakernel.cu",
         "replaces": "cpupathtrace_tpu/integrator/pallas_megakernel.py:345",
         "launches": main_path["launches"],
         "max_abs_err": main_path["agreement"]["max_abs_err"],
-        "ms": main_path["kernel_ms"],
-        "plain_ms": main_path["twin_ms"],
+        "ms": main_path["kernel_ms"], "plain_ms": main_path["twin_ms"],
+        "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
+        "library_ms": None,
     }, {
-        "name": "bounce",
-        "route": "cuda",
+        "name": "bounce", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
         "replaces": "cpupathtrace_tpu/integrator/sorted_wavefront.py:252",
-        "inlines": "K3, cpupathtrace_tpu_torch/csrc/cluster_traverse.cuh "
-                   "(cpupathtrace_tpu/accel/kernel_traverse.py:1041,1106)",
+        "inlines": k3,
         "launches": dragon_path["launches"],
         "max_abs_err": dragon_path["agreement"]["max_abs_err"],
-        "ms": dragon_path["kernel_ms"],
-        "plain_ms": dragon_path["twin_ms"],
+        "ms": dragon_path["kernel_ms"], "plain_ms": dragon_path["twin_ms"],
+        "bound_ms": dragon_path["bound_ms"], "bound_by": dragon_path["bound_by"],
+        "library_ms": None,
     }, {
-        "name": "cluster_query",
-        "route": "cuda",
+        "name": "bounce_records", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
+        "replaces": "cpupathtrace_tpu/integrator/sorted_wavefront.py:252",
+        "launches": grad["replay"]["counts"]["k2_records"],
+        "max_abs_err": max(report["records"]["max_abs_err"], krec["max_abs_err"],
+                           krec["records_max_abs_err"]),
+        **figures(krec), "library_ms": None,
+    }, {
+        "name": "cluster_query", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/cluster_query.cu",
         "replaces": "cpupathtrace_tpu/accel/kernel_traverse.py:1201",
-        "inlines": "K3, cpupathtrace_tpu_torch/csrc/cluster_traverse.cuh "
-                   "(cpupathtrace_tpu/accel/kernel_traverse.py:1041,1106)",
+        "inlines": k3,
         "launches": query["launches"],
         "max_abs_err": query["max_abs_err"],
-        "ms": query["ms"],
-        "plain_ms": query["plain_ms"],
+        **figures(query), "library_ms": None,
+    }, {
+        "name": "dense_intersect", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/dense_query.cu",
+        "replaces": "cpupathtrace_tpu/ops/pallas_intersect.py:31",
+        "launches": grad["wavefront"]["counts"]["k5"],
+        "max_abs_err": k5["max_abs_err"],
+        **figures(k5), "library_ms": None,
     }]}
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:

@@ -1,10 +1,15 @@
 """cpupathtrace_tpu_torch: the path tracer of `cpupathtrace_tpu`, ported to
 PyTorch with hand-written CUDA kernels for an NVIDIA H100 (sm_90a).
 
-This slice covers the dense-scene render path: scene build, camera, the
-path-trace megakernel (csrc/megakernel.cu, with a plain-torch twin for the
-CPU), the adaptive film, tone mapping and PNG output. Names are spelled as in
-the JAX package's `__all__`. The package imports torch and numpy, never jax.
+Ported so far: the scene build (dense and binned scenes), camera, the
+render path through the megakernel (K1), the sorted driver with its bounce
+kernel (K2) and cluster traversal (K3, K4), the wavefront fallback with its
+dense query kernel (K5), differentiable rendering (`diff`: K2's record form
+and a torch replay for the backward), the adaptive film, tone mapping and
+PNG output. Every kernel has a plain-torch version that CPU tensors take.
+Entry points that build tensors run on the CUDA card unless the caller
+passes device="cpu". Names are spelled as in the JAX package's `__all__`.
+The package imports torch and numpy, never jax.
 """
 from .core.config import RenderOptions
 from .core.rays import Rays
@@ -33,6 +38,8 @@ from .scene.geometry import (
     transform_triangles,
 )
 from .integrator.film import render, render_chunk, render_tile
+from .integrator.wavefront import trace
+from .diff.render import material_params_from_numpy
 from .post import gamma_correct, post_process, tone_map
 from .utils.image_io import read_rgb_image, write_rgb_image
 
@@ -42,10 +49,11 @@ __all__ = [
     "RenderOptions", "Rays", "Camera", "make_camera", "shoot_rays",
     "APERTURE_NONE", "APERTURE_CIRCULAR", "APERTURE_HEXAGONAL",
     "Material", "SceneBuilder", "SceneData", "scene_from_numpy",
+    "material_params_from_numpy",
     "BSDF_LAMBERTIAN", "BSDF_GLASS", "BSDF_MIRROR",
     "HostTriangle", "TriangleBatch", "make_plane", "make_box",
     "transform_triangles",
-    "render", "render_chunk", "render_tile",
+    "render", "render_chunk", "render_tile", "trace",
     "tone_map", "gamma_correct", "post_process",
     "read_rgb_image", "write_rgb_image",
 ]

@@ -6,8 +6,9 @@ look-at frame with signed aspect ratio, sub-pixel jitter, circular aperture
 flips), the reference's aperture-axis quirk (x along `up`, y along `right`,
 camera.cpp:99) and the thin-lens focal plane.
 
-The random draws come from an explicit `torch.Generator`, or are passed in
-through `uniforms` (tests feed the JAX package's draws to compare rays).
+The random draws come from an explicit `torch.Generator` (or a
+RecordedDraws, integrator/rng.py), or are passed in through `uniforms`
+(tests feed the JAX package's draws to compare rays).
 """
 from __future__ import annotations
 
@@ -16,7 +17,9 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..core.config import resolve_device
 from ..core.rays import Rays
+from ..integrator.rng import uniform
 from ..utils.math import PI, dot, normalize
 
 APERTURE_NONE = "none"
@@ -59,10 +62,11 @@ def make_camera(
     aperture: str = APERTURE_NONE,
     hex_horizontal_ratio: float = 0.5,
     focal_plane_dist: float = 0.0,
-    device="cpu",
+    device=None,
 ) -> Camera:
     """Look-at construction (ref: src/camera.cpp:54-76), numpy arithmetic
-    identical to the JAX package's."""
+    identical to the JAX package's, on `device` (default: the CUDA card)."""
+    device = resolve_device(device)
     origin = np.asarray(origin, np.float32)
     look_at = np.asarray(look_at, np.float32)
     up = np.asarray(up, np.float32)
@@ -102,7 +106,7 @@ def draw_uniforms(camera: Camera, n: int, generator: torch.Generator,
     [-0.5, 0.5); "aperture" [n,2] (circular) or "hex" [n,16,2] and
     "flips" [n,2] bool (hexagonal)."""
     def rand(*shape):
-        return torch.rand(shape, generator=generator, device=device)
+        return uniform(generator, shape, device)
 
     u = {"jitter": rand(n, 2) - 0.5}
     if camera.aperture == APERTURE_CIRCULAR:

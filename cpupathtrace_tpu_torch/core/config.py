@@ -10,6 +10,21 @@ from __future__ import annotations
 
 import dataclasses
 
+import torch
+
+
+def resolve_device(device) -> torch.device:
+    """The device of an entry point that builds tensors: `device`, or the
+    CUDA card when it is None. Raises when the card is asked for on a
+    machine without CUDA; the CPU runs only when the caller names it."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {dev} requested (the default) but CUDA is not available; "
+            "pass device='cpu' to run on the CPU"
+        )
+    return dev
+
 
 @dataclasses.dataclass(frozen=True)
 class RenderOptions:

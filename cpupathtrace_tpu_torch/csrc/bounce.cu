@@ -1,13 +1,15 @@
-// K2: one bounce of the path-trace estimator over carried path state, for
-// binned scenes (the sorted-wavefront step kernel) on Hopper (sm_90a).
+// K2: one bounce of the path-trace estimator over carried path state (the
+// sorted-wavefront step kernel of binned scenes, and the record-and-replay
+// forward of the gradient path) on Hopper (sm_90a).
 //
 // Replaces: cpupathtrace_tpu/integrator/sorted_wavefront.py `_bounce_call`
 //   (:252), i.e. `_make_megakernel(single_bounce=True)` of
 //   pallas_megakernel.py with the in-kernel cluster traversal
 //   (`traverse_clusters` / `traverse_clusters_anyhit`, K3, inlined here from
 //   cluster_traverse.cuh). The driver is trace_megakernel_sorted in
-//   cpupathtrace_tpu_torch/integrator/sorted_wavefront.py; the plain version
-//   is its `bounce_reference`.
+//   cpupathtrace_tpu_torch/integrator/sorted_wavefront.py, and
+//   trace_megakernel_diff in integrator/diff_megakernel.py for the record
+//   form; the plain version is sorted_wavefront.py `bounce_reference`.
 //
 // State: the 18 STATE_FIELDS planes as one [18, n] f32 tensor (rng bit-cast
 // from uint32), updated in place: thread i reads and writes column i, so
@@ -15,10 +17,18 @@
 // device (seed_depth[1]), so the host hands it over without a sync.
 //
 // Body: the per-bounce body of the megakernel (bounce_body.cuh, the same
-// source as K1), with the geometry of a binned scene: spheres and the
+// source as K1), with the geometry of a binned scene (spheres and the
 // big-partition pair record in shared memory, then the cluster set through
-// K3; shadow rays likewise (dense parts, then any-hit over the clusters).
-// A dead ray returns at once (the TPU's dead-block skip).
+// K3; shadow rays likewise) or of a dense scene (K1's DenseGeo: the pair
+// record or the triangle table, and the spheres). A dead ray returns at
+// once (the TPU's dead-block skip).
+//
+// Record form (template flag kRec; `_make_megakernel(diff_records=True)`):
+// n_drec = 3 + n_lights + 2 * em_k more [n] planes, written by the body's
+// Records policy for the rays alive on entry. The wrapper fills them with
+// (-1, 0, ...) first, so a dead ray keeps the replay's no-contribution
+// encoding; a live ray that misses still gets its drawn CDF rows, as on the
+// TPU.
 //
 // What bounds it on this card: the cluster traversal (see
 // cluster_traverse.cuh): dependent global loads and divergent per-thread
@@ -46,6 +56,9 @@ struct Params {
   float* state;  // [18, n_rays]
   int n_rays;
   const int* seed_depth;  // [2] on the device: seed, depth
+  float* drec;  // [n_drec, n_rays] record planes (record form), else null
+  const float* tri;  // dense table form: [n_tri, 24]; n_tri = 0 otherwise
+  int n_tri;
   const float* sph;
   int n_sph;
   const float* mat;
@@ -85,27 +98,45 @@ struct BinnedGeo {
 };
 
 size_t smem_floats(const Params& p) {
-  return static_cast<size_t>(p.rec_rows) * kRecCols + static_cast<size_t>(p.n_sph) * kSphCols +
+  return static_cast<size_t>(p.rec_rows) * kRecCols + static_cast<size_t>(p.n_tri) * kTriCols +
+         static_cast<size_t>(p.n_sph) * kSphCols +
          static_cast<size_t>(p.n_mat) * kMatCols + static_cast<size_t>(p.n_lights) * kLgtCols +
          static_cast<size_t>(p.n_em) * kEmCols + static_cast<size_t>(p.tier_floats);
 }
 
-template <int BIG_CULL>
+template <bool kBinned, int CULL, class Rec>
+__device__ __forceinline__ bool run_body(const Params& p, const float* s_rec, const float* s_tri,
+                                         const float* s_sph, const ClusterTables& cl,
+                                         const Shading& sh, PathState& s, const Rec& rec) {
+  if constexpr (kBinned) {
+    const BinnedGeo<CULL> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl};
+    return bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
+  } else {
+    const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
+    return bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
+  }
+}
+
+// kBinned: the geometry; CULL: the cull class of the pair record; kRec: the
+// record form.
+template <bool kBinned, int CULL, bool kRec>
 __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   extern __shared__ float smem[];
   float* s_rec = smem;
-  float* s_sph = s_rec + p.rec_rows * kRecCols;
+  float* s_tri = s_rec + p.rec_rows * kRecCols;
+  float* s_sph = s_tri + p.n_tri * kTriCols;
   float* s_mat = s_sph + p.n_sph * kSphCols;
   float* s_lgt = s_mat + p.n_mat * kMatCols;
   float* s_em = s_lgt + p.n_lights * kLgtCols;
   float* s_tiers = s_em + p.n_em * kEmCols;
   stage_rows(s_rec, p.rec, p.rec_rows, kRecCols, p.rec_stride);
+  stage_rows(s_tri, p.tri, p.n_tri, kTriCols, kTriCols);
   stage_rows(s_sph, p.sph, p.n_sph, kSphCols, kSphCols);
   stage_rows(s_mat, p.mat, p.n_mat, kMatCols, kMatCols);
   stage_rows(s_lgt, p.lgt, p.n_lights, kLgtCols, kLgtCols);
   stage_rows(s_em, p.em, p.n_em, kEmCols, kEmCols);
   ClusterTables cl = p.cl;
-  stage_tiers(cl, s_tiers, p.tier_floats);
+  if (kBinned) stage_tiers(cl, s_tiers, p.tier_floats);
   __syncthreads();
 
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -114,7 +145,6 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   float* st = p.state + i;
   if (!(st[17 * n] > 0.5f)) return;  // dead: nothing changes
 
-  const BinnedGeo<BIG_CULL> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl};
   const Shading sh{s_mat, p.n_mat, s_lgt, p.n_lights, s_em, p.n_em, p.em_k, p.eps};
   PathState s;
   s.rng = __float_as_uint(st[0]);
@@ -130,7 +160,13 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   s.contrib = st[15 * n];
   s.collected = st[16 * n] > 0.5f;
 
-  const bool alive = bounce_body<true>(geo, sh, p.seed_depth[1], s);
+  bool alive;
+  if constexpr (kRec) {
+    alive = run_body<kBinned, CULL>(p, s_rec, s_tri, s_sph, cl, sh, s,
+                                    Records{p.drec + i, n, p.n_lights});
+  } else {
+    alive = run_body<kBinned, CULL>(p, s_rec, s_tri, s_sph, cl, sh, s, NoRecords{});
+  }
 
   st[0] = __uint_as_float(s.rng);
   st[n] = s.ray.ox;
@@ -152,17 +188,24 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   st[17 * n] = alive ? 1.0f : 0.0f;
 }
 
-template <int BIG_CULL>
+template <bool kBinned, int CULL, bool kRec>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bounce_kernel<BIG_CULL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bounce_kernel<kBinned, CULL, kRec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (p.n_rays + kThreads - 1) / kThreads;
-  bounce_kernel<BIG_CULL><<<blocks, kThreads, smem, stream>>>(p);
+  bounce_kernel<kBinned, CULL, kRec><<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kBinned, bool kRec>
+cudaError_t launch_cull(const Params& p, int cull, size_t smem, cudaStream_t stream) {
+  if (cull == 0) return launch<kBinned, 0, kRec>(p, smem, stream);
+  if (cull == 1) return launch<kBinned, 1, kRec>(p, smem, stream);
+  return launch<kBinned, -1, kRec>(p, smem, stream);
 }
 
 }  // namespace
@@ -170,24 +213,32 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 // Plain C entry point for ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing, returns the launch's cudaError_t.
-extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth,
-                                 const float* sph, int n_sph, const float* mat, int n_mat,
-                                 const float* lgt, int n_lights, const float* em, int n_em,
-                                 int em_k, const float* rec, int rec_rows, int rec_stride,
-                                 int big_cull, const float* krec, int n_rec, int krec_rows,
-                                 const float* clb, const float* sup, int n_pages,
-                                 const float* hyp, int hyp_rows, const float* root,
-                                 int cl_cull, float epsilon, void* stream) {
+// binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else
+// the triangle table), the traversal tables unused. drec: the record planes
+// or null.
+extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth, float* drec,
+                                 const float* tri, int n_tri, const float* sph, int n_sph,
+                                 const float* mat, int n_mat, const float* lgt, int n_lights,
+                                 const float* em, int n_em, int em_k, const float* rec,
+                                 int rec_rows, int rec_stride, int big_cull, int binned,
+                                 const float* krec, int n_rec, int krec_rows, const float* clb,
+                                 const float* sup, int n_pages, const float* hyp, int hyp_rows,
+                                 const float* root, int cl_cull, float epsilon, void* stream) {
   using namespace ptx;
   (void)hyp_rows;
   const ClusterTables cl{krec, n_rec, krec_rows, clb, sup, n_pages, hyp, root, cl_cull};
-  const int tiers = n_pages * (kBndCols + kGroup2 * kBndCols);
-  const Params p{state, n_rays, seed_depth, sph, n_sph, mat, n_mat, lgt, n_lights, em, n_em,
-                 em_k, rec, rec_rows, rec_stride, cl, tiers <= kTierFloats ? tiers : 0,
-                 epsilon};
+  const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
+  const Params p{state, n_rays, seed_depth, drec, tri, n_tri, sph, n_sph, mat, n_mat, lgt,
+                 n_lights, em, n_em, em_k, rec, rec_rows, rec_stride, cl,
+                 tiers <= kTierFloats ? tiers : 0, epsilon};
   const size_t smem = smem_floats(p) * sizeof(float);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (big_cull == 0) return static_cast<int>(launch<0>(p, smem, s));
-  if (big_cull == 1) return static_cast<int>(launch<1>(p, smem, s));
-  return static_cast<int>(launch<-1>(p, smem, s));
+  cudaError_t err;
+  if (binned)
+    err = drec ? launch_cull<true, true>(p, big_cull, smem, s)
+               : launch_cull<true, false>(p, big_cull, smem, s);
+  else
+    err = drec ? launch_cull<false, true>(p, big_cull, smem, s)
+               : launch_cull<false, false>(p, big_cull, smem, s);
+  return static_cast<int>(err);
 }

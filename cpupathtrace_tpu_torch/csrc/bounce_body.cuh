@@ -14,6 +14,12 @@
 // twin (integrator/megakernel.py `_bounce`), built with --fmad=false; the
 // same random stream and draw order: u_rt, (rsel, u1, u2) per emitter draw,
 // (u1, u2, ub).
+//
+// A record policy `Rec` (K2's record form) takes the per-bounce quantities
+// the differentiable replay needs (pallas_megakernel.py:485-489, 581-586,
+// 711-712, 737-738, 851-862): the hit material and emission weight, each
+// NEE weight, each emitter draw's CDF row, and the chain selector. With
+// NoRecords every call is empty and the body is the plain one.
 #pragma once
 
 #include <stdint.h>
@@ -57,20 +63,72 @@ __device__ __forceinline__ void skip_draws(uint32_t& rng, int n) {
   for (int k = 0; k < n; ++k) next_u01(rng);
 }
 
+// CDF lower bound (ref: scene.cpp:238-257); the last row when above.
+__device__ __forceinline__ int cdf_row(const Shading& sh, float rsel) {
+  for (int e = 0; e < sh.n_em; ++e)
+    if (rsel <= sh.em[e * kEmCols]) return e;
+  return sh.n_em - 1;
+}
+
+// The record policy of the plain body.
+struct NoRecords {
+  static constexpr bool kOn = false;
+  __device__ __forceinline__ void hit(int, float) const {}
+  __device__ __forceinline__ void light(int, float) const {}
+  __device__ __forceinline__ void emitter_row(int, int) const {}
+  __device__ __forceinline__ void emitter_weight(int, float) const {}
+  __device__ __forceinline__ void chain(float) const {}
+};
+
+// K2's record planes of one ray (pallas_megakernel.py n_diff_records, in
+// diff_megakernel.py:891-895's order): mid, W, sel, one weight per point
+// light, then (CDF row, weight) per emitter draw, each a plane of `stride`
+// floats. The caller fills them with (-1, 0, ...) first, so only what a
+// bounce sets is written.
+struct Records {
+  static constexpr bool kOn = true;
+  float* p;  // plane 0 of this ray
+  int64_t stride;
+  int n_lights;
+  __device__ __forceinline__ void hit(int mid, float w) const {
+    p[0] = static_cast<float>(mid);
+    p[stride] = w;
+  }
+  __device__ __forceinline__ void light(int li, float w) const { p[(3 + li) * stride] = w; }
+  __device__ __forceinline__ void emitter_row(int k, int row) const {
+    p[(3 + n_lights + 2 * k) * stride] = static_cast<float>(row);
+  }
+  __device__ __forceinline__ void emitter_weight(int k, float w) const {
+    p[(4 + n_lights + 2 * k) * stride] = w;
+  }
+  // 0 = no advance, 1 = diffuse, 2 = specular, 3 = ones.
+  __device__ __forceinline__ void chain(float code) const { p[2 * stride] = code; }
+};
+
 // One bounce of path `s` at loop index `depth`; returns true while the path
 // goes on. kSingle (K2): where the path ends, the random stream still
 // advances by the draws the TPU's single-bounce body makes for every live
 // ray, so a kernel's rng plane equals the TPU's and the twin's.
-template <bool kSingle, class Geo>
+template <bool kSingle, class Geo, class Rec = NoRecords>
 __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, int depth,
-                                            PathState& s) {
+                                            PathState& s, const Rec& rec = Rec{}) {
   const float eps = sh.eps;
   // ---- Nearest hit ----
   Hit h = no_hit();
   geo.nearest(s.ray, h);
   // A miss ends the path: from here on the TPU kernel changes nothing.
   if (h.prim < 0) {
-    if (kSingle) skip_draws(s.rng, 1 + 3 * sh.em_k + 3);
+    if (Rec::kOn) {
+      // The TPU body draws every emitter's CDF row on a live lane.
+      next_u01(s.rng);
+      for (int k = 0; k < sh.em_k; ++k) {
+        rec.emitter_row(k, cdf_row(sh, next_u01(s.rng)));
+        skip_draws(s.rng, 2);
+      }
+      skip_draws(s.rng, 3);
+    } else if (kSingle) {
+      skip_draws(s.rng, 1 + 3 * sh.em_k + 3);
+    }
     return false;
   }
   s.collected = true;
@@ -96,6 +154,7 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
 
   // ---- Emission ----
   const float weight = 1.0f / (divisor0 * bounce_pd0);
+  rec.hit(h.mat, weight);
   s.out_r = s.out_r + sr * m[7] * weight;
   s.out_g = s.out_g + sg * m[8] * weight;
   s.out_b = s.out_b + sb * m[9] * weight;
@@ -110,27 +169,29 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   const bool do_bounce = u_rt < bpv;
 
   // ---- Next-event estimation (specular BSDFs opt out) ----
+  // Returns the light's detached weight (0 when it adds nothing).
   auto nee = [&](float lx, float ly, float lz, float ls_r, float ls_g, float ls_b, float lpd,
-                 bool lvalid) {
-    if (is_spec || !lvalid || !(lpd > 0.0f)) return;
+                 bool lvalid) -> float {
+    if (is_spec || !lvalid || !(lpd > 0.0f)) return 0.0f;
     const float tlx = lx - pxp, tly = ly - pyp, tlz = lz - pzp;
     const float dist2 = tlx * tlx + tly * tly + tlz * tlz;
     const float dist = sqrtf(dist2);
     const float inv = 1.0f / jmax(dist, 1e-30f);
     const float ldx = tlx * inv, ldy = tly * inv, ldz = tlz * inv;
     const Ray sray{pxp + ldx * eps, pyp + ldy * eps, pzp + ldz * eps, ldx, ldy, ldz};
-    if (geo.occluded(sray, dist - eps)) return;
+    if (geo.occluded(sray, dist - eps)) return 0.0f;
     const float cos_s = jmax(nx * ldx + ny * ldy + nz * ldz, 0.0f);
     const float shade = cos_s / kPi;
     const float w = shade / (divisor0 * bounce_pd0 * lpd);
     s.out_r = s.out_r + w * md_r * ls_r * sr;
     s.out_g = s.out_g + w * md_g * ls_g * sg;
     s.out_b = s.out_b + w * md_b * ls_b * sb;
+    return w;
   };
 
   for (int li = 0; li < sh.n_lights; ++li) {
     const float* q = sh.lgt + li * kLgtCols;
-    nee(q[0], q[1], q[2], q[3], q[4], q[5], 1.0f, true);
+    rec.light(li, nee(q[0], q[1], q[2], q[3], q[4], q[5], 1.0f, true));
   }
 
   for (int k = 0; k < sh.em_k; ++k) {
@@ -138,16 +199,10 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
     const float rsel = next_u01(s.rng);
     const float u1 = next_u01(s.rng);
     const float u2 = next_u01(s.rng);
+    const int row = cdf_row(sh, rsel);
+    rec.emitter_row(k, row);
     if (is_spec) continue;
-    // CDF lower bound (ref: scene.cpp:238-257); the last row when above.
-    int sel = sh.n_em - 1;
-    for (int e = 0; e < sh.n_em; ++e) {
-      if (rsel <= sh.em[e * kEmCols]) {
-        sel = e;
-        break;
-      }
-    }
-    const float* q = sh.em + sel * kEmCols;
+    const float* q = sh.em + row * kEmCols;
     const float sq = sqrtf(u1);
     const float w2 = sq * (1.0f - u2);
     const float w3 = sq * u2;
@@ -187,7 +242,7 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
     const float adot = fabsf(-ldn);
     const bool lvalid = adot > 0.0f && dist2 > 0.0f && (!cullm || ldn < 0.0f);
     const float lpd = s_pd * dist2 / jmax(adot, 1e-30f);
-    nee(spx, spy, spz, q[17], q[18], q[19], lpd, lvalid);
+    rec.emitter_weight(k, nee(spx, spy, spz, q[17], q[18], q[19], lpd, lvalid));
   }
 
   // ---- Roulette bookkeeping (ref: worker.cpp:106-110) ----
@@ -291,6 +346,7 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   const bool same_side = (dx * ndx + dy * ndy + dz * ndz) <= 0.0f;
   float mult_r = md_r, mult_g = md_g, mult_b = md_b, shading = 1.0f;
   if (is_glass) {
+    rec.chain(same_side ? 2.0f : 1.0f);
     if (same_side) {
       mult_r = ms_r;
       mult_g = ms_g;
@@ -298,10 +354,12 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
     }
   } else if (is_mirror) {
     const bool mm = !one_way || same_side;
+    rec.chain(mm ? 2.0f : 3.0f);
     mult_r = mm ? ms_r : 1.0f;
     mult_g = mm ? ms_g : 1.0f;
     mult_b = mm ? ms_b : 1.0f;
   } else {
+    rec.chain(1.0f);
     const float cos_n = jmax(nx * ndx + ny * ndy + nz * ndz, 0.0f);
     shading = cos_n / kPi;
   }

@@ -1,9 +1,10 @@
 // Dense intersection device functions, one ray per thread, tables in shared
 // memory. Ports of _intersect_tables (pallas_megakernel.py:141-234) and of
 // pair_test_nearest / pair_test_anyhit / _pair_quantities
-// (accel/kernel_traverse.py:405-650) in cpupathtrace_tpu. The megakernel (K1)
-// uses them; the single-bounce kernel (K2), the cluster records of the
-// traversal (K3) and the standalone dense intersector (K5) can reuse them.
+// (accel/kernel_traverse.py:405-650) in cpupathtrace_tpu, and the dense
+// geometry policy built from them. The megakernel (K1), the single-bounce
+// kernel (K2), the cluster records of the traversal (K3) and the dense query
+// (K5, tri_scan / sph_scan) use them.
 //
 // Semantics kept from the TPU kernels:
 //  * a primitive wins only by improving strictly on the running nearest t,
@@ -225,5 +226,33 @@ __device__ __forceinline__ bool pair_anyhit(const float* rec, int rows, const Ra
   }
   return false;
 }
+
+// The dense geometry policy of the per-bounce body (bounce_body.cuh): the
+// pair record + spheres (rec_rows > 0, n_tri = 0), or the triangle table +
+// spheres, all in shared memory. K1 and K2 (dense scenes) use it.
+template <int CULL>
+struct DenseGeo {
+  const float* rec;
+  int rec_rows;
+  const float* tri;
+  int n_tri;
+  const float* sph;
+  int n_sph;
+
+  __device__ __forceinline__ void nearest(const Ray& r, Hit& h) const {
+    if (rec_rows) {
+      sph_nearest(sph, n_sph, 0, r, h);
+      pair_nearest<CULL>(rec, rec_rows, r, h);
+    } else {
+      tri_nearest(tri, n_tri, r, h);
+      sph_nearest(sph, n_sph, n_tri, r, h);
+    }
+  }
+
+  __device__ __forceinline__ bool occluded(const Ray& r, float t_max) const {
+    if (table_occluded(tri, n_tri, sph, n_sph, r, t_max)) return true;
+    return rec_rows && pair_anyhit<CULL>(rec, rec_rows, r, jmax(t_max, 0.0f));
+  }
+};
 
 }  // namespace ptx

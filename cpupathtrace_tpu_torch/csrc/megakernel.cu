@@ -70,33 +70,6 @@ size_t smem_floats(const Params& p) {
          static_cast<size_t>(p.n_lights) * kLgtCols + static_cast<size_t>(p.n_em) * kEmCols;
 }
 
-// The dense geometry: the pair record + spheres, or the triangle table +
-// spheres, all in shared memory.
-template <int CULL>
-struct DenseGeo {
-  const float* rec;
-  int rec_rows;
-  const float* tri;
-  int n_tri;
-  const float* sph;
-  int n_sph;
-
-  __device__ __forceinline__ void nearest(const Ray& r, Hit& h) const {
-    if (rec_rows) {
-      sph_nearest(sph, n_sph, 0, r, h);
-      pair_nearest<CULL>(rec, rec_rows, r, h);
-    } else {
-      tri_nearest(tri, n_tri, r, h);
-      sph_nearest(sph, n_sph, n_tri, r, h);
-    }
-  }
-
-  __device__ __forceinline__ bool occluded(const Ray& r, float t_max) const {
-    if (table_occluded(tri, n_tri, sph, n_sph, r, t_max)) return true;
-    return rec_rows && pair_anyhit<CULL>(rec, rec_rows, r, jmax(t_max, 0.0f));
-  }
-};
-
 template <int CULL>
 __global__ void __launch_bounds__(kThreads) megakernel(const Params p) {
   extern __shared__ float smem[];

@@ -18,6 +18,7 @@ neighbouring pixels, and the sums are scattered back (film.py:110-186).
 from __future__ import annotations
 
 import math
+import os
 
 import numpy as np
 import torch
@@ -25,8 +26,11 @@ import torch
 from ..camera.camera import Camera, shoot_rays
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
+from .diff_megakernel import diff_supported, trace_diff
 from .megakernel import megakernel_supported, trace_megakernel
+from .rng import RecordedDraws
 from .sorted_wavefront import trace_megakernel_sorted
+from .wavefront import trace
 
 # Stats batches fused into one launch (the JAX package's PTX_ADAPTIVE_FUSE
 # default).
@@ -58,24 +62,37 @@ def adaptive_constants(options: RenderOptions):
     return stats, candidate_batch, check
 
 
-def _dispatch_trace(scene: SceneData, rays, options: RenderOptions,
-                    generator: torch.Generator):
-    """The megakernel path (film.py:92-105): binned scenes go to the sorted
-    driver and its bounce kernel, dense scenes to the megakernel. CUDA
-    kernels for rays on the card, their twins for rays on the CPU. The
-    kernel seed is drawn on the rays' device."""
-    if not megakernel_supported(scene):
-        raise NotImplementedError(
-            "scene exceeds the megakernels' limits; the wavefront fallback "
-            "that would render it is ROADMAP.md Queue 1 slice 4"
-        )
-    seed = torch.randint(
-        0, 2**31 - 1, (1,), generator=generator, device=rays.origin.device,
-        dtype=torch.int32,
-    )
-    if scene.has_kernel_records:
-        return trace_megakernel_sorted(scene, rays, options, seed)
-    return trace_megakernel(scene, rays, options, seed)
+def _kernel_seed(generator, device):
+    """The megakernels' int32 seed, drawn on the rays' device (no sync)."""
+    if isinstance(generator, RecordedDraws):
+        raise TypeError("recorded draws drive the wavefront only; the megakernels draw "
+                        "their own stream (set PTX_NO_MEGAKERNEL=1 / PTX_DIFF_MEGAKERNEL=0)")
+    return torch.randint(0, 2**31 - 1, (1,), generator=generator, device=device,
+                         dtype=torch.int32)
+
+
+def _dispatch_trace(scene: SceneData, rays, options: RenderOptions, generator,
+                    differentiable: bool = False):
+    """The tracer of a ray batch, as film.py:63-107 picks it. Differentiable
+    traces take the record-and-replay path (`trace_diff`: K2 with records,
+    backward over the replay) when the scene is within the kernels' limits,
+    else the wavefront; forward traces take the megakernels (binned scenes
+    the sorted driver and K2, dense scenes K1) when within their limits,
+    else the wavefront (its intersections through K5 on the card).
+    PTX_NO_MEGAKERNEL=1 and PTX_DIFF_MEGAKERNEL=0 are the JAX package's
+    switches to the wavefront. CUDA rays run the kernels, CPU rays their
+    twins."""
+    no_mega = os.environ.get("PTX_NO_MEGAKERNEL") == "1"
+    if differentiable:
+        if (not no_mega and os.environ.get("PTX_DIFF_MEGAKERNEL", "1") != "0"
+                and diff_supported(scene)):
+            return trace_diff(scene, rays, options, _kernel_seed(generator, rays.origin.device))
+    elif not no_mega and megakernel_supported(scene):
+        seed = _kernel_seed(generator, rays.origin.device)
+        if scene.has_kernel_records:
+            return trace_megakernel_sorted(scene, rays, options, seed)
+        return trace_megakernel(scene, rays, options, seed)
+    return trace(scene, rays, options, generator, differentiable)
 
 
 def morton_perm(px: np.ndarray, py: np.ndarray) -> np.ndarray:
@@ -99,7 +116,7 @@ def use_pixel_order(scene: SceneData, device) -> bool:
 
 
 def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp,
-                   pixel_order=None):
+                   pixel_order=None, differentiable=False):
     if pixel_order is not None:
         xs = x_cam[pixel_order].repeat_interleave(spp)
         ys = y_cam[pixel_order].repeat_interleave(spp)
@@ -110,19 +127,22 @@ def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp,
         camera, xs, ys, 1.0 / options.image_width, 1.0 / options.image_height,
         generator,
     )
-    return _dispatch_trace(scene, rays, options, generator)
+    return _dispatch_trace(scene, rays, options, generator, differentiable)
 
 
 def render_chunk(scene: SceneData, camera: Camera, options: RenderOptions,
                  x_cam: torch.Tensor, y_cam: torch.Tensor,
-                 generator: torch.Generator, spp: int, pixel_order=None):
+                 generator: torch.Generator, spp: int, pixel_order=None,
+                 differentiable: bool = False):
     """Trace `spp` samples for P pixels; returns (sum [P,4], collected [P]
     int32). With `pixel_order` ([P] permutation, see morton_perm) the rays
     launch pixel-major over the permuted pixels and the sums are scattered
-    back, so the result is positionally that of the plain call."""
+    back, so the result is positionally that of the plain call.
+    `differentiable` keeps the sums' graph to the scene's material
+    tensors. `generator`: a torch.Generator or a RecordedDraws."""
     p = x_cam.shape[0]
     spectrum, collected = _trace_samples(
-        scene, camera, options, x_cam, y_cam, generator, spp, pixel_order
+        scene, camera, options, x_cam, y_cam, generator, spp, pixel_order, differentiable
     )
     if pixel_order is not None:
         spectrum = spectrum.reshape(p, spp, 4)

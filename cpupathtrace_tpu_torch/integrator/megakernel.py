@@ -38,11 +38,11 @@ from ..accel.kernel_traverse import (
     traverse_clusters_anyhit,
 )
 from ..accel.pair_record import C_MAT, C_N0, C_PRIM, REC_USED_COLS
+from ..ops.intersect import table_nearest
 from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, SceneData
 from ..utils.math import PI
 from .rng import next_u01, seed_rng
 
-TRI_EPS = 1e-6
 PD_CUTOFF = 1e-20
 
 # Table row layouts (all f32), as pallas_megakernel.py:80-93:
@@ -97,7 +97,9 @@ def megakernel_supported(scene: SceneData) -> bool:
 def pack_tables(scene: SceneData):
     """The kernel's tables (tri, sph, mat, lgt, em) on the scene's device,
     equal to the JAX `_pack_tables` (pallas_megakernel.py:982-1098). For a
-    binned scene the triangle table holds the big partition only."""
+    binned scene the triangle table holds the big partition only. The
+    material columns are packed from detached copies: no graph reaches
+    the kernels' tables (gradients go through the replay)."""
     f32 = torch.float32
     dev = scene.device
 
@@ -137,10 +139,13 @@ def pack_tables(scene: SceneData):
         ],
         dim=1,
     )
+    mat_diffuse = scene.mat_diffuse.detach()
+    mat_specular = scene.mat_specular.detach()
+    mat_emission = scene.mat_emission.detach()
     mat = torch.cat(
         [
-            scene.mat_diffuse[:, :3], scene.mat_specular[:, :3],
-            col(scene.mat_ior), scene.mat_emission[:, :3],
+            mat_diffuse[:, :3], mat_specular[:, :3],
+            col(scene.mat_ior), mat_emission[:, :3],
             col(scene.mat_bsdf), col(scene.mat_one_way),
         ],
         dim=1,
@@ -185,7 +190,7 @@ def pack_tables(scene: SceneData):
     )
     cull = torch.where(is_sph, torch.zeros_like(is_sph), scene.tri_cull[ti])
     mid = torch.where(is_sph, scene.sph_material[si], scene.tri_material[ti]).long()
-    emission = scene.mat_emission[mid][:, :3]
+    emission = mat_emission[mid][:, :3]
     em = torch.cat(
         [
             cdf[:, None], (prob * float(scene.emissive_sample_count))[:, None],
@@ -229,91 +234,11 @@ class _Ctx:
         self.three, self.pi, self.two_pi = c(3.0), c(PI), c(2.0 * PI)
 
 
-def _table_nearest(ctx, ox, oy, oz, dx, dy, dz, n_tri):
-    """Nearest hit over the triangle table rows [0, n_tri) and then the
-    sphere table (`_intersect_tables`, pallas_megakernel.py:141-234).
-    Returns (t, prim, nx, ny, nz, mid) per ray; t = inf on a miss. A row
-    wins only by improving strictly, so the first of equal-t rows wins."""
-    n = ox.shape[0]
-    dev = ox.device
-    best_t = torch.full((n,), float("inf"), device=dev)
-    best_p = torch.full((n,), -1, dtype=torch.int64, device=dev)
-    nx = torch.zeros(n, device=dev)
-    ny = torch.ones(n, device=dev)
-    nz = torch.zeros(n, device=dev)
-    mid = torch.zeros(n, dtype=torch.int64, device=dev)
-    if n_tri:
-        tr = ctx.tri[:n_tri, :, None]  # [T, 24, 1] against [n] rays
-        v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z = (tr[:, j] for j in range(9))
-        px = dy * e2z - dz * e2y
-        py = dz * e2x - dx * e2z
-        pz = dx * e2y - dy * e2x
-        det = e1x * px + e1y * py + e1z * pz
-        is_cull = tr[:, 9] > 0.5
-        miss_det = torch.where(is_cull, det <= TRI_EPS, det.abs() <= TRI_EPS)
-        inv_det = torch.reciprocal(torch.where(miss_det, 1.0, det))
-        tx = ox - v0x
-        ty = oy - v0y
-        tz = oz - v0z
-        u = (tx * px + ty * py + tz * pz) * inv_det
-        qx = ty * e1z - tz * e1y
-        qy = tz * e1x - tx * e1z
-        qz = tx * e1y - ty * e1x
-        v = (dx * qx + dy * qy + dz * qz) * inv_det
-        t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
-        ok = (
-            (tr[:, 10] > 0.5) & ~miss_det
-            & (u >= 0.0) & (u <= 1.0) & (v >= 0.0) & (u + v <= 1.0) & (t >= 0.0)
-        )
-        key = torch.where(ok, t, float("inf"))
-        tmin, k = key.min(dim=0)
-        won = tmin < best_t
-        uk = u.gather(0, k[None])[0]
-        vk = v.gather(0, k[None])[0]
-        row = ctx.tri[k]
-        w0 = 1.0 - uk - vk
-        snx = w0 * row[:, 11] + uk * row[:, 14] + vk * row[:, 17]
-        sny = w0 * row[:, 12] + uk * row[:, 15] + vk * row[:, 18]
-        snz = w0 * row[:, 13] + uk * row[:, 16] + vk * row[:, 19]
-        inv = torch.rsqrt(snx * snx + sny * sny + snz * snz + 1e-30)
-        best_t = torch.where(won, tmin, best_t)
-        best_p = torch.where(won, k, best_p)
-        nx = torch.where(won, snx * inv, nx)
-        ny = torch.where(won, sny * inv, ny)
-        nz = torch.where(won, snz * inv, nz)
-        mid = torch.where(won, row[:, 20].long(), mid)
-
-    sp = ctx.sph[:, :, None]  # [S, 8, 1]
-    cx, cy, cz, r = sp[:, 0], sp[:, 1], sp[:, 2], sp[:, 3]
-    cox = ox - cx
-    coy = oy - cy
-    coz = oz - cz
-    dd = dx * cox + dy * coy + dz * coz
-    disc = dd * dd - (cox * cox + coy * coy + coz * coz) + r * r
-    t = -(dd + torch.sqrt(disc.clamp_min(0.0)))
-    ok = (sp[:, 4] > 0.5) & (disc >= 0.0) & (t >= 0.0)
-    key = torch.where(ok, t, float("inf"))
-    tmin, k = key.min(dim=0)
-    won = tmin < best_t
-    row = ctx.sph[k]
-    hx = ox + dx * tmin - row[:, 0]
-    hy = oy + dy * tmin - row[:, 1]
-    hz = oz + dz * tmin - row[:, 2]
-    inv = torch.rsqrt(hx * hx + hy * hy + hz * hz + 1e-30)
-    best_t = torch.where(won, tmin, best_t)
-    best_p = torch.where(won, k + n_tri, best_p)
-    nx = torch.where(won, hx * inv, nx)
-    ny = torch.where(won, hy * inv, ny)
-    nz = torch.where(won, hz * inv, nz)
-    mid = torch.where(won, row[:, 5].long(), mid)
-    return best_t, best_p, nx, ny, nz, mid
-
-
 def _table_occluded(ctx, ox, oy, oz, dx, dy, dz, n_tri, t_max):
     """Shadow test over the tables: True where the nearest table hit lies
     below t_max (pallas_megakernel.py:516-522: visible iff no hit or
     nearest t >= dist - eps)."""
-    t, p, *_ = _table_nearest(ctx, ox, oy, oz, dx, dy, dz, n_tri)
+    t, p, *_ = table_nearest(ctx.tri, ctx.sph, ox, oy, oz, dx, dy, dz, n_tri)
     return (p >= 0) & ~(t >= t_max)
 
 
@@ -370,13 +295,13 @@ def _nearest(ctx, ox, oy, oz, dx, dy, dz):
     """Spheres (and the triangle table), then the pair record, then the
     clusters of a binned scene, each improving strictly on the last."""
     if ctx.dense_pair:
-        hit = _table_nearest(ctx, ox, oy, oz, dx, dy, dz, 0)
+        hit = table_nearest(ctx.tri, ctx.sph, ox, oy, oz, dx, dy, dz, 0)
         hit = _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
         if ctx.clusters is not None:
             hit = traverse_clusters(ctx.clusters, ox, oy, oz, dx, dy, dz, hit,
                                     ctx.krn_cull_mode)
         return hit
-    return _table_nearest(ctx, ox, oy, oz, dx, dy, dz, ctx.n_tri)
+    return table_nearest(ctx.tri, ctx.sph, ox, oy, oz, dx, dy, dz, ctx.n_tri)
 
 
 def _tangent_frame(nx, ny, nz):
@@ -400,10 +325,13 @@ def _tangent_frame(nx, ny, nz):
     return b1x, b1y, b1z, b2x * inv2, b2y * inv2, b2z * inv2
 
 
-def _bounce(ctx, depth, s):
+def _bounce(ctx, depth, s, rec=None):
     """One bounce for the live rays held in dict `s` (all alive on entry):
-    the body of `_make_megakernel` (pallas_megakernel.py:412-876), dense
-    forms. Returns the live mask after the bounce; `s` is updated."""
+    the body of `_make_megakernel` (pallas_megakernel.py:412-876). Returns
+    the live mask after the bounce; `s` is updated. A list `rec` receives
+    the record planes of K2's record form (pallas_megakernel.py:485-489,
+    581-586, 711-712, 851-862), in the order mid, W, sel, one weight per
+    point light, (CDF row, weight) per emitter draw."""
     eps = ctx.eps
     ox, oy, oz, dx, dy, dz = s["ox"], s["oy"], s["oz"], s["dx"], s["dy"], s["dz"]
     sr, sg, sb = s["sr"], s["sg"], s["sb"]
@@ -432,6 +360,7 @@ def _bounce(ctx, depth, s):
     out_r = s["out_r"] + torch.where(hit, sr * me_r * weight, 0.0)
     out_g = s["out_g"] + torch.where(hit, sg * me_g * weight, 0.0)
     out_b = s["out_b"] + torch.where(hit, sb * me_b * weight, 0.0)
+    light_w, em_rows = [], []
 
     # Russian roulette, keyed on the loop index (ref: worker.cpp:67-70).
     if depth + 1 <= 4:
@@ -472,6 +401,7 @@ def _bounce(ctx, depth, s):
         shade = cos_s / ctx.pi
         use = hit & lvalid & ~occ & ~is_spec & (lpd > 0.0)
         w = torch.where(use, shade / (divisor * bounce_pd * lpd), 0.0)
+        light_w.append(w)
         a_r, a_g, a_b = acc
         return a_r + w * md_r * ls_r * sr, a_g + w * md_g * ls_g * sg, a_b + w * md_b * ls_b * sb
 
@@ -489,6 +419,7 @@ def _bounce(ctx, depth, s):
         rng, u2 = next_u01(rng)
         # CDF lower bound (ref: scene.cpp:238-257); n_em - 1 when above.
         sel = torch.searchsorted(ctx.em[:n_em, 0].contiguous(), rsel).clamp_max(n_em - 1)
+        em_rows.append(sel.float())
         e = ctx.em[sel]
         sq = torch.sqrt(u1)
         w2 = sq * (1.0 - u2)
@@ -618,6 +549,16 @@ def _bounce(ctx, depth, s):
     s["divisor"] = divisor
     s["bounce_pd"] = bounce_pd
     s["rng"] = rng
+    if rec is not None:
+        # Chain selector: 0 no advance, 1 diffuse, 2 specular, 3 ones.
+        code = torch.where(
+            is_glass, torch.where(same_side, 2.0, 1.0),
+            torch.where(is_mirror, torch.where(mm, 2.0, 3.0), 1.0),
+        )
+        rec += [torch.where(hit, mid.float(), -1.0), torch.where(hit, weight, 0.0),
+                torch.where(cont, code, 0.0)] + light_w[:ctx.n_lights]
+        for k in range(ctx.em_k):
+            rec += [em_rows[k], light_w[ctx.n_lights + k]]
 
     alive = cont & (divisor > PD_CUTOFF)
     s["ox"] = torch.where(alive, pxp + ndx * eps, ox)

@@ -63,3 +63,52 @@ def next_u01(state: torch.Tensor):
     state = state ^ ((state << 5) & MASK32)
     u = (state >> 8).to(torch.float32) * (1.0 / (1 << 24))
     return state, u
+
+
+# ---------------------------------------------------------------------------
+# Host-drawn uniforms: the camera's and the wavefront's random inputs.
+# ---------------------------------------------------------------------------
+
+
+class RecordedDraws:
+    """Uniform draws made elsewhere, handed out in the order the port asks
+    for them: [n, 2] camera jitter, then per wavefront bounce [n] (roulette),
+    [n, K, 3] (emitter NEE, when K > 0) and [n, 3] (BSDF sample). It stands
+    where a torch.Generator or a seed goes, so a test can feed the JAX
+    package's jax.random draws to the port."""
+
+    def __init__(self, arrays):
+        self.arrays = [torch.as_tensor(a, dtype=torch.float32) for a in arrays]
+        self.pos = 0
+
+    def next(self, shape, device) -> torch.Tensor:
+        if self.pos >= len(self.arrays):
+            raise IndexError(f"RecordedDraws: all {len(self.arrays)} draws used")
+        a = self.arrays[self.pos]
+        if tuple(a.shape) != tuple(shape):
+            raise ValueError(f"RecordedDraws: draw {self.pos} has shape {tuple(a.shape)}, "
+                             f"asked for {tuple(shape)}")
+        self.pos += 1
+        return a.to(device)
+
+
+def uniform(source, shape, device) -> torch.Tensor:
+    """float32 uniforms in [0, 1) of `shape` from `source`: a
+    torch.Generator, or the next array of a RecordedDraws."""
+    if isinstance(source, RecordedDraws):
+        return source.next(shape, device)
+    return torch.rand(shape, generator=source, device=device)
+
+
+def draw_source(key, device):
+    """A stream of uniforms from `key`: an int seeds a new generator on
+    `device` (each call starts the same stream, as a JAX key does); a
+    RecordedDraws starts again from its first draw; a torch.Generator is
+    used as it stands and advances."""
+    if isinstance(key, RecordedDraws):
+        return RecordedDraws(key.arrays)
+    if isinstance(key, torch.Generator):
+        return key
+    gen = torch.Generator(device=device)
+    gen.manual_seed(int(key))
+    return gen

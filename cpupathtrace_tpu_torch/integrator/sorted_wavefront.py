@@ -19,14 +19,15 @@ original index.
 
 K2 (`bounce`) is csrc/bounce.cu for CUDA state: the per-bounce body of the
 megakernel (csrc/bounce_body.cuh, shared with K1) with the cluster
-traversal K3 (csrc/cluster_traverse.cuh) inline. Its plain version
-(`bounce_reference`) runs the twin's bounce (integrator/megakernel.py
-`_bounce`) over the live rays. The alive count is read on the host once
+traversal K3 (csrc/cluster_traverse.cuh) inline, or with K1's dense
+geometry for a dense scene. Its plain version (`bounce_reference`) runs the
+twin's bounce (integrator/megakernel.py `_bounce`) over the live rays. With
+`records`, both also write the differentiable replay's record planes
+(integrator/diff_megakernel.py). The alive count is read on the host once
 per bounce, for the loop test and the sort threshold together.
 
-Not ported: the TPU's sort glue variants (PTX_SORT_GLUE), its per-block
-visit counters (debug_visits) and the differentiable-replay record planes
-(ROADMAP slice 3).
+Not ported: the TPU's sort glue variants (PTX_SORT_GLUE) and its per-block
+visit counters (debug_visits).
 """
 from __future__ import annotations
 
@@ -43,6 +44,7 @@ from .megakernel import (
     LGT_COLS,
     MAT_COLS,
     SPH_COLS,
+    TRI_COLS,
     _bounce,
     _Ctx,
     megakernel_supported,
@@ -136,6 +138,17 @@ def _sort_key(ox, oy, oz, dx, dy, dz, alive_f, lo, hi):
     return torch.where(alive_f > 0.5, key, torch.full_like(key, _DEAD_KEY))
 
 
+def seed_depth_table(seed, max_depth: int, device) -> torch.Tensor:
+    """[max_depth, 2] int32 on `device`: row d holds (seed, d), so K2
+    reads its depth on the device and the host hands it over without a
+    sync. `seed`: an int32 Python int or a 1-element tensor."""
+    table = torch.zeros((max(max_depth, 1), 2), dtype=torch.int32, device=device)
+    table[:, 1] = torch.arange(table.shape[0], dtype=torch.int32, device=device)
+    table[:, 0] = (seed.reshape(-1)[:1].to(device=device, dtype=torch.int32)
+                   if isinstance(seed, torch.Tensor) else int(seed))
+    return table
+
+
 def initial_state(origin, direction, seed) -> torch.Tensor:
     """The [18, R] path state of fresh rays: rng from the ray index, unit
     throughput, zero sums, all alive."""
@@ -156,16 +169,31 @@ def initial_state(origin, direction, seed) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+def n_diff_records(n_lights: int, em_k: int) -> int:
+    """Record planes per bounce (pallas_megakernel.py:337): mid, W, sel,
+    one weight per point light, (CDF row, weight) per emitter draw."""
+    return 3 + n_lights + 2 * em_k
+
+
+def clear_records(records: torch.Tensor) -> None:
+    """The replay's no-contribution encoding: mid = -1, all else 0."""
+    records[0] = -1.0
+    records[1:] = 0.0
+
+
 def bounce_reference(scene: SceneData, state: torch.Tensor, depth: int, options,
-                     tables=None, ctx=None) -> None:
+                     tables=None, ctx=None, records=None) -> None:
     """One bounce over `state` [18, R] in place: the twin's body for the
     rays alive on entry; dead rays are left as they are (the kernel's
-    threads of dead rays return at once)."""
+    threads of dead rays return at once). `records` [n_drec, R]: cleared,
+    then the live rays' record planes are written."""
     bounce_reference.calls += 1
     if ctx is None:
         if tables is None:
             tables = pack_tables(scene)
         ctx = _Ctx(scene, tables, options, state.device)
+    if records is not None:
+        clear_records(records)
     idx = (state[17] > 0.5).nonzero(as_tuple=True)[0]
     if idx.numel() == 0:
         return
@@ -173,12 +201,15 @@ def bounce_reference(scene: SceneData, state: torch.Tensor, depth: int, options,
     s = {k: live[i + 1] for i, k in enumerate(_TWIN_KEYS)}
     s["rng"] = _plane_to_rng(live[0])
     s["collected"] = live[16] > 0.5
-    alive = _bounce(ctx, depth, s)
+    rec = [] if records is not None else None
+    alive = _bounce(ctx, depth, s, rec)
     out = torch.stack(
         [_rng_to_plane(s["rng"])] + [s[k] for k in _TWIN_KEYS]
         + [s["collected"].float(), alive.float()]
     )
     state[:, idx] = out
+    if rec is not None:
+        records[:, idx] = torch.stack(rec)
 
 
 bounce_reference.calls = 0
@@ -186,12 +217,13 @@ bounce_reference.calls = 0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ARGTYPES = (
-    [_P, _I, _P]  # state, n_rays, seed_depth
-    + [_P, _I, _P, _I, _P, _I, _P, _I, _I]  # sph mat lgt em, em_k
-    + [_P, _I, _I, _I]  # big pair record, rows, stride, cull mode
+    [_P, _I, _P, _P]  # state, n_rays, seed_depth, records
+    + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
+    + [_P, _I, _I, _I, _I]  # pair record, rows, stride, cull mode; binned
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I]  # traversal tables, cull mode
     + [ctypes.c_float, _P]  # epsilon, stream
 )
+_NO_TIERS = (None, 0, 0, None, None, 0, None, 0, None, -1)
 
 
 def _bounce_fn():
@@ -204,50 +236,74 @@ def _bounce_fn():
 
 
 def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, options,
-           tables=None, ktables=None) -> None:
+           tables=None, ktables=None, records=None) -> None:
     """One bounce over `state` [18, R] in place. `seed_depth` is a [2]
     int32 tensor (seed, depth) on the state's device: the kernel reads the
-    depth there, so the host need not sync to hand it over. CPU state runs
-    `bounce_reference`; CUDA state launches csrc/bounce.cu."""
+    depth there, so the host need not sync to hand it over. `records`
+    ([n_diff_records, R] f32, or None) selects K2's record form; it is
+    cleared to the no-contribution encoding before the launch. CPU state
+    runs `bounce_reference`; CUDA state launches csrc/bounce.cu, with the
+    cluster traversal for a binned scene and K1's dense geometry
+    otherwise."""
     dev = state.device
     if dev.type == "cpu":
-        return bounce_reference(scene, state, int(seed_depth[1]), options, tables)
+        return bounce_reference(scene, state, int(seed_depth[1]), options, tables,
+                                records=records)
     if dev.type != "cuda":
         raise ValueError(f"bounce: no kernel for device {dev}")
-    if not (scene.has_kernel_records and megakernel_supported(scene)):
-        raise ValueError("bounce: needs a binned scene within the kernel's limits")
+    if not megakernel_supported(scene):
+        raise ValueError("bounce: the scene exceeds the kernel's limits (megakernel_supported)")
     check_tensor("state", state, dev, torch.float32, (N_STATE, None))
     check_tensor("seed_depth", seed_depth, dev, torch.int32, (2,))
+    n = state.shape[1]
     scene = scene.to(dev)
     if tables is None:
         tables = pack_tables(scene)
-    _, sph, mat, lgt, em = tables
-    for name, t, c in (("sph", sph, SPH_COLS), ("mat", mat, MAT_COLS),
+    tri, sph, mat, lgt, em = tables
+    for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS), ("mat", mat, MAT_COLS),
                        ("lgt", lgt, LGT_COLS), ("em", em, EM_COLS)):
         check_tensor(name, t, dev, torch.float32, (None, c))
-    if ktables is None:
-        ktables = kernel_tables(scene)
-    check_tables(ktables, dev)
-    rec = scene.krn_big_pair
-    check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
-    n = state.shape[1]
+    binned = scene.has_kernel_records
+    if binned:
+        if ktables is None:
+            ktables = kernel_tables(scene)
+        check_tables(ktables, dev)
+        tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
+    else:
+        tier_args = _NO_TIERS
+    if scene.dense_pair:
+        rec = scene.krn_big_pair
+        check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
+        rec_args = (rec.data_ptr(), rec.shape[0], rec.shape[1])
+        n_tri = 0
+    else:
+        rec_args = (None, 0, 0)
+        n_tri = tri.shape[0]
+    rec_ptr = None
+    if records is not None:
+        n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+        check_tensor("records", records, dev, torch.float32, (n_drec, n))
+        clear_records(records)
+        rec_ptr = records.data_ptr()
     if n:
         with torch.cuda.device(dev):
             err = _bounce_fn()(
-                state.data_ptr(), n, seed_depth.data_ptr(),
-                sph.data_ptr(), sph.shape[0], mat.data_ptr(), mat.shape[0],
-                lgt.data_ptr(), scene.n_point_lights, em.data_ptr(), scene.n_emissive,
-                scene.emissive_sample_count,
-                rec.data_ptr(), rec.shape[0], rec.shape[1], int(scene.krn_big_cull_mode),
-                *table_args(ktables), int(scene.krn_cull_mode),
-                float(options.epsilon), torch.cuda.current_stream(dev).cuda_stream,
+                state.data_ptr(), n, seed_depth.data_ptr(), rec_ptr,
+                tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
+                mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
+                em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
+                *rec_args, int(scene.krn_big_cull_mode), int(binned),
+                *tier_args, float(options.epsilon), torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"bounce launch failed: cudaError_t {err}")
         bounce.launches += 1
+        if records is not None:
+            bounce.record_launches += 1
 
 
 bounce.launches = 0
+bounce.record_launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -280,11 +336,7 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     st = initial_state(origin, direction, seed)
     idx = torch.arange(r, device=dev)
     max_depth = int(options.max_depth)
-    # Row d holds (seed, d): the kernel reads its depth on the device.
-    seed_depth = torch.zeros((max(max_depth, 1), 2), dtype=torch.int32, device=dev)
-    seed_depth[:, 1] = torch.arange(seed_depth.shape[0], dtype=torch.int32, device=dev)
-    seed_depth[:, 0] = (seed.reshape(-1)[:1].to(device=dev, dtype=torch.int32)
-                        if isinstance(seed, torch.Tensor) else int(seed))
+    seed_depth = seed_depth_table(seed, max_depth, dev)
     threshold = min(_SORT_MIN_ALIVE, max(r // 4, 1))
     if timing is not None:
         timing.update(bounce_ms=[], sort_ms=[])

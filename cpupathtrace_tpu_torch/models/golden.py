@@ -49,11 +49,11 @@ def _inward_box(b: SceneBuilder):
     return b
 
 
-def inward_box_scene(device="cpu"):
+def inward_box_scene(device=None):
     return _inward_box(SceneBuilder()).build(device=device)
 
 
-def specular_box_scene(point_light: bool = False, device="cpu"):
+def specular_box_scene(point_light: bool = False, device=None):
     """inward_box_scene plus a tinted mirror sphere and a glass sphere
     (tests/scenes_util.py:specular_box_scene); `point_light` adds one point
     light inside the box."""
@@ -71,7 +71,7 @@ def specular_box_scene(point_light: bool = False, device="cpu"):
     return b.build(device=device)
 
 
-def sphere_point_light_scene(device="cpu"):
+def sphere_point_light_scene(device=None):
     """One sphere lit by one point light, no triangles (the table form)."""
     b = SceneBuilder()
     b.add_point_light((0.0, 1.0, 0.0), (1.0, 1.0, 1.0, 1.0))
@@ -79,11 +79,11 @@ def sphere_point_light_scene(device="cpu"):
     return b.build(device=device)
 
 
-def box_camera(device="cpu"):
+def box_camera(device=None):
     return make_camera((0, 0, 0), (0, 0, 0.9), (0, 1, 0), 1.0, 1.0, 1.0, device=device)
 
 
-def sphere_camera(device="cpu"):
+def sphere_camera(device=None):
     return make_camera((0, 0, 0), (0, 0, 1), (0, 1, 0), 0.1, 1.0, 1.0, device=device)
 
 

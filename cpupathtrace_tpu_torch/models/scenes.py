@@ -31,7 +31,7 @@ from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, BUILD_SECONDS, SceneBuilder, 
 _NO_OBJ = "loading an OBJ mesh (load_mesh) is not ported yet; leave dragon_obj None"
 
 
-def cornell_demo_camera(width: int = 256, height: int = 256, device="cpu") -> Camera:
+def cornell_demo_camera(width: int = 256, height: int = 256, device=None) -> Camera:
     """The demo camera: thin lens, circular aperture 0.05, focal plane 3.5,
     negative aspect ratio (ref: demo/main.cpp:36-48)."""
     return make_camera(
@@ -53,7 +53,7 @@ def cornell_demo_scene(
     dragon_obj: str | None = None,
     dragon_tris: int = 20000,
     include_dragon: bool = True,
-    device="cpu",
+    device=None,
 ) -> SceneData:
     """The demo scene (ref: demo/main.cpp:50-205), with a `dragon_tris`
     stand-in dragon unless `include_dragon` is False."""
@@ -129,7 +129,7 @@ def cornell_demo_options(width: int = 256, height: int = 256, **kw) -> RenderOpt
     return RenderOptions(**defaults)
 
 
-def bench_box_scene(device="cpu") -> SceneData:
+def bench_box_scene(device=None) -> SceneData:
     """Closed Cornell box benchmark scene (ref: benchmark/main.cpp:34-57)."""
     b = SceneBuilder()
     white = b.add_material(diffuse=(1, 1, 1, 1))
@@ -139,7 +139,7 @@ def bench_box_scene(device="cpu") -> SceneData:
     return b.build(device=device)
 
 
-def bench_camera(device="cpu") -> Camera:
+def bench_camera(device=None) -> Camera:
     """Pinhole benchmark camera with aspect -1 (ref: benchmark/main.cpp:35,60)."""
     return make_camera(
         origin=(0, 0, -3), look_at=(0, 0, 0), up=(0, 1, 0),
@@ -163,7 +163,7 @@ def bench_dragon_scene(
     dragon_tris: int = 200000,
     accel: str | None = None,
     lean: bool = False,
-    device="cpu",
+    device=None,
 ) -> SceneData:
     """Box + glass dragon at scale 0.01, offset (0,-0.5,0)
     (ref: benchmark/main.cpp:59-105)."""

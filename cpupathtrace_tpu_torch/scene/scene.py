@@ -32,6 +32,7 @@ from ..accel.kernel_traverse import (
     pack_kernel_tables_np,
 )
 from ..accel.pair_record import cull_uniformity, pack_pair_record_np
+from ..core.config import resolve_device
 from ..utils.math import PI
 from .geometry import HostTriangle, TriangleBatch
 
@@ -183,12 +184,14 @@ def _placeholder_tiers():
             np.zeros((1, GROUP2, BND_COLS), np.float32), np.zeros((8, BND_COLS), np.float32))
 
 
-def scene_from_numpy(arrays: dict, meta: dict, device="cpu") -> SceneData:
+def scene_from_numpy(arrays: dict, meta: dict, device=None) -> SceneData:
     """Carry a scene across from its numpy form: `arrays` maps field names
     to arrays (e.g. the JAX SceneData's fields through np.asarray; extra
-    fields are ignored), `meta` its static fields. Traversal tables in the
-    JAX package's 128-lane layout are compacted. Raises
-    NotImplementedError for the accelerators the port has not got."""
+    fields are ignored), `meta` its static fields, onto `device` (default:
+    the CUDA card). Traversal tables in the JAX package's 128-lane layout
+    are compacted. Raises NotImplementedError for the accelerators the port
+    has not got."""
+    device = resolve_device(device)
     if meta.get("accel") not in ("dense", "binned"):
         raise NotImplementedError(f"accel {meta.get('accel')!r}: {_NOT_PORTED}")
     missing = [f for f in ARRAY_FIELDS + KRN_FIELDS if f not in arrays]
@@ -282,18 +285,20 @@ class SceneBuilder:
         self,
         dense_threshold: int = 128,
         accel: str | None = None,
-        device="cpu",
+        device=None,
         binned_threshold: int = 4096,
         big_diag_frac: float = 0.05,
         lean: bool = False,
     ) -> SceneData:
-        """Pack the scene onto `device`. `accel` None picks as the JAX
-        builder does: "dense" up to `dense_threshold` primitives, "binned"
-        from `binned_threshold` small triangles, "sweep" in between (which
-        the port has not got: it raises, as do "bvh" and "cluster"). A
+        """Pack the scene onto `device` (default: the CUDA card). `accel`
+        None picks as the JAX builder does: "dense" up to `dense_threshold`
+        primitives, "binned" from `binned_threshold` small triangles,
+        "sweep" in between (which the port has not got: it raises, as do
+        "bvh" and "cluster"). A
         binned build packs only the megakernel tables (the JAX builder's
         `lean`); `lean=True` also raises when the megakernel cannot serve
         the scene, as the JAX builder's lean checks do."""
+        device = resolve_device(device)
         f32 = np.float32
         n_tri = sum(len(b) for b in self._batches)
         n_sph = len(self._spheres)
@@ -548,7 +553,7 @@ class SceneBuilder:
         )
         t0 = time.perf_counter()
         scene = scene_from_numpy(arrays, meta, device)
-        if torch.device(device).type == "cuda":
+        if device.type == "cuda":
             torch.cuda.synchronize(device)
         BUILD_SECONDS["upload"] = time.perf_counter() - t0
         return scene

@@ -19,7 +19,7 @@ from cpupathtrace_tpu_torch.scene.scene import (
     STATIC_FIELDS,
     scene_from_numpy,
 )
-from tests.torch_util import dragon_scene, jax_scene_numpy, mixed_cull_scene
+from tests.torch_util import CPU, dragon_scene, jax_scene_numpy, mixed_cull_scene
 
 # The port keeps these leading columns of each JAX traversal table.
 USED_COLS = dict(zip(KRN_FIELDS, (28, 7, 7, 7)))
@@ -35,7 +35,9 @@ def _scene(name, pkg):
             from cpupathtrace_tpu.models.scenes import cornell_demo_scene
         else:
             from cpupathtrace_tpu_torch.models.scenes import cornell_demo_scene
-        return cornell_demo_scene(dragon_tris=int(name[4:]))
+        if pkg == "jax":
+            return cornell_demo_scene(dragon_tris=int(name[4:]))
+        return cornell_demo_scene(dragon_tris=int(name[4:]), device=CPU)
     return dragon_scene(pkg, int(name[6:]))
 
 
@@ -87,7 +89,7 @@ def test_scene_from_numpy_carries_a_binned_jax_scene(pair):
     equals the port's own build in every field."""
     name, ref, ours = pair
     arrays, meta = jax_scene_numpy(ref)
-    carried = scene_from_numpy(arrays, meta)
+    carried = scene_from_numpy(arrays, meta, CPU)
     for f in ARRAY_FIELDS + KRN_FIELDS:
         a, b = getattr(carried, f).numpy(), getattr(ours, f).numpy()
         assert a.shape == b.shape and a.tobytes() == b.tobytes(), f
@@ -118,13 +120,13 @@ def test_lean_build():
     from cpupathtrace_tpu_torch.scene.geometry import make_box
     from cpupathtrace_tpu_torch.scene.scene import SceneBuilder
 
-    lean = bench_dragon_scene(dragon_tris=1200, accel="binned", lean=True)
+    lean = bench_dragon_scene(dragon_tris=1200, accel="binned", lean=True, device=CPU)
     full = dragon_scene("port", 1200)
     for f in ARRAY_FIELDS + KRN_FIELDS:
         assert getattr(lean, f).numpy().tobytes() == getattr(full, f).numpy().tobytes(), f
-    assert megakernel_supported(bench_box_scene())
+    assert megakernel_supported(bench_box_scene(device=CPU))
     with pytest.raises(ValueError, match="lean"):
-        SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(lean=True)
+        SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(lean=True, device=CPU)
 
 
 @pytest.mark.parametrize("smooth,cull,as_batch", [(True, False, True), (False, True, True),

@@ -9,7 +9,7 @@ import torch
 
 from cpupathtrace_tpu.camera import camera as jcam
 from cpupathtrace_tpu_torch.camera import camera as tcam
-from tests import torch_util  # noqa: F401  (caps torch threads)
+from tests.torch_util import CPU
 
 CAMERAS = {
     "pinhole": dict(origin=(0, 0, -3), look_at=(0, 0, 0), up=(0, 1, 0),
@@ -46,7 +46,7 @@ def _jax_draws(key, n, aperture):
 def test_make_camera_matches_jax():
     for kw in CAMERAS.values():
         a = jcam.make_camera(**kw)
-        b = tcam.make_camera(**kw)
+        b = tcam.make_camera(**kw, device=CPU)
         for f in ("origin", "forward", "up", "right"):
             np.testing.assert_array_equal(getattr(b, f).numpy(), np.asarray(getattr(a, f)))
         for f in ("aperture_width_half", "aperture_height_half",
@@ -65,7 +65,7 @@ def test_shoot_rays_matches_jax(name):
     key = jax.random.PRNGKey(11)
     cam_j = jcam.make_camera(**kw)
     rays_j = jcam.shoot_rays(cam_j, jnp.asarray(x), jnp.asarray(y), 1 / 32, 1 / 24, key)
-    cam_t = tcam.make_camera(**kw)
+    cam_t = tcam.make_camera(**kw, device=CPU)
     rays_t = tcam.shoot_rays(
         cam_t, torch.from_numpy(x), torch.from_numpy(y), 1 / 32, 1 / 24,
         uniforms=_jax_draws(key, n, cam_j.aperture),
@@ -77,7 +77,7 @@ def test_shoot_rays_matches_jax(name):
 
 
 def test_shoot_rays_draws_from_generator():
-    cam = tcam.make_camera(**CAMERAS["hexagonal"])
+    cam = tcam.make_camera(**CAMERAS["hexagonal"], device=CPU)
     x = torch.linspace(-1, 1, 512)
     g1 = torch.Generator().manual_seed(4)
     g2 = torch.Generator().manual_seed(4)

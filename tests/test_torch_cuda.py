@@ -238,3 +238,89 @@ def test_bounce_and_query_wrappers_check_their_inputs():
         kt.cluster_intersect(scene, o.double(), o.double())
     with pytest.raises(ValueError):
         kt.cluster_intersect(scene, torch.zeros((8, 6), device="cuda")[:, ::2], o)
+
+
+# ---------------------------------------------------------------------------
+# The gradient path: the dense query K5, K2's record form, gradients.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "specular", "sphere"])
+def test_dense_query_matches_plain(name):
+    """K5 against its plain version: prim, hit and t equal on every ray
+    (the same tests in the same order, --fmad=false)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    scene = _scene(name)
+    o, d = _query_rays(16384, seed=3)
+    launches = oi.dense_intersect.launches
+    t, p = oi.dense_intersect(scene, o, d)
+    torch.cuda.synchronize()
+    assert oi.dense_intersect.launches == launches + 1
+    tp, pp = oi.dense_intersect_reference(scene, o, d)
+    assert torch.equal(p, pp) and torch.equal(t, tp)
+    assert int((p >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "dragon"])
+def test_bounce_records_match_twin(name):
+    """K2's record form against its twin from the same state at depths 0
+    and 5: the 18 planes and the record planes of live rays bit-equal, and
+    the recording forward bit-equal to the plain kernel."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    scene = _scene("box") if name == "box" else _dragon()
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    tables = mk.pack_tables(scene)
+    st = _camera_state(scene)
+    nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+    for depth in (0, 5):
+        k, t, plain = st.clone(), st.clone(), st.clone()
+        rk = torch.empty((nd, st.shape[1]), device="cuda")
+        rt = torch.empty_like(rk)
+        sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
+        sw.bounce(scene, k, sd, opts, tables, records=rk)
+        sw.bounce(scene, plain, sd, opts, tables)
+        sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
+        live = st[17] > 0.5
+        assert torch.equal(k.view(torch.int32), t.view(torch.int32)), depth
+        assert torch.equal(k.view(torch.int32), plain.view(torch.int32)), depth
+        assert torch.equal(rk[:, live].view(torch.int32), rt[:, live].view(torch.int32)), depth
+        assert (rk[0, ~live] == -1).all() and (rk[1:, ~live] == 0).all()
+        st = k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["1", "0"])
+def test_gradient_matches_finite_difference_on_the_card(route, monkeypatch):
+    """Both routes (PTX_DIFF_MEGAKERNEL=1: K2 records + replay; 0: the
+    wavefront + K5) against a central difference at 16x16 @ 8 spp,
+    max_depth 4: test_diff.py:66's rtol 0.05, atol 1e-4."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch import diff
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+    from cpupathtrace_tpu_torch.models import golden
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    monkeypatch.setenv("PTX_DIFF_MEGAKERNEL", route)
+    scene, cam = golden.inward_box_scene(device="cuda"), golden.box_camera(device="cuda")
+    opts = RenderOptions(16, 16, 8, 8, max_depth=4)
+    target = diff.render_image_diff(scene, cam, opts, 99, 8).detach()
+    params = diff.get_material_params(scene)
+    k2, k5 = sw.bounce.record_launches, oi.dense_intersect.launches
+    _, g = diff.loss_and_grad(params, scene, cam, opts, target, 0, 8)
+    if route == "1":
+        assert sw.bounce.record_launches > k2
+    else:
+        assert oi.dense_intersect.launches > k5
+    for field, idx in (("mat_diffuse", (1, 0)), ("mat_emission", (2, 1))):
+        fd = diff.finite_difference_grad(params, scene, cam, opts, target, 0, 8, field, idx,
+                                         eps=2e-3)
+        np.testing.assert_allclose(float(g[field][idx]), fd, rtol=0.05, atol=1e-4)

@@ -12,7 +12,7 @@ import cpupathtrace_tpu_torch as pt
 from cpupathtrace_tpu.integrator import film as jfilm
 from cpupathtrace_tpu_torch.integrator import film as tfilm
 from cpupathtrace_tpu_torch.models import golden
-from tests.torch_util import build_scene
+from tests.torch_util import CPU, build_scene
 
 OPTIONS = [(16, 64), (1, 1), (4, 8), (256, 256), (16, 16), (2, 300), (64, 1024)]
 
@@ -98,7 +98,7 @@ def test_render_box_matches_reference_golden():
     the C++ reference's golden with tests/test_parity.py's checks: alpha
     equal, central quantiles within 8%, q95 within 12%."""
     img = pt.render(
-        golden.inward_box_scene(), golden.box_camera(),
+        golden.inward_box_scene(device=CPU), golden.box_camera(device=CPU),
         pt.RenderOptions(32, 32, 512, 512, max_depth=40), seed=3,
     )
     res = golden.check_golden("box", img, golden.read_golden("golden_box_32.raw"))
@@ -120,7 +120,7 @@ def test_adaptive_render_matches_jax(name, cam, bias):
               max_sample_count=64, max_depth=8, allow_bias=bias)
     ref = np.asarray(ptx.render(build_scene(name, "jax"), ptx.make_camera(**cam),
                                 ptx.RenderOptions(**kw), seed=1))
-    ours = pt.render(build_scene(name, "port"), pt.make_camera(**cam),
+    ours = pt.render(build_scene(name, "port"), pt.make_camera(**cam, device=CPU),
                      pt.RenderOptions(**kw), seed=1)
     assert ours.shape == ref.shape and ours.dtype == np.float32
     np.testing.assert_array_equal(ours[..., 3], ref[..., 3])
@@ -130,7 +130,7 @@ def test_adaptive_render_matches_jax(name, cam, bias):
 
 def test_render_empty_and_fixed_spp_shapes():
     scene = build_scene("bench_box", "port")
-    cam = pt.make_camera((0, 0, -3), (0, 0, 0), (0, 1, 0), aspect_ratio=-1.0)
+    cam = pt.make_camera((0, 0, -3), (0, 0, 0), (0, 1, 0), aspect_ratio=-1.0, device=CPU)
     assert pt.render(scene, cam, pt.RenderOptions(0, 4, 1, 1)).shape == (4, 0, 4)
     img = pt.render(scene, cam, pt.RenderOptions(8, 6, 4, 4, max_depth=4),
                     rays_per_launch=64)  # several tiles, a ragged tail

@@ -31,6 +31,7 @@ from cpupathtrace_tpu_torch.core.config import RenderOptions
 from cpupathtrace_tpu_torch.core.rays import Rays
 from cpupathtrace_tpu_torch.integrator import megakernel
 from tests.torch_util import (
+    CPU,
     MEGAKERNEL_CASES,
     build_scene,
     jax_megakernel,
@@ -115,5 +116,5 @@ def test_supported_limits():
     b = SceneBuilder()
     for i in range(megakernel.MAX_SPH + 1):
         b.add_sphere((float(i), 0.0, 0.0), 0.1)
-    assert not megakernel.megakernel_supported(b.build())
+    assert not megakernel.megakernel_supported(b.build(device=CPU))
 

@@ -40,6 +40,10 @@ def test_sources_found():
     rel = {os.path.relpath(p, PKG) for p in srcs[1:]}
     assert {"accel/build.py", "accel/cluster.py", "accel/kernel_traverse.py",
             "integrator/sorted_wavefront.py", "scene/mesh.py"} <= rel, rel
+    # ... and the gradient path's.
+    assert {"ops/intersect.py", "ops/surface.py", "bsdf/bsdf.py", "scene/lights.py",
+            "core/debug.py", "utils/color.py", "integrator/wavefront.py",
+            "integrator/diff_megakernel.py", "diff/render.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -53,7 +57,7 @@ def test_public_names_follow_the_jax_package():
     import cpupathtrace_tpu_torch
 
     extra = set(cpupathtrace_tpu_torch.__all__) - set(cpupathtrace_tpu.__all__)
-    assert extra == {"scene_from_numpy"}
+    assert extra == {"scene_from_numpy", "material_params_from_numpy"}
     for name in cpupathtrace_tpu_torch.__all__:
         assert hasattr(cpupathtrace_tpu_torch, name), name
 
@@ -62,5 +66,5 @@ def test_kernel_sources_ship_without_binaries():
     csrc = os.path.join(PKG, "csrc")
     names = os.listdir(csrc)
     assert {"megakernel.cu", "bounce.cu", "bounce_body.cuh", "cluster_query.cu",
-            "cluster_traverse.cuh", "bvh_build.cpp"} <= set(names)
+            "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]

@@ -15,7 +15,7 @@ from cpupathtrace_tpu_torch.scene.scene import (
     SceneBuilder,
     scene_from_numpy,
 )
-from tests.torch_util import build_scene, jax_scene_numpy
+from tests.torch_util import CPU, build_scene, jax_scene_numpy
 
 SCENES = ["bench_box", "inward_box", "specular", "specular_point_light",
           "demo", "sphere_point_light"]
@@ -49,7 +49,7 @@ def test_pack_tables_match_jax(name):
 @pytest.mark.parametrize("name", ["bench_box", "specular_point_light", "sphere_point_light"])
 def test_scene_from_numpy_equals_own_build(name):
     arrays, meta = jax_scene_numpy(build_scene(name, "jax"))
-    carried = scene_from_numpy(arrays, meta)
+    carried = scene_from_numpy(arrays, meta, CPU)
     ours = build_scene(name, "port")
     for f in ARRAY_FIELDS:
         _assert_same_bytes(getattr(carried, f).numpy(), getattr(ours, f).numpy(), f)
@@ -74,18 +74,18 @@ def test_non_dense_scenes_raise():
     for i in range(129):
         b.add_sphere((float(i), 0.0, 0.0), 0.1)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.build()
+        b.build(device=CPU)
     for accel in ("sweep", "bvh", "cluster"):
         with pytest.raises(NotImplementedError, match="slice 4"):
-            SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(accel=accel)
+            SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(accel=accel, device=CPU)
     # The 2000-triangle demo dragon is a sweep scene under the accel rule.
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cornell_demo_scene(dragon_tris=2000)
+        cornell_demo_scene(dragon_tris=2000, device=CPU)
     with pytest.raises(NotImplementedError, match="load_mesh"):
-        cornell_demo_scene(dragon_obj="dragon.obj")
+        cornell_demo_scene(dragon_obj="dragon.obj", device=CPU)
     arrays, meta = jax_scene_numpy(build_scene("bench_box", "jax"))
     with pytest.raises(NotImplementedError):
-        scene_from_numpy(arrays, dict(meta, accel="sweep"))
+        scene_from_numpy(arrays, dict(meta, accel="sweep"), CPU)
 
 
 def test_scene_to_device_roundtrip():

@@ -33,6 +33,7 @@ from cpupathtrace_tpu_torch.core.rays import Rays
 from cpupathtrace_tpu_torch.integrator import film
 from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
 from tests.torch_util import (
+    CPU,
     SORTED_DEPTH,
     SORTED_SEED,
     dragon_scene,
@@ -125,7 +126,7 @@ def test_use_pixel_order_only_for_binned_scenes_on_cuda(scene):
 
     assert film.use_pixel_order(scene, "cuda")
     assert not film.use_pixel_order(scene, "cpu")
-    assert not film.use_pixel_order(bench_box_scene(), "cuda")
+    assert not film.use_pixel_order(bench_box_scene(device=CPU), "cuda")
 
 
 @pytest.mark.parametrize("k", range(SORTED_DEPTH))
@@ -205,7 +206,7 @@ def test_sorted_driver_refuses_dense_scenes():
     from cpupathtrace_tpu_torch.models.scenes import bench_box_scene
 
     with pytest.raises(ValueError, match="binned"):
-        sw.trace_megakernel_sorted(bench_box_scene(), _rays(), OPTS, 1)
+        sw.trace_megakernel_sorted(bench_box_scene(device=CPU), _rays(), OPTS, 1)
 
 
 def test_pixel_order_chunks_scatter_back(scene):
@@ -221,9 +222,9 @@ def test_pixel_order_chunks_scatter_back(scene):
     x, y = torch.from_numpy(np.ascontiguousarray(x)), torch.from_numpy(np.ascontiguousarray(y))
     perm = torch.from_numpy(film.morton_perm(xg.ravel(), yg.ravel()))
     gen = torch.Generator().manual_seed(0)
-    s, c = film.render_chunk(scene, bench_camera(), opts, x, y, gen, 3, pixel_order=perm)
+    s, c = film.render_chunk(scene, bench_camera(device=CPU), opts, x, y, gen, 3, pixel_order=perm)
     assert s.shape == (w * w, 4) and (c == 3).all() and torch.isfinite(s).all()
-    sb, cb = film.render_chunk_batched(scene, bench_camera(), opts, x, y, gen, 2, 3,
+    sb, cb = film.render_chunk_batched(scene, bench_camera(device=CPU), opts, x, y, gen, 2, 3,
                                        pixel_order=perm)
     assert sb.shape == (3, w * w, 4) and (cb == 2).all() and torch.isfinite(sb).all()
 
@@ -236,7 +237,7 @@ def test_binned_render_on_the_cpu():
 
     scene = dragon_scene("port")
     calls = sw.bounce_reference.calls
-    img = pt.render(scene, bench_camera(), RenderOptions(16, 16, 4, 4, max_depth=6), seed=1)
+    img = pt.render(scene, bench_camera(device=CPU), RenderOptions(16, 16, 4, 4, max_depth=6), seed=1)
     assert sw.bounce_reference.calls > calls
     assert img.shape == (16, 16, 4) and np.isfinite(img).all()
     assert (img[..., 3] == 1.0).all() and 0.005 < img[..., :3].mean() < 1.0

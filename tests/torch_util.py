@@ -12,6 +12,10 @@ import torch
 
 torch.set_num_threads(2)
 
+# The port's entry points run on the CUDA card unless told otherwise; the
+# CPU tests ask for the CPU by name.
+CPU = "cpu"
+
 RAY_BLOCK = 8192  # one TPU megakernel block (64 x 128 rays)
 
 # Kernel-parity cases: name -> (scene name of build_scene, ray kind,
@@ -73,12 +77,12 @@ def build_scene(name: str, pkg: str):
     from cpupathtrace_tpu_torch.models import golden, scenes as tscenes
 
     return {
-        "bench_box": tscenes.bench_box_scene,
-        "demo": lambda: tscenes.cornell_demo_scene(include_dragon=False),
-        "inward_box": golden.inward_box_scene,
-        "specular": golden.specular_box_scene,
-        "specular_point_light": lambda: golden.specular_box_scene(point_light=True),
-        "sphere_point_light": golden.sphere_point_light_scene,
+        "bench_box": lambda: tscenes.bench_box_scene(device=CPU),
+        "demo": lambda: tscenes.cornell_demo_scene(include_dragon=False, device=CPU),
+        "inward_box": lambda: golden.inward_box_scene(device=CPU),
+        "specular": lambda: golden.specular_box_scene(device=CPU),
+        "specular_point_light": lambda: golden.specular_box_scene(point_light=True, device=CPU),
+        "sphere_point_light": lambda: golden.sphere_point_light_scene(device=CPU),
     }[name]()
 
 
@@ -194,9 +198,11 @@ def dragon_scene(pkg: str, tris: int = 1200):
     """bench_dragon_scene(dragon_tris=tris, accel="binned") of either package."""
     if pkg == "jax":
         from cpupathtrace_tpu.models.scenes import bench_dragon_scene
-    else:
-        from cpupathtrace_tpu_torch.models.scenes import bench_dragon_scene
-    return bench_dragon_scene(dragon_tris=tris, accel="binned")
+
+        return bench_dragon_scene(dragon_tris=tris, accel="binned")
+    from cpupathtrace_tpu_torch.models.scenes import bench_dragon_scene
+
+    return bench_dragon_scene(dragon_tris=tris, accel="binned", device=CPU)
 
 
 def mixed_cull_scene(pkg: str):
@@ -219,7 +225,7 @@ def mixed_cull_scene(pkg: str):
         v = c + rng.normal(scale=0.15, size=(3, 3))
         tris.append(HostTriangle(v[0], v[1], v[2], cull_backface=bool(i % 2)))
     b.add_triangles(tris, white)
-    return b.build(accel="binned")
+    return b.build(accel="binned") if pkg == "jax" else b.build(accel="binned", device=CPU)
 
 
 def query_rays(n: int, seed: int):
@@ -371,3 +377,78 @@ def f64_oracle(records, o, d, t_lim):
     best = tv.min(axis=1)
     hit = np.isfinite(best)
     return np.where(hit, best, -1.0), np.where(hit, prim[tv.argmin(axis=1)], -1).astype(np.int32)
+
+
+# ---------------------------------------------------------------------------
+# Gradients: the record-and-replay forward (K2's record form).
+# ---------------------------------------------------------------------------
+
+DIFF_RAYS = 1024  # one block of the JAX single-bounce kernel (8 x 128 rays)
+DIFF_SEED = 1234
+DIFF_DEPTH = 4
+# Record cases: name -> scene of build_scene. "box" is the pair-record
+# form with two emitters; "specular_point_light" adds a point light and
+# the mirror / glass chain codes.
+DIFF_CASES = ("bench_box", "specular_point_light")
+
+
+def jax_diff_records(scene_name: str):
+    """JAX trace_megakernel_diff (interpret mode) on `DIFF_RAYS` rays of
+    make_rays("sphere_dirs"), max_depth DIFF_DEPTH: (spectrum [n, 4],
+    records [D, n, n_drec], replay_spectrum [n, 3], replay_fast [n, 3])."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.core.config import RenderOptions
+    from cpupathtrace_tpu.core.rays import Rays
+    from cpupathtrace_tpu.integrator.diff_megakernel import (
+        DIFF_FIELDS,
+        em_material_ids,
+        preprocess_records,
+        replay_fast,
+        replay_spectrum,
+        trace_megakernel_diff,
+    )
+
+    scene = build_scene(scene_name, "jax")
+    o, d = make_rays("sphere_dirs", DIFF_RAYS)
+    with pallas_interpret():
+        spec, _, recs = trace_megakernel_diff(
+            scene, Rays(jnp.asarray(o), jnp.asarray(d)),
+            RenderOptions(8, 8, 1, 1, max_depth=DIFF_DEPTH), DIFF_SEED,
+        )
+    mats = {f: getattr(scene, f) for f in DIFF_FIELDS}
+    args = (em_material_ids(scene), scene.light_spectrum[:, :3])
+    nl, k = int(scene.n_point_lights), int(scene.emissive_sample_count)
+    ref = replay_spectrum(mats, recs, *args, nl, k)
+    fast = replay_fast(mats, preprocess_records(recs, *args, int(scene.num_materials), nl, k))
+    return tuple(np.asarray(x) for x in (spec, recs, ref, fast))
+
+
+def jax_trace_draws(key, n: int, em_k: int, depth: int) -> list:
+    """The uniforms JAX `trace` draws from `key` over `depth` bounces
+    (wavefront.py:90, lights.py:55), in the order the port's trace asks
+    for them: per bounce u_rt [n], u_nee [n, K, 3] (K > 0), u_prop [n, 3]."""
+    import jax
+
+    out = []
+    for _ in range(depth):
+        key, k_rt, k_nee, k_prop = jax.random.split(key, 4)
+        out.append(np.asarray(jax.random.uniform(k_rt, (n,))))
+        if em_k > 0:
+            out.append(np.asarray(jax.random.uniform(k_nee, (n, em_k, 3))))
+        out.append(np.asarray(jax.random.uniform(k_prop, (n, 3))))
+    return out
+
+
+def jax_render_draws(key, n: int, em_k: int, depth: int) -> list:
+    """The uniforms of one JAX render_chunk(differentiable=True) of n rays
+    from `key` (film.py:161, camera.py's jitter, then the trace), in the
+    port's order. The jitter is handed over as U[0, 1) draws: the port
+    subtracts 0.5, which is JAX's uniform(minval=-0.5, maxval=0.5)
+    (floats * 1.0 - 0.5) bit for bit."""
+    import jax
+
+    k_cam, k_trace = jax.random.split(key)
+    k_jit, _ = jax.random.split(k_cam)
+    return ([np.asarray(jax.random.uniform(k_jit, (n, 2)))]
+            + jax_trace_draws(k_trace, n, em_k, depth))
