@@ -46,7 +46,29 @@ Phases, one line each; any failure exits non-zero:
      PTX_DIFF_MEGAKERNEL=0 (the wavefront and K5); analytic vs finite
      difference gradients for both routes at 32x32 @ 8 spp, max_depth 4
  15. inverse_render: 10 Adam steps at 32x32 @ 8 spp on the card
-Then one JSON line with the kernels' figures and, last, the result line.
+ 16. the binned wavefront's kernels against their plain versions on the
+     200k dragon built with lean=False: the candidate scan K6 and the
+     cluster-major intersect K7 on phase 7's 65,536 rays (round 1 and a
+     round with a nonzero lower bound) and on the first round of the
+     dragon frame's 262,144 camera rays (the main path's shape, timed);
+     the whole `binned_intersect` (nearest; any-hit with t_max and a live
+     mask) against `binned_intersect_ref` on a chunk of rays and against
+     the cluster query K4 on every ray; rounds per query and host reads
+ 17. K8's entry point (`binned_intersect_cluster_major`, K7's kernel on
+     its binned pairs) on the same rays: its compute stage against its
+     plain version, its result against `binned_intersect`'s
+ 18. the binned wavefront at full width: render() of renderSceneDragonBox
+     (128x128 @ 16 spp, max_depth 40) on the lean=False build with
+     PTX_NO_MEGAKERNEL=1: frame time, K6 / K7 / K5 launches with no plain
+     call, one profiled frame, the mean against the sorted driver's frame
+     (within 4 standard errors); the scene rebuilt under PTX_KRN_MAX_TRIS
+     below its small count (no kernel records) reaching the wavefront by
+     the dispatch alone; the lean build through the wavefront (K4 + K5)
+ 19. gradients on the 200k dragon: loss_and_grad at 32x32 @ 8 spp,
+     max_depth 4, through the wavefront (PTX_DIFF_MEGAKERNEL=0) and the
+     record route, each against central differences
+Then the script's seconds, one JSON line with the kernels' figures and,
+last, the result line.
 With --out, the demo PNGs and every measured figure are also written there.
 """
 from __future__ import annotations
@@ -85,7 +107,8 @@ PATH_RAYS = 16384
 # above. Both kernels do their plain versions' float32 operations in the
 # same order; on an H100 they measured equal on every ray.
 QUERY_FRAC, QUERY_RTOL, PLANE_FRAC = 0.999, 1e-6, 0.999
-KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "bvh_build")
+KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
+           "binned_isect", "bvh_build")
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over HBM's rate
 # and its float32 operations over the FP32 peak (NVIDIA H100 SXM data
@@ -101,6 +124,24 @@ GRAD_W = GRAD_H = 128
 GRAD_SPP = 16
 GRAD_DEPTH = 12
 K5_RAYS = 262144
+# The binned wavefront (phases 16-19): candidate slots per round, the
+# share of rays on which the pipeline and the independent cluster query K4
+# must give the same prim (they may differ only on exact-t ties between
+# triangles), the rays of the oracle's chunk, and the work model of K6
+# (csrc/binned_cand.cu): per scanned ray and cluster the slab test (12
+# subtract / multiply, 10 min / max, the entry's compare and select, 7
+# compares of the box, the best hit and the bound: 31 operations), and only
+# for the clusters that pass it the insertion (per slot 3 compares and 4
+# selects; 3 compares and 2 selects for the overflow row).
+CAND_M = 4
+K4_AGREE = 0.999
+REF_RAYS = 8192
+SLAB_FLOPS = 31
+RAY_ROWS_BYTES = 36  # K6 reads 9 float planes per ray
+
+
+def insert_flops(m):
+    return 7 * m + 5
 
 
 class SmokeFailure(RuntimeError):
@@ -699,17 +740,19 @@ def phase_records(sw, mk, scenes, dragon, RenderOptions):
     return out
 
 
-def grad_checks(diff, golden, RenderOptions):
+def grad_checks(diff, golden, RenderOptions, scene=None, cam=None, entries=None):
     """Analytic vs central-difference gradients on the card at 32x32 @ 8
     spp, max_depth 4 (test_diff.py:66's rtol 0.05, atol 1e-4), for the
-    route PTX_DIFF_MEGAKERNEL currently selects."""
-    scene, cam = golden.inward_box_scene(), golden.box_camera()
+    route PTX_DIFF_MEGAKERNEL currently selects; by default on the inward
+    box, its wall albedo and its light's emission."""
+    if scene is None:
+        scene, cam = golden.inward_box_scene(), golden.box_camera()
     opts = RenderOptions(32, 32, 8, 8, max_depth=4)
     target = diff.render_image_diff(scene, cam, opts, 99, 8).detach()
     params = diff.get_material_params(scene)
     _, g = diff.loss_and_grad(params, scene, cam, opts, target, 0, 8)
     out = {}
-    for field, idx in (("mat_diffuse", (1, 0)), ("mat_emission", (2, 1))):
+    for field, idx in entries or (("mat_diffuse", (1, 0)), ("mat_emission", (2, 1))):
         fd = diff.finite_difference_grad(params, scene, cam, opts, target, 0, 8, field, idx,
                                          eps=2e-3)
         an = float(g[field][idx])
@@ -836,6 +879,372 @@ def phase_inverse_render(diff, golden, RenderOptions):
     return res
 
 
+def query_rays_phase7(n=QUERY_RAYS):
+    """Phase 7's rays (origins uniform in the box, uniform directions) and
+    its shadow limits, from the same seed."""
+    rng = np.random.default_rng(1)
+    o = torch.tensor(rng.uniform(-0.95, 0.95, (n, 3)), dtype=torch.float32, device="cuda")
+    d = rng.normal(size=(n, 3))
+    d = torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True), dtype=torch.float32,
+                     device="cuda")
+    lim = torch.tensor(rng.uniform(0.05, 1.5, n), dtype=torch.float32, device="cuda")
+    return o, d, lim
+
+
+def first_round_rays(tt, scene, o, d):
+    """K6's ray planes in `binned_intersect`'s first round: the rays that
+    enter the small partition's box before their dense-part hit, with that
+    hit as their bound and no lower bound yet."""
+    tables = tt.binned_tables(scene)
+    t0, _ = tt._dense_part(scene, o, d, tables)
+    entry = tt._root_entry(scene, o, d)
+    idx = torch.nonzero((entry >= 0.0) & (entry < t0)).squeeze(1)
+    ninf = torch.full((idx.numel(),), float("-inf"), device="cuda")
+    return tt.pack_rays(o[idx], d[idx], t0[idx], ninf, ninf)
+
+
+def bits_equal(a, b):
+    return bool(torch.equal(a.contiguous().view(torch.int32), b.contiguous().view(torch.int32)))
+
+
+def max_err(a, b):
+    """Largest |a - b| over the finite entries (0 for none)."""
+    e = (a - b).nan_to_num(0.0, 0.0, 0.0).abs()
+    return float(e.max()) if e.numel() else 0.0
+
+
+def capture_main_path_inputs(pt, tt, scenes, dragon):
+    """The largest K6 and K7 inputs of one wavefront frame of the dragon
+    (phase 18's main path, rendered here once more): the shapes the main
+    path gives the kernels. The frame's camera rays end on the box's
+    two-sided front wall, so the dragon is reached from bounce 2 on."""
+    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+    k6, k7 = tt.candidates, tt.isect
+    seen = {}
+
+    def cand(bounds, rays, m):
+        if rays.shape[1] > seen.get("k6", (torch.empty(0, 0),))[0].shape[1]:
+            seen["k6"] = (rays.clone(), m)
+        return k6(bounds, rays, m)
+
+    def isect(blocks, rays, offs):
+        if rays.shape[1] > seen.get("k7", (torch.empty(0, 0),))[0].shape[1]:
+            seen["k7"] = (rays.clone(), offs.clone())
+        return k7(blocks, rays, offs)
+
+    # The wrappers count their launches through their module's names,
+    # which name these stand-ins while they are in place.
+    cand.launches = isect.launches = 0
+    tt.candidates, tt.isect = cand, isect
+    os.environ["PTX_NO_MEGAKERNEL"] = "1"
+    try:
+        pt.render(dragon, scenes.bench_camera(), opts, seed=11, device="cuda")
+        sync()
+    finally:
+        tt.candidates, tt.isect = k6, k7
+        del os.environ["PTX_NO_MEGAKERNEL"]
+    return seen["k6"], seen["k7"]
+
+
+def check_k6(tt, bounds, rays, m, what):
+    ik, ek = tt.candidates(bounds, rays, m)
+    sync()
+    ip, ep = tt.candidates_reference(bounds, rays, m)
+    res = dict(rays=int(rays.shape[1]), m=m, ids_equal=bool(torch.equal(ik, ip)),
+               entries_equal=bits_equal(ek, ep), kept=int((ik[:m] >= 0).sum()),
+               overflow=int((ik[m] >= 0).sum()),
+               max_abs_err=max_err(ek, ep))
+    need(res["ids_equal"] and res["entries_equal"], f"K6 {what} disagrees: {res}")
+    return res, ik, ek
+
+
+def check_k7(tt, blocks, pair_rays, offs, what):
+    tk, pk = tt.isect(blocks, pair_rays, offs)
+    sync()
+    tp, pp = tt.isect_reference(blocks, pair_rays, offs)
+    n = int(offs[-1])
+    res = dict(pairs=n, hits=int((pk[:n] >= 0).sum()), t_equal=bits_equal(tk, tp),
+               prim_equal=bool(torch.equal(pk, pp)),
+               max_abs_err=max_err(tk[:n], tp[:n]))
+    need(res["t_equal"] and res["prim_equal"] and res["hits"] > 0, f"K7 {what} disagrees: {res}")
+    return res
+
+
+def k6_bound(tt, bounds, rays, m):
+    """K6's bound on this input: the slab test for each (scanned ray,
+    cluster) pair, the insertion only for the pairs that pass the test
+    (counted here with the plain version's slab arithmetic)."""
+    c = bounds.shape[0]
+    cf = torch.arange(c, device=rays.device, dtype=torch.float32)[:, None]
+    scanned = passed = 0
+    for a in range(0, rays.shape[1], 8192):
+        ox, oy, oz, dx, dy, dz, best, t_lo, id_lo = rays[:, a:a + 8192]
+        entry, box_ok = tt._slab_entries(bounds, ox, oy, oz, tt._inv_dir(dx), tt._inv_dir(dy),
+                                         tt._inv_dir(dz))
+        after = (entry > t_lo) | ((entry == t_lo) & (cf > id_lo))
+        scan = t_lo < float("inf")  # the kernel skips the other rays
+        scanned += int(scan.sum())
+        passed += int((box_ok & (entry < best) & after & scan).sum())
+    n = rays.shape[1]
+    return dict(scanned=scanned, passed=passed,
+                **bound(n * (RAY_ROWS_BYTES + 8 * (m + 1)) + c * 32,
+                        scanned * c * SLAB_FLOPS + passed * insert_flops(m)))
+
+
+def k7_bound(tt, blocks, n_pairs, counts):
+    """K7's bound from a run's pairs (`counts` [C] per cluster): each pair
+    tests only its cluster's triangles (the rows with a prim; padding rows
+    are no triangles), and each cluster with pairs is read once."""
+    rows = (blocks[..., tt.C_PRIM] >= 0).sum(1).long()
+    counts = counts.long()
+    tests = int((counts * rows).sum())
+    read_rows = int(rows[counts > 0].sum())
+    return dict(tests=tests, **bound(n_pairs * (24 + 8) + read_rows * 64, tests * TEST_FLOPS))
+
+
+def phase_binned_kernels(pt, tt, scenes, dragon):
+    """K6 and K7 against their plain versions, then the whole pipeline
+    against its oracle and against K4."""
+    o, d, lim = query_rays_phase7()
+    c, l = dragon.trv_blocks.shape[0], dragon.trv_blocks.shape[1]
+    out = dict(clusters=c, cluster_size=l)
+    rays = first_round_rays(tt, dragon, o, d)
+    for m in (1, CAND_M):
+        out[f"k6_round1_m{m}"], ik, ek = check_k6(tt, dragon.trv_bounds, rays, m, f"m={m}")
+    # A later round: the bound advanced past round 1's last valid slot.
+    valid = ik[:CAND_M] >= 0
+    last = valid.sum(0).clamp_min(1) - 1
+    t_lo = torch.where(valid[0], ek.gather(0, last[None])[0], float("inf"))
+    id_lo = torch.where(valid[0], ik.gather(0, last[None])[0].float(), float("inf"))
+    later = rays.clone()
+    later[7], later[8] = t_lo, id_lo
+    out["k6_round2"], _, _ = check_k6(tt, dragon.trv_bounds, later, CAND_M, "round 2")
+    need(out["k6_round2"]["kept"] > 0, "K6's later round kept no candidate")
+    pair_rays, offs, _ = tt.bin_pairs(rays, ik, c, CAND_M)
+    out["k7_round1"] = check_k7(tt, dragon.trv_blocks, pair_rays, offs, "round 1")
+
+    # The main path's shapes: the largest K6 and K7 inputs of a wavefront
+    # frame, the kernels timed beside their plain versions.
+    (frays, fm), (fpairs, foffs) = capture_main_path_inputs(pt, tt, scenes, dragon)
+    k6, _, _ = check_k6(tt, dragon.trv_bounds, frays, fm, "at the main path's shape")
+    k6["ms"] = cuda_ms(lambda: tt.candidates(dragon.trv_bounds, frays, fm), 10)
+    k6["plain_ms"] = cuda_ms(lambda: tt.candidates_reference(dragon.trv_bounds, frays, fm), 1)
+    k6.update(k6_bound(tt, dragon.trv_bounds, frays, fm))
+    out["k6_frame"] = k6
+    k7 = check_k7(tt, dragon.trv_blocks, fpairs, foffs, "at the main path's shape")
+    k7["ms"] = cuda_ms(lambda: tt.isect(dragon.trv_blocks, fpairs, foffs), 10)
+    k7["plain_ms"] = cuda_ms(lambda: tt.isect_reference(dragon.trv_blocks, fpairs, foffs), 1)
+    k7.update(k7_bound(tt, dragon.trv_blocks, k7["pairs"], foffs[1:] - foffs[:-1]))
+    out["k7_frame"] = k7
+
+    # The whole query: against the oracle on a chunk, against K4 on all.
+    reads0, rounds0 = tt.binned_intersect.host_reads, tt.binned_intersect.rounds
+    tb, pb = tt.binned_intersect(dragon, o, d, m=CAND_M)
+    sync()
+    out["rounds_per_query"] = tt.binned_intersect.rounds - rounds0
+    out["host_reads_per_query"] = tt.binned_intersect.host_reads - reads0
+    tr, pr = tt.binned_intersect_ref(dragon, o[:REF_RAYS], d[:REF_RAYS])
+    tq, pq = tt.krn_intersect(dragon, o, d)
+    out["nearest"] = dict(
+        hits=int((pb >= 0).sum()),
+        ref_rays=REF_RAYS, ref_prim_equal=float((pb[:REF_RAYS] == pr).float().mean()),
+        ref_t_equal=float((tb[:REF_RAYS] == tr).float().mean()),
+        k4_prim_equal=float((pb == pq).float().mean()),
+        k4_t_equal=float((tb == tq).float().mean()))
+    need(out["nearest"]["ref_prim_equal"] == 1.0 and out["nearest"]["k4_prim_equal"] >= K4_AGREE,
+         f"binned_intersect (nearest) disagrees: {out['nearest']}")
+    live = torch.tensor(np.random.default_rng(5).random(QUERY_RAYS) < 0.5, device="cuda")
+    ta, pa = tt.binned_intersect(dragon, o, d, t_max=lim, live=live, any_hit=True, m=CAND_M)
+    _, par = tt.binned_intersect_ref(dragon, o[:REF_RAYS], d[:REF_RAYS], t_max=lim[:REF_RAYS])
+    _, paq = tt.krn_intersect(dragon, o, d, t_max=lim, live=live, any_hit=True)
+    lc = live[:REF_RAYS]
+    out["any_hit"] = dict(
+        live=int(live.sum()), occluded=int(((pa >= 0) & live).sum()),
+        ref_occlusion_equal=float(((pa[:REF_RAYS] >= 0) == (par >= 0))[lc].float().mean()),
+        k4_occlusion_equal=float(((pa >= 0) == (paq >= 0))[live].float().mean()),
+        hits_within_t_max=bool(((pa < 0) | (ta < lim))[live].all()))
+    need(out["any_hit"]["ref_occlusion_equal"] == 1.0 and out["any_hit"]["hits_within_t_max"]
+         and out["any_hit"]["k4_occlusion_equal"] >= K4_AGREE,
+         f"binned_intersect (any-hit) disagrees: {out['any_hit']}")
+    out["query_ms"] = cuda_ms(lambda: tt.binned_intersect(dragon, o, d, m=CAND_M), 3)
+    out["k4_query_ms"] = cuda_ms(lambda: tt.krn_intersect(dragon, o, d), 3)
+    out["max_abs_err"] = max(out[k]["max_abs_err"] for k in ("k6_round1_m1", "k6_round2",
+                                                             "k6_frame"))
+    return out, (tb, pb)
+
+
+def phase_cluster_major(cm, binned, tt, oi, dragon, nearest):
+    """K8's entry point: its compute stage (K7's kernel on the binned
+    pairs, counted by K7's wrapper where it launches) against its plain
+    version, its result against binned_intersect's."""
+    o, d, _ = query_rays_phase7()
+    blocks = cm.cluster_blocks(dragon)
+    ids, _ = binned.generate_candidates(dragon, o, d, CAND_M)
+    tt.isect.launches = tt.isect_reference.calls = cm._test_candidates.calls = 0
+    tk, pk = cm.test_candidates(blocks, o, d, ids)
+    sync()
+    need(tt.isect.launches == 1 and tt.isect_reference.calls == cm._test_candidates.calls == 0,
+         "K8's compute stage did not launch its kernel alone")
+    tp, pp = cm._test_candidates(blocks, o, d, ids)
+    pairs = int((ids >= 0).sum())
+    c = blocks.shape[0]
+    res = dict(pairs=pairs, t_equal=bits_equal(tk, tp), prim_equal=bool(torch.equal(pk, pp)),
+               max_abs_err=max_err(tk, tp), hits=int((pk >= 0).sum()))
+    need(res["t_equal"] and res["prim_equal"], f"K8 disagrees with its plain version: {res}")
+    res["ms"] = cuda_ms(lambda: cm.test_candidates(blocks, o, d, ids), 5)
+    res["plain_ms"] = cuda_ms(lambda: cm._test_candidates(blocks, o, d, ids), 1)
+    res.update(k7_bound(tt, blocks, pairs, torch.bincount(ids[ids >= 0].long(), minlength=c)))
+    tt.isect.launches = 0
+    t8, p8 = cm.binned_intersect_cluster_major(dragon, o, d, CAND_M, blocks)
+    sync()
+    res["launches"] = tt.isect.launches
+    need(res["launches"] > 0, "K8's entry point launched no kernel")
+    # K8's entry point intersects the cluster blocks (the small partition)
+    # and the spheres, not the big triangles: where binned_intersect's
+    # nearest is not a big triangle the two give the same prim, and where
+    # it is, K8 finds nothing nearer. Both are exact nearest-hit
+    # intersectors, so they may differ only in which of two triangles at
+    # exactly the same t they report. On a chunk, K8 against its own
+    # oracle, the sweep over the same blocks.
+    tb, pb = nearest
+    big = torch.isin(pb, dragon.big_prim[dragon.big_prim >= 0].long())
+    same = (p8 == pb) | (t8 == tb)
+    ts, ps = oi.sweep_intersect(dragon, o[:REF_RAYS], d[:REF_RAYS])
+    res.update(entry_small_rays=int((~big).sum()),
+               entry_small_agree=float(same[~big].float().mean()),
+               entry_small_prim_equal=float((p8 == pb)[~big].float().mean()),
+               entry_big_not_nearer=bool(((p8 < 0) | (t8 >= tb))[big].all()),
+               sweep_agree=float(((p8[:REF_RAYS] == ps) | (t8[:REF_RAYS] == ts)).float().mean()),
+               sweep_prim_equal=float((p8[:REF_RAYS] == ps).float().mean()))
+    need(res["entry_small_agree"] == 1.0 and res["entry_big_not_nearer"]
+         and res["sweep_agree"] == 1.0 and res["entry_small_rays"] > 1000,
+         f"K8's entry point disagrees with binned_intersect: {res}")
+    return res
+
+
+def binned_counts(tt, oi, sw, mk, kt):
+    return dict(k6=tt.candidates.launches, k6_plain=tt.candidates_reference.calls,
+                k7=tt.isect.launches, k7_plain=tt.isect_reference.calls,
+                k5=oi.dense_intersect.launches, k5_plain=oi.dense_intersect_reference.calls,
+                k4=kt.cluster_intersect.launches, k4_plain=kt.cluster_intersect_reference.calls,
+                k2=sw.bounce.launches, k1=mk.trace_megakernel.launches)
+
+
+def binned_counts_zero(tt, oi, sw, mk, kt):
+    tt.candidates.launches = tt.candidates_reference.calls = 0
+    tt.isect.launches = tt.isect_reference.calls = 0
+    oi.dense_intersect.launches = oi.dense_intersect_reference.calls = 0
+    kt.cluster_intersect.launches = kt.cluster_intersect_reference.calls = 0
+    sw.bounce.launches = mk.trace_megakernel.launches = 0
+
+
+def phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon):
+    """renderSceneDragonBox through the binned wavefront (render(), the
+    main path of this phase), then the dispatch to it without kernel
+    records, then the lean build through K4."""
+    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+    camera = scenes.bench_camera()
+    out = {}
+    os.environ["PTX_NO_MEGAKERNEL"] = "1"
+    try:
+        binned_counts_zero(tt, oi, sw, mk, kt)
+        reads0, rounds0 = tt.binned_intersect.host_reads, tt.binned_intersect.rounds
+        sync()
+        t0 = time.perf_counter()
+        img_w = pt.render(dragon, camera, opts, seed=1, device="cuda")
+        sync()
+        frames = [time.perf_counter() - t0]
+        counts = binned_counts(tt, oi, sw, mk, kt)
+        out.update(counts=counts, host_reads=tt.binned_intersect.host_reads - reads0,
+                   rounds=tt.binned_intersect.rounds - rounds0)
+        for seed in (2, 3):
+            sync()
+            t0 = time.perf_counter()
+            pt.render(dragon, camera, opts, seed=seed, device="cuda")
+            sync()
+            frames.append(time.perf_counter() - t0)
+        out["profile"] = profile_run(
+            lambda: pt.render(dragon, camera, opts, seed=7, device="cuda"), "binned_")
+    finally:
+        del os.environ["PTX_NO_MEGAKERNEL"]
+    c = out["counts"]
+    need(c["k6"] > 0 and c["k7"] > 0 and c["k5"] > 0 and c["k6_plain"] == c["k7_plain"]
+         == c["k5_plain"] == 0 and c["k2"] == c["k1"] == c["k4"] == 0,
+         f"the binned wavefront's main path: {c}")
+    need(img_w.shape == (DRAGON_H, DRAGON_W, 4) and np.isfinite(img_w).all()
+         and bool((img_w[..., 3] == 1.0).all()), "binned wavefront image")
+    img_k = pt.render(dragon, camera, opts, seed=4, device="cuda")  # K2, the sorted driver
+    diff_px = img_w[..., :3].mean(-1).astype(np.float64) - img_k[..., :3].mean(-1)
+    se = float(diff_px.std() / np.sqrt(diff_px.size))
+    n_paths = DRAGON_W * DRAGON_H * DRAGON_SPP
+    med = float(np.median(frames))
+    out.update(frame_s=frames, frame_median_s=med, mrays_per_s=n_paths / med / 1e6,
+               mean_wavefront=float(img_w[..., :3].mean()), mean_k2=float(img_k[..., :3].mean()),
+               mean_diff=float(diff_px.mean()), std_err=se)
+    need(abs(out["mean_diff"]) <= 4 * se, f"binned wavefront frame differs from K2's: {out}")
+
+    # No kernel records: the scene rebuilt under PTX_KRN_MAX_TRIS below its
+    # small count reaches the wavefront by the dispatch alone.
+    os.environ["PTX_KRN_MAX_TRIS"] = "1000"
+    try:
+        bare = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS)
+    finally:
+        del os.environ["PTX_KRN_MAX_TRIS"]
+    need(not bare.has_kernel_records and not mk.megakernel_supported(bare),
+         "the scene built under PTX_KRN_MAX_TRIS still has kernel records")
+    low = pt.RenderOptions(DRAGON_W, DRAGON_H, 4, 4, epsilon=1e-3, max_depth=MAX_DEPTH)
+    binned_counts_zero(tt, oi, sw, mk, kt)
+    t0 = time.perf_counter()
+    img = pt.render(bare, camera, low, seed=5, device="cuda")
+    sync()
+    c = binned_counts(tt, oi, sw, mk, kt)
+    out["no_records"] = dict(frame_s=time.perf_counter() - t0, counts=c,
+                             mean=float(img[..., :3].mean()))
+    need(c["k6"] > 0 and c["k7"] > 0 and c["k2"] == c["k1"] == 0 and c["k6_plain"] == 0
+         and np.isfinite(img).all(), f"no-records dragon did not take the wavefront: {c}")
+
+    # The lean build through the wavefront: krn_intersect, K4 and K5.
+    lean = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS, lean=True)
+    os.environ["PTX_NO_MEGAKERNEL"] = "1"
+    try:
+        binned_counts_zero(tt, oi, sw, mk, kt)
+        t0 = time.perf_counter()
+        img = pt.render(lean, camera, low, seed=6, device="cuda")
+        sync()
+    finally:
+        del os.environ["PTX_NO_MEGAKERNEL"]
+    c = binned_counts(tt, oi, sw, mk, kt)
+    out["lean"] = dict(frame_s=time.perf_counter() - t0, counts=c, mean=float(img[..., :3].mean()))
+    need(c["k4"] > 0 and c["k5"] > 0 and c["k6"] == c["k7"] == c["k2"] == 0
+         and c["k4_plain"] == 0 and np.isfinite(img).all(),
+         f"lean dragon through the wavefront: {c}")
+    return out
+
+
+def phase_dragon_grad(diff, golden, sw, tt, scenes, dragon, RenderOptions):
+    """Gradients on the 200k dragon against central differences: the
+    wavefront route (the binned wavefront) and the record route (K2)."""
+    camera = scenes.bench_camera()
+    entries = (("mat_diffuse", (1, 0)), ("mat_emission", (2, 1)))  # box walls, light
+    out = {}
+    os.environ["PTX_DIFF_MEGAKERNEL"] = "0"
+    try:
+        tt.candidates.launches = sw.bounce.record_launches = 0
+        out["wavefront"] = grad_checks(diff, golden, RenderOptions, dragon, camera, entries)
+        out["wavefront"]["k6_launches"] = tt.candidates.launches
+        need(tt.candidates.launches > 0 and sw.bounce.record_launches == 0,
+             "the dragon's wavefront gradients did not run the binned wavefront")
+    finally:
+        del os.environ["PTX_DIFF_MEGAKERNEL"]
+    sw.bounce.record_launches = 0
+    out["record"] = grad_checks(diff, golden, RenderOptions, dragon, camera, entries)
+    out["record"]["k2_record_launches"] = sw.bounce.record_launches
+    need(sw.bounce.record_launches > 0, "the dragon's record-route gradients did not run K2")
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
@@ -845,6 +1254,7 @@ def main():
               file=sys.stderr)
         return 1
 
+    t_start = time.perf_counter()
     import cpupathtrace_tpu_torch as pt
     from cpupathtrace_tpu_torch import _build
     from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
@@ -855,6 +1265,7 @@ def main():
     from cpupathtrace_tpu_torch import diff
     from cpupathtrace_tpu_torch.models import golden, scenes
     from cpupathtrace_tpu_torch.ops import intersect as oi
+    from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -918,12 +1329,28 @@ def main():
     report["inverse_render"] = phase_inverse_render(diff, golden, pt.RenderOptions)
     line("15 inverse_render", **report["inverse_render"])
 
+    # The binned wavefront needs the dragon's K6/K7 tables: phase 7 built
+    # the scene with lean=False, the builder's default.
+    need(dragon.trv_bounds.shape[0] > 1 and not dragon.lean, "the dragon has no K6/K7 tables")
+    report["binned_kernels"], nearest = phase_binned_kernels(pt, tt, scenes, dragon)
+    line("16 binned wavefront kernels vs plain", **report["binned_kernels"])
+    report["cluster_major"] = phase_cluster_major(cm, binned, tt, oi, dragon, nearest)
+    line("17 cluster-major entry (K8)", **report["cluster_major"])
+    report["binned_wavefront"] = phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon)
+    line("18 binned wavefront frame", **report["binned_wavefront"])
+    report["dragon_grad"] = phase_dragon_grad(diff, golden, sw, tt, scenes, dragon,
+                                              pt.RenderOptions)
+    line("19 dragon gradients vs FD", **report["dragon_grad"])
+
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
     query = report["cluster_query"]
     k5 = report["dense_query"]
     grad = report["box_grad"]
     krec = grad["record_kernel"]
+    bk = report["binned_kernels"]
+    bw = report["binned_wavefront"]["counts"]
+    k8 = report["cluster_major"]
 
     def figures(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -972,7 +1399,30 @@ def main():
         "launches": grad["wavefront"]["counts"]["k5"],
         "max_abs_err": k5["max_abs_err"],
         **figures(k5), "library_ms": None,
+    }, {
+        "name": "binned_cand", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/binned_cand.cu",
+        "replaces": "cpupathtrace_tpu/accel/pallas_traverse.py:121",
+        "launches": bw["k6"],
+        "max_abs_err": bk["max_abs_err"],
+        **figures(bk["k6_frame"]), "library_ms": None,
+    }, {
+        "name": "binned_isect", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/binned_isect.cu",
+        "replaces": "cpupathtrace_tpu/accel/pallas_traverse.py:238",
+        "launches": bw["k7"],
+        "max_abs_err": max(bk["k7_round1"]["max_abs_err"], bk["k7_frame"]["max_abs_err"]),
+        **figures(bk["k7_frame"]), "library_ms": None,
+    }, {
+        "name": "cluster_major", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/binned_isect.cu",
+        "replaces": "cpupathtrace_tpu/accel/pallas_binned.py:62",
+        "launches": k8["launches"],
+        "max_abs_err": k8["max_abs_err"],
+        **figures(k8), "library_ms": None,
     }]}
+    report["seconds"] = time.perf_counter() - t_start
+    line("20 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

@@ -1,12 +1,14 @@
-"""The cluster cut of the flat BVH: spatially coherent clusters of up to
-`cluster_size` primitives, emitted in left-first DFS order.
+"""The two-level cluster structure: the flat BVH cut into spatially coherent
+clusters of up to `cluster_size` primitives, emitted in left-first DFS
+order, and a top tree over the clusters' bounds.
 
-Port of `cpupathtrace_tpu/accel/cluster.py:build_cluster_bvh`, limited to
-what the in-kernel traversal tiers need: `members`, `c_lo` and `c_hi`. (The
-top tree over clusters serves only the binned wavefront, ROADMAP slice 4.)
+Port of `cpupathtrace_tpu/accel/cluster.py:build_cluster_bvh` (`ClusterBVH`).
 A cluster is the subtree of the first node, walking from the root, that
 holds at most `cluster_size` primitives; its members are a contiguous run
-of the DFS leaf order and its bounds are that node's stored bounds.
+of the DFS leaf order and its bounds are that node's stored bounds. The
+top tree (`lo`, `hi`, `left`, `right`, `cluster`, `depth`) is the flat BVH
+over the cluster bounds: the cluster walker of ops/intersect.py descends
+it. The in-kernel traversal tiers read only `members`, `c_lo` and `c_hi`.
 """
 from __future__ import annotations
 
@@ -18,7 +20,14 @@ from .build import NATIVE_THRESHOLD, build_bvh, build_bvh_native
 
 
 @dataclasses.dataclass
-class ClusterCut:
+class ClusterBVH:
+    # Top tree over the clusters: `cluster` holds the cluster id on leaves.
+    lo: np.ndarray  # [N, 3] f32
+    hi: np.ndarray  # [N, 3] f32
+    left: np.ndarray  # [N] i32
+    right: np.ndarray  # [N] i32
+    cluster: np.ndarray  # [N] i32 cluster id on leaves, -1 on internal nodes
+    depth: int
     members: np.ndarray  # [C, L] i32 primitive indices, -1 padding
     c_lo: np.ndarray  # [C, 3] f32 cluster bounds
     c_hi: np.ndarray  # [C, 3] f32
@@ -36,10 +45,19 @@ def _members(starts, lens, order, cluster_size):
     return members
 
 
+def _with_top_tree(members, c_lo, c_hi, cluster_size, use_native):
+    top = build_bvh(c_lo, c_hi, use_native=use_native)
+    return ClusterBVH(lo=top.lo, hi=top.hi, left=top.left, right=top.right,
+                      cluster=top.prim, depth=top.depth, members=members,
+                      c_lo=c_lo, c_hi=c_hi, n_clusters=members.shape[0],
+                      cluster_size=cluster_size)
+
+
 def build_cluster_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
                       cluster_size: int = 64,
-                      use_native: bool | None = None) -> ClusterCut:
-    """Cut the flat BVH over primitive bounds [P,3] into clusters."""
+                      use_native: bool | None = None) -> ClusterBVH:
+    """Cut the flat BVH over primitive bounds [P,3] into clusters and build
+    the top tree over them."""
     n = prim_lo.shape[0]
     if (use_native is None and n >= NATIVE_THRESHOLD) or use_native:
         # The C++ builder hands back each node's first-leaf DFS rank and
@@ -58,9 +76,8 @@ def build_cluster_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
         starts = begin[cut].astype(np.int64)
         lens = size[cut].astype(np.int64)
         members = _members(starts, lens, dfs, cluster_size)
-        return ClusterCut(members=members, c_lo=lo[cut].astype(np.float32),
-                          c_hi=hi[cut].astype(np.float32), n_clusters=cut.shape[0],
-                          cluster_size=cluster_size)
+        return _with_top_tree(members, lo[cut].astype(np.float32),
+                              hi[cut].astype(np.float32), cluster_size, use_native)
 
     base = build_bvh(prim_lo, prim_hi, use_native=use_native)
     # Level-by-level numpy sweeps: levels (root -> children), subtree sizes
@@ -95,6 +112,5 @@ def build_cluster_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
     ordered = np.empty(n, np.int64)
     ordered[leaf_start[leaf_nodes]] = base.prim[leaf_nodes]
     members = _members(leaf_start[cut], size[cut], ordered, cluster_size)
-    return ClusterCut(members=members, c_lo=base.lo[cut].astype(np.float32),
-                      c_hi=base.hi[cut].astype(np.float32), n_clusters=cut.shape[0],
-                      cluster_size=cluster_size)
+    return _with_top_tree(members, base.lo[cut].astype(np.float32),
+                          base.hi[cut].astype(np.float32), cluster_size, use_native)

@@ -72,15 +72,14 @@ MAX_EM = 256
 
 
 def megakernel_supported(scene: SceneData) -> bool:
-    """True when the scene's tables fit the kernels' limits. A binned
-    scene needs its traversal tiers, its big partition in the one pair
-    record, and its emitters in that dense part (pallas_megakernel.py:
-    957-979)."""
+    """True when the scene's tables fit the kernels' limits
+    (pallas_megakernel.py:957-979). A scene with traversal tiers (binned)
+    needs its big partition in the one pair record and its emitters in
+    that dense part; any other scene, whatever its accelerator, needs its
+    triangles in the pair record or the MAX_TRI-row triangle table."""
     if scene.has_kernel_records:
         tri_ok = (scene.dense_pair and scene.n_big <= MAX_REC_ROWS
                   and scene.emissive_in_dense)
-    elif scene.accel != "dense":
-        return False
     elif scene.dense_pair:
         tri_ok = scene.krn_big_pair.shape[0] <= MAX_REC_ROWS
     else:

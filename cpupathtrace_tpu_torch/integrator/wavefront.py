@@ -8,9 +8,13 @@ Russian roulette with p = 1 to depth 4, then 0.1 + 0.1 * min(contrib *
 mean_rgb, 1) (:67-70); termination on a miss, a roulette stop, bounce_pd
 or divisor <= 1e-20 (:47, 106, 112, 134); alpha = any hit (:141-143).
 
-Every intersection goes through `scene_intersect`, so on a CUDA device
-each bounce launches the dense query kernel K5 twice (camera-side rays,
-then all shadow rays at once).
+Every intersection goes through `scene_intersect`, twice per bounce
+(camera-side rays, then all shadow rays at once), with the query tables
+packed once per trace: on a CUDA device a dense scene launches K5, a
+binned scene the binned wavefront (K6, K7 and K5 for its dense part; K4
+and K5 for a lean scene), a sweep, cluster or bvh scene runs its torch
+walker. Geometry is not differentiable: the intersectors take the rays
+detached, and gradients reach the materials.
 
 Differentiation: pdf-side weights (divisor, bounce_pd, roulette p, light
 and BSDF pdfs) are detached; the radiance side (albedo products, emission)
@@ -30,7 +34,7 @@ from ..bsdf.bsdf import eval_spectrum, gather_material, propagate
 from ..core import debug
 from ..core.config import RenderOptions
 from ..core.rays import Rays
-from ..ops.intersect import dense_tables, scene_intersect
+from ..ops.intersect import query_tables, scene_intersect
 from ..ops.surface import surface_normal
 from ..scene.lights import num_light_samples, sample_lights
 from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, SceneData
@@ -164,7 +168,7 @@ def trace(scene: SceneData, rays: Rays, options: RenderOptions, generator=None,
     scene = scene.to(dev)
     if generator is None:
         generator = torch.Generator(device=dev)
-    tables = dense_tables(scene) if scene.accel == "dense" else None
+    tables = query_tables(scene)
     s = dict(
         o=o, d=d,
         sample_spectrum=torch.ones((n, 4), device=dev),

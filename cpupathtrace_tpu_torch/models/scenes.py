@@ -162,6 +162,7 @@ def bench_dragon_scene(
     dragon_obj: str | None = None,
     dragon_tris: int = 200000,
     accel: str | None = None,
+    cluster_size: int | None = None,
     lean: bool = False,
     device=None,
 ) -> SceneData:
@@ -181,7 +182,7 @@ def bench_dragon_scene(
         [[0.01, 0, 0, 0], [0, 0.01, 0, -0.5], [0, 0, 0.01, 0], [0, 0, 0, 1.0]]
     )
     b.add_triangles(_standin_dragon(dragon_tris, transform), glass)
-    return b.build(accel=accel, lean=lean, device=device)
+    return b.build(accel=accel, cluster_size=cluster_size, lean=lean, device=device)
 
 
 def standin_dragon_arrays(

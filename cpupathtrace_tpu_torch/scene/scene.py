@@ -3,25 +3,33 @@
 Port of `cpupathtrace_tpu/scene/scene.py`: primitive arrays (triangles
 0..n_tri-1, spheres n_tri..), the material table, point lights, the
 emissive registry + CDF (ref: src/scene/scene.cpp:165-226), the dense pair
-record, and for binned scenes the big/small partition and the in-kernel
-cluster traversal tiers. Arrays are padded so no shape is zero-length;
-padding rows are masked by `tri_valid` / `sph_valid`.
+record, the two-level cluster structure of the sweep, cluster and binned
+intersectors, the per-primitive BVH of the bvh walker, and for binned
+scenes the big/small partition, the binned-wavefront tables (K6/K7) and
+the in-kernel cluster traversal tiers. Arrays are padded so no shape is
+zero-length; padding rows are masked by `tri_valid` / `sph_valid`.
 
-The build is the numpy arithmetic of the JAX builder (dense branch
-scene.py:342-440 and :719-734; binned branch :442-514, :535-584, :630-642,
-:653-769), so both packages give equal arrays (tests/test_torch_scene.py,
-tests/test_torch_binned_scene.py). A binned build packs only the tables
-the megakernel path reads, as the JAX builder's `lean=True` does. The
-sweep, bvh and cluster accelerators are ROADMAP slice 4 and raise.
+The build is the numpy arithmetic of the JAX builder (scene.py:342-820),
+so both packages give equal arrays (tests/test_torch_scene.py,
+tests/test_torch_binned_scene.py, tests/test_torch_walkers.py). Two
+departures: the per-primitive BVH (`bvh_*`) is built only for
+accel="bvh", the one intersector that reads it (the JAX builder builds it
+for every scene that is not lean: 396,075 nodes on the 200k dragon), with
+a one-node placeholder elsewhere; and the binned-wavefront tables
+(`trv_blocks`, `trv_bounds`) are in the port's row-major layout
+(accel/traverse.py), not the TPU's tile layout. `lean=True` packs only
+the megakernel tables of a binned scene, as the JAX builder does.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 import time
 
 import numpy as np
 import torch
 
+from ..accel.build import build_bvh
 from ..accel.cluster import build_cluster_bvh
 from ..accel.kernel_traverse import (
     BND_COLS,
@@ -43,19 +51,16 @@ BSDF_MIRROR = 2
 
 # Triangles per in-kernel cluster record (the JAX package's PTX_KRN_CLUSTER
 # default) and the small-partition size above which the in-kernel tables
-# are not packed (its PTX_KRN_MAX_TRIS default).
+# are not packed (the default of its PTX_KRN_MAX_TRIS, which the build
+# reads as the JAX builder does).
 KRN_CLUSTER = 56
 KRN_MAX_TRIS = 2 ** 21
 
-_NOT_PORTED = (
-    "the sweep, bvh and cluster accelerators (and the jnp wavefront that "
-    "renders them) are ROADMAP.md Queue 1 slice 4; the torch port builds "
-    "dense and binned scenes"
-)
-
-# Seconds of the last binned build, by stage: "bvh" (cluster cut),
-# "pack" (records and tiers), "upload" (tensors to the device). The scene
-# helpers of models/scenes.py add "mesh".
+# Seconds of the last build, by stage: "wavefront" (the cluster cut, its
+# top tree and the K6/K7 tables), "prim_bvh" (the per-primitive BVH of
+# accel="bvh"), "bvh" (the in-kernel cluster cut), "pack" (records and
+# tiers), "upload" (tensors to the device). The scene helpers of
+# models/scenes.py add "mesh".
 BUILD_SECONDS: dict[str, float] = {}
 
 # Fields equal to the JAX SceneData's arrays, byte for byte.
@@ -74,11 +79,23 @@ ARRAY_FIELDS = (
 # The traversal tiers in the port's compact layout (accel/kernel_traverse.py):
 # the JAX tables' used columns, byte for byte.
 KRN_FIELDS = ("krn_records", "krn_cl_bounds", "krn_sup_bounds", "krn_hyp_bounds")
+# The two-level cluster structure (sweep, cluster and binned scenes;
+# placeholders otherwise): equal to the JAX SceneData's, byte for byte.
+CLUSTER_FIELDS = (
+    "cl_lo", "cl_hi", "cl_left", "cl_right", "cl_leaf",
+    "blk_v0", "blk_v1", "blk_v2", "blk_cull", "blk_prim", "blk_lo", "blk_hi",
+)
+# The per-primitive BVH: equal to JAX's for accel="bvh", a one-node
+# placeholder for every other accelerator.
+BVH_FIELDS = ("bvh_lo", "bvh_hi", "bvh_left", "bvh_right", "bvh_prim")
+# The binned-wavefront tables of K6 / K7 in the port's layout
+# (accel/traverse.py: pack_blocks, pack_bounds).
+TRV_FIELDS = ("trv_blocks", "trv_bounds")
 STATIC_FIELDS = (
     "n_tri", "n_sph", "n_point_lights", "n_emissive",
     "emissive_sample_count", "accel", "emissive_all_tri",
     "krn_big_cull_mode", "n_big", "krn_cluster_size", "krn_cull_mode",
-    "emissive_in_dense",
+    "emissive_in_dense", "cl_depth", "cluster_size", "lean",
 )
 
 
@@ -127,6 +144,30 @@ class SceneData:
     krn_cl_bounds: torch.Tensor
     krn_sup_bounds: torch.Tensor
     krn_hyp_bounds: torch.Tensor
+    # Two-level cluster structure (accel/cluster.py; sweep, cluster and
+    # binned scenes): the top tree over clusters and the triangle blocks.
+    cl_lo: torch.Tensor  # [Nc,3]
+    cl_hi: torch.Tensor
+    cl_left: torch.Tensor  # [Nc] i32
+    cl_right: torch.Tensor
+    cl_leaf: torch.Tensor  # [Nc] i32 cluster id on leaves, -1 internal
+    blk_v0: torch.Tensor  # [C,L,3]
+    blk_v1: torch.Tensor
+    blk_v2: torch.Tensor
+    blk_cull: torch.Tensor  # [C,L] bool
+    blk_prim: torch.Tensor  # [C,L] i32 global prim index, -1 padding
+    blk_lo: torch.Tensor  # [C,3] cluster bounds
+    blk_hi: torch.Tensor
+    # Per-primitive flat BVH (accel="bvh" only; one node elsewhere).
+    bvh_lo: torch.Tensor  # [N,3]
+    bvh_hi: torch.Tensor
+    bvh_left: torch.Tensor  # [N] i32
+    bvh_right: torch.Tensor
+    bvh_prim: torch.Tensor  # [N] i32 primitive on leaves, -1 internal
+    # Binned-wavefront tables (accel/traverse.py; binned scenes that are
+    # not lean): blocks [C, L, 16] and bounds [C, 8].
+    trv_blocks: torch.Tensor
+    trv_bounds: torch.Tensor
 
     n_tri: int
     n_sph: int
@@ -143,6 +184,11 @@ class SceneData:
     # Every emissive primitive lives in the dense tables (binned scenes:
     # the big partition).
     emissive_in_dense: bool = True
+    cl_depth: int = 1  # depth of the top tree over clusters
+    cluster_size: int = 1  # L, triangles per cluster block
+    bvh_depth: int = 1  # depth of the per-primitive BVH
+    # Only the megakernel tables were packed (binned scenes, build(lean=True)).
+    lean: bool = False
 
     @property
     def n_prims(self) -> int:
@@ -173,9 +219,10 @@ class SceneData:
         device = torch.device(device)
         if device == self.device:
             return self
-        return dataclasses.replace(
-            self, **{f: getattr(self, f).to(device) for f in ARRAY_FIELDS + KRN_FIELDS}
-        )
+        return dataclasses.replace(self, **{f: getattr(self, f).to(device) for f in TENSOR_FIELDS})
+
+
+TENSOR_FIELDS = ARRAY_FIELDS + KRN_FIELDS + CLUSTER_FIELDS + BVH_FIELDS + TRV_FIELDS
 
 
 def _placeholder_tiers():
@@ -184,17 +231,42 @@ def _placeholder_tiers():
             np.zeros((1, GROUP2, BND_COLS), np.float32), np.zeros((8, BND_COLS), np.float32))
 
 
+def _placeholder_clusters():
+    """The cluster fields of a scene without clusters (the JAX builder's)."""
+    f32 = np.float32
+    z3 = np.zeros((1, 3), f32)
+    neg = np.full(1, -1, np.int32)
+    return dict(cl_lo=z3, cl_hi=z3, cl_left=neg, cl_right=neg, cl_leaf=neg,
+                blk_v0=np.zeros((1, 1, 3), f32), blk_v1=np.zeros((1, 1, 3), f32),
+                blk_v2=np.zeros((1, 1, 3), f32), blk_cull=np.zeros((1, 1), bool),
+                blk_prim=np.full((1, 1), -1, np.int32), blk_lo=z3, blk_hi=z3)
+
+
+def _trv_tables(arrays, meta):
+    """The K6/K7 tables of a binned scene that is not lean, in the port's
+    layout (untiled when they come in the JAX package's tile layout);
+    placeholders for any other scene."""
+    from ..accel import traverse
+
+    if meta["accel"] != "binned" or meta["lean"]:
+        return traverse.placeholder_tables()
+    blocks = np.asarray(arrays["trv_blocks"], np.float32)
+    if blocks.ndim == 4:
+        blocks = traverse.untile_blocks(blocks)
+    return blocks, np.asarray(arrays["trv_bounds"], np.float32)
+
+
 def scene_from_numpy(arrays: dict, meta: dict, device=None) -> SceneData:
     """Carry a scene across from its numpy form: `arrays` maps field names
     to arrays (e.g. the JAX SceneData's fields through np.asarray; extra
     fields are ignored), `meta` its static fields, onto `device` (default:
     the CUDA card). Traversal tables in the JAX package's 128-lane layout
-    are compacted. Raises NotImplementedError for the accelerators the port
-    has not got."""
+    are compacted, its K6/K7 tile layout untiled."""
     device = resolve_device(device)
-    if meta.get("accel") not in ("dense", "binned"):
-        raise NotImplementedError(f"accel {meta.get('accel')!r}: {_NOT_PORTED}")
-    missing = [f for f in ARRAY_FIELDS + KRN_FIELDS if f not in arrays]
+    if meta.get("accel") not in ("dense", "bvh", "cluster", "sweep", "binned"):
+        raise ValueError(f"unknown accel {meta.get('accel')!r}")
+    fields = ARRAY_FIELDS + KRN_FIELDS + CLUSTER_FIELDS + BVH_FIELDS
+    missing = [f for f in fields if f not in arrays]
     if missing:
         raise KeyError(f"scene arrays missing {missing}")
     krn = [np.asarray(arrays[f]) for f in KRN_FIELDS]
@@ -202,9 +274,11 @@ def scene_from_numpy(arrays: dict, meta: dict, device=None) -> SceneData:
         krn = _placeholder_tiers()
     elif krn[0].shape[-1] != REC_COLS or krn[1].shape[-1] != BND_COLS:
         krn = compact_kernel_tables(*krn)
-    tensors = {f: torch.from_numpy(np.array(arrays[f])).to(device) for f in ARRAY_FIELDS}
-    tensors.update({f: torch.from_numpy(np.array(a)).to(device) for f, a in zip(KRN_FIELDS, krn)})
-    static = {f: meta[f] for f in STATIC_FIELDS}
+    host = {f: np.asarray(arrays[f]) for f in fields}
+    host.update(zip(KRN_FIELDS, krn))
+    host.update(zip(TRV_FIELDS, _trv_tables(arrays, meta)))
+    tensors = {f: torch.from_numpy(np.array(a)).to(device) for f, a in host.items()}
+    static = {f: meta[f] for f in STATIC_FIELDS + ("bvh_depth",)}
     return SceneData(**tensors, **static)
 
 
@@ -289,15 +363,31 @@ class SceneBuilder:
         binned_threshold: int = 4096,
         big_diag_frac: float = 0.05,
         lean: bool = False,
+        cluster_size: int | None = None,
     ) -> SceneData:
-        """Pack the scene onto `device` (default: the CUDA card). `accel`
-        None picks as the JAX builder does: "dense" up to `dense_threshold`
-        primitives, "binned" from `binned_threshold` small triangles,
-        "sweep" in between (which the port has not got: it raises, as do
-        "bvh" and "cluster"). A
-        binned build packs only the megakernel tables (the JAX builder's
-        `lean`); `lean=True` also raises when the megakernel cannot serve
-        the scene, as the JAX builder's lean checks do."""
+        """Pack the scene onto `device` (default: the CUDA card).
+
+        `accel` selects the intersector of the wavefront: "dense" (every
+        ray against every primitive, K5 on the card), "bvh" (the
+        per-primitive BVH walk), "cluster" (the walk of the top tree over
+        clusters), "sweep" (every cluster box, then the nearest clusters'
+        blocks), "binned" (the binned wavefront K6 + K7 and the in-kernel
+        cluster traversal of the megakernels). None picks as the JAX
+        builder does: dense up to `dense_threshold` primitives, binned from
+        `binned_threshold` small triangles, sweep in between.
+
+        `cluster_size`: triangles per cluster block (sweep / cluster: 128 by
+        default; binned: sized from the small partition, a multiple of 64,
+        grown until the clusters fit MAX_CLUSTERS of accel/traverse.py).
+        The per-primitive BVH is built only for accel="bvh".
+
+        `lean=True` (binned scenes only) packs only the megakernel tables:
+        the cluster blocks and the K6/K7 tables are placeholders, and the
+        build raises when the megakernel cannot serve the scene, as the
+        JAX builder's lean checks do. PTX_KRN_MAX_TRIS (default 2^21) is
+        the small-partition size from which the in-kernel tables are not
+        packed, as in the JAX builder."""
+        from ..accel import traverse
         device = resolve_device(device)
         f32 = np.float32
         n_tri = sum(len(b) for b in self._batches)
@@ -434,21 +524,80 @@ class SceneBuilder:
                 f"lean build requires the binned accel (got {accel!r}); "
                 "small scenes build their full tables in milliseconds"
             )
-        if accel != "dense" and accel != "binned":
-            raise NotImplementedError(f"accel {accel!r}: {_NOT_PORTED}")
+        # The per-primitive BVH serves only the bvh walker (the JAX builder
+        # builds it for every scene that is not lean, scene.py:521-527).
+        t0 = time.perf_counter()
+        if accel == "bvh" and n_prims > 0:
+            prim_lo = np.concatenate([lo_tri[:n_tri], lo_sph[:n_sph]], axis=0)
+            prim_hi = np.concatenate([hi_tri[:n_tri], hi_sph[:n_sph]], axis=0)
+            bvh = build_bvh(prim_lo, prim_hi)
+        else:
+            bvh = build_bvh(np.zeros((1, 3), f32), np.zeros((1, 3), f32))
+        BUILD_SECONDS["prim_bvh"] = time.perf_counter() - t0
 
-        # Big-triangle dense set and the root of the small partition
-        # (binned only; empty rows otherwise).
+        # The two-level cluster structure (scene.py:533-629): the small
+        # partition of a binned scene, every triangle of a sweep or cluster
+        # scene.
+        t0 = time.perf_counter()
         n_big = 0
         big_idx = np.zeros(0, np.int64)
-        root_lo = np.full(3, np.inf, f32)
-        root_hi = np.full(3, -np.inf, f32)
+        small_idx = np.zeros(0, np.int64)
         if accel == "binned":
             small_idx = np.flatnonzero(~big_mask)
             big_idx = np.flatnonzero(big_mask)
             n_big = int(big_idx.shape[0])
+            if lean:
+                cluster_size = 1  # the cluster cut is skipped below
+            elif cluster_size is None:
+                # Keep the cluster count in the hundreds (the candidate
+                # scan costs ~ clusters, the intersect ~ cluster size), and
+                # grow clusters on giant meshes until the cut fits half
+                # the bounds budget.
+                target = max(small_idx.shape[0] // 700, 128)
+                cluster_size = int(min(512, max(128, 1 << int(np.ceil(np.log2(target))))))
+                floor = -(-int(small_idx.shape[0]) // (traverse.MAX_CLUSTERS // 2))
+                cluster_size = max(cluster_size, floor)
+            cluster_size = max(64, (cluster_size + 63) // 64 * 64)
+        elif accel in ("cluster", "sweep"):
+            small_idx = np.arange(n_tri)
+            if cluster_size is None:
+                cluster_size = 128
+        clusters = _placeholder_clusters()
+        cl_depth = 1
+        root_lo = np.full(3, np.inf, f32)
+        root_hi = np.full(3, -np.inf, f32)
+        if accel in ("cluster", "sweep", "binned") and small_idx.size:
             root_lo = lo_tri[small_idx].min(axis=0).astype(f32)
             root_hi = hi_tri[small_idx].max(axis=0).astype(f32)
+        if accel in ("cluster", "sweep", "binned") and not lean:
+            cl = build_cluster_bvh(lo_tri[small_idx], hi_tri[small_idx],
+                                   cluster_size=cluster_size)
+            while accel == "binned" and cl.members.shape[0] > traverse.MAX_CLUSTERS:
+                # More clusters than K6's bounds table holds: coarsen.
+                cluster_size *= 2
+                cl = build_cluster_bvh(lo_tri[small_idx], hi_tri[small_idx],
+                                       cluster_size=cluster_size)
+            members = np.where(
+                cl.members >= 0, small_idx[np.maximum(cl.members, 0)], -1
+            ).astype(np.int32)
+            blk_idx = np.maximum(members, 0)
+            clusters = dict(
+                cl_lo=cl.lo, cl_hi=cl.hi, cl_left=cl.left, cl_right=cl.right,
+                cl_leaf=cl.cluster, blk_v0=tri_v[0][blk_idx], blk_v1=tri_v[1][blk_idx],
+                blk_v2=tri_v[2][blk_idx], blk_cull=tri_cull[blk_idx], blk_prim=members,
+                blk_lo=cl.c_lo, blk_hi=cl.c_hi,
+            )
+            cl_depth = cl.depth
+        elif accel not in ("cluster", "sweep", "binned"):
+            cluster_size = 1
+        trv = traverse.placeholder_tables()
+        if accel == "binned" and not lean:
+            trv = (traverse.pack_blocks(clusters["blk_v0"], clusters["blk_v1"], clusters["blk_v2"],
+                                        clusters["blk_cull"], clusters["blk_prim"]),
+                   traverse.pack_bounds(clusters["blk_lo"], clusters["blk_hi"]))
+        BUILD_SECONDS["wavefront"] = time.perf_counter() - t0
+
+        # Big-triangle dense set (binned only; empty rows otherwise).
         bpad = max(n_big, 1)
         big_v0 = np.zeros((bpad, 3), f32)
         big_v1 = np.zeros((bpad, 3), f32)
@@ -463,14 +612,15 @@ class SceneBuilder:
             big_prim[:n_big] = big_idx
 
         # In-kernel traversal tiers: a 56-triangle clustering of the small
-        # partition (scene.py:653-713). Dense scenes with 1..128 triangles
+        # partition (scene.py:653-713). Other scenes with 1..128 triangles
         # run them all as one pair record (:719-734).
         krn_cluster_size = 0
         krn_cull_mode = -1
         krn_big_cull_mode = -1
         krn_big_pair = np.zeros((1, 1), f32)
         krn = _placeholder_tiers()
-        if accel == "binned" and n_small < KRN_MAX_TRIS:
+        krn_max = int(os.environ.get("PTX_KRN_MAX_TRIS", str(KRN_MAX_TRIS)))
+        if accel == "binned" and n_small < min(krn_max, 2 ** 24):
             t0 = time.perf_counter()
             kcl = build_cluster_bvh(lo_tri[small_idx], hi_tri[small_idx],
                                     cluster_size=KRN_CLUSTER)
@@ -496,7 +646,7 @@ class SceneBuilder:
                 krn_big_cull_mode = cull_uniformity(big_cull[big_prim >= 0])
             BUILD_SECONDS["bvh"] = t1 - t0
             BUILD_SECONDS["pack"] = time.perf_counter() - t1
-        elif accel == "dense" and 1 <= n_tri <= 128:
+        elif 1 <= n_tri <= 128:
             prim = np.arange(tpad, dtype=np.int32)
             prim[n_tri:] = -1
             krn_big_pair = pack_pair_record_np(
@@ -513,7 +663,7 @@ class SceneBuilder:
             # A lean scene has no fallback intersector (scene.py:743-769).
             problems = []
             if krn_cluster_size == 0:
-                problems.append(f"small partition ({n_small} tris) exceeds {KRN_MAX_TRIS}")
+                problems.append(f"small partition ({n_small} tris) exceeds PTX_KRN_MAX_TRIS")
             if n_big > 128:
                 problems.append(f"big partition ({n_big} tris) exceeds the 128-row pair record")
             if not emissive_in_dense:
@@ -536,7 +686,8 @@ class SceneBuilder:
             big_v0=big_v0, big_v1=big_v1, big_v2=big_v2, big_cull=big_cull,
             big_prim=big_prim, root_lo=root_lo, root_hi=root_hi,
             krn_big_pair=krn_big_pair,
-            **dict(zip(KRN_FIELDS, krn)),
+            **dict(zip(KRN_FIELDS, krn)), **clusters, **dict(zip(TRV_FIELDS, trv)),
+            **{f: getattr(bvh, f[4:]) for f in BVH_FIELDS},
         )
         meta = dict(
             n_tri=n_tri, n_sph=n_sph,
@@ -550,6 +701,8 @@ class SceneBuilder:
             krn_cluster_size=int(krn_cluster_size),
             krn_cull_mode=int(krn_cull_mode),
             emissive_in_dense=bool(emissive_in_dense),
+            cl_depth=int(cl_depth), cluster_size=int(cluster_size), lean=bool(lean),
+            bvh_depth=int(bvh.depth),
         )
         t0 = time.perf_counter()
         scene = scene_from_numpy(arrays, meta, device)

@@ -114,8 +114,9 @@ def test_dragon_partition_and_cull_modes():
 
 
 def test_lean_build():
-    """lean=True is accepted for a binned scene (the port always packs only
-    the megakernel tables) and refused for any other accelerator."""
+    """lean=True is accepted for a binned scene and refused for any other
+    accelerator; it packs the megakernel tables of the full build, and
+    placeholders for the cluster blocks and the K6/K7 tables."""
     from cpupathtrace_tpu_torch.models.scenes import bench_box_scene, bench_dragon_scene
     from cpupathtrace_tpu_torch.scene.geometry import make_box
     from cpupathtrace_tpu_torch.scene.scene import SceneBuilder
@@ -124,6 +125,8 @@ def test_lean_build():
     full = dragon_scene("port", 1200)
     for f in ARRAY_FIELDS + KRN_FIELDS:
         assert getattr(lean, f).numpy().tobytes() == getattr(full, f).numpy().tobytes(), f
+    assert lean.lean and lean.blk_prim.shape == (1, 1) and lean.trv_bounds.shape[0] == 1
+    assert not full.lean and full.trv_bounds.shape[0] == full.blk_prim.shape[0] > 1
     assert megakernel_supported(bench_box_scene(device=CPU))
     with pytest.raises(ValueError, match="lean"):
         SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(lean=True, device=CPU)

@@ -324,3 +324,154 @@ def test_gradient_matches_finite_difference_on_the_card(route, monkeypatch):
         fd = diff.finite_difference_grad(params, scene, cam, opts, target, 0, 8, field, idx,
                                          eps=2e-3)
         np.testing.assert_allclose(float(g[field][idx]), fd, rtol=0.05, atol=1e-4)
+
+
+# ---------------------------------------------------------------------------
+# The binned wavefront: the candidate scan K6, the cluster-major intersect
+# K7, and K8's entry point through K7's kernel.
+# ---------------------------------------------------------------------------
+
+
+def _first_round(scene, o, d, m=4):
+    """K6's ray planes of a first round, and K6's output."""
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    t0, _ = tt._dense_part(scene, o, d, tt.binned_tables(scene))
+    ninf = torch.full_like(t0, float("-inf"))
+    rays = tt.pack_rays(o, d, t0, ninf, ninf)
+    return rays, tt.candidates(scene.trv_bounds, rays, m)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+def test_binned_kernels_match_plain(m):
+    """K6 and K7 equal to their plain versions bit for bit (chip_smoke.py
+    phase 16's bound): the same float32 operations in the same order."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    scene = _dragon()
+    o, d = _query_rays()
+    k6, k7 = tt.candidates.launches, tt.isect.launches
+    rays, (ids, ent) = _first_round(scene, o, d, m)
+    torch.cuda.synchronize()
+    ip, ep = tt.candidates_reference(scene.trv_bounds, rays, m)
+    assert torch.equal(ids, ip) and torch.equal(ent.view(torch.int32), ep.view(torch.int32))
+    pairs, offs, _ = tt.bin_pairs(rays, ids, scene.trv_bounds.shape[0], m)
+    t, p = tt.isect(scene.trv_blocks, pairs, offs)
+    torch.cuda.synchronize()
+    tp, pp = tt.isect_reference(scene.trv_blocks, pairs, offs)
+    assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert int((p >= 0).sum()) > 100
+    assert tt.candidates.launches == k6 + 1 and tt.isect.launches == k7 + 1
+
+
+@pytest.mark.cuda
+def test_binned_intersect_matches_its_oracle_on_the_card():
+    """The pipeline (K6, K7, K5) against the dense part + sweep oracle:
+    prim on every ray; any-hit occlusion on every live ray."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    scene = _dragon()
+    o, d = _query_rays(seed=3)
+    t, p = tt.binned_intersect(scene, o, d)
+    tr, pr = tt.binned_intersect_ref(scene, o, d)
+    assert torch.equal(p, pr) and torch.equal(t, tr)
+    lim = torch.rand(o.shape[0], device="cuda") * 1.5 + 0.05
+    live = torch.rand(o.shape[0], device="cuda") < 0.5
+    ta, pa = tt.binned_intersect(scene, o, d, t_max=lim, live=live, any_hit=True)
+    _, par = tt.binned_intersect_ref(scene, o, d, t_max=lim)
+    assert torch.equal((pa >= 0)[live], (par >= 0)[live])
+
+
+@pytest.mark.cuda
+def test_cluster_major_stage_matches_plain():
+    """K8's compute stage (K7's kernel on the binned pairs) against its
+    plain version, slot for slot."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
+
+    scene = _dragon()
+    o, d = _query_rays(seed=4)
+    blocks = cm.cluster_blocks(scene)
+    ids, _ = binned.generate_candidates(scene, o, d, 4)
+    launches = tt.isect.launches
+    t, p = cm.test_candidates(blocks, o, d, ids)
+    torch.cuda.synchronize()
+    assert tt.isect.launches == launches + 1
+    tp, pp = cm._test_candidates(blocks, o, d, ids)
+    assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_binned_wavefront_render_goes_through_k6_k7(monkeypatch):
+    """render() of a binned scene with PTX_NO_MEGAKERNEL=1 launches K6, K7
+    and K5 and no plain version."""
+    _require_cuda()
+    import cpupathtrace_tpu_torch as pt
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    monkeypatch.setenv("PTX_NO_MEGAKERNEL", "1")
+    scene = _dragon()
+    before = (tt.candidates.launches, tt.isect.launches, oi.dense_intersect.launches,
+              tt.candidates_reference.calls, tt.isect_reference.calls)
+    img = pt.render(scene, scenes.bench_camera(), pt.RenderOptions(32, 32, 4, 4, max_depth=8),
+                    seed=1, device="cuda")
+    after = (tt.candidates.launches, tt.isect.launches, oi.dense_intersect.launches,
+             tt.candidates_reference.calls, tt.isect_reference.calls)
+    assert all(a > b for a, b in zip(after[:3], before[:3])) and after[3:] == before[3:]
+    assert np.isfinite(img).all() and (img[..., 3] == 1.0).all()
+
+
+@pytest.mark.cuda
+def test_isect_streams_clusters_larger_than_a_tile():
+    """Clusters of 3,584 triangles (the 7.2M dragon's size class, ~225 KB
+    each: more than a block's shared memory) stream through K7's 256-row
+    tiles; the pairs of each cluster are masked to its range. Equal to the
+    plain version bit for bit."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    rng = np.random.default_rng(8)
+    c, l, n = 3, 3584, 1500
+    v0 = rng.uniform(-1, 1, (c, l, 3))
+    v1 = v0 + rng.normal(scale=0.05, size=(c, l, 3))
+    v2 = v0 + rng.normal(scale=0.05, size=(c, l, 3))
+    prim = np.arange(c * l).reshape(c, l)
+    prim[:, -37:] = -1  # padding rows at the end
+    blocks = tt.pack_blocks(v0, v1, v2, rng.random((c, l)) < 0.5, prim)
+    blocks = torch.tensor(blocks, device="cuda")
+    o = rng.uniform(-1, 1, (n, 3))
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    rays = torch.tensor(np.ascontiguousarray(np.concatenate([o.T, d.T])), dtype=torch.float32,
+                        device="cuda")
+    offs = torch.tensor([0, 400, 1100, 1450], dtype=torch.int32, device="cuda")
+    t, p = tt.isect(blocks, rays, offs)
+    torch.cuda.synchronize()
+    tp, pp = tt.isect_reference(blocks, rays, offs)
+    assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert int((p >= 0).sum()) > 50 and bool((p[1450:] == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("accel", ["sweep", "cluster", "bvh"])
+def test_walkers_on_the_card(accel):
+    """The torch walkers on CUDA tensors: the same prim as the dense query
+    K5 of the same scene on every ray but where two triangles meet the ray
+    at the same t (rtol 1e-5: the walkers' and K5's operations differ in
+    order), and on > 99% of rays."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    scene = scenes.bench_dragon_scene(dragon_tris=2000, accel=accel, device="cuda")
+    dense = scenes.bench_dragon_scene(dragon_tris=2000, accel="dense", device="cuda")
+    o, d = _query_rays(2048, seed=6)
+    t, p = oi.scene_intersect(scene, o, d)
+    td, pd = oi.scene_intersect(dense, o, d)
+    tie = torch.isclose(t, td, rtol=1e-5, atol=0.0)
+    assert bool(tie.all()) and float((p == pd).float().mean()) > 0.99

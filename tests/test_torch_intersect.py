@@ -97,7 +97,8 @@ def test_dense_plain_tie_goes_to_the_lowest_row():
 def test_scene_intersect_t_max_and_routing():
     """t_max turns hits at t >= t_max into misses (ops/intersect.py:
     502-505); CPU rays take the plain version and launch nothing; a
-    device without a kernel raises; non-dense scenes raise."""
+    device without a kernel raises; a binned scene takes the binned
+    wavefront (its plain version on the CPU) and raises nothing."""
     scene = build_scene("bench_box", "port")
     o, d = _rays(512, 3)
     o, d = _t(o), _t(d)
@@ -113,8 +114,11 @@ def test_scene_intersect_t_max_and_routing():
     assert (pm[1::2] == -1).all()  # t >= t_max at equality
     with pytest.raises(ValueError, match="no kernel"):
         tis.dense_intersect(scene, o.to("meta"), d.to("meta"))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        tis.scene_intersect(dragon_scene("port"), o, d)
+    from cpupathtrace_tpu_torch.accel import traverse
+
+    calls = traverse.candidates_reference.calls
+    tb, pb = tis.scene_intersect(dragon_scene("port"), o, d)
+    assert traverse.candidates_reference.calls > calls and (pb >= 0).all()
 
 
 def test_primitive_tests_match_jax():

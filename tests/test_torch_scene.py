@@ -65,27 +65,34 @@ def test_pair_record_form_and_table_form():
 
 
 def test_non_dense_scenes_raise():
-    """The accelerators the port has not got (bvh, sweep, cluster: ROADMAP
-    slice 4) raise; dense and binned scenes build."""
+    """Since the binned wavefront landed, every accelerator builds: the
+    129-sphere scene is a bvh scene (no triangles to cluster), an explicit
+    sweep / bvh / cluster box builds, the 2000-triangle demo dragon is a
+    sweep scene, and scene_from_numpy carries a JAX sweep scene. What still
+    raises: an unknown accelerator, a lean build that is not binned, and
+    the OBJ loader (not ported)."""
     from cpupathtrace_tpu_torch.models.scenes import cornell_demo_scene
     from cpupathtrace_tpu_torch.scene.geometry import make_box
 
     b = SceneBuilder()
     for i in range(129):
         b.add_sphere((float(i), 0.0, 0.0), 0.1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        b.build(device=CPU)
+    assert b.build(device=CPU).accel == "bvh"
     for accel in ("sweep", "bvh", "cluster"):
-        with pytest.raises(NotImplementedError, match="slice 4"):
-            SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(accel=accel, device=CPU)
-    # The 2000-triangle demo dragon is a sweep scene under the accel rule.
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        cornell_demo_scene(dragon_tris=2000, device=CPU)
+        box = SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1)))
+        assert box.build(accel=accel, device=CPU).accel == accel
+    with pytest.raises(ValueError, match="unknown accel"):
+        SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(accel="kd", device=CPU)
+    with pytest.raises(ValueError, match="lean"):
+        SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(
+            accel="sweep", lean=True, device=CPU)
+    assert cornell_demo_scene(dragon_tris=2000, device=CPU).accel == "sweep"
     with pytest.raises(NotImplementedError, match="load_mesh"):
         cornell_demo_scene(dragon_obj="dragon.obj", device=CPU)
     arrays, meta = jax_scene_numpy(build_scene("bench_box", "jax"))
-    with pytest.raises(NotImplementedError):
-        scene_from_numpy(arrays, dict(meta, accel="sweep"), CPU)
+    assert scene_from_numpy(arrays, dict(meta, accel="sweep"), CPU).accel == "sweep"
+    with pytest.raises(ValueError, match="unknown accel"):
+        scene_from_numpy(arrays, dict(meta, accel="kd"), CPU)
 
 
 def test_scene_to_device_roundtrip():

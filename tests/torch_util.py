@@ -452,3 +452,175 @@ def jax_render_draws(key, n: int, em_k: int, depth: int) -> list:
     k_jit, _ = jax.random.split(k_cam)
     return ([np.asarray(jax.random.uniform(k_jit, (n, 2)))]
             + jax_trace_draws(k_trace, n, em_k, depth))
+
+
+# ---------------------------------------------------------------------------
+# The binned wavefront (K6, K7) and the other intersectors of the wavefront.
+# ---------------------------------------------------------------------------
+
+BINNED_TRIS = 1500  # tests/test_traverse.py:28's dragon, clusters of 64
+BINNED_CLUSTER = 64
+CAND_BLOCK = 1024  # one TPU candidate-kernel block (8 x 128 rays)
+# Pipeline cases: name -> (rays, seed, inside, m, batch, limit, live,
+# any_hit), tests/test_traverse.py's inputs.
+BINNED_CASES = {
+    "nearest_m4": (768, 1, False, 4, 1024, False, False, False),
+    "nearest_m1_inside": (768, 1, True, 1, 1024, False, False, False),
+    "anyhit_tmax": (768, 2, True, 4, 1024, True, False, True),
+    "live": (768, 4, True, 4, 1024, False, True, False),
+    "batches": (3072, 6, False, 4, 1024, False, False, False),
+}
+# Wavefront trace cases: name -> (scene, emitter NEE).
+TRACE_CASES = {
+    "binned": ("binned", True),
+    "binned_no_em": ("binned", False),
+    "sweep": ("sweep", True),
+    "sweep_no_em": ("sweep", False),
+}
+TRACE_RAYS = 1024
+TRACE_DEPTH = 4
+
+
+def binned_dragon(pkg: str, accel: str = "binned"):
+    """The 1500-triangle dragon with clusters of 64, built binned (or with
+    another accelerator) by either package."""
+    if pkg == "jax":
+        from cpupathtrace_tpu.models.scenes import bench_dragon_scene
+
+        return bench_dragon_scene(dragon_tris=BINNED_TRIS, accel=accel,
+                                  cluster_size=BINNED_CLUSTER)
+    from cpupathtrace_tpu_torch.models.scenes import bench_dragon_scene
+
+    return bench_dragon_scene(dragon_tris=BINNED_TRIS, accel=accel, cluster_size=BINNED_CLUSTER,
+                              device=CPU)
+
+
+def binned_rays(n: int, seed: int, inside: bool = False):
+    """tests/test_traverse.py's rays: half from the front aimed at the
+    dragon and half uniform, or (inside) from inside the dragon's region,
+    where entries tie at 0."""
+    rng = np.random.default_rng(seed)
+    if inside:
+        o = rng.uniform(-0.3, 0.3, (n, 3)).astype(np.float32)
+        o[:, 1] -= 0.5
+        d = rng.normal(size=(n, 3))
+    else:
+        o = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+        o[: n // 2, 2] = -2.8
+        tgt = rng.uniform(-0.4, 0.4, (n, 3)).astype(np.float32)
+        tgt[:, 1] -= 0.5
+        d = tgt - o
+        d[n // 2:] = rng.normal(size=(n - n // 2, 3))
+    d = (d / np.linalg.norm(d, axis=1, keepdims=True)).astype(np.float32)
+    return o, d
+
+
+def binned_case_inputs(case: str):
+    """(o, d, t_max or None, live or None, m, batch, any_hit) of a case."""
+    n, seed, inside, m, batch, limit, live, any_hit = BINNED_CASES[case]
+    o, d = binned_rays(n, seed, inside)
+    tm = np.random.default_rng(seed + 1).uniform(0.05, 1.5, n).astype(np.float32) if limit else None
+    lv = np.random.default_rng(seed + 1).random(n) < 0.5 if live else None
+    return o, d, tm, lv, m, batch, any_hit
+
+
+def jax_cand_inputs(scene, inside: bool, m: int):
+    """K6's inputs for the JAX kernel and the port: round 1 of CAND_BLOCK
+    rays (bound = the dense part's hit, no lower bound), and round 2 (the
+    lower bound advanced past round 1's last valid slot at m slots), as
+    [9, n] f32 planes; with JAX's outputs of both rounds."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.accel import pallas_traverse as jpt
+
+    o, d = binned_rays(CAND_BLOCK, 9, inside)
+    t0, _ = jpt._dense_part(scene, jnp.asarray(o), jnp.asarray(d))
+    n = o.shape[0]
+    c = scene.trv_bounds.shape[0]
+    out = {}
+    lo_t = np.full(n, -np.inf, np.float32)
+    lo_i = np.full(n, -np.inf, np.float32)
+    for rnd in (1, 2):
+        rows = np.stack([o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2],
+                         np.asarray(t0), lo_t, lo_i]).astype(np.float32)
+        rays4 = jpt._pack_rays4(jnp.asarray(o), jnp.asarray(d), jnp.asarray(rows[6]),
+                                jnp.asarray(lo_t), jnp.asarray(lo_i))
+        ids4, ent4 = jpt._cand_call(scene.trv_bounds, rays4, n_clusters=c, m=m, interpret=True)
+        ids = np.asarray(ids4).transpose(1, 0, 2, 3).reshape(jpt._M_ROWS, n)
+        ent = np.asarray(ent4).transpose(1, 0, 2, 3).reshape(jpt._M_ROWS, n)
+        out[f"round{rnd}"] = (rows, ids, ent)
+        valid = ids[:m] >= 0
+        last = np.maximum(valid.sum(0) - 1, 0)
+        lo_t = np.where(valid[0], ent[last, np.arange(n)], np.inf).astype(np.float32)
+        lo_i = np.where(valid[0], ids[last, np.arange(n)].astype(np.float32),
+                        np.inf).astype(np.float32)
+    return out
+
+
+def jax_isect_pairs(scene, ids, rows, m: int):
+    """K7 on the pairs of K6's first m slots: the compact binned layout the
+    port takes (pair rays [6, P] ordered by cluster, offs [C+1]) and JAX
+    `_isect_call`'s per-pair (t, prim) in that order, from its 128-aligned
+    layout."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.accel import pallas_traverse as jpt
+
+    n = rows.shape[1]
+    c = scene.trv_bounds.shape[0]
+    flat = ids[:m].reshape(-1)
+    key = np.where(flat >= 0, flat, c)
+    order = np.argsort(key, kind="stable")
+    counts = np.bincount(key, minlength=c + 1)[:c]
+    offs = np.concatenate([[0], np.cumsum(counts)]).astype(np.int32)
+    pairs = rows[:6, order % n][:, : offs[-1]]
+    aligned = -(-counts // 128) * 128
+    offs_al = np.concatenate([[0], np.cumsum(aligned)[:-1]]).astype(np.int32)
+    total = int(aligned.sum()) + jpt._GROUP
+    rays_t = np.zeros((8, total), np.float32)
+    rays_t[5] = 1.0
+    pos = np.concatenate([offs_al[k] + np.arange(counts[k]) for k in range(c)]).astype(np.int64)
+    rays_t[:6, pos] = pairs
+    t, p = jpt._isect_call(jnp.asarray(offs_al), jnp.asarray(counts.astype(np.int32)),
+                           scene.trv_blocks, jnp.asarray(rays_t),
+                           n_tiles=scene.trv_blocks.shape[1], interpret=True)
+    return pairs, offs, np.asarray(t)[0, pos], np.asarray(p)[0, pos]
+
+
+def trace_scene(case: str, pkg: str):
+    """The scene of a TRACE_CASES case (emissive_sample_count 0 without
+    emitter NEE)."""
+    accel, em = TRACE_CASES[case]
+    scene = binned_dragon(pkg, accel)
+    return scene if em else dataclasses.replace(scene, emissive_sample_count=0)
+
+
+def jax_wavefront_trace(case: str, grads: bool = False):
+    """JAX `trace` (the jnp wavefront; off the TPU its binned intersector is
+    binned_intersect_ref) on sorted_rays(TRACE_RAYS), max_depth
+    TRACE_DEPTH, key PRNGKey(5): (spectrum [n, 4], collected [n]), and with
+    `grads` the gradients of the mean radiance with respect to mat_diffuse
+    and mat_emission through its differentiable form."""
+    import jax
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.core.config import RenderOptions
+    from cpupathtrace_tpu.core.rays import Rays
+    from cpupathtrace_tpu.integrator.wavefront import trace
+
+    scene = trace_scene(case, "jax")
+    o, d = sorted_rays(TRACE_RAYS)
+    rays = Rays(jnp.asarray(o), jnp.asarray(d))
+    opts = RenderOptions(8, 8, 1, 1, max_depth=TRACE_DEPTH)
+    key = jax.random.PRNGKey(5)
+    if not grads:
+        spec, coll = trace(scene, rays, opts, key, False)
+        return np.asarray(spec), np.asarray(coll)
+
+    def mean_radiance(mats):
+        spec, _ = trace(dataclasses.replace(scene, **mats), rays, opts, key, True)
+        return spec[:, :3].mean()
+
+    mats = {f: scene.__getattribute__(f) for f in ("mat_diffuse", "mat_emission")}
+    g = jax.grad(mean_radiance)(mats)
+    return {f: np.asarray(v) for f, v in g.items()}
