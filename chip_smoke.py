@@ -67,8 +67,30 @@ Phases, one line each; any failure exits non-zero:
  19. gradients on the 200k dragon: loss_and_grad at 32x32 @ 8 spp,
      max_depth 4, through the wavefront (PTX_DIFF_MEGAKERNEL=0) and the
      record route, each against central differences
+ 20. K1's binned while-loop form against its twin on the first 16,384 of
+     the dragon frame's camera rays: spectrum and collected bit-equal, the
+     traversal counters (debug_visits) equal column by column; then the
+     whole 262,144-ray chunk: the kernel timed, counted and held against
+     the twin
+ 21. the 200k dragon (128x128 @ 16 spp, max_depth 40) through render()
+     with PTX_SORTED_WAVEFRONT=0 (K1's binned form) beside the default
+     sorted driver, in turns: frame ms, Mrays/s, launches and host reads
+     of each, the means within 4 standard errors, one profiled K1 frame;
+     K2's bound over one counted sorted frame
+ 22. the box (128x128 @ 256 spp) through the sorted driver
+     (PTX_SORTED_WAVEFRONT=1, K2's dense form): frame ms, its mean within 4
+     standard errors of K1's frame
+ 23. the microbenchmarks X1, X3, X5 (cpupathtrace_tpu_torch/experiments):
+     each kernel against its plain version on check inputs whose output
+     depends on the work (X1: flags that differ by block and every ray's
+     least slab entry, equal; X5: seeded x and tables and every block's
+     staged copy, equal; X3 within rtol 1e-6 serial / outer, 1e-5 matmul),
+     then each TPU script's sweep on the script's own inputs
 Then the script's seconds, one JSON line with the kernels' figures and,
-last, the result line.
+last, the result line. Bounds of the traversal kernels (K1's binned form,
+K2, K4) come from their counters: filled record rows tested x 64 + slab
+tests below the root gate x 31 + per query the root test (31) + per
+ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there.
 """
 from __future__ import annotations
@@ -108,7 +130,7 @@ PATH_RAYS = 16384
 # same order; on an H100 they measured equal on every ray.
 QUERY_FRAC, QUERY_RTOL, PLANE_FRAC = 0.999, 1e-6, 0.999
 KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
-           "binned_isect", "bvh_build")
+           "binned_isect", "bvh_build", "exp_supscan", "exp_record_variants", "exp_smem_tables")
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over HBM's rate
 # and its float32 operations over the FP32 peak (NVIDIA H100 SXM data
@@ -116,6 +138,7 @@ KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand"
 # 64 flops per ray-primitive test, ~300 estimator flops per ray-bounce.
 H100_BYTES_S = 3.35e12
 H100_FP32_S = 67e12
+H100_TF32_S = 495e12
 TEST_FLOPS = 64
 VERTEX_FLOPS = 300
 # renderSceneBoxGrad (bench.py:253-260) and the FD / inverse-rendering
@@ -135,9 +158,15 @@ K5_RAYS = 262144
 # selects; 3 compares and 2 selects for the overflow row).
 CAND_M = 4
 K4_AGREE = 0.999
+# X3's check and the record tests of its line in the kernels' JSON (the
+# plain versions loop over records in Python).
+X3_CHECK_RECORDS = 256
 REF_RAYS = 8192
 SLAB_FLOPS = 31
 RAY_ROWS_BYTES = 36  # K6 reads 9 float planes per ray
+# K1's binned form against its twin: the rays of the bit-equality and
+# counter check (the twin's traversal is the slow part).
+K1B_CHECK_RAYS = 16384
 
 
 def insert_flops(m):
@@ -323,12 +352,48 @@ def phase_main_path(pt, mk, sw, scenes):
                 agreement=agree, ray_bounces=ray_bounces, twin_live_per_bounce=live, **k1_bound)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, tf32_flops=0):
     """bound_ms / bound_by of a kernel call that must move `nbytes` and do
-    `flops` float32 operations."""
-    t_b, t_f = nbytes / H100_BYTES_S, flops / H100_FP32_S
+    `flops` float32 operations (and `tf32_flops` on the tensor cores, which
+    run beside the float32 units)."""
+    t_b = nbytes / H100_BYTES_S
+    t_f = max(flops / H100_FP32_S, tf32_flops / H100_TF32_S)
     return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
-                bound_bytes=nbytes, bound_flops=flops)
+                bound_bytes=nbytes, bound_flops=flops, bound_tf32_flops=tf32_flops)
+
+
+def traversal_flops(visits):
+    """Operations of the cluster traversal from its counters (a [..., 9]
+    K1 / K2 array or a [..., 4] K4 one): 64 per filled record row tested
+    and 31 per slab test below the root gate (hypers, the superclusters of
+    entered hypers, the clusters of descends; any-hit walks stop at the
+    occluding row and box)."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    v = visits.reshape(-1, visits.shape[-1]).sum(0).long().tolist()
+    if len(v) == kt.GEO_VISIT_COLS:
+        descends, records, slabs, rows = (v[n] + v[s] for n, s in zip(kt.NEAR_COLS, kt.SHADOW_COLS))
+    else:
+        descends, records, slabs, rows = v
+    return rows * TEST_FLOPS + slabs * SLAB_FLOPS, dict(
+        descends=descends, record_visits=records, slab_tests=slabs, rows_tested=rows,
+        counters=v)
+
+
+def ray_bounces(visits):
+    """The nearest queries of a K1 / K2 count: one per ray-bounce."""
+    from cpupathtrace_tpu_torch.accel.kernel_traverse import QUERY_COL
+
+    return int(visits[..., QUERY_COL].sum())
+
+
+def vertex_flops(scene):
+    """The estimator's work per ray-bounce outside the cluster walks: ~300
+    operations, and for the nearest and each shadow query the dense part's
+    tests (big partition and spheres) and the cluster set's root test."""
+    queries = tests_per_vertex(scene, 1)
+    return (VERTEX_FLOPS + tests_per_vertex(scene, scene.n_big + scene.n_sph) * TEST_FLOPS
+            + queries * SLAB_FLOPS)
 
 
 def tests_per_vertex(scene, n_prims):
@@ -465,10 +530,13 @@ def phase_cluster_query(kt, scene):
     out["max_abs_err"] = max(out["nearest"]["max_abs_err"], out["any_hit"]["max_abs_err"])
     out["ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, o, d), 5)
     out["any_hit_ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, o, d, lim, any_hit=True), 5)
-    # Lower bound: each nearest hit tested at least one 56-triangle record
-    # (the traversal's visit counters are not ported).
-    out.update(bound(n * (24 + 4 + 8), out["nearest"]["hits"] * scene.krn_cluster_size
-                     * TEST_FLOPS))
+    # The bound from the nearest query's counters, held against the plain
+    # version's counts of the same rays.
+    *_, vis = kt.cluster_intersect(scene, o, d, debug_visits=True)
+    *_, vis_p = kt.cluster_intersect_reference(scene, o, d, debug_visits=True)
+    need(torch.equal(vis, vis_p), "K4's counters differ from the plain version's")
+    flops, counts = traversal_flops(vis)
+    out.update(counts=counts, **bound(n * (24 + 4 + 8), flops + n * SLAB_FLOPS))
     return out
 
 
@@ -599,11 +667,19 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     kernel_ms = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables), 5)
     profile = profile_frame(pt, scene, camera, opts, kernel="bounce_kernel")
     line("9 profile", **profile)
-    # Lower bound: the big-partition tests of each query and the estimator;
-    # the cluster tests are not counted (no visit counters).
+    # The bound of the timed bounce from its counters (the counting form on
+    # the same state), held against the twin's counts.
     live = agree["alive_in"]
-    k2_bound = bound(live * 144 + (n_paths - live) * 4, live * (
-        tests_per_vertex(scene, scene.n_big + scene.n_sph) * TEST_FLOPS + VERTEX_FLOPS))
+    n_blocks = -(-n_paths // 1024)
+    vk = torch.zeros((n_blocks, sw.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
+    vt = torch.zeros_like(vk)
+    sw.bounce(scene, st.clone(), sd, opts, tables, visits=vk)
+    sw.bounce_reference(scene, st.clone(), 1, opts, tables, visits=vt)
+    need(torch.equal(vk, vt), "K2's counters differ from its twin's")
+    need(ray_bounces(vk) == live, f"K2 counted {ray_bounces(vk)} nearest queries, {live} live")
+    flops, counts = traversal_flops(vk)
+    k2_bound = dict(counts=counts, **bound(live * 144 + (n_paths - live) * 4,
+                                           flops + live * vertex_flops(scene)))
     return dict(launches=launches, twin_calls=twin_calls, image_mean=mean, frame_s=frames,
                 frame_median_s=frame_s, mrays_per_s=n_paths / frame_s / 1e6, paths=n_paths,
                 bounces=len(timing["bounce_ms"]), bounce_ms=timing["bounce_ms"],
@@ -1245,6 +1321,245 @@ def phase_dragon_grad(diff, golden, sw, tt, scenes, dragon, RenderOptions):
     return out
 
 
+def phase_k1_binned(mk, sw, scenes, dragon, RenderOptions):
+    """K1's binned form against its twin on the dragon frame's camera rays:
+    the first K1B_CHECK_RAYS bit-equal with equal counters; the whole chunk
+    timed, counted and held against the twin at the K1 bounds."""
+    opts = RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                         max_depth=MAX_DEPTH)
+    rays, _ = camera_state(sw, scenes.bench_camera(device="cuda"), opts, DRAGON_SPP, 21)
+    n = int(rays.origin.shape[0])
+    tables = mk.pack_tables(dragon)
+    sub = type(rays)(rays.origin[:K1B_CHECK_RAYS].contiguous(),
+                     rays.direction[:K1B_CHECK_RAYS].contiguous())
+    k, kc, kv = mk.trace_megakernel(dragon, sub, opts, 21, tables, debug_visits=True)
+    sync()
+    t, tc, tv = mk.trace_megakernel_reference(dragon, sub, opts, 21, tables, debug_visits=True)
+    out = dict(check_rays=K1B_CHECK_RAYS, rays=n,
+               spectrum_bit_equal=float((k.view(torch.int32) == t.view(torch.int32))
+                                        .all(1).float().mean()),
+               collected_equal=bool(torch.equal(kc, tc)), counters_equal=bool(torch.equal(kv, tv)),
+               counters=kv.sum(0).tolist(), max_abs_err=max_err(k, t))
+    need(out["spectrum_bit_equal"] == 1.0 and out["collected_equal"] and out["counters_equal"],
+         f"K1's binned form disagrees with its twin: {out}")
+    # The whole chunk: the main path's shape.
+    spec, _ = mk.trace_megakernel(dragon, rays, opts, 21, tables)
+    out["ms"] = cuda_ms(lambda: mk.trace_megakernel(dragon, rays, opts, 21, tables), 3)
+    _, _, vis = mk.trace_megakernel(dragon, rays, opts, 21, tables, debug_visits=True)
+    sync()
+    t0 = time.perf_counter()
+    tspec, _ = mk.trace_megakernel_reference(dragon, rays, opts, 21, tables)
+    sync()
+    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    out["chunk"] = compare(spec, tspec)
+    check_agreement("K1's binned form on the whole chunk", out["chunk"])
+    flops, counts = traversal_flops(vis)
+    rb = ray_bounces(vis)
+    out.update(ray_bounces=rb, counts=counts,
+               **bound(n * (24 + 16), flops + rb * vertex_flops(dragon)))
+    out["max_abs_err"] = max(out["max_abs_err"], out["chunk"]["max_abs_err"])
+    return out
+
+
+def render_frames(pt, scene, camera, opts, flag, seeds):
+    """Frames of `seeds` through render() under PTX_SORTED_WAVEFRONT=flag
+    (None: unset): (images, seconds each)."""
+    old = os.environ.pop("PTX_SORTED_WAVEFRONT", None)
+    if flag is not None:
+        os.environ["PTX_SORTED_WAVEFRONT"] = flag
+    try:
+        images, secs = [], []
+        for seed in seeds:
+            sync()
+            t0 = time.perf_counter()
+            images.append(pt.render(scene, camera, opts, seed=seed, device="cuda"))
+            sync()
+            secs.append(time.perf_counter() - t0)
+    finally:
+        os.environ.pop("PTX_SORTED_WAVEFRONT", None)
+        if old is not None:
+            os.environ["PTX_SORTED_WAVEFRONT"] = old
+    return images, secs
+
+
+def mean_gap(img_a, img_b):
+    """Mean per-pixel difference of two frames and its standard error."""
+    diff = img_a[..., :3].mean(-1).astype(np.float64) - img_b[..., :3].mean(-1)
+    return float(diff.mean()), float(diff.std() / np.sqrt(diff.size))
+
+
+def phase_dragon_k1_frame(pt, sw, mk, scenes, dragon):
+    """renderSceneDragonBox through render() with PTX_SORTED_WAVEFRONT=0 (K1's
+    binned form, this phase's main path) beside the default sorted driver,
+    in turns; K2's bound over one counted sorted frame."""
+    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+    camera = scenes.bench_camera()
+    n_paths = DRAGON_W * DRAGON_H * DRAGON_SPP
+    routes = {"k1": "0", "sorted": None}
+    out = {name: {} for name in routes}
+    first = {}
+    for name, flag in routes.items():
+        mk.trace_megakernel.launches = sw.bounce.launches = 0
+        mk.trace_megakernel_reference.calls = sw.bounce_reference.calls = 0
+        sw.trace_megakernel_sorted.host_reads = 0
+        images, secs = render_frames(pt, dragon, camera, opts, flag, [30])
+        sync()
+        out[name].update(first_frame_s=secs[0], launches=dict(
+            k1=mk.trace_megakernel.launches, k2=sw.bounce.launches,
+            k1_twin=mk.trace_megakernel_reference.calls, k2_twin=sw.bounce_reference.calls),
+            host_reads=sw.trace_megakernel_sorted.host_reads)
+        first[name] = images[0]
+    c1, c2 = out["k1"]["launches"], out["sorted"]["launches"]
+    need(c1["k1"] > 0 and c1["k2"] == c1["k1_twin"] == c1["k2_twin"] == 0,
+         f"PTX_SORTED_WAVEFRONT=0: the dragon frame did not run K1's binned form alone: {c1}")
+    need(c2["k2"] > 0 and c2["k1"] == c2["k1_twin"] == c2["k2_twin"] == 0,
+         f"the default dragon frame did not run the sorted driver alone: {c2}")
+    # Timed frames in turns: K1, sorted, sorted, K1, K1, sorted.
+    for order, seed in zip(("k1", "sorted", "sorted", "k1", "k1", "sorted"), range(31, 37)):
+        _, secs = render_frames(pt, dragon, camera, opts, routes[order], [seed])
+        out[order].setdefault("frame_s", []).extend(secs)
+    for name, img in first.items():
+        need(img.shape == (DRAGON_H, DRAGON_W, 4) and np.isfinite(img).all()
+             and bool((img[..., 3] == 1.0).all()), f"{name} dragon frame")
+        med = float(np.median(out[name]["frame_s"]))
+        out[name].update(frame_median_s=med, mrays_per_s=n_paths / med / 1e6,
+                         mean=float(img[..., :3].mean()))
+    out["mean_diff"], out["std_err"] = mean_gap(first["k1"], first["sorted"])
+    need(abs(out["mean_diff"]) <= 4 * out["std_err"],
+         f"K1's binned frame differs from the sorted driver's: {out}")
+    os.environ["PTX_SORTED_WAVEFRONT"] = "0"
+    try:
+        out["k1"]["profile"] = profile_run(
+            lambda: pt.render(dragon, camera, opts, seed=37, device="cuda"), "megakernel")
+    finally:
+        del os.environ["PTX_SORTED_WAVEFRONT"]
+    # One counted sorted frame: K2's work over all its bounces.
+    rays, _ = camera_state(sw, scenes.bench_camera(device="cuda"), opts, DRAGON_SPP, 38)
+    _, _, vis = sw.trace_megakernel_sorted(dragon, rays, opts, 38, debug_visits=True)
+    entering = [a for a in (ray_bounces(v) for v in vis) if a > 0]
+    flops, counts = traversal_flops(vis)
+    frame_bound = bound(sum(a * 144 + (n_paths - a) * 4 for a in entering),
+                        flops + sum(entering) * vertex_flops(dragon))
+    out["sorted"]["k2_frame"] = dict(bounces=len(entering), ray_bounces=sum(entering),
+                                     counts=counts, **frame_bound)
+    return out
+
+
+def phase_box_sorted(pt, sw, mk, scenes):
+    """The box (phase 5's frame) through the sorted driver with
+    PTX_SORTED_WAVEFRONT=1 (K2's dense form) against K1's frame."""
+    opts = pt.RenderOptions(BOX_W, BOX_H, BOX_SPP, BOX_SPP, epsilon=1e-3, max_depth=MAX_DEPTH)
+    scene, camera = scenes.bench_box_scene(), scenes.bench_camera()
+    mk.trace_megakernel.launches = sw.bounce.launches = sw.bounce_reference.calls = 0
+    images, secs = render_frames(pt, scene, camera, opts, "1", [40, 41, 42])
+    counts = dict(k2=sw.bounce.launches, k1=mk.trace_megakernel.launches,
+                  k2_twin=sw.bounce_reference.calls)
+    need(counts["k2"] > 0 and counts["k1"] == counts["k2_twin"] == 0,
+         f"PTX_SORTED_WAVEFRONT=1: the box did not run the sorted driver alone: {counts}")
+    k1_images, k1_secs = render_frames(pt, scene, camera, opts, None, [43])
+    img = images[0]
+    need(np.isfinite(img).all() and bool((img[..., 3] == 1.0).all()), "sorted box frame")
+    mean_diff, se = mean_gap(img, k1_images[0])
+    out = dict(counts=counts, frame_s=secs, frame_median_s=float(np.median(secs)),
+               k1_frame_s=k1_secs[0], mean_sorted=float(img[..., :3].mean()),
+               mean_k1=float(k1_images[0][..., :3].mean()), mean_diff=mean_diff, std_err=se)
+    need(abs(mean_diff) <= 4 * se, f"the sorted box frame differs from K1's: {out}")
+    return out
+
+
+def phase_experiments(ss, rv, smt, best_ms):
+    """X1, X3, X5: each kernel against its plain version on check inputs
+    whose output depends on the work, then the TPU script's sweep on the
+    script's inputs (the microbenchmarks' own main path: counts zeroed just
+    before, read just after)."""
+    out = {}
+    big = dict(sp=max(ss.SWEEP_SP), rows=max(ss.SWEEP_ROWS), n_iter=max(ss.SWEEP_ITERS))
+    checked = {}
+    for sp in ss.SWEEP_SP:
+        xc_np, bc_np = ss.check_inputs(sp)
+        xc, bc = torch.from_numpy(xc_np).cuda(), torch.from_numpy(bc_np).cuda()
+        for rows in ss.SWEEP_ROWS:
+            n_iter = big["n_iter"] if (sp, rows) == (big["sp"], big["rows"]) else 3
+            ko, ke = ss.supscan(bc, xc, n_iter, rows, entries=True)
+            po, pe = ss.supscan_reference(bc, xc, n_iter, rows, entries=True)
+            acc = (ko.reshape(ss.BLOCKS, 8, 128)
+                   - xc.reshape(ss.BLOCKS, ss.X_ROWS, 128)[:, :8])[:, 0, 0]
+            res = dict(n_iter=n_iter, blocks_counting=int((acc > 0.5).sum()),
+                       finite_entries=int(torch.isfinite(ke).sum()),
+                       max_abs_err=max_err(ko, po))
+            need(torch.equal(ko, po) and torch.equal(ke, pe)
+                 and 0 < res["blocks_counting"] < ss.BLOCKS and res["finite_entries"] > 0,
+                 f"X1 differs from its plain version at sp={sp} rows={rows}: {res}")
+            checked[f"sp{sp}_rows{rows}"] = res
+    xb_np, bb_np = ss.check_inputs(big["sp"])
+    xb, bb = torch.from_numpy(xb_np).cuda(), torch.from_numpy(bb_np).cuda()
+    ss.supscan.launches = 0
+    x1 = dict(check=checked, sweep=ss.sweep())
+    x1["launches"] = ss.supscan.launches
+    x1["ms"] = min(r["ms"][big["n_iter"]] for r in x1["sweep"]
+                   if r["sp"] == big["sp"] and r["rows"] == big["rows"])
+    x1["plain_ms"] = cuda_ms(
+        lambda: ss.supscan_reference(bb, xb, big["n_iter"], big["rows"]), 1)
+    x1["max_abs_err"] = max(r["max_abs_err"] for r in checked.values())
+    x1["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+    x1.update(config=big, **bound(xb.numel() * 4 + bb.numel() * 4 + ss.BLOCKS * 8 * 128 * 4,
+                                  ss.slab_ops(big["sp"], big["rows"], big["n_iter"])))
+    out["supscan"] = x1
+
+    tables, rays_np = rv.inputs()
+    rays = torch.from_numpy(rays_np).cuda()
+    x3 = {}
+    for v in rv.VARIANTS:
+        table = torch.from_numpy(tables[v]).cuda()
+        k = rv.record_variant(v, table, rays, X3_CHECK_RECORDS)
+        sync()
+        t0 = time.perf_counter()
+        p = rv.variant_reference(v, table, rays, X3_CHECK_RECORDS)
+        sync()
+        plain_ms = (time.perf_counter() - t0) * 1e3
+        rtol = 1e-6 if v in ("serial", "outer") else 1e-5
+        res = dict(records=X3_CHECK_RECORDS, hits=int((k < 100.0).sum()),
+                   max_abs_err=max_err(k, p), plain_ms=plain_ms,
+                   ms=cuda_ms(lambda: rv.record_variant(v, table, rays, X3_CHECK_RECORDS), 3))
+        need(bool(torch.allclose(k, p, rtol=rtol, atol=0.0)) and res["hits"] > 0,
+             f"X3 {v} differs from its plain version: {res}")
+        ops, kind = rv.record_ops(v, X3_CHECK_RECORDS)
+        res.update(bound(table.numel() * 4 + rays.numel() * 4 + 1024 * 4,
+                         (ops if kind == "fp32" else 0) + rv.epilogue_ops(v, X3_CHECK_RECORDS),
+                         ops if kind == "tf32" else 0))
+        x3[v] = res
+    for v in rv.VARIANTS:
+        rv.record_variant.launches[v] = 0
+    sweep = rv.sweep()
+    for v in rv.VARIANTS:
+        x3[v].update(sweep=sweep[v], launches=rv.record_variant.launches[v])
+    out["record_variants"] = dict(variants=x3)
+
+    x5_check = {}
+    for name, (xs, tbl, threads) in smt.check_configurations("cuda").items():
+        ko, kst = smt.smem_tables(xs, tbl, threads, staged=True)
+        po, pst = smt.smem_tables_reference(xs, tbl, threads, staged=True)
+        res = dict(moved=float((po != xs).float().mean()), staged_floats=kst.shape[1],
+                   max_abs_err=max_err(ko, po))
+        need(torch.equal(ko, po) and torch.equal(kst, pst) and (res["moved"] > 0.99 or not tbl),
+             f"X5 {name} differs from its plain version: {res}")
+        x5_check[name] = res
+    xk, tk, thk = smt.check_configurations("cuda")["k1_box_tables"]
+    pk = smt.smem_tables_reference(xk, tk, thk)
+    smt.smem_tables.launches = 0
+    x5 = dict(check=x5_check, sweep=smt.sweep())
+    x5["launches"] = smt.smem_tables.launches
+    shift = (pk - xk)[:1].clone()
+    x5.update(ms=x5["sweep"]["k1_box_tables"]["ms"],
+              max_abs_err=max(r["max_abs_err"] for r in x5_check.values()),
+              plain_ms=best_ms(lambda: smt.smem_tables_reference(xk, tk, thk), 5),
+              library_ms=best_ms(lambda: torch.add(xk, shift), 5),
+              **bound(x5["sweep"]["k1_box_tables"]["bytes"], xk.numel()))
+    out["smem_tables"] = x5
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
@@ -1266,6 +1581,10 @@ def main():
     from cpupathtrace_tpu_torch.models import golden, scenes
     from cpupathtrace_tpu_torch.ops import intersect as oi
     from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
+    from cpupathtrace_tpu_torch.experiments import best_ms
+    from cpupathtrace_tpu_torch.experiments import record_variants as rv
+    from cpupathtrace_tpu_torch.experiments import smem_tables as smt
+    from cpupathtrace_tpu_torch.experiments import supscan as ss
 
     if args.out:
         os.makedirs(args.out, exist_ok=True)
@@ -1341,6 +1660,14 @@ def main():
     report["dragon_grad"] = phase_dragon_grad(diff, golden, sw, tt, scenes, dragon,
                                               pt.RenderOptions)
     line("19 dragon gradients vs FD", **report["dragon_grad"])
+    report["k1_binned"] = phase_k1_binned(mk, sw, scenes, dragon, pt.RenderOptions)
+    line("20 K1 binned form vs twin", **report["k1_binned"])
+    report["dragon_k1_frame"] = phase_dragon_k1_frame(pt, sw, mk, scenes, dragon)
+    line("21 dragon frame: K1 binned vs sorted driver", **report["dragon_k1_frame"])
+    report["box_sorted"] = phase_box_sorted(pt, sw, mk, scenes)
+    line("22 box through the sorted driver", **report["box_sorted"])
+    report["experiments"] = phase_experiments(ss, rv, smt, best_ms)
+    line("23 microbenchmarks X1 X3 X5", **report["experiments"])
 
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
@@ -1351,6 +1678,8 @@ def main():
     bk = report["binned_kernels"]
     bw = report["binned_wavefront"]["counts"]
     k8 = report["cluster_major"]
+    k1b = report["k1_binned"]
+    xp = report["experiments"]
 
     def figures(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -1420,9 +1749,38 @@ def main():
         "launches": k8["launches"],
         "max_abs_err": k8["max_abs_err"],
         **figures(k8), "library_ms": None,
+    }, {
+        "name": "megakernel_binned", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/megakernel.cu",
+        "replaces": "cpupathtrace_tpu/integrator/pallas_megakernel.py:1189",
+        "inlines": k3,
+        "launches": report["dragon_k1_frame"]["k1"]["launches"]["k1"],
+        "max_abs_err": k1b["max_abs_err"],
+        **figures(k1b), "library_ms": None,
+    }, {
+        "name": "supscan", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/exp_supscan.cu",
+        "replaces": "benchmarks/experiments/microbench_supscan.py:46",
+        "launches": xp["supscan"]["launches"],
+        "max_abs_err": xp["supscan"]["max_abs_err"],
+        **figures(xp["supscan"]), "library_ms": None,
+    }] + [{
+        "name": f"record_variants_{v}", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/exp_record_variants.cu",
+        "replaces": "benchmarks/experiments/exp_record_variants.py:229",
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        **figures(r), "library_ms": None,
+    } for v, r in xp["record_variants"]["variants"].items()] + [{
+        "name": "smem_tables", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/exp_smem_tables.cu",
+        "replaces": "benchmarks/experiments/microbench_smemtables.py:41",
+        "launches": xp["smem_tables"]["launches"],
+        "max_abs_err": xp["smem_tables"]["max_abs_err"],
+        **figures(xp["smem_tables"]), "library_ms": xp["smem_tables"]["library_ms"],
     }]}
     report["seconds"] = time.perf_counter() - t_start
-    line("20 total", seconds=report["seconds"])
+    line("24 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

@@ -27,6 +27,20 @@ cluster order and take the first strict minimum. The kernel also prunes
 each box against its running nearest t; that changes nothing but ties
 of exactly equal t across records (the same lowest cluster wins in both)
 and boxes whose slab entry rounds above a triangle's t on its face.
+
+Traversal counters (`visits`, the JAX package's debug_visits): per ray, the
+superclusters descended (entered below the bound, so their 32 cluster
+boxes are read) and the records visited (tested), as the kernel's walk
+counts them: against the running nearest t (the bound before a box is the
+initial bound or the nearest hit of the clusters before it), and for
+any-hit queries up to the first occluding cluster; and the walk's work:
+its slab tests below the root gate (hypers, the superclusters of entered
+hypers, the clusters of descends) and the filled record rows it tests
+(any-hit: up to the occluding row). A box is never entered
+below its parent's entry, so a supercluster or cluster that passes its own
+test under the running bound passes its parents' too. These are per-ray
+counts; the TPU kernel counted per ray block (a block descended when any
+lane needed it), so they do not compare with the JAX package's.
 """
 from __future__ import annotations
 
@@ -191,7 +205,12 @@ def pair_slab_entries(bnd, ox, oy, oz, ix, iy, iz):
     """Slab entries of every (box, ray) pair: [B, n] f32, the clamped entry
     t where the ray meets a valid box, +inf otherwise. `bnd` [B, BND_COLS];
     rays [n]. min/max propagate NaN, so a NaN entry enters nothing."""
-    b = [bnd[:, j, None] for j in range(7)]
+    return _slab([bnd[:, j, None] for j in range(7)], ox, oy, oz, ix, iy, iz)
+
+
+def _slab(b, ox, oy, oz, ix, iy, iz):
+    """The clamped slab entry of boxes given as 7 bounds columns (lo3, hi3,
+    valid) against rays, broadcasting, +inf on a miss."""
     t1x, t2x = (b[0] - ox) * ix, (b[3] - ox) * ix
     t1y, t2y = (b[1] - oy) * iy, (b[4] - oy) * iy
     t1z, t2z = (b[2] - oz) * iz, (b[5] - oz) * iz
@@ -228,19 +247,104 @@ def _root_gate(root, ox, oy, oz, ix, iy, iz, bound):
 
 def _candidates(tables, ox, oy, oz, dx, dy, dz, bound):
     """Entered (ray, cluster) pairs of rays [n] under per-ray `bound`:
-    (ray index [P], cluster index [P]) sorted by ray, then cluster."""
+    (ray index [P], cluster index [P]) sorted by ray, then cluster, the
+    slab entries of the superclusters [S, n], clusters [C, n] and hypers
+    [Hp, n], and the root gate [n]."""
     rec, clb, sup, hyp, root = tables
     ix, iy, iz = _inv_dir(dx), _inv_dir(dy), _inv_dir(dz)
     gate = _root_gate(root, ox, oy, oz, ix, iy, iz, bound)
     hp = sup.shape[0]
     s_count = clb.shape[0]
-    h_ok = (pair_slab_entries(hyp[:hp], ox, oy, oz, ix, iy, iz) < bound) & gate
-    s_ok = pair_slab_entries(sup.reshape(-1, BND_COLS)[:s_count], ox, oy, oz, ix, iy, iz) < bound
-    s_ok &= h_ok.repeat_interleave(GROUP2, dim=0)[:s_count]
-    c_ok = pair_slab_entries(clb.reshape(-1, BND_COLS), ox, oy, oz, ix, iy, iz) < bound
-    c_ok &= s_ok.repeat_interleave(GROUP, dim=0)
+    h_ent = pair_slab_entries(hyp[:hp], ox, oy, oz, ix, iy, iz)
+    h_ok = (h_ent < bound) & gate
+    s_ent = pair_slab_entries(sup.reshape(-1, BND_COLS)[:s_count], ox, oy, oz, ix, iy, iz)
+    s_ok = (s_ent < bound) & h_ok.repeat_interleave(GROUP2, dim=0)[:s_count]
+    c_ent = pair_slab_entries(clb.reshape(-1, BND_COLS), ox, oy, oz, ix, iy, iz)
+    c_ok = (c_ent < bound) & s_ok.repeat_interleave(GROUP, dim=0)
     ray, cl = c_ok.t().nonzero(as_tuple=True)
-    return ray, cl
+    return ray, cl, s_ent, c_ent, h_ent, gate
+
+
+def _filled_rows(rec):
+    """Per cluster, the filled record rows (prim >= 0) [C] and their running
+    count along the rows [C, L] (inclusive)."""
+    cum = (rec[:, :, C_PRIM] >= 0.0).long().cumsum(1)
+    return cum[:, -1], cum
+
+
+def _page_sups(s_count, hp, device):
+    """Superclusters in each hyper page [Hp]: the walk tests every one of
+    an entered hyper."""
+    first = torch.arange(hp, device=device) * GROUP2
+    return (s_count - first).clamp(max=GROUP2)
+
+
+def _count_nearest(visits, ray, cl, pair_t, s_ent, c_ent, h_ent, gate, bound, filled):
+    """Adds the nearest walk's counts of a chunk of rays to `visits` [n, 4]
+    (descends, record visits, slab tests, filled rows tested): the running
+    bound before cluster c is the initial bound or the least hit t of the
+    entered clusters before it (a pruned cluster holds no hit below its own
+    entry, so it could not have lowered it). Past the root gate the walk
+    tests every hyper, every supercluster of an entered hyper and the 32
+    clusters of a descend, and every row of a visited record."""
+    n = bound.shape[0]
+    inf = torch.full_like(c_ent, float("inf"))
+    hit_t = inf.index_put((cl, ray), pair_t)
+    run = torch.cat([inf[:1], hit_t.cummin(dim=0).values[:-1]])
+    run = torch.minimum(run, bound[None])
+    s_count = s_ent.shape[0]
+    hp = h_ent.shape[0]
+    s_in = s_ent < run[::GROUP][:s_count]
+    h_in = h_ent < run[::GROUP * GROUP2][:hp]
+    descends = s_in.sum(0)
+    visited = c_ent[cl, ray] < run[cl, ray]
+    rv, cv = ray[visited], cl[visited]
+    visits[:, 0] += descends
+    visits[:, 1] += torch.bincount(rv, minlength=n)
+    visits[:, 2] += (gate.long() * hp + (h_in.long() * _page_sups(s_count, hp, ray.device)[:, None])
+                     .sum(0) + GROUP * descends)
+    visits[:, 3] += torch.zeros(n, dtype=torch.int64, device=ray.device).index_add_(
+        0, rv, filled[cv])
+
+
+def _count_anyhit(visits, ray, cl, pair_hit, pair_rows, s_ent, h_ent, gate, t_lim, filled):
+    """Adds the any-hit walk's counts of a chunk of rays to `visits` [n, 4]:
+    every entered cluster up to the first occluding one, and every entered
+    supercluster up to that cluster's; the slab tests up to the occluding
+    cluster's box, and the filled rows of the visited records, the
+    occluding one's up to its occluding row (`pair_rows`)."""
+    n = t_lim.shape[0]
+    dev = ray.device
+    k = torch.arange(ray.numel(), device=dev)
+    first = torch.full((n,), ray.numel(), dtype=torch.int64, device=dev)
+    first = first.scatter_reduce(0, ray, torch.where(pair_hit, k, ray.numel()), "amin")
+    visited = k <= first[ray]
+    visits[:, 1] += torch.bincount(ray[visited], minlength=n)
+    rows = torch.where(pair_hit, pair_rows, filled[cl])
+    visits[:, 3] += torch.zeros(n, dtype=torch.int64, device=dev).index_add_(
+        0, ray[visited], rows[visited])
+    s_count = s_ent.shape[0]
+    hp = h_ent.shape[0]
+    occluded = first < ray.numel()
+    c_stop = cl[first[occluded]]
+    last_sup = torch.full((n,), s_count, dtype=torch.int64, device=dev)
+    last_sup[occluded] = c_stop // GROUP
+    sup_idx = torch.arange(s_count, device=dev)[:, None]
+    descends = ((s_ent < t_lim[None]) & (sup_idx <= last_sup[None])).sum(0)
+    visits[:, 0] += descends
+    # Slab tests: every hyper up to the stopping one, every supercluster of
+    # the entered hypers before it and of its page up to the stopping one,
+    # 32 clusters a descend but the stopping descend's up to the occluder.
+    last_hyp = torch.full((n,), hp, dtype=torch.int64, device=dev)
+    last_hyp[occluded] = last_sup[occluded] // GROUP2
+    h_idx = torch.arange(hp, device=dev)[:, None]
+    h_in = (h_ent < t_lim[None]) & gate[None] & (h_idx < last_hyp[None])
+    slabs = gate.long() * torch.clamp(last_hyp + occluded.long(), max=hp)
+    slabs += (h_in.long() * _page_sups(s_count, hp, dev)[:, None]).sum(0) + GROUP * descends
+    stop = torch.zeros(n, dtype=torch.int64, device=dev)
+    stop[occluded] = (c_stop // GROUP - (c_stop // (GROUP * GROUP2)) * GROUP2 + 1
+                      - (GROUP - 1 - c_stop % GROUP))
+    visits[:, 2] += slabs + stop
 
 
 def _ray_chunks(n, n_boxes):
@@ -279,10 +383,13 @@ def _pair_cols(rec_rows):
 
 
 def traverse_clusters(tables, ox, oy, oz, dx, dy, dz, hit, cull_mode,
-                      active=None, want_normal_mat=True):
+                      active=None, want_normal_mat=True, visits=None):
     """Nearest hit over the cluster set, improving strictly on `hit` =
     (best_t, best_p, nx, ny, nz, mid) per ray [n]. `active` (bool [n] or
-    None) masks the rays that query. Returns the updated tuple."""
+    None) masks the rays that query. `visits` (int64 [n, 4] or None)
+    receives each ray's supercluster descends, record visits, slab tests
+    below the root gate and filled record rows tested. Returns the updated
+    tuple."""
     bt, bp, nx, ny, nz, mid = hit
     bound = bt if active is None else torch.where(active, bt, torch.zeros_like(bt))
     rec = tables[0]
@@ -291,13 +398,14 @@ def traverse_clusters(tables, ox, oy, oz, dx, dy, dz, hit, cull_mode,
     l = rec.shape[1]
     best_t, best_p = bt.clone(), bp.clone()
     nx, ny, nz, mid = nx.clone(), ny.clone(), nz.clone(), mid.clone()
+    filled = _filled_rows(rec)[0] if visits is not None else None
     starts, step = _ray_chunks(ox.shape[0], n_boxes)
     for a in starts:
         sl = slice(a, a + step)
-        ray, cl = _candidates(tables, ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl],
-                              bound[sl])
-        if ray.numel() == 0:
-            continue
+        ray, cl, s_ent, c_ent, h_ent, gate = _candidates(tables, ox[sl], oy[sl], oz[sl], dx[sl],
+                                                         dy[sl], dz[sl], bound[sl])
+        pair_t = []
+        ray_local = ray
         ray = ray + a
         p_step = max(1, _CHUNK_ELEMS // (l * 17))
         for b in range(0, ray.numel(), p_step):
@@ -311,6 +419,7 @@ def traverse_clusters(tables, ox, oy, oz, dx, dy, dz, hit, cull_mode,
             tv = st / torch.where(ok, sd, 1.0)
             key = torch.where(ok & (tv < bound[r, None]), tv, float("inf"))
             tmin, slot = key.min(dim=1)  # the lowest slot among equal t
+            pair_t.append(tmin)
             # Per ray, the lowest (cluster, slot) of strictly minimal t:
             # pairs are ordered by ray then cluster, so that is the first
             # pair whose t equals the ray's minimum, and the pair improves
@@ -344,23 +453,32 @@ def traverse_clusters(tables, ox, oy, oz, dx, dy, dz, hit, cull_mode,
                 ny[rw] = sny * inv
                 nz[rw] = snz * inv
                 mid[rw] = row[:, C_MAT].long()
+        if visits is not None:
+            pt = torch.cat(pair_t) if pair_t else bound.new_empty(0)
+            _count_nearest(visits[sl], ray_local, cl, pt, s_ent, c_ent, h_ent, gate, bound[sl],
+                           filled)
     return best_t, best_p, nx, ny, nz, mid
 
 
-def traverse_clusters_anyhit(tables, ox, oy, oz, dx, dy, dz, t_lim, cull_mode):
+def traverse_clusters_anyhit(tables, ox, oy, oz, dx, dy, dz, t_lim, cull_mode,
+                             visits=None):
     """Any-hit over the cluster set: True where some triangle hits at t in
     [0, t_lim) (division-free: st < t_lim * sd). Rays with t_lim <= 0 do
-    not query."""
+    not query. `visits` (int64 [n, 4] or None) receives each ray's
+    supercluster descends, record visits, slab tests below the root gate
+    and filled record rows tested, as traverse_clusters."""
     rec = tables[0]
     rec17 = rec[:, :, :17]
     occ = torch.zeros(ox.shape[0], dtype=torch.bool, device=ox.device)
+    if visits is not None:
+        filled, cum = _filled_rows(rec)
     starts, step = _ray_chunks(ox.shape[0], rec.shape[0])
     for a in starts:
         sl = slice(a, a + step)
-        ray, cl = _candidates(tables, ox[sl], oy[sl], oz[sl], dx[sl], dy[sl], dz[sl],
-                              t_lim[sl])
-        if ray.numel() == 0:
-            continue
+        ray, cl, s_ent, _, h_ent, gate = _candidates(tables, ox[sl], oy[sl], oz[sl], dx[sl],
+                                                     dy[sl], dz[sl], t_lim[sl])
+        pair_hit, pair_rows = [], []
+        ray_local = ray
         ray = ray + a
         p_step = max(1, _CHUNK_ELEMS // (rec.shape[1] * 17))
         for b in range(0, ray.numel(), p_step):
@@ -372,8 +490,19 @@ def traverse_clusters_anyhit(tables, ox, oy, oz, dx, dy, dz, t_lim, cull_mode):
             sd, _, _, st, ok = pair_quantities(
                 _pair_cols(rec17[cl[b:b + p_step]]), *o, mx, my, mz, cull_mode
             )
-            hit = (ok & (st < t_lim[r, None] * sd)).any(dim=1)
+            rows_hit = ok & (st < t_lim[r, None] * sd)
+            hit = rows_hit.any(dim=1)
             occ[r[hit]] = True
+            pair_hit.append(hit)
+            if visits is not None:
+                # Filled rows up to the first occluding one (argmax: the first).
+                pair_rows.append(cum[cl[b:b + p_step], rows_hit.long().argmax(1)])
+        if visits is not None:
+            z = ox.new_zeros(0)
+            ph = torch.cat(pair_hit) if pair_hit else z.bool()
+            pr = torch.cat(pair_rows) if pair_rows else z.long()
+            _count_anyhit(visits[sl], ray_local, cl, ph, pr, s_ent, h_ent, gate, t_lim[sl],
+                          filled)
     return occ
 
 
@@ -420,6 +549,10 @@ def check_tables(tables, device):
         raise ValueError(f"record height {rec.shape[1]}: need a multiple of 8, <= 128")
 
 
+# table_args' place holders for a dense scene (no tiers), with cull mode -1.
+NO_TIERS = (None, 0, 0, None, None, 0, None, 0, None, -1)
+
+
 def table_args(tables):
     """The tables as the kernels' C arguments: rec, n_rec, rec_rows, clb,
     sup, n_pages, hyp, hyp_rows, root."""
@@ -434,9 +567,35 @@ def _query_fn():
     if fn.argtypes is None:
         fn.argtypes = ([_P, _P, _P, _P, _P, _I]  # origin direction t_lim t prim n
                        + [_P, _I, _I, _P, _P, _I, _P, _I, _P]  # tables, root box
-                       + [_I, _I, _P])  # cull mode, any_hit, stream
+                       + [_I, _I, _P, _P])  # cull mode, any_hit, visits, stream
         fn.restype = ctypes.c_int
     return fn
+
+
+# Rays per row of the traversal counters: one TPU ray block of 8 x 128.
+VISIT_BLOCK = 1024
+# The counters of one walk (K4's columns; traverse_clusters[_anyhit]'s
+# `visits`): supercluster descends, record visits, slab tests below the root
+# gate, filled record rows tested.
+WALK_COLS = 4
+# The K1 / K2 counters (csrc/binned_geo.cuh kGeoVisitCols): the JAX
+# package's four (nearest descends, nearest record visits, shadow descends,
+# shadow record visits), then the nearest and shadow walks' slab tests and
+# filled rows, then the nearest queries (one per ray-bounce).
+GEO_VISIT_COLS = 9
+NEAR_COLS = [0, 1, 4, 5]
+SHADOW_COLS = [2, 3, 6, 7]
+QUERY_COL = 8
+
+
+def block_sums(per_ray, block=VISIT_BLOCK):
+    """[n, k] per-ray counts -> [ceil(n / block), k] int32 sums over each
+    block of `block` consecutive rays (the counters' rows)."""
+    n, k = per_ray.shape
+    rows = -(-n // block)
+    out = torch.zeros((rows * block, k), dtype=torch.int64, device=per_ray.device)
+    out[:n] = per_ray
+    return out.reshape(rows, block, k).sum(1).to(torch.int32)
 
 
 def _limits(o, t_max):
@@ -446,7 +605,7 @@ def _limits(o, t_max):
     return torch.as_tensor(t_max, dtype=torch.float32, device=o.device)
 
 
-def cluster_intersect_reference(scene, o, d, t_max=None, any_hit=False):
+def cluster_intersect_reference(scene, o, d, t_max=None, any_hit=False, debug_visits=False):
     """The plain version of `cluster_intersect`, on the device of `o`."""
     cluster_intersect_reference.calls += 1
     dev = o.device
@@ -454,29 +613,36 @@ def cluster_intersect_reference(scene, o, d, t_max=None, any_hit=False):
     lim = _limits(o, t_max)
     tables = kernel_tables(scene.to(dev))
     c = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2]]
+    vis = torch.zeros((r, WALK_COLS), dtype=torch.int64, device=dev) if debug_visits else None
     if any_hit:
-        occ = traverse_clusters_anyhit(tables, *c, lim, scene.krn_cull_mode)
-        return torch.where(occ, 1.0, -1.0), torch.where(occ, 0, -1).long()
-    z = torch.zeros(r, device=dev)
-    miss = torch.full((r,), -1, dtype=torch.int64, device=dev)
-    t, p, *_ = traverse_clusters(tables, *c, (lim, miss, z, z, z, miss),
-                                 scene.krn_cull_mode, want_normal_mat=False)
-    return torch.where(p >= 0, t, -1.0), p
+        occ = traverse_clusters_anyhit(tables, *c, lim, scene.krn_cull_mode, visits=vis)
+        out = torch.where(occ, 1.0, -1.0), torch.where(occ, 0, -1).long()
+    else:
+        z = torch.zeros(r, device=dev)
+        miss = torch.full((r,), -1, dtype=torch.int64, device=dev)
+        t, p, *_ = traverse_clusters(tables, *c, (lim, miss, z, z, z, miss),
+                                     scene.krn_cull_mode, want_normal_mat=False, visits=vis)
+        out = torch.where(p >= 0, t, -1.0), p
+    return (*out, block_sums(vis)) if debug_visits else out
 
 
 cluster_intersect_reference.calls = 0
 
 
-def cluster_intersect(scene, o, d, t_max=None, any_hit=False):
+def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False):
     """Standalone query of the cluster set (the dense big-triangle and
     sphere parts are not included), as `cluster_intersect_kernel` of the
     JAX package. o, d: [R,3] f32 tensors. Returns (t [R], prim [R] i64),
     -1 / -1 on a miss; for any_hit, t = 1.0 and prim = 0 where something
-    occludes in [0, t_max). CPU tensors take the plain version; CUDA
-    tensors launch K4 (csrc/cluster_query.cu)."""
+    occludes in [0, t_max). With `debug_visits`, also the traversal
+    counters [ceil(R / 1024), 4] int32: per block of 1024 rays, the summed
+    supercluster descends, record visits, slab tests below the root gate
+    and filled record rows tested of its rays (per-ray counts, not the
+    TPU's per-block ones). CPU tensors take the plain version;
+    CUDA tensors launch K4 (csrc/cluster_query.cu)."""
     dev = o.device
     if dev.type == "cpu":
-        return cluster_intersect_reference(scene, o, d, t_max, any_hit)
+        return cluster_intersect_reference(scene, o, d, t_max, any_hit, debug_visits)
     if dev.type != "cuda":
         raise ValueError(f"cluster_intersect: no kernel for device {dev}")
     r = o.shape[0]
@@ -488,17 +654,20 @@ def cluster_intersect(scene, o, d, t_max=None, any_hit=False):
     check_tables(tables, dev)
     t = torch.empty(r, dtype=torch.float32, device=dev)
     p = torch.empty(r, dtype=torch.int32, device=dev)
+    vis = (torch.zeros((-(-r // VISIT_BLOCK), WALK_COLS), dtype=torch.int32, device=dev)
+           if debug_visits else None)
     if r:
         with torch.cuda.device(dev):
             err = _query_fn()(
                 o.data_ptr(), d.data_ptr(), lim.data_ptr(), t.data_ptr(), p.data_ptr(), r,
                 *table_args(tables), int(scene.krn_cull_mode), int(bool(any_hit)),
+                None if vis is None else vis.data_ptr(),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"cluster_query launch failed: cudaError_t {err}")
         cluster_intersect.launches += 1
-    return t, p.long()
+    return (t, p.long(), vis) if debug_visits else (t, p.long())
 
 
 cluster_intersect.launches = 0

@@ -17,11 +17,16 @@
 // device (seed_depth[1]), so the host hands it over without a sync.
 //
 // Body: the per-bounce body of the megakernel (bounce_body.cuh, the same
-// source as K1), with the geometry of a binned scene (spheres and the
-// big-partition pair record in shared memory, then the cluster set through
-// K3; shadow rays likewise) or of a dense scene (K1's DenseGeo: the pair
-// record or the triangle table, and the spheres). A dead ray returns at
-// once (the TPU's dead-block skip).
+// source as K1), with the geometry of a binned scene (binned_geo.cuh, shared
+// with K1's binned form: spheres and the big-partition pair record in shared
+// memory, then the cluster set through K3; shadow rays likewise) or of a
+// dense scene (K1's DenseGeo: the pair record or the triangle table, and the
+// spheres). A dead ray returns at once (the TPU's dead-block skip).
+//
+// Counters (template flag kCount, binned scenes without records; the JAX
+// package's debug_visits): each thread adds its nearest and shadow traversal
+// counts to its 1024-ray block's row of `visits` [n_blocks, 9]
+// (binned_geo.cuh kGeoVisitCols).
 //
 // Record form (template flag kRec; `_make_megakernel(diff_records=True)`):
 // n_drec = 3 + n_lights + 2 * em_k more [n] planes, written by the body's
@@ -39,6 +44,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "binned_geo.cuh"
 #include "bounce_body.cuh"
 #include "cluster_traverse.cuh"
 #include "dense_intersect.cuh"
@@ -73,28 +81,8 @@ struct Params {
   int rec_stride;
   ClusterTables cl;
   int tier_floats;  // shared floats for the staged tiers (0: read from global)
+  int* visits;      // [ceil(n_rays / 1024), 9] traversal counters, or null
   float eps;
-};
-
-template <int BIG_CULL>
-struct BinnedGeo {
-  const float* rec;
-  int rec_rows;
-  const float* sph;
-  int n_sph;
-  ClusterTables cl;
-
-  __device__ __forceinline__ void nearest(const Ray& r, Hit& h) const {
-    sph_nearest(sph, n_sph, 0, r, h);
-    pair_nearest<BIG_CULL>(rec, rec_rows, r, h);
-    cluster_nearest<true>(cl, r, h);
-  }
-
-  __device__ __forceinline__ bool occluded(const Ray& r, float t_max) const {
-    if (table_occluded(nullptr, 0, sph, n_sph, r, t_max)) return true;
-    if (pair_anyhit<BIG_CULL>(rec, rec_rows, r, jmax(t_max, 0.0f))) return true;
-    return cluster_anyhit(cl, r, t_max);
-  }
 };
 
 size_t smem_floats(const Params& p) {
@@ -104,13 +92,17 @@ size_t smem_floats(const Params& p) {
          static_cast<size_t>(p.n_em) * kEmCols + static_cast<size_t>(p.tier_floats);
 }
 
-template <bool kBinned, int CULL, class Rec>
+template <bool kBinned, int CULL, bool kCount, class Rec>
 __device__ __forceinline__ bool run_body(const Params& p, const float* s_rec, const float* s_tri,
                                          const float* s_sph, const ClusterTables& cl,
-                                         const Shading& sh, PathState& s, const Rec& rec) {
+                                         const Shading& sh, PathState& s, const Rec& rec,
+                                         int64_t i) {
   if constexpr (kBinned) {
-    const BinnedGeo<CULL> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl};
-    return bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
+    using Count = std::conditional_t<kCount, Visits, NoVisits>;
+    const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl};
+    const bool alive = bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
+    if constexpr (kCount) add_geo_visits(p.visits, i, geo);
+    return alive;
   } else {
     const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
     return bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
@@ -118,8 +110,8 @@ __device__ __forceinline__ bool run_body(const Params& p, const float* s_rec, co
 }
 
 // kBinned: the geometry; CULL: the cull class of the pair record; kRec: the
-// record form.
-template <bool kBinned, int CULL, bool kRec>
+// record form; kCount: the traversal counters (binned, plain form only).
+template <bool kBinned, int CULL, bool kRec, bool kCount>
 __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   extern __shared__ float smem[];
   float* s_rec = smem;
@@ -162,10 +154,10 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
 
   bool alive;
   if constexpr (kRec) {
-    alive = run_body<kBinned, CULL>(p, s_rec, s_tri, s_sph, cl, sh, s,
-                                    Records{p.drec + i, n, p.n_lights});
+    alive = run_body<kBinned, CULL, kCount>(p, s_rec, s_tri, s_sph, cl, sh, s,
+                                            Records{p.drec + i, n, p.n_lights}, i);
   } else {
-    alive = run_body<kBinned, CULL>(p, s_rec, s_tri, s_sph, cl, sh, s, NoRecords{});
+    alive = run_body<kBinned, CULL, kCount>(p, s_rec, s_tri, s_sph, cl, sh, s, NoRecords{}, i);
   }
 
   st[0] = __uint_as_float(s.rng);
@@ -188,24 +180,24 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   st[17 * n] = alive ? 1.0f : 0.0f;
 }
 
-template <bool kBinned, int CULL, bool kRec>
+template <bool kBinned, int CULL, bool kRec, bool kCount>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bounce_kernel<kBinned, CULL, kRec>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bounce_kernel<kBinned, CULL, kRec, kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
   const int blocks = (p.n_rays + kThreads - 1) / kThreads;
-  bounce_kernel<kBinned, CULL, kRec><<<blocks, kThreads, smem, stream>>>(p);
+  bounce_kernel<kBinned, CULL, kRec, kCount><<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kBinned, bool kRec>
+template <bool kBinned, bool kRec, bool kCount = false>
 cudaError_t launch_cull(const Params& p, int cull, size_t smem, cudaStream_t stream) {
-  if (cull == 0) return launch<kBinned, 0, kRec>(p, smem, stream);
-  if (cull == 1) return launch<kBinned, 1, kRec>(p, smem, stream);
-  return launch<kBinned, -1, kRec>(p, smem, stream);
+  if (cull == 0) return launch<kBinned, 0, kRec, kCount>(p, smem, stream);
+  if (cull == 1) return launch<kBinned, 1, kRec, kCount>(p, smem, stream);
+  return launch<kBinned, -1, kRec, kCount>(p, smem, stream);
 }
 
 }  // namespace
@@ -215,7 +207,8 @@ cudaError_t launch_cull(const Params& p, int cull, size_t smem, cudaStream_t str
 // synchronise, allocates nothing, returns the launch's cudaError_t.
 // binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else
 // the triangle table), the traversal tables unused. drec: the record planes
-// or null.
+// or null. visits: the counters [ceil(n_rays / 1024), 9] int32, zeroed by the
+// caller, or null (binned scenes without records only).
 extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth, float* drec,
                                  const float* tri, int n_tri, const float* sph, int n_sph,
                                  const float* mat, int n_mat, const float* lgt, int n_lights,
@@ -223,18 +216,22 @@ extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth
                                  int rec_rows, int rec_stride, int big_cull, int binned,
                                  const float* krec, int n_rec, int krec_rows, const float* clb,
                                  const float* sup, int n_pages, const float* hyp, int hyp_rows,
-                                 const float* root, int cl_cull, float epsilon, void* stream) {
+                                 const float* root, int cl_cull, int* visits, float epsilon,
+                                 void* stream) {
   using namespace ptx;
   (void)hyp_rows;
   const ClusterTables cl{krec, n_rec, krec_rows, clb, sup, n_pages, hyp, root, cl_cull};
   const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
   const Params p{state, n_rays, seed_depth, drec, tri, n_tri, sph, n_sph, mat, n_mat, lgt,
                  n_lights, em, n_em, em_k, rec, rec_rows, rec_stride, cl,
-                 tiers <= kTierFloats ? tiers : 0, epsilon};
+                 tiers <= kTierFloats ? tiers : 0, visits, epsilon};
   const size_t smem = smem_floats(p) * sizeof(float);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (visits && (!binned || drec)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (binned)
+  if (visits)
+    err = launch_cull<true, false, true>(p, big_cull, smem, s);
+  else if (binned)
     err = drec ? launch_cull<true, true>(p, big_cull, smem, s)
                : launch_cull<true, false>(p, big_cull, smem, s);
   else

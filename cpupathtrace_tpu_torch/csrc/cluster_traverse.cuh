@@ -3,8 +3,9 @@
 // Replaces: cpupathtrace_tpu/accel/kernel_traverse.py `traverse_clusters`
 //   (:1041), `traverse_clusters_anyhit` (:1106) and `_scan_pipelined`
 //   (:750), with `pair_slab_entries` (:337) and `_root_gate` (:372). The
-//   bounce kernel K2 (bounce.cu) inlines them; K4 (cluster_query.cu)
-//   launches them alone. Plain version: traverse_clusters[_anyhit] in
+//   bounce kernel K2 (bounce.cu) and K1's binned form (megakernel.cu)
+//   inline them through binned_geo.cuh; K4 (cluster_query.cu) launches them
+//   alone. Plain version: traverse_clusters[_anyhit] in
 //   cpupathtrace_tpu_torch/accel/kernel_traverse.py.
 //
 // Tables (the port's compact layout, kernel_traverse.py):
@@ -30,12 +31,20 @@
 // the launching kernel (broadcast reads); cluster boxes and records come
 // from global memory through L1/L2, records as five float4 loads per row
 // (the 17 columns the test reads). The sorted driver reorders rays between
-// bounces so neighbouring threads take similar paths.
+// bounces so neighbouring threads take similar paths; K1's binned form does
+// not (it traces whole paths in one launch).
 //
 // Semantics kept: a record row wins only by improving strictly on the
 // running t, so among equal t the lowest cluster and then the lowest row
 // wins, as the plain version's first strict minimum; min/max propagate NaN
 // (jmin/jmax), so a NaN slab entry enters nothing.
+//
+// Counters (debug_visits): a counter policy (Visits) counts, per ray, the
+// superclusters descended and the records visited, against the running
+// bound the walk prunes with, and the walk's work: its slab tests below the
+// root gate and the filled record rows it tests; NoVisits builds the plain
+// instances. These are per-thread counts; the TPU's were per block (a block
+// descended when any of its lanes needed it), so the two are not comparable.
 #pragma once
 
 #include <float.h>
@@ -103,18 +112,51 @@ __device__ __forceinline__ void load_row17(const float* row, float c[20]) {
   }
 }
 
+// Traversal counter policies, per ray. The JAX package's debug_visits
+// columns: a descend is a supercluster whose box the ray enters below its
+// bound, so the thread reads its 32 cluster boxes; a record visit is one
+// visit(cluster) call. The work the walk does beside them: slab tests below
+// the root gate (hyper, supercluster and cluster boxes tested) and filled
+// record rows tested (prim >= 0; padding rows are not work the query needs;
+// any-hit stops at the occluding row); queries counts the nearest queries
+// (BinnedGeo::nearest), one per ray-bounce. NoVisits compiles to nothing.
+struct NoVisits {
+  __device__ __forceinline__ void query() {}
+  __device__ __forceinline__ void slab() {}
+  __device__ __forceinline__ void descend() {}
+  __device__ __forceinline__ void record() {}
+  __device__ __forceinline__ void row(float) {}
+};
+
+struct Visits {
+  int queries = 0;
+  int slabs = 0;
+  int descends = 0;
+  int records = 0;
+  int rows = 0;
+  __device__ __forceinline__ void query() { ++queries; }
+  __device__ __forceinline__ void slab() { ++slabs; }
+  __device__ __forceinline__ void descend() { ++descends; }
+  __device__ __forceinline__ void record() { ++records; }
+  __device__ __forceinline__ void row(float prim) { rows += prim >= 0.0f ? 1 : 0; }
+};
+
 // Walks the tiers in ascending index order and calls visit(record) for every
 // cluster whose box the ray enters below bound(); visit returns true to stop.
-template <class Bound, class Visit>
+template <class Bound, class Visit, class Count>
 __device__ __forceinline__ void walk_clusters(const ClusterTables& T, const Ray& r,
-                                              const InvDir& v, Bound bound, Visit visit) {
+                                              const InvDir& v, Bound bound, Visit visit,
+                                              Count& count) {
   if (!(slab_entry(T.root, r, v) < bound())) return;
   const int n_sup = T.n_rec / kGroup;
   for (int h = 0; h < T.n_pages; ++h) {
+    count.slab();
     if (!(slab_entry(T.hyp + h * kBndCols, r, v) < bound())) continue;
     const int s_end = min(n_sup, (h + 1) * kGroup2);
     for (int s = h * kGroup2; s < s_end; ++s) {
+      count.slab();
       if (!(slab_entry(T.sup + s * kBndCols, r, v) < bound())) continue;
+      count.descend();
       const float* page = T.clb + static_cast<size_t>(s) * kGroup * kBndCols;
       for (int g = 0; g < kGroup; ++g) {
         float b[8];
@@ -122,7 +164,9 @@ __device__ __forceinline__ void walk_clusters(const ClusterTables& T, const Ray&
         const float4 b0 = __ldg(q), b1 = __ldg(q + 1);
         b[0] = b0.x; b[1] = b0.y; b[2] = b0.z; b[3] = b0.w;
         b[4] = b1.x; b[5] = b1.y; b[6] = b1.z; b[7] = b1.w;
+        count.slab();
         if (!(slab_entry(b, r, v) < bound())) continue;
+        count.record();
         if (visit(s * kGroup + g)) return;
       }
     }
@@ -131,8 +175,9 @@ __device__ __forceinline__ void walk_clusters(const ClusterTables& T, const Ray&
 
 // Nearest hit over the cluster set, improving strictly on h (traverse_clusters).
 // kNormal: also resolve the winner's shading normal and material.
-template <bool kNormal>
-__device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ray& r, Hit& h) {
+template <bool kNormal, class Count>
+__device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ray& r, Hit& h,
+                                                Count& count) {
   const InvDir v{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
   const float mx = r.oy * r.dz - r.oz * r.dy;
   const float my = r.oz * r.dx - r.ox * r.dz;
@@ -144,6 +189,7 @@ __device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ra
     for (int k = 0; k < T.rec_rows; ++k, row += kKrnCols) {
       float q[20];
       load_row17(row, q);
+      count.row(q[kRecPrim]);
       float sd, su, sv, st;
       if (pair_quantities_rt(q, r, mx, my, mz, T.cull, sd, su, sv, st)) {
         const float tv = st / sd;
@@ -157,7 +203,7 @@ __device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ra
       }
     }
     return false;
-  });
+  }, count);
   if (best == nullptr) return;
   h.t = bt;
   h.prim = static_cast<int>(__ldg(best + kRecPrim));
@@ -182,7 +228,9 @@ __device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ra
 
 // Any-hit below t_lim over the cluster set (traverse_clusters_anyhit),
 // division-free: t < t_lim <=> st < t_lim * sd. t_lim <= 0 queries nothing.
-__device__ __forceinline__ bool cluster_anyhit(const ClusterTables& T, const Ray& r, float t_lim) {
+template <class Count>
+__device__ __forceinline__ bool cluster_anyhit(const ClusterTables& T, const Ray& r, float t_lim,
+                                               Count& count) {
   const InvDir v{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
   const float mx = r.oy * r.dz - r.oz * r.dy;
   const float my = r.oz * r.dx - r.ox * r.dz;
@@ -193,6 +241,7 @@ __device__ __forceinline__ bool cluster_anyhit(const ClusterTables& T, const Ray
     for (int k = 0; k < T.rec_rows; ++k, row += kKrnCols) {
       float q[20];
       load_row17(row, q);
+      count.row(q[kRecPrim]);
       float sd, su, sv, st;
       if (pair_quantities_rt(q, r, mx, my, mz, T.cull, sd, su, sv, st) && st < t_lim * sd) {
         occ = true;
@@ -200,8 +249,17 @@ __device__ __forceinline__ bool cluster_anyhit(const ClusterTables& T, const Ray
       }
     }
     return false;
-  });
+  }, count);
   return occ;
+}
+
+// Rays per row of the counter output: a TPU ray block of 8 x 128 lanes.
+constexpr int kVisitBlock = 1024;
+
+// Adds a thread's count `v` to column `col` of ray i's row of `out`
+// [n_rays / kVisitBlock, cols] int32.
+__device__ __forceinline__ void add_visits(int* out, int cols, int64_t i, int col, int v) {
+  if (v) atomicAdd(out + (i / kVisitBlock) * cols + col, v);
 }
 
 // Stage the hyper and supercluster boxes in shared memory when they fit

@@ -8,11 +8,12 @@
 
 namespace ptx {
 
-// The TPU kernel's ray block is 64 rows x 128 lanes; its seed keys on
-// (program id, row, lane) of that block.
+// The TPU megakernel seeds each lane by (program id, row, lane) of its ray
+// block of 128 lanes: 64 rows for dense scenes, 8 rows for binned ones
+// (pallas_megakernel.py _BLOCK_ROWS / _KRN_BLOCK_ROWS).
 constexpr int kBlockRows = 64;
+constexpr int kBinnedBlockRows = 8;
 constexpr int kLanes = 128;
-constexpr int kBlockRays = kBlockRows * kLanes;
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t s) {
   s ^= s >> 16;
@@ -23,11 +24,13 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t s) {
   return s | 1u;
 }
 
-// State of global ray i: seed + pid * 1000003 wraps as int32 and is read as
-// uint32, which is the same as wrapping in uint32.
+// State of global ray i in blocks of kRows x 128 rays: seed + pid * 1000003
+// wraps as int32 and is read as uint32, which is the same as wrapping in
+// uint32.
+template <int kRows = kBlockRows>
 __device__ __forceinline__ uint32_t seed_rng(int32_t seed, int64_t i) {
-  const uint32_t pid = static_cast<uint32_t>(i / kBlockRays);
-  const uint32_t row = static_cast<uint32_t>((i / kLanes) % kBlockRows);
+  const uint32_t pid = static_cast<uint32_t>(i / (kRows * kLanes));
+  const uint32_t row = static_cast<uint32_t>((i / kLanes) % kRows);
   const uint32_t lane = static_cast<uint32_t>(i % kLanes);
   const uint32_t s0 = static_cast<uint32_t>(seed) + pid * 1000003u;
   const uint32_t s = (s0 * 2654435761u) ^ (row * 40503u + 0x9E3779B9u) ^

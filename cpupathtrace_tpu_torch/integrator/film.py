@@ -76,9 +76,12 @@ def _dispatch_trace(scene: SceneData, rays, options: RenderOptions, generator,
     """The tracer of a ray batch, as film.py:63-107 picks it. Differentiable
     traces take the record-and-replay path (`trace_diff`: K2 with records,
     backward over the replay) when the scene is within the kernels' limits,
-    else the wavefront; forward traces take the megakernels (binned scenes
-    the sorted driver and K2, dense scenes K1) when within their limits,
-    else the wavefront (its intersections through K5 on the card).
+    else the wavefront; forward traces take the megakernels when within
+    their limits, else the wavefront (its intersections through K5 on the
+    card). Among the megakernels PTX_SORTED_WAVEFRONT picks as in JAX:
+    "1" sends every scene to the sorted driver and K2, "0" every scene to
+    K1 (binned scenes to its binned while-loop form), anything else binned
+    scenes to the sorted driver and dense scenes to K1.
     PTX_NO_MEGAKERNEL=1 and PTX_DIFF_MEGAKERNEL=0 are the JAX package's
     switches to the wavefront. CUDA rays run the kernels, CPU rays their
     twins."""
@@ -89,7 +92,8 @@ def _dispatch_trace(scene: SceneData, rays, options: RenderOptions, generator,
             return trace_diff(scene, rays, options, _kernel_seed(generator, rays.origin.device))
     elif not no_mega and megakernel_supported(scene):
         seed = _kernel_seed(generator, rays.origin.device)
-        if scene.has_kernel_records:
+        flag = os.environ.get("PTX_SORTED_WAVEFRONT")
+        if flag == "1" or (flag != "0" and scene.has_kernel_records):
             return trace_megakernel_sorted(scene, rays, options, seed)
         return trace_megakernel(scene, rays, options, seed)
     return trace(scene, rays, options, generator, differentiable)

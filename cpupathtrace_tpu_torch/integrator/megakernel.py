@@ -1,11 +1,11 @@
-"""The dense path-trace megakernel (K1) and its plain-torch twin.
+"""The path-trace megakernel (K1) and its plain-torch twin.
 
 `trace_megakernel` runs the whole estimator for a batch of rays in one CUDA
 launch (csrc/megakernel.cu, the port of `_make_megakernel` in
-cpupathtrace_tpu/integrator/pallas_megakernel.py, while-loop form with
-n_super = 0): nearest hit, material, emission, roulette, NEE over the point
-lights and `em_k` CDF-drawn emitters with shadow rays, then the BSDF sample
-(Lambertian, Fresnel glass, mirror), up to `max_depth` bounces.
+cpupathtrace_tpu/integrator/pallas_megakernel.py, while-loop form): nearest
+hit, material, emission, roulette, NEE over the point lights and `em_k`
+CDF-drawn emitters with shadow rays, then the BSDF sample (Lambertian,
+Fresnel glass, mirror), up to `max_depth` bounces.
 
 `trace_megakernel_reference` is the twin: the same arithmetic in the same
 order over flat [R] tensors, with the same random stream (integrator/rng.py)
@@ -16,12 +16,23 @@ kernel or raises.
 
 Both dense forms are covered: the pair-record form (1..128 triangles ride
 `scene.krn_big_pair`, spheres the sphere table) and the table form
-(triangle table + spheres; scenes without triangles). The twin's bounce
-(`_bounce`) also serves binned scenes, with the cluster traversal of
-accel/kernel_traverse.py after the big-partition pair record: it is the
-plain version of the single-bounce kernel K2 (integrator/sorted_wavefront.py).
-K1's own binned form (the while loop with n_super > 0) is not ported
-(ROADMAP item 11): binned scenes run the sorted driver.
+(triangle table + spheres; scenes without triangles); and the binned form
+(n_super > 0): spheres, the big-partition pair record, then the cluster
+traversal of accel/kernel_traverse.py, its seed keyed on 8 x 128-ray blocks
+as the TPU's. The film runs the binned form with PTX_SORTED_WAVEFRONT=0;
+binned scenes take the sorted driver by default. The twin's bounce
+(`_bounce`) is also the plain version of the single-bounce kernel K2
+(integrator/sorted_wavefront.py).
+
+`debug_visits` (binned scenes; the JAX package's profiling counters): the
+per-ray traversal counts of csrc/cluster_traverse.cuh, summed per block of
+1024 rays: [n_blocks, 9] int32 columns nearest supercluster descends,
+nearest record visits, shadow supercluster descends, shadow record visits
+(the JAX package's four), then nearest slab tests, nearest filled rows
+tested, shadow slab tests, shadow filled rows tested (the walks' work) and
+the nearest queries, one per ray-bounce (accel/kernel_traverse.py
+GEO_VISIT_COLS). The TPU counted per ray block (a block descended when any
+lane needed it), so the numbers do not compare with the JAX package's.
 """
 from __future__ import annotations
 
@@ -31,9 +42,19 @@ import torch
 
 from .. import _build
 from ..accel.kernel_traverse import (
+    GEO_VISIT_COLS,
+    NEAR_COLS,
+    NO_TIERS,
+    QUERY_COL,
+    SHADOW_COLS,
+    VISIT_BLOCK,
+    WALK_COLS,
+    block_sums,
+    check_tables,
     check_tensor,
     kernel_tables,
     pair_quantities,
+    table_args,
     traverse_clusters,
     traverse_clusters_anyhit,
 )
@@ -41,7 +62,7 @@ from ..accel.pair_record import C_MAT, C_N0, C_PRIM, REC_USED_COLS
 from ..ops.intersect import table_nearest
 from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, SceneData
 from ..utils.math import PI
-from .rng import next_u01, seed_rng
+from .rng import BINNED_BLOCK_ROWS, BLOCK_ROWS, next_u01, seed_rng
 
 PD_CUTOFF = 1e-20
 
@@ -290,15 +311,16 @@ def _pair_occluded(ctx, ox, oy, oz, dx, dy, dz, t_lim):
     return (ok & (st < t_lim * sd)).any(dim=0)
 
 
-def _nearest(ctx, ox, oy, oz, dx, dy, dz):
+def _nearest(ctx, ox, oy, oz, dx, dy, dz, visits=None):
     """Spheres (and the triangle table), then the pair record, then the
-    clusters of a binned scene, each improving strictly on the last."""
+    clusters of a binned scene, each improving strictly on the last.
+    `visits` (int64 [n, 4] or None) receives the traversal counts."""
     if ctx.dense_pair:
         hit = table_nearest(ctx.tri, ctx.sph, ox, oy, oz, dx, dy, dz, 0)
         hit = _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
         if ctx.clusters is not None:
             hit = traverse_clusters(ctx.clusters, ox, oy, oz, dx, dy, dz, hit,
-                                    ctx.krn_cull_mode)
+                                    ctx.krn_cull_mode, visits=visits)
         return hit
     return table_nearest(ctx.tri, ctx.sph, ox, oy, oz, dx, dy, dz, ctx.n_tri)
 
@@ -330,14 +352,21 @@ def _bounce(ctx, depth, s, rec=None):
     the live mask after the bounce; `s` is updated. A list `rec` receives
     the record planes of K2's record form (pallas_megakernel.py:485-489,
     581-586, 711-712, 851-862), in the order mid, W, sel, one weight per
-    point light, (CDF row, weight) per emitter draw."""
+    point light, (CDF row, weight) per emitter draw. An int64 [n, 9]
+    `s["vis"]`, when present, receives the traversal counts in the columns
+    of GEO_VISIT_COLS."""
     eps = ctx.eps
     ox, oy, oz, dx, dy, dz = s["ox"], s["oy"], s["oz"], s["dx"], s["dy"], s["dz"]
     sr, sg, sb = s["sr"], s["sg"], s["sb"]
     divisor, bounce_pd, contrib = s["divisor"], s["bounce_pd"], s["contrib"]
     rng = s["rng"]
+    vis = s.get("vis")
 
-    bt, bp, nx, ny, nz, mid = _nearest(ctx, ox, oy, oz, dx, dy, dz)
+    near = None if vis is None else vis.new_zeros((ox.shape[0], WALK_COLS))
+    bt, bp, nx, ny, nz, mid = _nearest(ctx, ox, oy, oz, dx, dy, dz, near)
+    if vis is not None and ctx.clusters is not None:
+        vis[:, NEAR_COLS] += near
+        vis[:, QUERY_COL] += 1
     hit = bp >= 0
     s["collected"] = s["collected"] | hit
     t_hit = torch.where(hit, bt, 0.0)
@@ -393,9 +422,13 @@ def _bounce(ctx, depth, s, rec=None):
             # takes the light, query the clusters (t_lim 0 = no query).
             want = hit & lvalid & ~occ & ~is_spec & (lpd > 0.0)
             t_lim = torch.where(want, dist - eps, torch.zeros_like(dist))
+            shadow = None if vis is None else vis.new_zeros((sox.shape[0], WALK_COLS))
             occ = occ | traverse_clusters_anyhit(
-                ctx.clusters, sox, soy, soz, ldx, ldy, ldz, t_lim, ctx.krn_cull_mode
+                ctx.clusters, sox, soy, soz, ldx, ldy, ldz, t_lim, ctx.krn_cull_mode,
+                visits=shadow,
             )
+            if vis is not None:
+                vis[:, SHADOW_COLS] += shadow
         cos_s = (nx * ldx + ny * ldy + nz * ldz).clamp_min(0.0)
         shade = cos_s / ctx.pi
         use = hit & lvalid & ~occ & ~is_spec & (lpd > 0.0)
@@ -572,9 +605,11 @@ def _bounce(ctx, depth, s, rec=None):
 _OUT_FIELDS = ("out_r", "out_g", "out_b", "collected")
 
 
-def trace_megakernel_reference(scene: SceneData, rays, options, seed, tables=None):
+def trace_megakernel_reference(scene: SceneData, rays, options, seed, tables=None,
+                               debug_visits=False):
     """The twin of the CUDA kernel: returns (spectrum [R,4] with alpha =
-    collected, collected [R] bool). A ray leaves the loop when it dies,
+    collected, collected [R] bool), and with `debug_visits` the traversal
+    counters [ceil(R / 1024), 9] int32. A ray leaves the loop when it dies,
     as a kernel thread does; dead rays never change their sums, so this
     equals the TPU's whole-block exit."""
     trace_megakernel_reference.calls += 1
@@ -588,8 +623,9 @@ def trace_megakernel_reference(scene: SceneData, rays, options, seed, tables=Non
     idx = torch.arange(n, device=dev)
     ones = torch.ones(n, dtype=f32, device=dev)
     zeros = torch.zeros(n, dtype=f32, device=dev)
+    rows = BINNED_BLOCK_ROWS if scene.has_kernel_records else BLOCK_ROWS
     s = {
-        "rng": seed_rng(seed, idx),
+        "rng": seed_rng(seed, idx, rows),
         "ox": origin[:, 0], "oy": origin[:, 1], "oz": origin[:, 2],
         "dx": direction[:, 0], "dy": direction[:, 1], "dz": direction[:, 2],
         "sr": ones, "sg": ones, "sb": ones,
@@ -597,17 +633,23 @@ def trace_megakernel_reference(scene: SceneData, rays, options, seed, tables=Non
         "divisor": ones, "bounce_pd": ones, "contrib": ones,
         "collected": torch.zeros(n, dtype=torch.bool, device=dev),
     }
-    out = {k: s[k].clone() for k in _OUT_FIELDS}
+    fields = _OUT_FIELDS
+    if debug_visits:
+        s["vis"] = torch.zeros((n, GEO_VISIT_COLS), dtype=torch.int64, device=dev)
+        fields = _OUT_FIELDS + ("vis",)
+    out = {k: s[k].clone() for k in fields}
     for depth in range(int(options.max_depth)):
         if idx.numel() == 0:
             break
         alive = _bounce(ctx, depth, s)
-        for k in _OUT_FIELDS:
+        for k in fields:
             out[k][idx] = s[k]
         idx = idx[alive]
         s = {k: v[alive] for k, v in s.items()}
     coll = out["collected"]
     spectrum = torch.stack([out["out_r"], out["out_g"], out["out_b"], coll.to(f32)], -1)
+    if debug_visits:
+        return spectrum, coll, block_sums(out["vis"])
     return spectrum, coll
 
 
@@ -623,7 +665,8 @@ _I = ctypes.c_int
 _ARGTYPES = (
     [_P, _P, _P, _I]  # origin, direction, spectrum, n_rays
     + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
-    + [_P, _I, _I, _I]  # rec, rec_rows, rec_stride, cull_mode
+    + [_P, _I, _I, _I, _I]  # rec, rec_rows, rec_stride, cull_mode; binned
+    + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P]  # traversal tables, cull mode; visits
     + [_P, _I, ctypes.c_float, _P]  # seed, max_depth, epsilon, stream
 )
 
@@ -637,21 +680,26 @@ def _library():
     return fn
 
 
-def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
+def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_visits=False):
     """Full-path trace of a ray batch: (spectrum [R,4] with alpha =
-    collected, collected [R] bool). `seed` is an int32 Python int or a
-    1-element tensor (read on the device, so drawing it costs no sync).
-    CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu."""
+    collected, collected [R] bool), and with `debug_visits` the traversal
+    counters [ceil(R / 1024), 9] int32 (zero for a dense scene). `seed`
+    is an int32 Python int or a 1-element tensor (read on the device, so
+    drawing it costs no sync). CPU rays go to the twin; CUDA rays launch
+    csrc/megakernel.cu, its binned form for a scene with kernel records."""
     origin, direction = rays.origin, rays.direction
     dev = origin.device
     if dev.type == "cpu":
-        return trace_megakernel_reference(scene, rays, options, seed, tables)
+        return trace_megakernel_reference(scene, rays, options, seed, tables, debug_visits)
     if dev.type != "cuda":
         raise ValueError(f"trace_megakernel: no kernel for device {dev}")
-    if scene.has_kernel_records:
+    binned = scene.has_kernel_records
+    if binned and scene.big_v0.shape[0] > scene.krn_big_pair.shape[0]:
+        # pallas_megakernel.py:1219-1229: the big partition outgrew the one
+        # pair record.
         raise ValueError(
-            "trace_megakernel: binned scenes run the sorted driver "
-            "(integrator/sorted_wavefront.py); K1's binned form is ROADMAP item 11"
+            f"megakernel unsupported: {scene.big_v0.shape[0]} dense triangles exceed "
+            f"the pair record ({scene.krn_big_pair.shape[0]} rows)"
         )
     if not megakernel_supported(scene):
         raise ValueError(
@@ -660,21 +708,28 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
         )
     check_tensor("origin", origin, dev, torch.float32, (None, 3))
     check_tensor("direction", direction, dev, torch.float32, (origin.shape[0], 3))
+    scene = scene.to(dev)
     if tables is None:
-        tables = pack_tables(scene.to(dev))
+        tables = pack_tables(scene)
     tri, sph, mat, lgt, em = tables
     for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS),
                        ("mat", mat, MAT_COLS), ("lgt", lgt, LGT_COLS),
                        ("em", em, EM_COLS)):
         check_tensor(name, t, dev, torch.float32, (None, c))
     if scene.dense_pair:
-        rec = scene.krn_big_pair.to(dev)
+        rec = scene.krn_big_pair
         check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
         rec_ptr, rec_rows, rec_stride = rec.data_ptr(), rec.shape[0], rec.shape[1]
         n_tri = 0
     else:
         rec_ptr, rec_rows, rec_stride = None, 0, 0
         n_tri = tri.shape[0]
+    if binned:
+        ktables = kernel_tables(scene)
+        check_tables(ktables, dev)
+        tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
+    else:
+        tier_args = NO_TIERS
     if isinstance(seed, torch.Tensor):
         seed_t = seed.to(device=dev, dtype=torch.int32).reshape(-1)[:1].contiguous()
     else:
@@ -682,6 +737,8 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
 
     n = origin.shape[0]
     spectrum = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    visits = (torch.zeros((-(-n // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32, device=dev)
+              if debug_visits else None)
     # Temporaries made here (seed_t, tables) may be freed before the
     # kernel runs: the caching allocator reuses memory in the order of
     # the current stream, which the launch is on.
@@ -693,14 +750,16 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None):
                 tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
                 mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
                 em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
-                rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode),
+                rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode), int(binned),
+                *tier_args, visits.data_ptr() if binned and debug_visits else None,
                 seed_t.data_ptr(), int(options.max_depth), float(options.epsilon),
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
         trace_megakernel.launches += 1
-    return spectrum, spectrum[:, 3] > 0.5
+    coll = spectrum[:, 3] > 0.5
+    return (spectrum, coll, visits) if debug_visits else (spectrum, coll)
 
 
 trace_megakernel.launches = 0

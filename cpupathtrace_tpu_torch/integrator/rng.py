@@ -6,9 +6,11 @@ Bit-exact port of `cpupathtrace_tpu/integrator/pallas_megakernel.py`
 ride int64 tensors holding values in [0, 2^32), masked after every step,
 and 32-bit products are split so no int64 product overflows.
 
-The TPU kernel seeds each lane by (seed + pid * 1000003, row, lane) of its
-(64, 128) ray block; for global ray index i that is pid = i // 8192,
-row = (i // 128) % 64 and lane = i % 128 (csrc/megakernel.cu does the same).
+The TPU megakernel seeds each lane by (seed + pid * 1000003, row, lane) of
+its ray block of 128 lanes: (64, 128) for dense scenes and (8, 128) for
+binned ones (pallas_megakernel.py _BLOCK_ROWS / _KRN_BLOCK_ROWS). For global
+ray index i in blocks of R rows that is pid = i // (R * 128),
+row = (i // 128) % R and lane = i % 128 (csrc/rng.cuh does the same).
 """
 from __future__ import annotations
 
@@ -16,6 +18,7 @@ import torch
 
 MASK32 = 0xFFFFFFFF
 BLOCK_ROWS = 64
+BINNED_BLOCK_ROWS = 8
 LANES = 128
 BLOCK_RAYS = BLOCK_ROWS * LANES
 PID_STRIDE = 1000003
@@ -38,12 +41,13 @@ def fmix32(s: torch.Tensor) -> torch.Tensor:
     return s | 1
 
 
-def seed_rng(seed, ray_index: torch.Tensor) -> torch.Tensor:
+def seed_rng(seed, ray_index: torch.Tensor, block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     """Initial state of global ray `ray_index` (int64) for int32 `seed`
-    (a Python int or a 1-element tensor). `seed + pid * 1000003` wraps as
-    int32 and is then read as uint32, as on the TPU."""
-    pid = ray_index // BLOCK_RAYS
-    row = (ray_index // LANES) % BLOCK_ROWS
+    (a Python int or a 1-element tensor) in ray blocks of `block_rows` x
+    128. `seed + pid * 1000003` wraps as int32 and is then read as uint32,
+    as on the TPU."""
+    pid = ray_index // (block_rows * LANES)
+    row = (ray_index // LANES) % block_rows
     lane = ray_index % LANES
     if isinstance(seed, torch.Tensor):
         seed = seed.reshape(-1)[:1].to(device=ray_index.device, dtype=torch.int64)

@@ -1,10 +1,13 @@
-"""The sorted-wavefront driver of binned scenes and its bounce kernel (K2).
+"""The sorted-wavefront driver and its bounce kernel (K2).
 
-Port of `cpupathtrace_tpu/integrator/sorted_wavefront.py`. Each bounce
-runs the single-bounce kernel over the whole path state, then re-sorts
-the rays by a coherence key (dead rays last; then the Morton cell of where
-each ray enters the cluster set's root box, then its direction octant), so
-that neighbouring threads walk the same part of the cluster tree:
+Port of `cpupathtrace_tpu/integrator/sorted_wavefront.py`: the film's
+default for binned scenes, and for every megakernel scene with
+PTX_SORTED_WAVEFRONT=1. Each bounce runs the single-bounce kernel over the
+whole path state, then re-sorts the rays by a coherence key (dead rays
+last; then the Morton cell of where each ray enters the cluster set's root
+box, then its direction octant), so that neighbouring threads walk the
+same part of the cluster tree (a dense scene's root box is empty, +inf /
+-inf, and its rays sort by octant alone):
 
     while depth < max_depth and any ray alive:
         state <- K2(state, depth)                    one bounce
@@ -23,11 +26,12 @@ traversal K3 (csrc/cluster_traverse.cuh) inline, or with K1's dense
 geometry for a dense scene. Its plain version (`bounce_reference`) runs the
 twin's bounce (integrator/megakernel.py `_bounce`) over the live rays. With
 `records`, both also write the differentiable replay's record planes
-(integrator/diff_megakernel.py). The alive count is read on the host once
-per bounce, for the loop test and the sort threshold together.
+(integrator/diff_megakernel.py); with `visits`, the traversal counters
+(debug_visits: per-ray counts summed per 1024 state positions, see
+integrator/megakernel.py). The alive count is read on the host once per
+bounce, for the loop test and the sort threshold together.
 
-Not ported: the TPU's sort glue variants (PTX_SORT_GLUE) and its per-block
-visit counters (debug_visits).
+Not ported: the TPU's sort glue variants (PTX_SORT_GLUE).
 """
 from __future__ import annotations
 
@@ -36,7 +40,16 @@ import ctypes
 import torch
 
 from .. import _build
-from ..accel.kernel_traverse import check_tables, check_tensor, kernel_tables, table_args
+from ..accel.kernel_traverse import (
+    GEO_VISIT_COLS,
+    NO_TIERS,
+    VISIT_BLOCK,
+    block_sums,
+    check_tables,
+    check_tensor,
+    kernel_tables,
+    table_args,
+)
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
 from .megakernel import (
@@ -182,11 +195,13 @@ def clear_records(records: torch.Tensor) -> None:
 
 
 def bounce_reference(scene: SceneData, state: torch.Tensor, depth: int, options,
-                     tables=None, ctx=None, records=None) -> None:
+                     tables=None, ctx=None, records=None, visits=None) -> None:
     """One bounce over `state` [18, R] in place: the twin's body for the
     rays alive on entry; dead rays are left as they are (the kernel's
     threads of dead rays return at once). `records` [n_drec, R]: cleared,
-    then the live rays' record planes are written."""
+    then the live rays' record planes are written. `visits`
+    [ceil(R / 1024), 9] int32: the live rays' traversal counts are added
+    to the rows of their state positions."""
     bounce_reference.calls += 1
     if ctx is None:
         if tables is None:
@@ -201,8 +216,16 @@ def bounce_reference(scene: SceneData, state: torch.Tensor, depth: int, options,
     s = {k: live[i + 1] for i, k in enumerate(_TWIN_KEYS)}
     s["rng"] = _plane_to_rng(live[0])
     s["collected"] = live[16] > 0.5
+    if visits is not None:
+        s["vis"] = torch.zeros((idx.numel(), GEO_VISIT_COLS), dtype=torch.int64,
+                               device=state.device)
     rec = [] if records is not None else None
     alive = _bounce(ctx, depth, s, rec)
+    if visits is not None:
+        per_ray = torch.zeros((state.shape[1], GEO_VISIT_COLS), dtype=torch.int64,
+                              device=state.device)
+        per_ray[idx] = s["vis"]
+        visits += block_sums(per_ray)
     out = torch.stack(
         [_rng_to_plane(s["rng"])] + [s[k] for k in _TWIN_KEYS]
         + [s["collected"].float(), alive.float()]
@@ -221,9 +244,8 @@ _ARGTYPES = (
     + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
     + [_P, _I, _I, _I, _I]  # pair record, rows, stride, cull mode; binned
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I]  # traversal tables, cull mode
-    + [ctypes.c_float, _P]  # epsilon, stream
+    + [_P, ctypes.c_float, _P]  # visits, epsilon, stream
 )
-_NO_TIERS = (None, 0, 0, None, None, 0, None, 0, None, -1)
 
 
 def _bounce_fn():
@@ -236,19 +258,21 @@ def _bounce_fn():
 
 
 def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, options,
-           tables=None, ktables=None, records=None) -> None:
+           tables=None, ktables=None, records=None, visits=None) -> None:
     """One bounce over `state` [18, R] in place. `seed_depth` is a [2]
     int32 tensor (seed, depth) on the state's device: the kernel reads the
     depth there, so the host need not sync to hand it over. `records`
     ([n_diff_records, R] f32, or None) selects K2's record form; it is
-    cleared to the no-contribution encoding before the launch. CPU state
-    runs `bounce_reference`; CUDA state launches csrc/bounce.cu, with the
-    cluster traversal for a binned scene and K1's dense geometry
+    cleared to the no-contribution encoding before the launch. `visits`
+    ([ceil(R / 1024), 9] int32, or None) selects the counting form: the
+    traversal counts are added to it (binned scenes, not with records).
+    CPU state runs `bounce_reference`; CUDA state launches csrc/bounce.cu,
+    with the cluster traversal for a binned scene and K1's dense geometry
     otherwise."""
     dev = state.device
     if dev.type == "cpu":
         return bounce_reference(scene, state, int(seed_depth[1]), options, tables,
-                                records=records)
+                                records=records, visits=visits)
     if dev.type != "cuda":
         raise ValueError(f"bounce: no kernel for device {dev}")
     if not megakernel_supported(scene):
@@ -270,7 +294,7 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
         check_tables(ktables, dev)
         tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
     else:
-        tier_args = _NO_TIERS
+        tier_args = NO_TIERS
     if scene.dense_pair:
         rec = scene.krn_big_pair
         check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
@@ -285,6 +309,12 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
         check_tensor("records", records, dev, torch.float32, (n_drec, n))
         clear_records(records)
         rec_ptr = records.data_ptr()
+    vis_ptr = None
+    if visits is not None:
+        if not binned or records is not None:
+            raise ValueError("bounce: visits count binned scenes without records only")
+        check_tensor("visits", visits, dev, torch.int32, (-(-n // VISIT_BLOCK), GEO_VISIT_COLS))
+        vis_ptr = visits.data_ptr()
     if n:
         with torch.cuda.device(dev):
             err = _bounce_fn()(
@@ -293,7 +323,8 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
                 mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
                 em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
                 *rec_args, int(scene.krn_big_cull_mode), int(binned),
-                *tier_args, float(options.epsilon), torch.cuda.current_stream(dev).cuda_stream,
+                *tier_args, vis_ptr, float(options.epsilon),
+                torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"bounce launch failed: cudaError_t {err}")
@@ -313,24 +344,30 @@ bounce.record_launches = 0
 
 def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed,
                             tables=None, sort: bool = True, timing: dict | None = None,
-                            reference: bool = False):
+                            reference: bool = False, debug_visits: bool = False):
     """Full-path trace of a ray batch with per-bounce coherence sorting.
     Returns (spectrum [R,4] with alpha = collected, collected [R] bool),
-    as trace_megakernel. `seed` is an int32 Python int or a 1-element
+    as trace_megakernel, and with `debug_visits` the per-bounce traversal
+    counters [max_depth, ceil(R / 1024), 9] int32 (JAX
+    sorted_wavefront.py:486-489; rows are blocks of state positions, zero
+    for a dense scene). `seed` is an int32 Python int or a 1-element
     tensor. `sort=False` skips the permutation; the result is the same ray
     for ray. Each bounce runs `bounce` (the kernel for CUDA rays, the twin
     for CPU rays), or with `reference` the twin on any device. A `timing`
     dict (CUDA only) gets the milliseconds of each bounce's kernel
-    ("bounce_ms") and of its sort + gather ("sort_ms"), by CUDA events."""
+    ("bounce_ms") and of its sort + gather ("sort_ms"), by CUDA events. The
+    driver reads the host
+    once per bounce (counted in `trace_megakernel_sorted.host_reads`)."""
     origin, direction = rays.origin, rays.direction
     dev = origin.device
     scene = scene.to(dev)
-    if not (scene.has_kernel_records and megakernel_supported(scene)):
-        raise ValueError("trace_megakernel_sorted: needs a binned scene within the "
-                         "kernels' limits (megakernel_supported)")
+    if not megakernel_supported(scene):
+        raise ValueError("trace_megakernel_sorted: the scene exceeds the kernels' limits "
+                         "(megakernel_supported)")
+    binned = scene.has_kernel_records
     if tables is None:
         tables = pack_tables(scene)
-    ktables = kernel_tables(scene)
+    ktables = kernel_tables(scene) if binned else None
     ctx = _Ctx(scene, tables, options, dev) if reference or dev.type == "cpu" else None
     r = origin.shape[0]
     st = initial_state(origin, direction, seed)
@@ -338,6 +375,11 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     max_depth = int(options.max_depth)
     seed_depth = seed_depth_table(seed, max_depth, dev)
     threshold = min(_SORT_MIN_ALIVE, max(r // 4, 1))
+    vis = (torch.zeros((max_depth, -(-r // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32,
+                       device=dev)
+           if debug_visits else None)
+    # A dense scene has nothing to count: its bounces run the plain form.
+    count = vis is not None and binned
     if timing is not None:
         timing.update(bounce_ms=[], sort_ms=[])
     n_alive = r
@@ -346,15 +388,17 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
         if timing is not None:
             e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
             e[0].record()
+        v = vis[depth] if count else None
         if ctx is not None:
-            bounce_reference(scene, st, depth, options, ctx=ctx)
+            bounce_reference(scene, st, depth, options, ctx=ctx, visits=v)
         else:
-            bounce(scene, st, seed_depth[depth], options, tables, ktables)
+            bounce(scene, st, seed_depth[depth], options, tables, ktables, visits=v)
         if timing is not None:
             e[1].record()
         alive = st[17] > 0.5
         # The one host sync of the bounce: loop test and sort threshold.
         n_alive = int(alive.sum())
+        trace_megakernel_sorted.host_reads += 1
         if sort and n_alive >= threshold:
             key = _sort_key(st[1], st[2], st[3], st[4], st[5], st[6], st[17],
                             scene.root_lo, scene.root_hi)
@@ -372,4 +416,7 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     out[:, idx] = st[[10, 11, 12, 16]]
     coll = out[3] > 0.5
     spectrum = torch.stack([out[0], out[1], out[2], coll.float()], dim=-1)
-    return spectrum, coll
+    return (spectrum, coll, vis) if debug_visits else (spectrum, coll)
+
+
+trace_megakernel_sorted.host_reads = 0

@@ -475,3 +475,127 @@ def test_walkers_on_the_card(accel):
     td, pd = oi.scene_intersect(dense, o, d)
     tie = torch.isclose(t, td, rtol=1e-5, atol=0.0)
     assert bool(tie.all()) and float((p == pd).float().mean()) > 0.99
+
+
+# ---------------------------------------------------------------------------
+# K1's binned while-loop form, the traversal counters, the dispatch flag and
+# the microbenchmarks X1, X3, X5.
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_binned_megakernel_matches_twin_with_counters():
+    """K1's binned form against its twin on 4096 camera rays of the 20k
+    dragon: spectrum and collected bit-equal (the same body, --fmad=false,
+    the 8-row seed), and the traversal counters equal column by column."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.core.rays import Rays
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    scene = _dragon()
+    st = _camera_state(scene, n=4096)
+    rays = Rays(st[1:4].t().contiguous(), st[4:7].t().contiguous())
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    launches = mk.trace_megakernel.launches
+    k, kc, kv = mk.trace_megakernel(scene, rays, opts, 321, debug_visits=True)
+    plain, _ = mk.trace_megakernel(scene, rays, opts, 321)
+    torch.cuda.synchronize()
+    assert mk.trace_megakernel.launches == launches + 2
+    t, tc, tv = mk.trace_megakernel_reference(scene, rays, opts, 321, debug_visits=True)
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32)) and torch.equal(kc, tc)
+    assert torch.equal(plain.view(torch.int32), k.view(torch.int32))  # counting changes nothing
+    assert torch.equal(kv, tv) and bool((kv > 0).all())
+
+
+@pytest.mark.cuda
+def test_bounce_and_query_counters_match_plain():
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    scene = _dragon()
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    tables = mk.pack_tables(scene)
+    st = _camera_state(scene, n=4096)
+    sw.bounce(scene, st, torch.tensor([77, 0], dtype=torch.int32, device="cuda"), opts, tables)
+    k, t = st.clone(), st.clone()
+    kv = torch.zeros((4, kt.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
+    tv = torch.zeros_like(kv)
+    sd = torch.tensor([77, 1], dtype=torch.int32, device="cuda")
+    sw.bounce(scene, k, sd, opts, tables, visits=kv)
+    sw.bounce_reference(scene, t, 1, opts, tables, visits=tv)
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32))
+    assert torch.equal(kv, tv) and int(kv.sum()) > 0
+    assert int(kv[:, kt.QUERY_COL].sum()) == int((st[17] > 0.5).sum())
+    o, d = _query_rays(4096)
+    for any_hit in (False, True):
+        lim = torch.rand(4096, device="cuda") * 1.5 + 0.05 if any_hit else None
+        *_, vk = kt.cluster_intersect(scene, o, d, lim, any_hit=any_hit, debug_visits=True)
+        *_, vp = kt.cluster_intersect_reference(scene, o, d, lim, any_hit=any_hit,
+                                                debug_visits=True)
+        assert vk.shape == (4, kt.WALK_COLS) and torch.equal(vk, vp) and bool((vk > 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag,binned,want", [("0", True, "k1"), ("1", False, "k2"),
+                                              (None, True, "k2"), (None, False, "k1")])
+def test_sorted_wavefront_flag_on_the_card(flag, binned, want, monkeypatch):
+    """render() under PTX_SORTED_WAVEFRONT picks the JAX package's tracer:
+    counted by the kernels' launch counters, no twin called."""
+    _require_cuda()
+    import cpupathtrace_tpu_torch as pt
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+    from cpupathtrace_tpu_torch.models import scenes
+
+    if flag is None:
+        monkeypatch.delenv("PTX_SORTED_WAVEFRONT", raising=False)
+    else:
+        monkeypatch.setenv("PTX_SORTED_WAVEFRONT", flag)
+    scene = _dragon() if binned else scenes.bench_box_scene()
+    mk.trace_megakernel.launches = sw.bounce.launches = 0
+    mk.trace_megakernel_reference.calls = sw.bounce_reference.calls = 0
+    img = pt.render(scene, scenes.bench_camera(), pt.RenderOptions(32, 32, 8, 8, max_depth=40),
+                    seed=0, device="cuda")
+    ran = {"k1": mk.trace_megakernel.launches, "k2": sw.bounce.launches}
+    assert ran[want] > 0 and sum(ran.values()) == ran[want], ran
+    assert mk.trace_megakernel_reference.calls == sw.bounce_reference.calls == 0
+    assert np.isfinite(img).all() and (img[..., 3] == 1.0).all()
+
+
+@pytest.mark.cuda
+def test_experiment_kernels_match_plain():
+    """X1 and X5 equal to their plain versions on the check inputs (X1: the
+    output and every ray's least entry; X5: the output and every block's
+    staged tables), X3 within rtol 1e-6 (serial, outer: the same float32
+    operations) and 1e-5 (matmul: 3xTF32 on the tensor cores against a
+    float32 product)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import record_variants as rv
+    from cpupathtrace_tpu_torch.experiments import smem_tables as smt
+    from cpupathtrace_tpu_torch.experiments import supscan as ss
+
+    for sp in ss.SWEEP_SP:
+        x, sup = (torch.from_numpy(a).cuda() for a in ss.check_inputs(sp))
+        for rows in ss.SWEEP_ROWS:
+            ko, ke = ss.supscan(sup, x, 3, rows, entries=True)
+            po, pe = ss.supscan_reference(sup, x, 3, rows, entries=True)
+            assert torch.equal(ko, po) and torch.equal(ke, pe)
+            acc = (ko.reshape(ss.BLOCKS, 8, 128) - x.reshape(ss.BLOCKS, 16, 128)[:, :8])[:, 0, 0]
+            assert bool(torch.isfinite(ke).any()) and 0 < int((acc > 0.5).sum()) < ss.BLOCKS
+    tables, rays = rv.inputs()
+    rays = torch.from_numpy(rays).cuda()
+    for v in rv.VARIANTS:
+        table = torch.from_numpy(tables[v]).cuda()
+        k = rv.record_variant(v, table, rays, 40)
+        p = rv.variant_reference(v, table, rays, 40)
+        rtol = 1e-6 if v in ("serial", "outer") else 1e-5
+        assert torch.allclose(k, p, rtol=rtol, atol=0.0), v
+        assert int((k < 100.0).sum()) >= 10
+    for x5, tbl, threads in smt.check_configurations("cuda").values():
+        ko, kst = smt.smem_tables(x5, tbl, threads, staged=True)
+        po, pst = smt.smem_tables_reference(x5, tbl, threads, staged=True)
+        assert torch.equal(ko, po) and torch.equal(kst, pst)

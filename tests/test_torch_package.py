@@ -44,6 +44,9 @@ def test_sources_found():
     assert {"ops/intersect.py", "ops/surface.py", "bsdf/bsdf.py", "scene/lights.py",
             "core/debug.py", "utils/color.py", "integrator/wavefront.py",
             "integrator/diff_megakernel.py", "diff/render.py"} <= rel, rel
+    # ... and the microbenchmarks'.
+    assert {"experiments/__init__.py", "experiments/supscan.py",
+            "experiments/record_variants.py", "experiments/smem_tables.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -66,5 +69,6 @@ def test_kernel_sources_ship_without_binaries():
     csrc = os.path.join(PKG, "csrc")
     names = os.listdir(csrc)
     assert {"megakernel.cu", "bounce.cu", "bounce_body.cuh", "cluster_query.cu",
-            "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu"} <= set(names)
+            "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu", "binned_geo.cuh",
+            "exp_supscan.cu", "exp_record_variants.cu", "exp_smem_tables.cu"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]

@@ -1,5 +1,6 @@
-"""The sorted-wavefront driver of binned scenes
-(cpupathtrace_tpu_torch/integrator/sorted_wavefront.py) and the binned
+"""The sorted-wavefront driver
+(cpupathtrace_tpu_torch/integrator/sorted_wavefront.py), on binned scenes
+and on the box (a dense scene, PTX_SORTED_WAVEFRONT=1), and the binned
 routing of the film, on the CPU, where the bounce kernel K2 is replaced by
 its plain version (the twin's bounce).
 
@@ -21,6 +22,9 @@ max_depth 4. Bounds (measured values in the comments):
   * the whole trace: collected equal on every ray, the mean radiance within
     0.5% (0.06%), the spectrum within rtol 1e-5 / atol 1e-7 on >= 95% of
     rays (0.952, see BOUNDS_TRACE).
+  * the box through the driver against JAX trace_megakernel_sorted
+    (tests/fixtures/torch_mega_binned.npz, make_torch_mega_binned_fixtures.py):
+    the bounds of tests/test_torch_megakernel.py's "box" case.
 """
 import os
 
@@ -34,15 +38,24 @@ from cpupathtrace_tpu_torch.integrator import film
 from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
 from tests.torch_util import (
     CPU,
+    SORTED_BOX_SEED,
     SORTED_DEPTH,
+    SORTED_RAYS,
     SORTED_SEED,
+    build_scene,
     dragon_scene,
     jax_bounce_states,
+    jax_sorted_box_trace,
     jax_sorted_trace,
+    make_rays,
     sorted_rays,
 )
 
 FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures", "torch_sorted.npz")
+FIXTURE_BOX = os.path.join(os.path.dirname(__file__), "fixtures", "torch_mega_binned.npz")
+# The box against JAX: tests/test_torch_megakernel.py's "box" bounds (the
+# emitter-NEE coin flip of XLA:CPU's FMAs), (rtol, atol, frac).
+BOUNDS_BOX = (1e-3, 1e-5, 0.95)
 OPTS = RenderOptions(8, 8, 1, 1, max_depth=SORTED_DEPTH)
 EXACT_PLANES = ("sr", "sg", "sb", "bounce_pd", "collected_f", "alive_f")
 CLOSE_PLANES = ("ox", "oy", "oz", "dx", "dy", "dz", "divisor", "contrib_unw")
@@ -203,10 +216,82 @@ def test_bounce_wrapper_routes_cpu_state_to_the_twin(scene):
 
 
 def test_sorted_driver_refuses_dense_scenes():
-    from cpupathtrace_tpu_torch.models.scenes import bench_box_scene
+    """The driver takes dense scenes within the kernels' limits (JAX
+    sorted_wavefront.py:383-391) and refuses, as JAX does, those beyond
+    them (megakernel_supported)."""
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.scene.scene import SceneBuilder
 
-    with pytest.raises(ValueError, match="binned"):
-        sw.trace_megakernel_sorted(bench_box_scene(device=CPU), _rays(), OPTS, 1)
+    b = SceneBuilder()
+    for i in range(mk.MAX_SPH + 1):
+        b.add_sphere((float(i), 0.0, 0.0), 0.1)
+    big = b.build(device=CPU)
+    assert not big.has_kernel_records and not mk.megakernel_supported(big)
+    with pytest.raises(ValueError, match="limits"):
+        sw.trace_megakernel_sorted(big, _rays(), OPTS, 1)
+    box = build_scene("bench_box", "port")
+    spec, coll = sw.trace_megakernel_sorted(box, _rays(), OPTS, 1)
+    assert spec.shape == (SORTED_RAYS, 4) and bool(coll.all())
+
+
+def _box_rays():
+    o, d = make_rays("sphere_dirs", SORTED_RAYS)
+    return Rays(torch.from_numpy(o), torch.from_numpy(d))
+
+
+def _check_box(ref):
+    spec, coll = sw.trace_megakernel_sorted(build_scene("bench_box", "port"), _box_rays(), OPTS,
+                                            SORTED_BOX_SEED)
+    ours = spec.numpy()
+    np.testing.assert_array_equal(ours[:, 3], ref[:, 3])
+    assert bool((coll.numpy() == (ref[:, 3] > 0.5)).all())
+    a, b = float(ours[:, :3].mean()), float(ref[:, :3].mean())
+    assert abs(a - b) <= 0.005 * abs(b), (a, b)
+    rtol, atol, frac = BOUNDS_BOX
+    close = np.isclose(ours, ref, rtol=rtol, atol=atol).all(axis=1).mean()
+    assert close >= frac, close
+
+
+def test_twin_driver_on_the_box_matches_jax():
+    """The box, a dense scene, through the sorted driver (K2's dense form,
+    the sort by octant alone) against JAX trace_megakernel_sorted."""
+    _check_box(np.load(FIXTURE_BOX)["sorted_box"])
+
+
+@pytest.mark.slow
+def test_twin_driver_on_the_box_matches_live_jax():
+    _check_box(jax_sorted_box_trace())
+
+
+def test_sort_key_on_a_dense_scene_matches_jax():
+    """A dense scene's root box is +inf / -inf (scene.py): the keys sort by
+    direction octant alone, bit-equal to JAX's."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.integrator.sorted_wavefront import _sort_key
+
+    box = build_scene("bench_box", "port")
+    assert not box.has_kernel_records and bool(torch.isinf(box.root_lo).all())
+    o, d = make_rays("sphere_dirs", 2048, seed=4)
+    o = o + np.random.default_rng(4).uniform(-0.9, 0.9, o.shape).astype(np.float32)
+    alive = (np.arange(2048) % 5 != 0).astype(np.float32)
+    cols = [o[:, 0], o[:, 1], o[:, 2], d[:, 0], d[:, 1], d[:, 2], alive]
+    ref = np.asarray(_sort_key(*[jnp.asarray(c) for c in cols],
+                               jnp.asarray(box.root_lo.numpy()), jnp.asarray(box.root_hi.numpy())))
+    ours = sw._sort_key(*[torch.from_numpy(np.ascontiguousarray(c)) for c in cols],
+                        box.root_lo, box.root_hi)
+    np.testing.assert_array_equal(ours.numpy(), ref)
+    assert set(np.unique(ours.numpy()[alive > 0.5])) <= set(range(8))
+
+
+def test_sorted_equals_unsorted_on_the_box(monkeypatch):
+    """Sorting changes no ray's result on a dense scene either."""
+    monkeypatch.setattr(sw, "_SORT_MIN_ALIVE", 0)
+    box = build_scene("bench_box", "port")
+    opts = RenderOptions(8, 8, 1, 1, max_depth=8)
+    a, ca = sw.trace_megakernel_sorted(box, _box_rays(), opts, 7, sort=True)
+    b, cb = sw.trace_megakernel_sorted(box, _box_rays(), opts, 7, sort=False)
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32)) and torch.equal(ca, cb)
 
 
 def test_pixel_order_chunks_scatter_back(scene):

@@ -352,6 +352,57 @@ def jax_sorted_trace(depth: int = SORTED_DEPTH):
     return np.asarray(spec)
 
 
+# K1's binned while-loop form (tests/test_megakernel.py:143's scene): rays
+# into the 1200-triangle dragon, half a JAX ray block of 8 x 128 lanes.
+MEGA_BINNED_RAYS = 512
+MEGA_BINNED_SEED = 4321
+MEGA_BINNED_DEPTH = 4
+# The box through the sorted driver (its dense form).
+SORTED_BOX_SEED = 99
+
+
+def mega_binned_rays():
+    return sorted_rays(MEGA_BINNED_RAYS, seed=5)
+
+
+def jax_megakernel_binned():
+    """JAX trace_megakernel (interpret mode) in its binned while-loop form
+    (n_super > 0, 8-row blocks) on `mega_binned_rays` and the
+    1200-triangle dragon: spectrum [n, 4]."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.core.config import RenderOptions
+    from cpupathtrace_tpu.core.rays import Rays
+    from cpupathtrace_tpu.integrator.pallas_megakernel import trace_megakernel
+
+    o, d = mega_binned_rays()
+    with pallas_interpret():
+        spec, _ = trace_megakernel(
+            dragon_scene("jax"), Rays(jnp.asarray(o), jnp.asarray(d)),
+            RenderOptions(8, 8, 1, 1, max_depth=MEGA_BINNED_DEPTH), MEGA_BINNED_SEED,
+        )
+    return np.asarray(spec)
+
+
+def jax_sorted_box_trace():
+    """JAX trace_megakernel_sorted (interpret mode, the sort on) on the box,
+    a dense scene (n_super = 0), with make_rays("sphere_dirs", 1024) and
+    max_depth SORTED_DEPTH: spectrum [n, 4]."""
+    import jax.numpy as jnp
+
+    from cpupathtrace_tpu.core.config import RenderOptions
+    from cpupathtrace_tpu.core.rays import Rays
+    from cpupathtrace_tpu.integrator.sorted_wavefront import trace_megakernel_sorted
+
+    o, d = make_rays("sphere_dirs", SORTED_RAYS)
+    with pallas_interpret():
+        spec, _ = trace_megakernel_sorted(
+            build_scene("bench_box", "jax"), Rays(jnp.asarray(o), jnp.asarray(d)),
+            RenderOptions(8, 8, 1, 1, max_depth=SORTED_DEPTH), SORTED_BOX_SEED,
+        )
+    return np.asarray(spec)
+
+
 def f64_oracle(records, o, d, t_lim):
     """float64 nearest hit over every live row of the port's records
     [C, L, 32] (tests/test_kernel_traverse.py's oracle): (t, prim), -1 on
@@ -624,3 +675,40 @@ def jax_wavefront_trace(case: str, grads: bool = False):
     mats = {f: scene.__getattribute__(f) for f in ("mat_diffuse", "mat_emission")}
     g = jax.grad(mean_radiance)(mats)
     return {f: np.asarray(v) for f, v in g.items()}
+
+
+# ---------------------------------------------------------------------------
+# The TPU microbenchmarks (benchmarks/experiments/), for their CUDA ports.
+# ---------------------------------------------------------------------------
+
+
+def load_experiment(name: str) -> dict:
+    """The namespace of benchmarks/experiments/<name>.py with only its
+    imports, constant assignments and function definitions executed: the
+    scripts run their sweeps (top-level loops and calls) when imported, so
+    the tests never import them."""
+    import ast
+    import os
+
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.path.join(root, "benchmarks", "experiments", f"{name}.py")
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    keep, defined = [], set()
+    for node in tree.body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            defined |= {(a.asname or a.name).split(".")[0] for a in node.names}
+        elif isinstance(node, ast.FunctionDef):
+            defined.add(node.name)
+        elif isinstance(node, ast.Assign) and all(
+                not isinstance(n, (ast.Call, ast.ListComp))
+                and not (isinstance(n, ast.Name) and n.id not in defined)
+                for n in ast.walk(node.value)):
+            # A constant, or names of what is already defined (no call).
+            defined |= {n.id for t in node.targets for n in ast.walk(t) if isinstance(n, ast.Name)}
+        else:
+            continue
+        keep.append(node)
+    ns = {"__name__": f"experiment_{name}"}
+    exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)  # noqa: S102
+    return ns
