@@ -71,7 +71,8 @@ Phases, one line each; any failure exits non-zero:
      the dragon frame's camera rays: spectrum and collected bit-equal, the
      traversal counters (debug_visits) equal column by column; then the
      whole 262,144-ray chunk: the kernel timed, counted and held against
-     the twin
+     the twin; all of it again on the dragon rebuilt (lean) with
+     PTX_KRN_CLUSTER=128, its K1 ms beside the ms at 56 rows
  21. the 200k dragon (128x128 @ 16 spp, max_depth 40) through render()
      with PTX_SORTED_WAVEFRONT=0 (K1's binned form) beside the default
      sorted driver, in turns: frame ms, Mrays/s, launches and host reads
@@ -80,12 +81,17 @@ Phases, one line each; any failure exits non-zero:
  22. the box (128x128 @ 256 spp) through the sorted driver
      (PTX_SORTED_WAVEFRONT=1, K2's dense form): frame ms, its mean within 4
      standard errors of K1's frame
- 23. the microbenchmarks X1, X3, X5 (cpupathtrace_tpu_torch/experiments):
+ 23. the microbenchmarks X1-X5 (cpupathtrace_tpu_torch/experiments):
      each kernel against its plain version on check inputs whose output
      depends on the work (X1: flags that differ by block and every ray's
      least slab entry, equal; X5: seeded x and tables and every block's
-     staged copy, equal; X3 within rtol 1e-6 serial / outer, 1e-5 matmul),
-     then each TPU script's sweep on the script's own inputs
+     staged copy, equal; X3 within rtol 1e-6 serial / outer, 1e-5 matmul;
+     X2: tiles that take and skip the conditional updates, outputs and
+     per-tile update counts equal in all four instances; X4 on seeds 0
+     and 1: fma equal in C, R and X, the TF32 forms within 1e-5 of
+     sum |B A| of their emulation, R and X the min and first argmin of
+     the kernel's own C), then each TPU script's sweep on the script's own
+     inputs
 Then the script's seconds, one JSON line with the kernels' figures and,
 last, the result line. Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
@@ -130,7 +136,8 @@ PATH_RAYS = 16384
 # same order; on an H100 they measured equal on every ray.
 QUERY_FRAC, QUERY_RTOL, PLANE_FRAC = 0.999, 1e-6, 0.999
 KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
-           "binned_isect", "bvh_build", "exp_supscan", "exp_record_variants", "exp_smem_tables")
+           "binned_isect", "bvh_build", "exp_supscan", "exp_record_variants", "exp_smem_tables",
+           "exp_cond_fat", "exp_dot_formulations")
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over HBM's rate
 # and its float32 operations over the FP32 peak (NVIDIA H100 SXM data
@@ -165,8 +172,13 @@ REF_RAYS = 8192
 SLAB_FLOPS = 31
 RAY_ROWS_BYTES = 36  # K6 reads 9 float planes per ray
 # K1's binned form against its twin: the rays of the bit-equality and
-# counter check (the twin's traversal is the slow part).
+# counter check (the twin's traversal is the slow part), and the record rows
+# of the second build it runs on (bench.py's PTX_KRN_CLUSTER for 7.2M).
 K1B_CHECK_RAYS = 16384
+K1B_WIDE_CLUSTER = "128"
+# X2's check and the iterations of its line in the kernels' JSON (the
+# sweep's longer run).
+X2_ITERS = 1024
 
 
 def insert_flops(m):
@@ -1322,12 +1334,35 @@ def phase_dragon_grad(diff, golden, sw, tt, scenes, dragon, RenderOptions):
 
 
 def phase_k1_binned(mk, sw, scenes, dragon, RenderOptions):
-    """K1's binned form against its twin on the dragon frame's camera rays:
-    the first K1B_CHECK_RAYS bit-equal with equal counters; the whole chunk
-    timed, counted and held against the twin at the K1 bounds."""
+    """K1's binned form against its twin on the dragon frame's camera rays,
+    on phase 7's build (56-triangle records) and on the dragon rebuilt with
+    PTX_KRN_CLUSTER=128 (lean: the megakernel tables alone)."""
     opts = RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
                          max_depth=MAX_DEPTH)
     rays, _ = camera_state(sw, scenes.bench_camera(device="cuda"), opts, DRAGON_SPP, 21)
+    out = k1_binned_run(mk, dragon, rays, opts)
+    old = os.environ.get("PTX_KRN_CLUSTER")
+    os.environ["PTX_KRN_CLUSTER"] = K1B_WIDE_CLUSTER
+    try:
+        t0 = time.perf_counter()
+        wide = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS, lean=True, device="cuda")
+        build_s = time.perf_counter() - t0
+    finally:
+        os.environ.pop("PTX_KRN_CLUSTER")
+        if old is not None:
+            os.environ["PTX_KRN_CLUSTER"] = old
+    rows = int(K1B_WIDE_CLUSTER)
+    need(wide.krn_cluster_size == rows and wide.krn_records.shape[1] == rows,
+         f"PTX_KRN_CLUSTER={rows} did not reach the records: {tuple(wide.krn_records.shape)}")
+    out[f"cluster{rows}"] = dict(build_s=build_s, records=list(wide.krn_records.shape),
+                                 ms_at_56=out["ms"], **k1_binned_run(mk, wide, rays, opts))
+    return out
+
+
+def k1_binned_run(mk, dragon, rays, opts):
+    """K1's binned form against its twin on `rays`: the first
+    K1B_CHECK_RAYS bit-equal with equal counters; the whole chunk timed,
+    counted and held against the twin at the K1 bounds."""
     n = int(rays.origin.shape[0])
     tables = mk.pack_tables(dragon)
     sub = type(rays)(rays.origin[:K1B_CHECK_RAYS].contiguous(),
@@ -1468,11 +1503,11 @@ def phase_box_sorted(pt, sw, mk, scenes):
     return out
 
 
-def phase_experiments(ss, rv, smt, best_ms):
-    """X1, X3, X5: each kernel against its plain version on check inputs
-    whose output depends on the work, then the TPU script's sweep on the
-    script's inputs (the microbenchmarks' own main path: counts zeroed just
-    before, read just after)."""
+def phase_experiments(ss, rv, smt, cf, df, best_ms):
+    """X1-X5: each kernel against its plain version on check inputs whose
+    output depends on the work, then the TPU script's sweep on the script's
+    inputs (the microbenchmarks' own main path: counts zeroed just before,
+    read just after)."""
     out = {}
     big = dict(sp=max(ss.SWEEP_SP), rows=max(ss.SWEEP_ROWS), n_iter=max(ss.SWEEP_ITERS))
     checked = {}
@@ -1557,6 +1592,88 @@ def phase_experiments(ss, rv, smt, best_ms):
               library_ms=best_ms(lambda: torch.add(xk, shift), 5),
               **bound(x5["sweep"]["k1_box_tables"]["bytes"], xk.numel()))
     out["smem_tables"] = x5
+    out["cond_fat"] = phase_cond_fat(cf, best_ms)
+    out["dot_formulations"] = phase_dot_formulations(df, best_ms)
+    return out
+
+
+def phase_cond_fat(cf, best_ms):
+    """X2 bit-equal to its plain version on the check inputs at X2_ITERS
+    iterations, outputs and per-tile update counts, in all four instances
+    (tiles that take and tiles that skip the updates); then the script's
+    sweep."""
+    x = torch.from_numpy(cf.check_inputs()).cuda()
+    checked = {}
+    for n_live in cf.SWEEP_LIVE:
+        for use_cond in cf.SWEEP_COND:
+            name = cf.instance(n_live, use_cond)
+            ko, kc = cf.cond_fat(x, X2_ITERS, n_live, use_cond, taken=True)
+            sync()
+            t0 = time.perf_counter()
+            po, pc = cf.cond_fat_reference(x, X2_ITERS, n_live, use_cond, taken=True)
+            sync()
+            want = cf.expected_taken(x.cpu(), X2_ITERS, use_cond)
+            res = dict(plain_ms=(time.perf_counter() - t0) * 1e3, max_abs_err=max_err(ko, po),
+                       tiles_taking=int((kc > 0).sum()),
+                       zero_tile_out=float(ko.reshape(cf.BLOCKS, -1)[0, 0]))
+            need(torch.equal(ko.view(torch.int32), po.view(torch.int32)) and torch.equal(kc, pc)
+                 and bool((kc.cpu().numpy() == want).all())
+                 and (0 < res["tiles_taking"] < cf.BLOCKS or not use_cond),
+                 f"X2 {name} differs from its plain version: {res}")
+            checked[name] = res
+    for name in cf.INSTANCES:
+        cf.cond_fat.launches[name] = 0
+    sweep = cf.sweep()
+    out = {}
+    for r in sweep:
+        name = cf.instance(r["n_live"], r["use_cond"])
+        out[name] = dict(checked[name], sweep=r, launches=cf.cond_fat.launches[name],
+                         ms=r["ms"][X2_ITERS], n_iter=X2_ITERS,
+                         **bound(2 * x.numel() * 4,
+                                 cf.cond_fat_ops(r["n_live"], r["use_cond"], X2_ITERS)))
+    return out
+
+
+def phase_dot_formulations(df, best_ms):
+    """X4 on the script's inputs (seeds 0 and 1): fma bit-equal to its plain
+    version in C, R and X; the TF32 forms within TOL_REL of sum_k |B A| of
+    their emulation; every form's R and X exactly the min and first argmin
+    of its own C; the script's error figures (fma and 3xtf32 held to
+    float32, tf32 reported). Then the sweep, and the one-call library
+    yardstick torch.matmul(B.T, A) (C only, full float32), timed alike."""
+    out = {f: dict(check={}) for f in df.FORMS}
+    for seed in (0, 1):
+        b, a, e = (torch.from_numpy(v).cuda() for v in df.script_inputs(seed))
+        for form in df.FORMS:
+            c, r, x = df.dot_formulation(form, b, a, e)
+            pc, pr, px = df.dot_reference(form, b, a, e)
+            errs = df.script_errors(b, a, e, c, r, x)
+            res = dict(max_abs_err=max(max_err(c, pc), max_err(r, pr)),
+                       own_argmin=df.self_check(c, r, x, e),
+                       x_equal_plain=bool(torch.equal(x, px)), **errs)
+            ok = res["own_argmin"] and (
+                torch.equal(c, pc) and torch.equal(r, pr) and res["x_equal_plain"]
+                if form == "fma" else df.within_tolerance(c, pc, b, a))
+            if form != "tf32":
+                ok = ok and errs["matmul_rel_err"] < 1e-6 and errs["extract_err"] == 0.0
+            need(ok, f"X4 {form} (seed {seed}) differs from its plain version: {res}")
+            out[form]["check"][f"seed{seed}"] = res
+    b, a, e = (torch.from_numpy(v).cuda() for v in df.script_inputs(0))
+    bt = b.t()
+    library_ms = best_ms(lambda: torch.matmul(bt, a), df.REPS)
+    for form in df.FORMS:
+        df.dot_formulation.launches[form] = 0
+    sweep = df.sweep()
+    for form in df.FORMS:
+        ops, kind = df.dot_ops(form)
+        out[form].update(sweep=sweep[form], launches=df.dot_formulation.launches[form],
+                         ms=sweep[form]["ms"],
+                         plain_ms=best_ms(lambda form=form: df.dot_reference(form, b, a, e), 5),
+                         library_ms=library_ms,
+                         library="torch.matmul(B.T, A), C only",
+                         max_abs_err=max(v["max_abs_err"] for v in out[form]["check"].values()),
+                         **bound(df.io_bytes(), ops if kind == "fp32" else 0,
+                                 ops if kind == "tf32" else 0))
     return out
 
 
@@ -1582,6 +1699,8 @@ def main():
     from cpupathtrace_tpu_torch.ops import intersect as oi
     from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
     from cpupathtrace_tpu_torch.experiments import best_ms
+    from cpupathtrace_tpu_torch.experiments import cond_fat as cf
+    from cpupathtrace_tpu_torch.experiments import dot_formulations as df
     from cpupathtrace_tpu_torch.experiments import record_variants as rv
     from cpupathtrace_tpu_torch.experiments import smem_tables as smt
     from cpupathtrace_tpu_torch.experiments import supscan as ss
@@ -1666,8 +1785,8 @@ def main():
     line("21 dragon frame: K1 binned vs sorted driver", **report["dragon_k1_frame"])
     report["box_sorted"] = phase_box_sorted(pt, sw, mk, scenes)
     line("22 box through the sorted driver", **report["box_sorted"])
-    report["experiments"] = phase_experiments(ss, rv, smt, best_ms)
-    line("23 microbenchmarks X1 X3 X5", **report["experiments"])
+    report["experiments"] = phase_experiments(ss, rv, smt, cf, df, best_ms)
+    line("23 microbenchmarks X1 X2 X3 X4 X5", **report["experiments"])
 
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
@@ -1778,7 +1897,21 @@ def main():
         "launches": xp["smem_tables"]["launches"],
         "max_abs_err": xp["smem_tables"]["max_abs_err"],
         **figures(xp["smem_tables"]), "library_ms": xp["smem_tables"]["library_ms"],
-    }]}
+    }] + [{
+        "name": f"cond_fat_{name}", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/exp_cond_fat.cu",
+        "replaces": "benchmarks/experiments/microbench_cond_fat.py:39",
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        **figures(r), "library_ms": None,
+    } for name, r in xp["cond_fat"].items()] + [{
+        "name": f"dot_formulations_{form}", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/exp_dot_formulations.cu",
+        "replaces": "benchmarks/experiments/exp_dot_formulations.py:56",
+        "launches": r["launches"],
+        "max_abs_err": r["max_abs_err"],
+        **figures(r), "library_ms": r["library_ms"],
+    } for form, r in xp["dot_formulations"].items()]}
     report["seconds"] = time.perf_counter() - t_start
     line("24 total", seconds=report["seconds"])
     if args.out:

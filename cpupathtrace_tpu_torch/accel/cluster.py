@@ -9,10 +9,17 @@ of the DFS leaf order and its bounds are that node's stored bounds. The
 top tree (`lo`, `hi`, `left`, `right`, `cluster`, `depth`) is the flat BVH
 over the cluster bounds: the cluster walker of ops/intersect.py descends
 it. The in-kernel traversal tiers read only `members`, `c_lo` and `c_hi`.
+
+The JAX package also has two other clusterings, off by default and kept
+there as rejected experiments: the binned-SAH split (PTX_KRN_SAH=1, with
+PTX_KRN_SAH_AXES) and the merge of underfull cut clusters (PTX_KRN_MERGE=1).
+The port does not build them, and refuses a build under either setting
+rather than give other tables than the JAX package without a word.
 """
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import numpy as np
 
@@ -33,6 +40,21 @@ class ClusterBVH:
     c_hi: np.ndarray  # [C, 3] f32
     n_clusters: int
     cluster_size: int
+
+
+# The JAX package's rejected clustering knobs and their defaults.
+REJECTED_KNOBS = {"PTX_KRN_SAH": "0", "PTX_KRN_SAH_AXES": "1", "PTX_KRN_MERGE": "0"}
+
+
+def refuse_rejected_knobs() -> None:
+    """Raise ValueError when a rejected clustering knob is set to anything
+    but its default."""
+    for name, default in REJECTED_KNOBS.items():
+        value = os.environ.get(name)
+        if value is not None and value != default:
+            raise ValueError(
+                f"{name}={value}: a rejected clustering experiment of the JAX package "
+                f"that this port does not build; unset it or set it to {default}")
 
 
 def _members(starts, lens, order, cluster_size):
@@ -57,7 +79,9 @@ def build_cluster_bvh(prim_lo: np.ndarray, prim_hi: np.ndarray,
                       cluster_size: int = 64,
                       use_native: bool | None = None) -> ClusterBVH:
     """Cut the flat BVH over primitive bounds [P,3] into clusters and build
-    the top tree over them."""
+    the top tree over them. Raises ValueError under a rejected clustering
+    knob (refuse_rejected_knobs)."""
+    refuse_rejected_knobs()
     n = prim_lo.shape[0]
     if (use_native is None and n >= NATIVE_THRESHOLD) or use_native:
         # The C++ builder hands back each node's first-leaf DFS rank and

@@ -31,6 +31,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace ptx {
 namespace {
 
@@ -123,27 +125,7 @@ __global__ void __launch_bounds__(kRowRays)
   bt_out[i] = bt;
 }
 
-// ---- matmul: the record as a product on the tensor cores ----
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
-  hi = tf32(x);
-  lo = tf32(x - __uint_as_float(hi));
-}
-
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, "
-      "{%8,%9}, {%0,%1,%2,%3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
+// ---- matmul: the record as a product on the tensor cores (mma_tf32.cuh) ----
 // Row `f` of a ray's features (exp_record_variants.py _ray_feats): d(0:3)
 // m(3:6) o(6:9) one(9), zero after.
 __device__ __forceinline__ float ray_feat(int f, const float* rays, int i) {

@@ -4,9 +4,10 @@ Port of `cpupathtrace_tpu/integrator/film.py` (ref: src/worker.cpp:149-427).
 The driver launches chunks of `stats` samples for a whole pixel tile and
 applies the reference's stopping rule per pixel between chunks: a chunk
 mean is one Welford stats sample (worker.cpp:200-232), accepted pixels
-freeze. Up to ADAPTIVE_FUSE stats batches go out in one launch
-(render_chunk_batched) and are folded back one after another
-(_apply_stats_batches), so the estimator is that of one launch per batch.
+freeze. Up to PTX_ADAPTIVE_FUSE (default 4, read per call as film.py:378
+reads it) stats batches go out in one launch (render_chunk_batched) and are
+folded back one after another (_apply_stats_batches), so the estimator is
+that of one launch per batch; a fuse of 1 is the unfused random stream.
 The biased candidate selection (worker.cpp:273-317) runs only with
 `allow_bias=True`.
 
@@ -32,13 +33,8 @@ from .rng import RecordedDraws
 from .sorted_wavefront import trace_megakernel_sorted
 from .wavefront import trace
 
-# Stats batches fused into one launch (the JAX package's PTX_ADAPTIVE_FUSE
-# default).
+# The default of PTX_ADAPTIVE_FUSE: stats batches fused into one launch.
 ADAPTIVE_FUSE = 4
-# The all-frozen flag of launch L is read only after launch L + FLAG_LAG is
-# enqueued, so the device has work while the host waits on the flag.
-# Frozen pixels stop accumulating, so extra launches change nothing.
-FLAG_LAG = 1
 
 
 def pixel_camera_coords(options: RenderOptions, px, py):
@@ -297,11 +293,17 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
         return render_chunk(scene, camera, options, x_cam, y_cam, generator, spp,
                             pixel_order)
 
+    fuse = max(1, int(os.environ.get("PTX_ADAPTIVE_FUSE", str(ADAPTIVE_FUSE))))
+    # The all-frozen flag of launch L is read only after launch L + lag is
+    # enqueued, so the device has work while the host waits on the flag
+    # (film.py:398). Frozen pixels stop accumulating, so extra launches
+    # change nothing.
+    flag_lag = 3 if fuse == 1 else 1
     pending_flags: list = []
-    n_launches = math.ceil(n_full / ADAPTIVE_FUSE) if n_full else 0
+    n_launches = math.ceil(n_full / fuse) if n_full else 0
     c0 = 0
     for _ in range(n_launches):
-        kb = min(ADAPTIVE_FUSE, n_full - c0)
+        kb = min(fuse, n_full - c0)
         if kb == 1:
             s, coll = single(stats)
             s_b, coll_b = s[None], coll[None]
@@ -319,7 +321,7 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
         c0 += kb
         if max_sc > min_sc and c0 >= (min_sc // stats):
             pending_flags.append(flag)
-            if len(pending_flags) > FLAG_LAG and bool(pending_flags.pop(0)):
+            if len(pending_flags) > flag_lag and bool(pending_flags.pop(0)):
                 break
 
     if remainder > 0:

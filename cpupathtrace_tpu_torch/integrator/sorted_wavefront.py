@@ -36,6 +36,7 @@ Not ported: the TPU's sort glue variants (PTX_SORT_GLUE).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -75,12 +76,14 @@ N_STATE = len(STATE_FIELDS)
 _TWIN_KEYS = ("ox", "oy", "oz", "dx", "dy", "dz", "sr", "sg", "sb",
               "out_r", "out_g", "out_b", "divisor", "bounce_pd", "contrib")
 
-# Entry-point Morton resolution (bits per axis): 3*bits + 3-bit octant key.
-_MORTON_BITS = 4
+# Both read at import, as sorted_wavefront.py:64 and :74 read them.
+# Entry-point Morton resolution (bits per axis): 3*bits + 3-bit octant key,
+# at most 8 so the miss key (1 << (3*bits + 3)) stays below the dead key.
+_MORTON_BITS = min(8, max(1, int(os.environ.get("PTX_SORT_MORTON_BITS", "4"))))
 # Skip the re-sort once fewer rays than min(this, rays // 4) are alive:
 # the live rays are already packed at the head (a dead ray's key is
 # terminal), so late sparse bounces gain no coherence from a sort.
-_SORT_MIN_ALIVE = 1 << 16
+_SORT_MIN_ALIVE = int(os.environ.get("PTX_SORT_MIN_ALIVE", str(1 << 16)))
 _DEAD_KEY = 2 ** 30
 
 
@@ -111,7 +114,7 @@ def _plane_to_rng(plane: torch.Tensor) -> torch.Tensor:
 def _sort_key(ox, oy, oz, dx, dy, dz, alive_f, lo, hi):
     """int32 coherence key (sorted_wavefront.py:185-242): dead rays last
     (2^30); rays that miss the root box after all entering ones; entering
-    rays by the Morton cell of their entry point (4 bits per axis), then
+    rays by the Morton cell of their entry point (_MORTON_BITS per axis), then
     direction octant. `lo`, `hi`: the root box, [3] tensors."""
     i32 = torch.int32
     octant = (dx < 0).to(i32) + 2 * (dy < 0).to(i32) + 4 * (dz < 0).to(i32)

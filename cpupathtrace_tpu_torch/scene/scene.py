@@ -49,10 +49,10 @@ BSDF_LAMBERTIAN = 0
 BSDF_GLASS = 1
 BSDF_MIRROR = 2
 
-# Triangles per in-kernel cluster record (the JAX package's PTX_KRN_CLUSTER
-# default) and the small-partition size above which the in-kernel tables
-# are not packed (the default of its PTX_KRN_MAX_TRIS, which the build
-# reads as the JAX builder does).
+# The defaults of two knobs the build reads as the JAX builder does, per
+# build: triangles per in-kernel cluster record (PTX_KRN_CLUSTER, a multiple
+# of 8) and the small-partition size above which the in-kernel tables are
+# not packed (PTX_KRN_MAX_TRIS).
 KRN_CLUSTER = 56
 KRN_MAX_TRIS = 2 ** 21
 
@@ -611,9 +611,11 @@ class SceneBuilder:
             big_cull[:n_big] = tri_cull[big_idx]
             big_prim[:n_big] = big_idx
 
-        # In-kernel traversal tiers: a 56-triangle clustering of the small
-        # partition (scene.py:653-713). Other scenes with 1..128 triangles
-        # run them all as one pair record (:719-734).
+        # In-kernel traversal tiers: a PTX_KRN_CLUSTER-triangle clustering
+        # of the small partition (scene.py:653-713; the JAX package's
+        # rejected PTX_KRN_SAH clustering is refused in build_cluster_bvh).
+        # Other scenes with 1..128 triangles run them all as one pair record
+        # (:719-734).
         krn_cluster_size = 0
         krn_cull_mode = -1
         krn_big_cull_mode = -1
@@ -622,8 +624,9 @@ class SceneBuilder:
         krn_max = int(os.environ.get("PTX_KRN_MAX_TRIS", str(KRN_MAX_TRIS)))
         if accel == "binned" and n_small < min(krn_max, 2 ** 24):
             t0 = time.perf_counter()
+            krn_cluster = int(os.environ.get("PTX_KRN_CLUSTER", str(KRN_CLUSTER)))
             kcl = build_cluster_bvh(lo_tri[small_idx], hi_tri[small_idx],
-                                    cluster_size=KRN_CLUSTER)
+                                    cluster_size=krn_cluster)
             t1 = time.perf_counter()
             kmembers = np.where(
                 kcl.members >= 0, small_idx[np.maximum(kcl.members, 0)], -1
@@ -635,7 +638,7 @@ class SceneBuilder:
                 tri_n[0][kidx], tri_n[1][kidx], tri_n[2][kidx],
                 tri_mat[kidx], kcl.c_lo, kcl.c_hi,
             )
-            krn_cluster_size = KRN_CLUSTER
+            krn_cluster_size = krn_cluster
             krn_cull_mode = cull_uniformity(tri_cull[kidx][kmembers >= 0])
             if n_big <= 128:
                 bidx = np.maximum(big_prim, 0)

@@ -599,3 +599,43 @@ def test_experiment_kernels_match_plain():
         ko, kst = smt.smem_tables(x5, tbl, threads, staged=True)
         po, pst = smt.smem_tables_reference(x5, tbl, threads, staged=True)
         assert torch.equal(ko, po) and torch.equal(kst, pst)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live", [2, 19])
+@pytest.mark.parametrize("use_cond", [True, False])
+def test_cond_fat_matches_plain(n_live, use_cond):
+    """X2 bit-equal to its plain version on the check inputs (the same
+    float32 operations, --fmad=false), outputs and per-tile update counts:
+    the tiles that take the updates and those that skip them."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import cond_fat as cf
+
+    x = torch.from_numpy(cf.check_inputs()).cuda()
+    launches = cf.cond_fat.launches[cf.instance(n_live, use_cond)]
+    ko, kc = cf.cond_fat(x, 16, n_live, use_cond, taken=True)
+    po, pc = cf.cond_fat_reference(x, 16, n_live, use_cond, taken=True)
+    assert cf.cond_fat.launches[cf.instance(n_live, use_cond)] == launches + 1
+    assert torch.equal(ko.view(torch.int32), po.view(torch.int32)) and torch.equal(kc, pc)
+    np.testing.assert_array_equal(kc.cpu().numpy(), cf.expected_taken(x.cpu(), 16, use_cond))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fma", "tf32", "3xtf32"])
+def test_dot_formulations_match_plain(form):
+    """X4: fma bit-equal to its plain version in C, R and X; the TF32 forms
+    within TOL_REL of sum_k |B A| of their emulation, R and X exactly the
+    min and first argmin of the kernel's own C."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import dot_formulations as df
+
+    b, a, e = (torch.from_numpy(v).cuda() for v in df.script_inputs(0))
+    c, r, x = df.dot_formulation(form, b, a, e)
+    pc, pr, px = df.dot_reference(form, b, a, e)
+    assert df.self_check(c, r, x, e)
+    if form == "fma":
+        assert torch.equal(c, pc) and torch.equal(r, pr) and torch.equal(x, px)
+    else:
+        assert df.within_tolerance(c, pc, b, a)
+    errs = df.script_errors(b, a, e, c, r, x)
+    assert errs["matmul_rel_err"] < (1e-3 if form == "tf32" else 1e-6), errs

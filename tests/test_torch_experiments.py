@@ -1,4 +1,4 @@
-"""The CUDA ports of the TPU microbenchmarks X1, X3, X5
+"""The CUDA ports of the TPU microbenchmarks X1-X5
 (cpupathtrace_tpu_torch/experiments/): each plain-torch version against the
 TPU script's own kernel in Pallas interpret mode, on the script's inputs,
 at small iteration counts. The scripts run their sweeps when imported, so
@@ -7,15 +7,24 @@ and function definitions. Bounds: X1 and X5 equal bit for bit (their
 outputs are x plus a count or a sum of table entries); X3 within rtol 1e-5
 (the same float32 formulas; XLA:CPU may fuse products into FMAs, the plain
 version does not, and the matmul variants sum the product in another
-order). The kernels are held against the plain versions on the card by
-tests/test_torch_cuda.py and chip_smoke.py.
+order); X2 within rtol 1e-6 (the same float32 updates; XLA:CPU may fuse
+them, measured bit-equal) with the per-tile update counts equal, counted
+in the script's kernel by a lax.cond that also counts; X4's C within
+1e-5 (fma, 3xtf32) or 1e-3 (tf32) of sum_k |B A| (XLA:CPU's float32 dot
+sums in its own order; TF32 keeps 10 mantissa bits), R and X exactly the
+min and first argmin of each side's own C. The kernels are held against
+the plain versions on the card by tests/test_torch_cuda.py and
+chip_smoke.py.
 """
 import functools
+import types
 
 import numpy as np
 import pytest
 import torch
 
+from cpupathtrace_tpu_torch.experiments import cond_fat as cf
+from cpupathtrace_tpu_torch.experiments import dot_formulations as df
 from cpupathtrace_tpu_torch.experiments import record_variants as rv
 from cpupathtrace_tpu_torch.experiments import smem_tables as smt
 from cpupathtrace_tpu_torch.experiments import supscan as ss
@@ -193,6 +202,176 @@ def test_smem_tables_k1_box_configuration():
     assert torch.allclose(o, 1.0 + torch.tensor(acc * 1e-9, dtype=torch.float32))
 
 
+@pytest.fixture(scope="module")
+def x2():
+    return load_experiment("microbench_cond_fat")
+
+
+@pytest.fixture(scope="module")
+def x4():
+    return load_experiment("exp_dot_formulations")
+
+
+# X2 against the script's kernel: iterations of the comparisons.
+X2_ITERS = 4
+
+
+def _x2_counted(x2, x, n_iter, n_live):
+    """The script's kernel (`make_kernel` with use_cond) in its grid of 64
+    tiles, interpret mode, with a lax.cond that also adds its predicate to
+    a second output: (o [512, 128], taken [64])."""
+    jax, jnp, pl, pltpu = x2["jax"], x2["jnp"], x2["pl"], x2["pltpu"]
+    counts = []
+
+    def cond(pred, taken, skipped, y):
+        counts[-1][...] += jnp.where(pred, 1.0, 0.0).astype(jnp.float32)
+        return jax.lax.cond(pred, taken, skipped, y)
+
+    lax = types.SimpleNamespace(cond=cond, fori_loop=jax.lax.fori_loop)
+    make_kernel = types.FunctionType(x2["make_kernel"].__code__,
+                                     {**x2, "jax": types.SimpleNamespace(lax=lax)})
+    inner = make_kernel(n_iter, n_live, cf.K_CONDS, True)
+
+    def kernel(x_ref, o_ref, c_ref):
+        c_ref[...] = jnp.zeros_like(c_ref)
+        counts.append(c_ref)
+        inner(x_ref, o_ref)
+
+    spec = pl.BlockSpec((cf.ROWS, cf.LANES), lambda i: (i, 0), memory_space=pltpu.VMEM)
+    shape = jax.ShapeDtypeStruct((cf.ROWS * cf.BLOCKS, cf.LANES), jnp.float32)
+    with pallas_interpret():
+        o, c = pl.pallas_call(kernel, grid=(cf.BLOCKS,), in_specs=[spec], out_specs=[spec, spec],
+                              out_shape=[shape, shape])(jnp.asarray(x))
+    return np.asarray(o), np.asarray(c).reshape(cf.BLOCKS, -1)[:, 0].astype(np.int32)
+
+
+@pytest.fixture(scope="module")
+def x2_counted(x2):
+    x = cf.check_inputs()
+    return {n: _x2_counted(x2, x, X2_ITERS, n) for n in cf.SWEEP_LIVE}
+
+
+def _x2_run(x2, x, n_iter, n_live, use_cond):
+    import jax.numpy as jnp
+
+    with pallas_interpret():
+        return np.asarray(x2["run"](jnp.asarray(x), n_iter=n_iter, n_live=n_live,
+                                    k_conds=cf.K_CONDS, use_cond=use_cond))
+
+
+def test_x2_x4_loaders_run_no_sweep(x2, x4):
+    assert (x2["ROWS"], x2["LANES"], x2["BLOCKS"]) == (cf.ROWS, cf.LANES, cf.BLOCKS)
+    assert callable(x2["make_kernel"]) and "x" not in x2
+    assert callable(x4["run"]) and callable(x4["kernel"]) and "B" not in x4 and "rng" not in x4
+
+
+@pytest.mark.parametrize("n_live", cf.SWEEP_LIVE)
+@pytest.mark.parametrize("use_cond", cf.SWEEP_COND)
+def test_cond_fat_plain_matches_tpu_kernel(x2, n_live, use_cond):
+    """On the script's input (x = 0.5, every tile takes every update)."""
+    x = cf.script_inputs()
+    ref = _x2_run(x2, x, X2_ITERS, n_live, use_cond)
+    ours, taken = cf.cond_fat(torch.from_numpy(x), X2_ITERS, n_live, use_cond, taken=True)
+    assert ours.shape == (cf.ROWS * cf.BLOCKS, cf.LANES)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=0)
+    assert (taken.numpy() == cf.K_CONDS * X2_ITERS).all()
+
+
+@pytest.mark.parametrize("n_live", cf.SWEEP_LIVE)
+@pytest.mark.parametrize("use_cond", cf.SWEEP_COND)
+def test_cond_fat_check_inputs_match_tpu_kernel(x2, x2_counted, n_live, use_cond):
+    """On the check inputs: outputs within rtol 1e-6 and the update counts
+    equal to the script kernel's (with the predicate) or to 8 per iteration
+    (inline); tiles that take and tiles that skip the updates, and tiles
+    whose output moves with them (zeros: ~1e-17)."""
+    x = cf.check_inputs()
+    if use_cond:
+        ref, ref_taken = x2_counted[n_live]
+    else:
+        ref = _x2_run(x2, x, X2_ITERS, n_live, False)
+        ref_taken = np.full(cf.BLOCKS, cf.K_CONDS * X2_ITERS, np.int32)
+    ours, taken = cf.cond_fat(torch.from_numpy(x), X2_ITERS, n_live, use_cond, taken=True)
+    np.testing.assert_allclose(ours.numpy(), ref, rtol=1e-6, atol=0)
+    np.testing.assert_array_equal(taken.numpy(), ref_taken)
+    np.testing.assert_array_equal(ref_taken, cf.expected_taken(x, X2_ITERS, use_cond))
+    if use_cond:
+        assert 0 < int((ref_taken > 0).sum()) < cf.BLOCKS
+    zeros = ours.numpy().reshape(cf.BLOCKS, -1)[0::8]
+    assert (zeros > 1e-18).all() and (zeros < 1e-15).all()
+
+
+def test_cond_fat_counted_kernel_is_the_scripts(x2, x2_counted):
+    """The counting cond adds an output and changes nothing else."""
+    ref = _x2_run(x2, cf.check_inputs(), X2_ITERS, 2, True)
+    np.testing.assert_array_equal(x2_counted[2][0], ref)
+
+
+def test_cond_fat_check_fails_without_the_conds(x2_counted):
+    """A version with the predicate removed passes on the script's input
+    and gives the same output on the tiles of -2 (their updates are below
+    float32 resolution), but the update counts of the check inputs
+    catch it."""
+    x = torch.from_numpy(cf.check_inputs())
+    ref, ref_taken = x2_counted[2]
+    broken, taken = cf.cond_fat_reference(x, X2_ITERS, 2, False, taken=True)
+    minus2 = np.arange(cf.BLOCKS) % 8 == 1
+    tiles = broken.numpy().reshape(cf.BLOCKS, -1)
+    np.testing.assert_array_equal(tiles[minus2], ref.reshape(cf.BLOCKS, -1)[minus2])
+    assert not np.array_equal(taken.numpy(), ref_taken)
+
+
+def _x4_run(x4, seed):
+    b, a, e = df.script_inputs(seed)
+    with pallas_interpret():
+        c, r, x = map(np.asarray, x4["run"](b, a, e))
+    return (b, a, e), (c, r, x)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("form", df.FORMS)
+def test_dot_formulation_plain_matches_tpu_kernel(x4, seed, form):
+    (b, a, e), (c_ref, r_ref, x_ref) = _x4_run(x4, seed)
+    bt, at, et = map(torch.from_numpy, (b, a, e))
+    c, r, x = df.dot_formulation(form, bt, at, et)
+    assert c.shape == (8, 512, 128) and r.shape == (8, 128) and x.shape == (8, 16, 128)
+    tol = 1e-3 if form == "tf32" else df.TOL_REL
+    err = np.abs(c.numpy().astype(np.float64) - c_ref) / df.magnitude(bt, at).numpy()
+    assert err.max() <= tol, err.max()
+    assert df.self_check(c, r, x, et)
+    # The script's own R and X are the min and first argmin of its C.
+    rj, xj = df.extract(torch.from_numpy(c_ref.copy()), et)
+    np.testing.assert_array_equal(r_ref, rj.numpy())
+    np.testing.assert_array_equal(x_ref, xj.numpy())
+    errs = df.script_errors(bt, at, et, c, r, x)
+    if form == "tf32":
+        assert errs["matmul_rel_err"] < 1e-3, errs  # reported, not held to float32
+    else:
+        np.testing.assert_array_equal(x.numpy(), x_ref)
+        assert errs["matmul_rel_err"] < 1e-6 and errs["reduce_err"] < 1e-4, errs
+        assert errs["extract_err"] == 0.0, errs
+
+
+def test_dot_check_fails_a_first_zero_extraction():
+    """An extraction that always takes row 0 fails the check: the seeded
+    normals put the minimum of almost every column elsewhere."""
+    b, a, e = map(torch.from_numpy, df.script_inputs(0))
+    c, r, x = df.dot_formulation("fma", b, a, e)
+    wrong = e[:, :1].expand(16, 128)[None].expand(8, 16, 128).contiguous()
+    assert df.self_check(c, r, x, e) and not df.self_check(c, r, wrong, e)
+    assert df.script_errors(b, a, e, c, r, wrong)["extract_err"] > 1.0
+
+
+def test_tf32_round_matches_the_conversion():
+    """cvt.rna.tf32.f32: 10 mantissa bits, to nearest, ties away from zero."""
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1.0 + ulp / 2, -(1.0 + ulp / 2), 1.0 + ulp / 2 - 2 ** -23,
+                      1.0 + 3 * ulp / 2, 3.0e-3], dtype=torch.float32)
+    want = [1.0, 1.0 + ulp, -(1.0 + ulp), 1.0, 1.0 + 2 * ulp]
+    np.testing.assert_array_equal(df.tf32_round(x)[:5].numpy(), np.float32(want))
+    r = df.tf32_round(x[5:]).view(torch.int32)
+    assert int(r) & 0x1FFF == 0 and abs(float(df.tf32_round(x[5:])) - 3.0e-3) <= 3.0e-3 * 2 ** -11
+
+
 def test_wrappers_refuse_devices_without_a_kernel():
     meta = torch.zeros((16 * 64, 128), device="meta")
     with pytest.raises(ValueError, match="no kernel"):
@@ -201,3 +380,9 @@ def test_wrappers_refuse_devices_without_a_kernel():
         rv.record_variant("outer", meta, torch.zeros((6, 1024), device="meta"), 1)
     with pytest.raises(ValueError, match="no kernel"):
         smt.smem_tables(meta, [], 1024)
+    with pytest.raises(ValueError, match="no kernel"):
+        cf.cond_fat(torch.zeros((512, 128), device="meta"), 1, 2, True)
+    with pytest.raises(ValueError, match="no kernel"):
+        df.dot_formulation("fma", torch.zeros((16, 512), device="meta"),
+                           torch.zeros((8, 16, 128), device="meta"),
+                           torch.zeros((16, 128), device="meta"))

@@ -46,7 +46,8 @@ def test_sources_found():
             "integrator/diff_megakernel.py", "diff/render.py"} <= rel, rel
     # ... and the microbenchmarks'.
     assert {"experiments/__init__.py", "experiments/supscan.py",
-            "experiments/record_variants.py", "experiments/smem_tables.py"} <= rel, rel
+            "experiments/record_variants.py", "experiments/smem_tables.py",
+            "experiments/cond_fat.py", "experiments/dot_formulations.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -70,5 +71,6 @@ def test_kernel_sources_ship_without_binaries():
     names = os.listdir(csrc)
     assert {"megakernel.cu", "bounce.cu", "bounce_body.cuh", "cluster_query.cu",
             "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu", "binned_geo.cuh",
-            "exp_supscan.cu", "exp_record_variants.cu", "exp_smem_tables.cu"} <= set(names)
+            "exp_supscan.cu", "exp_record_variants.cu", "exp_smem_tables.cu",
+            "exp_cond_fat.cu", "exp_dot_formulations.cu", "mma_tf32.cuh"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]
