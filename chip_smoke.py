@@ -4,7 +4,8 @@
 
 Phases, one line each; any failure exits non-zero:
   1. the card: torch's device name and nvidia-smi's name + power limit
-  2. build the CUDA kernels from cpupathtrace_tpu_torch/csrc with nvcc
+  2. build the CUDA kernels from cpupathtrace_tpu_torch/csrc with nvcc,
+     with ptxas's registers, shared memory and spills per kernel instance
   3. kernel vs its plain-torch twin on the card, same rays and seed
   4. golden parity: the port's render_chunk at 32x32 against the C++
      reference images in tests/golden, with tests/test_parity.py's checks
@@ -50,7 +51,8 @@ Phases, one line each; any failure exits non-zero:
      200k dragon built with lean=False: the candidate scan K6 and the
      cluster-major intersect K7 on phase 7's 65,536 rays (round 1 and a
      round with a nonzero lower bound) and on the first round of the
-     dragon frame's 262,144 camera rays (the main path's shape, timed);
+     dragon frame's 262,144 camera rays (the main path's shape, timed as
+     the mean of 10 whole calls and as the best of 10 on the card alone);
      the whole `binned_intersect` (nearest; any-hit with t_max and a live
      mask) against `binned_intersect_ref` on a chunk of rays and against
      the cluster query K4 on every ray; rounds per query and host reads
@@ -84,14 +86,20 @@ Phases, one line each; any failure exits non-zero:
  23. the microbenchmarks X1-X5 (cpupathtrace_tpu_torch/experiments):
      each kernel against its plain version on check inputs whose output
      depends on the work (X1: flags that differ by block and every ray's
-     least slab entry, equal; X5: seeded x and tables and every block's
-     staged copy, equal; X3 within rtol 1e-6 serial / outer, 1e-5 matmul;
-     X2: tiles that take and skip the conditional updates, outputs and
-     per-tile update counts equal in all four instances; X4 on seeds 0
-     and 1: fma equal in C, R and X, the TF32 forms within 1e-5 of
-     sum |B A| of their emulation, R and X the min and first argmin of
-     the kernel's own C), then each TPU script's sweep on the script's own
-     inputs
+     least slab entry, equal; X5: seeded x and tables and every launched
+     block's staged copy, equal, in both staging instances at K1's
+     launch shape and on the persistent grid; X3 within rtol 1e-6 serial
+     / outer, 1e-5 matmul; X2: tiles that take and skip the conditional
+     updates, outputs and per-tile update counts equal in all four
+     instances; X4 on seeds 0 and 1 and on tie inputs (the first of two
+     rows holding a column's minimum): fma equal in C, R and X, the TF32
+     forms within 1e-5 of sum |B A| of their emulation, R and X the min
+     and first argmin of the kernel's own C), then each TPU script's
+     sweep on the script's own
+     inputs; X5 also K1's box tables with each staging at K1's shape and
+     on the persistent grid (its blocks per SM),
+     K1's shape without tables and torch.add; X4 each form beside
+     torch.matmul; both beside the card's name and power limit
 Then the script's seconds, one JSON line with the kernels' figures and,
 last, the result line. Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
@@ -104,6 +112,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -1091,7 +1100,7 @@ def k7_bound(tt, blocks, n_pairs, counts):
     return dict(tests=tests, **bound(n_pairs * (24 + 8) + read_rows * 64, tests * TEST_FLOPS))
 
 
-def phase_binned_kernels(pt, tt, scenes, dragon):
+def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     """K6 and K7 against their plain versions, then the whole pipeline
     against its oracle and against K4."""
     o, d, lim = query_rays_phase7()
@@ -1115,13 +1124,18 @@ def phase_binned_kernels(pt, tt, scenes, dragon):
     # The main path's shapes: the largest K6 and K7 inputs of a wavefront
     # frame, the kernels timed beside their plain versions.
     (frays, fm), (fpairs, foffs) = capture_main_path_inputs(pt, tt, scenes, dragon)
+    # `ms`: the mean of 10 whole calls by events, the wrapper's host time
+    # in; `best_ms`: the least of 10 calls timed on the card alone
+    # (experiments.best_ms), as the microbenchmarks are.
     k6, _, _ = check_k6(tt, dragon.trv_bounds, frays, fm, "at the main path's shape")
     k6["ms"] = cuda_ms(lambda: tt.candidates(dragon.trv_bounds, frays, fm), 10)
+    k6["best_ms"] = best_ms(lambda: tt.candidates(dragon.trv_bounds, frays, fm), 10)
     k6["plain_ms"] = cuda_ms(lambda: tt.candidates_reference(dragon.trv_bounds, frays, fm), 1)
     k6.update(k6_bound(tt, dragon.trv_bounds, frays, fm))
     out["k6_frame"] = k6
     k7 = check_k7(tt, dragon.trv_blocks, fpairs, foffs, "at the main path's shape")
     k7["ms"] = cuda_ms(lambda: tt.isect(dragon.trv_blocks, fpairs, foffs), 10)
+    k7["best_ms"] = best_ms(lambda: tt.isect(dragon.trv_blocks, fpairs, foffs), 10)
     k7["plain_ms"] = cuda_ms(lambda: tt.isect_reference(dragon.trv_blocks, fpairs, foffs), 1)
     k7.update(k7_bound(tt, dragon.trv_blocks, k7["pairs"], foffs[1:] - foffs[:-1]))
     out["k7_frame"] = k7
@@ -1571,26 +1585,38 @@ def phase_experiments(ss, rv, smt, cf, df, best_ms):
         x3[v].update(sweep=sweep[v], launches=rv.record_variant.launches[v])
     out["record_variants"] = dict(variants=x3)
 
+    # X5 in every check configuration, every staging instance, both launch
+    # shapes (K1's, one block per tile, and the persistent grid).
     x5_check = {}
     for name, (xs, tbl, threads) in smt.check_configurations("cuda").items():
-        ko, kst = smt.smem_tables(xs, tbl, threads, staged=True)
-        po, pst = smt.smem_tables_reference(xs, tbl, threads, staged=True)
-        res = dict(moved=float((po != xs).float().mean()), staged_floats=kst.shape[1],
-                   max_abs_err=max_err(ko, po))
-        need(torch.equal(ko, po) and torch.equal(kst, pst) and (res["moved"] > 0.99 or not tbl),
-             f"X5 {name} differs from its plain version: {res}")
-        x5_check[name] = res
+        for staging in smt.STAGINGS:
+            for shape, blocks in (("k1_shape", None),
+                                  ("persistent", smt.resident_blocks(xs, tbl, threads, staging))):
+                ko, kst = smt.smem_tables(xs, tbl, threads, staged=True, blocks=blocks,
+                                          staging=staging)
+                po, pst = smt.smem_tables_reference(xs, tbl, threads, staged=True, blocks=blocks)
+                res = dict(moved=float((po != xs).float().mean()), blocks=kst.shape[0],
+                           staged_floats=kst.shape[1], max_abs_err=max_err(ko, po))
+                need(torch.equal(ko, po) and torch.equal(kst, pst)
+                     and (res["moved"] > 0.99 or not tbl),
+                     f"X5 {name} ({staging}, {shape}) differs from its plain version: {res}")
+                x5_check[f"{name}_{staging}_{shape}"] = res
     xk, tk, thk = smt.check_configurations("cuda")["k1_box_tables"]
-    pk = smt.smem_tables_reference(xk, tk, thk)
     smt.smem_tables.launches = 0
     x5 = dict(check=x5_check, sweep=smt.sweep())
     x5["launches"] = smt.smem_tables.launches
-    shift = (pk - xk)[:1].clone()
-    x5.update(ms=x5["sweep"]["k1_box_tables"]["ms"],
+    sw5 = x5["sweep"]
+    x5.update(ms=sw5["k1_bulk"]["ms"], k1_staging_ms=sw5["k1_rows"]["ms"],
+              persistent_ms=sw5["k1_bulk_persistent"]["ms"],
+              k1_staging_persistent_ms=sw5["k1_rows_persistent"]["ms"],
+              persistent_blocks=sw5["k1_bulk_persistent"]["blocks"],
+              blocks_per_sm=sw5["k1_bulk_persistent"]["blocks_per_sm"],
+              no_tables_ms=sw5["k1_no_tables"]["ms"], k1_shape_blocks=sw5["k1_bulk"]["blocks"],
               max_abs_err=max(r["max_abs_err"] for r in x5_check.values()),
               plain_ms=best_ms(lambda: smt.smem_tables_reference(xk, tk, thk), 5),
-              library_ms=best_ms(lambda: torch.add(xk, shift), 5),
-              **bound(x5["sweep"]["k1_box_tables"]["bytes"], xk.numel()))
+              library_ms=sw5["torch_add"]["ms"], library="torch.add(x, s)",
+              card=nvidia_smi_name_power(),
+              **bound(sw5["k1_bulk"]["bytes"], xk.numel()))
     out["smem_tables"] = x5
     out["cond_fat"] = phase_cond_fat(cf, best_ms)
     out["dot_formulations"] = phase_dot_formulations(df, best_ms)
@@ -1635,15 +1661,19 @@ def phase_cond_fat(cf, best_ms):
 
 
 def phase_dot_formulations(df, best_ms):
-    """X4 on the script's inputs (seeds 0 and 1): fma bit-equal to its plain
-    version in C, R and X; the TF32 forms within TOL_REL of sum_k |B A| of
+    """X4 on the script's inputs (seeds 0 and 1) and on the tie inputs: fma
+    bit-equal to its plain version in C, R and X; the TF32 forms within TOL_REL of sum_k |B A| of
     their emulation; every form's R and X exactly the min and first argmin
     of its own C; the script's error figures (fma and 3xtf32 held to
-    float32, tf32 reported). Then the sweep, and the one-call library
-    yardstick torch.matmul(B.T, A) (C only, full float32), timed alike."""
+    float32, tf32 reported); on the tie inputs the first of two rows
+    holding a column's minimum (-0.0 / +0.0, equal negatives, in other
+    warps and in one thread). Then the sweep, which times each form beside
+    the one-call library yardstick torch.matmul(B.T, A) (C only, full
+    float32)."""
     out = {f: dict(check={}) for f in df.FORMS}
-    for seed in (0, 1):
-        b, a, e = (torch.from_numpy(v).cuda() for v in df.script_inputs(seed))
+    for case in (0, 1, "ties"):
+        inputs = df.tie_inputs() if case == "ties" else df.script_inputs(case)
+        b, a, e = (torch.from_numpy(v).cuda() for v in inputs)
         for form in df.FORMS:
             c, r, x = df.dot_formulation(form, b, a, e)
             pc, pr, px = df.dot_reference(form, b, a, e)
@@ -1656,11 +1686,12 @@ def phase_dot_formulations(df, best_ms):
                 if form == "fma" else df.within_tolerance(c, pc, b, a))
             if form != "tf32":
                 ok = ok and errs["matmul_rel_err"] < 1e-6 and errs["extract_err"] == 0.0
-            need(ok, f"X4 {form} (seed {seed}) differs from its plain version: {res}")
-            out[form]["check"][f"seed{seed}"] = res
+            if case == "ties":
+                res["ties_hold"] = df.ties_hold(r, x, e)
+                ok = ok and res["ties_hold"]
+            need(ok, f"X4 {form} ({case}) differs from its plain version: {res}")
+            out[form]["check"][f"seed{case}" if case != "ties" else case] = res
     b, a, e = (torch.from_numpy(v).cuda() for v in df.script_inputs(0))
-    bt = b.t()
-    library_ms = best_ms(lambda: torch.matmul(bt, a), df.REPS)
     for form in df.FORMS:
         df.dot_formulation.launches[form] = 0
     sweep = df.sweep()
@@ -1669,12 +1700,34 @@ def phase_dot_formulations(df, best_ms):
         out[form].update(sweep=sweep[form], launches=df.dot_formulation.launches[form],
                          ms=sweep[form]["ms"],
                          plain_ms=best_ms(lambda form=form: df.dot_reference(form, b, a, e), 5),
-                         library_ms=library_ms,
+                         library_ms=sweep[form]["library_ms"],
                          library="torch.matmul(B.T, A), C only",
                          max_abs_err=max(v["max_abs_err"] for v in out[form]["check"].values()),
+                         card=nvidia_smi_name_power(),
                          **bound(df.io_bytes(), ops if kind == "fp32" else 0,
                                  ops if kind == "tf32" else 0))
     return out
+
+
+# A kernel instance in ptxas's report: its name and template arguments,
+# read from the mangled entry name (`...18smem_tables_kernelILi1EE...`).
+PTXAS_ENTRY = re.compile(r"entry function '\w*?\d+([a-z][a-z_]*kernel)(?:I((?:L[a-z]n?\d+E)+)E)?")
+
+
+def ptxas_summary(text):
+    """A library's ptxas report on one line: per kernel instance its name
+    (`smem_tables_kernel<1>`), then its registers, shared memory and
+    spills."""
+    out = []
+    for ln in text.splitlines():
+        m = PTXAS_ENTRY.search(ln)
+        if m:
+            args = re.findall(r"L[a-z](n?\d+)E", m.group(2) or "")
+            out.append(m.group(1) + (f"<{', '.join(a.replace('n', '-') for a in args)}>"
+                                     if args else ""))
+        elif "Used" in ln or "spill" in ln:
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return " | ".join(out)
 
 
 def main():
@@ -1721,11 +1774,8 @@ def main():
     _build.build_all(KERNELS)
     for name in KERNELS:
         _build.load(name)
-    ptxas = {
-        name: " | ".join(ln.strip() for ln in _build.ptxas_report.get(name, "").splitlines()
-                         if "Used" in ln or "spill" in ln)
-        for name in KERNELS if name != "bvh_build"
-    }
+    ptxas = {name: ptxas_summary(_build.ptxas_report.get(name, ""))
+             for name in KERNELS if name != "bvh_build"}
     report["build"] = dict(seconds=time.perf_counter() - t0,
                            compiler_seconds=dict(_build.build_seconds), ptxas=ptxas)
     line("2 build", **report["build"])
@@ -1770,7 +1820,7 @@ def main():
     # The binned wavefront needs the dragon's K6/K7 tables: phase 7 built
     # the scene with lean=False, the builder's default.
     need(dragon.trv_bounds.shape[0] > 1 and not dragon.lean, "the dragon has no K6/K7 tables")
-    report["binned_kernels"], nearest = phase_binned_kernels(pt, tt, scenes, dragon)
+    report["binned_kernels"], nearest = phase_binned_kernels(pt, tt, scenes, dragon, best_ms)
     line("16 binned wavefront kernels vs plain", **report["binned_kernels"])
     report["cluster_major"] = phase_cluster_major(cm, binned, tt, oi, dragon, nearest)
     line("17 cluster-major entry (K8)", **report["cluster_major"])
@@ -1853,14 +1903,14 @@ def main():
         "replaces": "cpupathtrace_tpu/accel/pallas_traverse.py:121",
         "launches": bw["k6"],
         "max_abs_err": bk["max_abs_err"],
-        **figures(bk["k6_frame"]), "library_ms": None,
+        **figures(bk["k6_frame"]), "best_ms": bk["k6_frame"]["best_ms"], "library_ms": None,
     }, {
         "name": "binned_isect", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/binned_isect.cu",
         "replaces": "cpupathtrace_tpu/accel/pallas_traverse.py:238",
         "launches": bw["k7"],
         "max_abs_err": max(bk["k7_round1"]["max_abs_err"], bk["k7_frame"]["max_abs_err"]),
-        **figures(bk["k7_frame"]), "library_ms": None,
+        **figures(bk["k7_frame"]), "best_ms": bk["k7_frame"]["best_ms"], "library_ms": None,
     }, {
         "name": "cluster_major", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/binned_isect.cu",

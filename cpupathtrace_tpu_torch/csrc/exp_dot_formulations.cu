@@ -13,24 +13,29 @@
 //   0 fma:    float32 multiply and add on the CUDA cores, k = 0..15 in order
 //             (unfused: the build's --fmad=false keeps them apart, so the
 //             plain version repeats the sums bit for bit);
-//   1 tf32:   one TF32 product on the tensor cores (mma.sync m16n8k8, both
-//             operands rounded to TF32: ~3 decimal digits);
+//   1 tf32:   one TF32 product on the tensor cores (both operands rounded
+//             to TF32: ~3 decimal digits);
 //   2 3xtf32: a_lo b_hi + a_hi b_lo + a_hi b_hi (mma_tf32.cuh), about
 //             float32 accuracy, as precision=HIGHEST asks on the TPU.
-// The extraction is a gather of column `first` of E, which equals the
+// The TF32 forms run on mma.sync m16n8k8, each warp 16 rows, its fragments
+// read from shared memory as B and A_j lie. A wgmma form (m64n32k8 per
+// warpgroup, both operands staged K-major, so transposed) measured no
+// faster at this depth of two k-steps of 8 (PERF.md §6, X4) and is not
+// kept. The extraction is a gather of column `first` of E, which equals the
 // one-hot product bit for bit (one term is 1 x E, the others 0 x E).
 //
 // What bounds it: bytes (0.11 MB in, 2.17 MB out; 16.8 MFLOP for C). The
-// design: a grid of (4 tiles of 128 rows of C) x (8 matrices j); a block
-// stages its [16, 128] slices of B and A_j in shared memory (16 KB) and
-// writes its [128, 128] tile of C. fma: thread (r, h) computes column r of
-// rows h * 64 .. h * 64 + 63 (coalesced stores, B read as broadcasts). TF32
-// forms: warp w computes rows 16 w .. 16 w + 15 as 16 column tiles of 8
-// with K = 16 in two k-steps. The row-tile-0 block of each j then reads its
-// C tile back (its own stores, visible after the barrier) and reduces each
-// column to (min, first argmin) in two halves of 64 rows, the first of
-// equal values winning, and gathers X. At this size the launch and the
-// blocks' latency, not the bytes, set the time.
+// design: a grid of 4 tiles of 128 rows x 4 slices of 32 columns x 8
+// matrices j (128 blocks, about one per SM), so rows 0..127 of every
+// column lie in the row-tile-0 block of its (slice, j). Every form leaves
+// each thread the same part of its block's [128, 32] tile of C in
+// registers: rows 16w + g and 16w + g + 8 of warp w, columns 8i + 2t and
+// 8i + 2t + 1 (g = lane / 4, t = lane % 4). The tile goes through shared
+// memory to 16-byte stores, a warp writing four whole 128-byte row
+// segments at a time. The row-tile-0 blocks take R and `first` from the
+// registers: each thread its two rows, then warp shuffles over g, then the
+// eight warps through shared memory, the first row of equal values winning
+// (-0.0 equals +0.0); C is never read back. They then gather X.
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -45,39 +50,69 @@ constexpr int kQ = 512;
 constexpr int kR = 128;
 constexpr int kJ = 8;
 constexpr int kQTile = 128;
+constexpr int kCols = 32;
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+// The staged C tile's row: 16-byte aligned, rows 4 banks apart.
+constexpr int kCStride = kCols + 4;
+
+// (value, row) pairs: the smaller value, and of equal values the first row.
+__device__ __forceinline__ void take_first_min(float& m, int& a, float om, int oa) {
+  if (om < m || (om == m && oa < a)) {
+    m = om;
+    a = oa;
+  }
+}
 
 template <int FORM>
 __global__ void __launch_bounds__(kThreads)
     dot_kernel(const float* B, const float* A, const float* E, float* C, float* R, float* X) {
-  const int qt = blockIdx.x, j = blockIdx.y;
+  const int qt = blockIdx.x, c0 = blockIdx.y * kCols, j = blockIdx.z;
   const int q0 = qt * kQTile;
-  __shared__ float sB[kK][kQTile];
-  __shared__ float sA[kK][kR];
-  for (int i = threadIdx.x; i < kK * kQTile; i += kThreads) {
-    const int k = i / kQTile, c = i % kQTile;
-    sB[k][c] = B[k * kQ + q0 + c];
-    sA[k][c] = A[(j * kK + k) * kR + c];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
+  const int m0 = warp * 16;
+  float acc[16];  // acc[4i + e]: row m0 + g + 8 (e / 2), column 8i + 2t + e % 2
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+  // The row-tile-0 blocks load E now, beside B and A, so that the gather
+  // at the end waits for no load; it goes to shared memory (sE, over sB,
+  // dead by then) once the products are done.
+  constexpr int kEPer = kK * kR / kThreads;
+  float ev[kEPer];
+  if (qt == 0)
+#pragma unroll
+    for (int u = 0; u < kEPer; ++u) ev[u] = E[u * kThreads + threadIdx.x];
+
+  __shared__ __align__(16) float sB[kK][kQTile];
+  __shared__ __align__(16) float sA[kK][kCols];
+  float* const sE = &sB[0][0];
+  for (int i = threadIdx.x; i < kK * kQTile / 4; i += kThreads) {
+    const int k = i / (kQTile / 4), c4 = i % (kQTile / 4);
+    *reinterpret_cast<float4*>(&sB[k][4 * c4]) =
+        *reinterpret_cast<const float4*>(B + k * kQ + q0 + 4 * c4);
+  }
+  for (int i = threadIdx.x; i < kK * kCols / 4; i += kThreads) {
+    const int k = i / (kCols / 4), c4 = i % (kCols / 4);
+    *reinterpret_cast<float4*>(&sA[k][4 * c4]) =
+        *reinterpret_cast<const float4*>(A + (j * kK + k) * kR + c0 + 4 * c4);
   }
   __syncthreads();
-  float* Cj = C + static_cast<size_t>(j) * kQ * kR;
   if constexpr (FORM == 0) {
-    const int r = threadIdx.x % kR, h = threadIdx.x / kR;
-    float a[kK];
 #pragma unroll
-    for (int k = 0; k < kK; ++k) a[k] = sA[k][r];
-    for (int i = 0; i < kQTile / 2; ++i) {
-      const int q = h * (kQTile / 2) + i;
-      float acc = 0.0f;
+    for (int k = 0; k < kK; ++k) {
+      const float b0 = sB[k][m0 + g], b1 = sB[k][m0 + g + 8];
 #pragma unroll
-      for (int k = 0; k < kK; ++k) acc = acc + sB[k][q] * a[k];
-      Cj[static_cast<size_t>(q0 + q) * kR + r] = acc;
+      for (int i = 0; i < 4; ++i) {
+        const float a0 = sA[k][8 * i + 2 * t], a1 = sA[k][8 * i + 2 * t + 1];
+        acc[4 * i] = acc[4 * i] + b0 * a0;
+        acc[4 * i + 1] = acc[4 * i + 1] + b0 * a1;
+        acc[4 * i + 2] = acc[4 * i + 2] + b1 * a0;
+        acc[4 * i + 3] = acc[4 * i + 3] + b1 * a1;
+      }
     }
   } else {
     // The MMA's A operand is B^T (rows q, depth k), its B operand A_j
     // (depth k, columns r).
-    const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-    const int m0 = warp * 16;
     uint32_t ah[2][4], al[2][4];
 #pragma unroll
     for (int ks = 0; ks < 2; ++ks) {
@@ -91,7 +126,8 @@ __global__ void __launch_bounds__(kThreads)
           split(v[e], ah[ks][e], al[ks][e]);
       }
     }
-    for (int nt = 0; nt < kR / 8; ++nt) {
+#pragma unroll
+    for (int nt = 0; nt < 4; ++nt) {
       float d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int ks = 0; ks < 2; ++ks) {
@@ -107,51 +143,73 @@ __global__ void __launch_bounds__(kThreads)
           mma(d, ah[ks], bh0, bh1);
         }
       }
-      float* row = Cj + static_cast<size_t>(q0 + m0 + g) * kR + nt * 8 + 2 * t;
-      row[0] = d[0];
-      row[1] = d[1];
-      row[8 * kR] = d[2];
-      row[8 * kR + 1] = d[3];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * nt + e] = d[e];
     }
+  }
+
+  // The tile of C through shared memory to coalesced 16-byte stores.
+  __shared__ __align__(16) float sC[kQTile][kCStride];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    *reinterpret_cast<float2*>(&sC[m0 + g][8 * i + 2 * t]) =
+        make_float2(acc[4 * i], acc[4 * i + 1]);
+    *reinterpret_cast<float2*>(&sC[m0 + g + 8][8 * i + 2 * t]) =
+        make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+  __syncthreads();
+  float* Cj = C + static_cast<size_t>(j) * kQ * kR;
+#pragma unroll
+  for (int it = 0; it < kQTile * kCols / 4 / kThreads; ++it) {
+    const int idx = it * kThreads + threadIdx.x, row = idx / (kCols / 4), c4 = idx % (kCols / 4);
+    *reinterpret_cast<float4*>(Cj + static_cast<size_t>(q0 + row) * kR + c0 + 4 * c4) =
+        *reinterpret_cast<const float4*>(&sC[row][4 * c4]);
   }
   if (qt != 0) return;  // the whole block: R and X come from rows 0..127
-  __syncthreads();
-  __shared__ float s_min[2][kR];
-  __shared__ int s_arg[2][kR];
-  __shared__ int s_first[kR];
-  {
-    const int r = threadIdx.x % kR, h = threadIdx.x / kR;
-    int arg = h * (kQTile / 2);
-    float m = Cj[static_cast<size_t>(arg) * kR + r];
-    for (int i = 1; i < kQTile / 2; ++i) {
-      const int q = h * (kQTile / 2) + i;
-      const float v = Cj[static_cast<size_t>(q) * kR + r];
-      if (v < m) {
-        m = v;
-        arg = q;
+
+  // (min, first row) per column: the thread's two rows, the warp, the block.
+  __shared__ float s_min[kWarps][kCols];
+  __shared__ int s_arg[kWarps][kCols];
+  __shared__ int s_first[kCols];
+#pragma unroll
+  for (int u = 0; u < kEPer; ++u) sE[u * kThreads + threadIdx.x] = ev[u];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      float m = acc[4 * i + h];
+      int a = m0 + g;
+      take_first_min(m, a, acc[4 * i + 2 + h], m0 + g + 8);
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1)
+        take_first_min(m, a, __shfl_xor_sync(0xffffffffu, m, off),
+                       __shfl_xor_sync(0xffffffffu, a, off));
+      if (g == 0) {
+        s_min[warp][8 * i + 2 * t + h] = m;
+        s_arg[warp][8 * i + 2 * t + h] = a;
       }
     }
-    s_min[h][r] = m;
-    s_arg[h][r] = arg;
   }
   __syncthreads();
-  if (threadIdx.x < kR) {
-    const int r = threadIdx.x;
-    const bool second = s_min[1][r] < s_min[0][r];
-    R[j * kR + r] = second ? s_min[1][r] : s_min[0][r];
-    s_first[r] = second ? s_arg[1][r] : s_arg[0][r];
+  if (threadIdx.x < kCols) {
+    const int col = threadIdx.x;
+    float m = s_min[0][col];
+    int a = s_arg[0][col];
+    for (int w = 1; w < kWarps; ++w) take_first_min(m, a, s_min[w][col], s_arg[w][col]);
+    R[j * kR + c0 + col] = m;
+    s_first[col] = a;
   }
   __syncthreads();
-  for (int i = threadIdx.x; i < kK * kR; i += kThreads) {
-    const int f = i / kR, r = i % kR;
-    X[static_cast<size_t>(j) * kK * kR + i] = E[f * kR + s_first[r]];
+  for (int i = threadIdx.x; i < kK * kCols; i += kThreads) {
+    const int f = i / kCols, col = i % kCols;
+    X[(static_cast<size_t>(j) * kK + f) * kR + c0 + col] = sE[f * kR + s_first[col]];
   }
 }
 
 template <int FORM>
 cudaError_t launch(const float* B, const float* A, const float* E, float* C, float* R, float* X,
                    cudaStream_t s) {
-  dot_kernel<FORM><<<dim3(kQ / kQTile, kJ), kThreads, 0, s>>>(B, A, E, C, R, X);
+  dot_kernel<FORM><<<dim3(kQ / kQTile, kR / kCols, kJ), kThreads, 0, s>>>(B, A, E, C, R, X);
   return cudaGetLastError();
 }
 

@@ -11,18 +11,19 @@ minimum (:37-43). All float32. C in three forms (FORMS):
   * 3xtf32: the split product a_lo b_hi + a_hi b_lo + a_hi b_hi, about
     float32 accuracy (precision=HIGHEST on the TPU).
 The kernel is csrc/exp_dot_formulations.cu; `dot_reference` is the plain
-version of each form: fma sums in the kernel's order (bit-equal), the TF32
-forms round the operands to TF32 as the kernel does and sum the exact
+version of each form: fma sums in the kernel's order (bit-equal), the
+TF32 forms round the operands to TF32 as the kernel does and sum the exact
 products in float64 (the tensor cores' summation order and rounding are
 not specified), so they are held within TOL_REL of sum_k |B_kq A_jkr|.
+`tie_inputs` puts some columns' minimum in two rows.
 R and X are the min and first argmin of each form's own C, gathered from
 E (equal to the one-hot product bit for bit); `self_check` holds a
 result to that exactly, `script_errors` gives the script's three figures
 (:85-98) against numpy's float32 einsum.
 
-`main()` prints, per form, the best launch ms (the card's work alone, and
-the whole call with the wrapper's host time) and the script's figures
-beside the card's name and power limit (the script times one call).
+`main()` prints, per form, the best launch ms (the card's work alone)
+beside torch.matmul(B.T, A)'s, and the script's figures, with the card's
+name and power limit (the script times one call).
 
     python -m cpupathtrace_tpu_torch.experiments.dot_formulations
 """
@@ -53,6 +54,29 @@ def script_inputs(seed: int = 0):
     b = rng.normal(size=(K, Q)).astype(np.float32)
     a = rng.normal(size=(J, K, R_COLS)).astype(np.float32)
     e = rng.normal(size=(K, R_COLS)).astype(np.float32)
+    return b, a, e
+
+
+# Tie columns of `tie_inputs`: column -> (depth k of its one product, the
+# two rows holding its minimum, that minimum). In the kernel rows 40 / 100
+# and 30 / 90 lie in different warps, rows 16 / 24 in one thread.
+TIES = {5: (0, (40, 100), 0.0), 77: (1, (30, 90), -2.5), 110: (2, (16, 24), -1.0)}
+
+
+def tie_inputs(seed: int = 0):
+    """The script's inputs of `seed` with three tie columns (TIES): A_j's
+    column is 1 at depth k and 0 elsewhere, so C's column is B's row k; that
+    row is positive over rows 0..127 but for two equal minima. The zero tie
+    comes from -0.0 in the first row and +0.0 in the second (the forms may
+    leave either sign in C). Every value is exact in TF32, so each form's R
+    is the minimum and `first` the first of the two rows."""
+    b, a, e = script_inputs(seed)
+    for col, (k, rows, value) in TIES.items():
+        a[:, :, col] = 0.0
+        a[:, k, col] = 1.0
+        b[k, :Q_MIN] = 1.0 + (np.arange(Q_MIN) % 16) / 4.0
+        b[k, rows[0]] = -0.0 if value == 0.0 else value
+        b[k, rows[1]] = value
     return b, a, e
 
 
@@ -161,6 +185,13 @@ def self_check(c, r, x, e) -> bool:
     return bool(torch.equal(r, r2) and torch.equal(x, x2))
 
 
+def ties_hold(r, x, e) -> bool:
+    """On `tie_inputs`: every matrix's R at each tie column is the minimum
+    and X its first row's column of E."""
+    return all(bool((r[:, col] == value).all() and (x[:, :, col] == e[:, rows[0]]).all())
+               for col, (_, rows, value) in TIES.items())
+
+
 def within_tolerance(c, c_plain, b, a) -> bool:
     """|C - C_plain| <= TOL_REL * sum_k |B_kq A_jkr| everywhere."""
     err = (c.to(torch.float64) - c_plain.to(torch.float64)).abs()
@@ -201,22 +232,27 @@ def dot_ops(form: str) -> tuple[int, str]:
 
 def sweep(reps: int = REPS):
     """Per form on the card, on the script's inputs: the best launch ms of
-    the card's work (`ms`) and the script's error figures."""
+    the card's work (`ms`) and the script's error figures; and
+    torch.matmul(B.T, A), C alone in full float32, timed alike
+    (`library_ms`)."""
     need_cuda()
     b, a, e = (torch.from_numpy(v).cuda() for v in script_inputs())
+    bt = b.t()
+    library_ms = best_ms(lambda: torch.matmul(bt, a), reps)
     out = {}
     for form in FORMS:
         def call(form=form):
             return dot_formulation(form, b, a, e)
 
-        out[form] = dict(ms=best_ms(call, reps), **script_errors(b, a, e, *call()))
+        out[form] = dict(ms=best_ms(call, reps), library_ms=library_ms,
+                         **script_errors(b, a, e, *call()))
     return out
 
 
 def main():
     name = card()
     for form, r in sweep().items():
-        print(f"# {form:7s} {r['ms']:8.4f} ms on the card  "
+        print(f"# {form:7s} {r['ms']:8.4f} ms on the card  torch.matmul {r['library_ms']:.4f}  "
               f"matmul rel err {r['matmul_rel_err']:.2e}  "
               f"reduce err {r['reduce_err']:.2e}  extract err {r['extract_err']:.2e}  ({name})",
               flush=True)

@@ -3,13 +3,23 @@
 Port of benchmarks/experiments/microbench_smemtables.py to the card: 256
 blocks of 8 x 128 rays, each block staging 0 or 6 small constant tables
 (the script's shapes, :50) and optionally a 128 x 128 table into shared
-memory, as K1 stages its own (csrc/megakernel.cu), then writing
-x + 1e-9 * (the sum of each table's [0, 0]). The kernel is
-csrc/exp_smem_tables.cu; `smem_tables_reference` is the plain version.
-`main()` prints the best of 5 launch times of the script's three
-configurations and, the question put to this card's K1, the same kernel
-with the box scene's real K1 tables (pack_tables) at K1's launch shape for
-4,194,304 rays (16,384 blocks of 256 threads).
+memory, then writing x + 1e-9 * (the sum of each table's [0, 0]). The
+kernel is csrc/exp_smem_tables.cu, in two staging instances (STAGINGS):
+"rows", K1's own loop (csrc/megakernel.cu, csrc/bounce.cu); "bulk", the
+default, Hopper's bulk asynchronous copies (and 16-byte cp.async for
+strided rows) on one mbarrier with the first ray loads in flight
+meanwhile. `smem_tables_reference` is the plain version.
+
+The launch shape is an argument: the rays in tiles of `threads`, block b of
+`blocks` taking tiles b, b + blocks, ... (`block_tiles`). The default, one
+block per tile, is K1's shape; `resident_blocks` gives the persistent grid
+(SMs x blocks per SM), in which each block stages once.
+
+`main()` prints the best launch times of the script's three configurations
+and, the question put to this card's K1, the box scene's real K1 tables
+(pack_tables) for 4,194,304 rays: each staging at K1's launch shape
+(16,384 blocks of 256 threads) and on the persistent grid, the launch
+shape without tables, and torch.add(x, s).
 
 The timed inputs are the script's (x and every table all ones, so the
 output is x whatever the kernel staged). The check inputs
@@ -35,7 +45,8 @@ TABLE_SHAPES = ((14, 24), (1, 8), (4, 12), (1, 8), (2, 24), (1, 1))
 VMEM_SHAPE = (128, 128)
 K1_RAYS = 4194304
 K1_THREADS = 256  # csrc/megakernel.cu kThreads
-REPS = 5
+STAGINGS = ("rows", "bulk")
+REPS = 10
 
 
 def script_inputs(device):
@@ -87,10 +98,22 @@ def k1_box_tables(device):
     return x, [(t.contiguous(), c) for t, c in staged if t.shape[0] > 0], K1_THREADS
 
 
-def smem_tables_reference(x, tables, threads: int, staged: bool = False):
+def k1_blocks(n: int, threads: int) -> int:
+    """K1's launch shape: one block per tile of `threads` rays."""
+    return -(-n // threads)
+
+
+def block_tiles(n: int, tile: int, blocks: int):
+    """The kernel's walk: per block b, the tiles it covers (b, b + blocks,
+    b + 2 blocks, ... below ceil(n / tile)), tile t holding rays
+    t * tile .. min(n, (t + 1) * tile) - 1."""
+    return [range(b, k1_blocks(n, tile), blocks) for b in range(blocks)]
+
+
+def smem_tables_reference(x, tables, threads: int, staged: bool = False, blocks=None):
     """The plain version: x + 1e-9 * (sum of the tables' [0, 0], in order),
     or x + 0.0 without tables; with `staged`, also what each of the
-    blocks of `threads` rays stages [blocks, floats]."""
+    `blocks` launched blocks (K1's shape by default) stages [blocks, floats]."""
     smem_tables_reference.calls += 1
     if not tables:
         out = x + 0.0
@@ -103,54 +126,96 @@ def smem_tables_reference(x, tables, threads: int, staged: bool = False):
         return out
     flat = [t[:, :c].reshape(-1) for t, c in tables]
     row = torch.cat(flat) if flat else x.new_zeros(0)
-    return out, row[None].expand(x.numel() // threads, -1)
+    return out, row[None].expand(blocks or k1_blocks(x.numel(), threads), -1)
 
 
 smem_tables_reference.calls = 0
 
 
-def _launch_fn():
-    fn = _build.load("exp_smem_tables").ptx_smem_tables_launch
-    if fn.argtypes is None:
+def _lib():
+    lib = _build.load("exp_smem_tables")
+    if lib.ptx_smem_tables_launch.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p, p, i, i, i, p, p, p, p, p, p]
-        fn.restype = ctypes.c_int
-    return fn
+        lib.ptx_smem_tables_launch.argtypes = [i, p, p, ctypes.c_longlong, i, i, i, p, p, p, p, p,
+                                               p]
+        lib.ptx_smem_tables_launch.restype = ctypes.c_int
+        lib.ptx_smem_tables_resident.argtypes = [i, i, i, p, p, p, p, p]
+        lib.ptx_smem_tables_resident.restype = ctypes.c_int
+    return lib
 
 
 def _c_array(ctype, vals):
     return (ctype * max(len(vals), 1))(*vals)
 
 
-def smem_tables(x, tables, threads: int, staged: bool = False):
-    """The kernel over x in blocks of `threads` rays, staging `tables` (a
-    list of (tensor [rows, stride], columns staged)); with `staged`, also
-    what each block staged [blocks, floats]. CPU tensors take the plain
-    version."""
-    dev = x.device
-    if dev.type == "cpu":
-        return smem_tables_reference(x, tables, threads, staged)
-    if dev.type != "cuda":
-        raise ValueError(f"smem_tables: no kernel for device {dev}")
-    check_tensor("x", x, dev, torch.float32)
-    n = x.numel()
-    if n % threads or len(tables) > 8:
-        raise ValueError(f"smem_tables: {n} rays in blocks of {threads}, {len(tables)} tables")
+def _table_args(tables, dev):
+    """The tables as the C entry points take them: pointers, rows, columns
+    staged, row strides."""
+    if len(tables) > 8:
+        raise ValueError(f"smem_tables: {len(tables)} tables, at most 8")
     for t, cols in tables:
         check_tensor("table", t, dev, torch.float32, (None, None))
         if not 0 < cols <= t.shape[1] or t.shape[0] == 0:
             raise ValueError(f"smem_tables: table {tuple(t.shape)} staging {cols} columns")
-    ptrs = _c_array(ctypes.c_void_p, [t.data_ptr() for t, _ in tables])
-    rows = _c_array(ctypes.c_int, [t.shape[0] for t, _ in tables])
-    cols = _c_array(ctypes.c_int, [c for _, c in tables])
-    strides = _c_array(ctypes.c_int, [t.shape[1] for t, _ in tables])
+    return (_c_array(ctypes.c_void_p, [t.data_ptr() for t, _ in tables]),
+            _c_array(ctypes.c_int, [t.shape[0] for t, _ in tables]),
+            _c_array(ctypes.c_int, [c for _, c in tables]),
+            _c_array(ctypes.c_int, [t.shape[1] for t, _ in tables]))
+
+
+def _check_shape(threads: int, staging: str):
+    if staging not in STAGINGS:
+        raise ValueError(f"unknown staging {staging!r}: one of {STAGINGS}")
+    if not (32 <= threads <= 1024 and threads % 32 == 0):
+        raise ValueError(f"smem_tables: {threads} threads, need a multiple of 32 up to 1024")
+
+
+def resident_blocks(x, tables, threads: int, staging: str = "bulk") -> int:
+    """The persistent grid on x's card: SMs x the blocks of this launch
+    that fit on one SM at once (cudaOccupancyMaxActiveBlocksPerMultiprocessor)."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"resident_blocks: no card for device {dev}")
+    _check_shape(threads, staging)
+    args = _table_args(tables, dev)
+    per_sm = ctypes.c_int(0)
+    with torch.cuda.device(dev):
+        err = _lib().ptx_smem_tables_resident(STAGINGS.index(staging), threads, len(tables),
+                                              *args, ctypes.byref(per_sm))
+    if err or per_sm.value < 1:
+        raise RuntimeError(f"smem_tables occupancy failed: cudaError_t {err}, {per_sm.value}")
+    return torch.cuda.get_device_properties(dev).multi_processor_count * per_sm.value
+
+
+def smem_tables(x, tables, threads: int, staged: bool = False, blocks=None,
+                staging: str = "bulk"):
+    """The kernel over x in tiles of `threads` rays on `blocks` blocks (K1's
+    shape, one block per tile, by default), staging `tables` (a list of
+    (tensor [rows, stride], columns staged)) the `staging` way; with
+    `staged`, also what each block staged [blocks, floats]. CPU tensors take
+    the plain version."""
+    dev = x.device
+    _check_shape(threads, staging)
+    if blocks is not None and blocks < 1:
+        raise ValueError(f"smem_tables: {blocks} blocks")
+    if dev.type == "cpu":
+        return smem_tables_reference(x, tables, threads, staged, blocks)
+    if dev.type != "cuda":
+        raise ValueError(f"smem_tables: no kernel for device {dev}")
+    check_tensor("x", x, dev, torch.float32)
+    if x.data_ptr() % 16:
+        raise ValueError("smem_tables: x must start on a 16-byte boundary (float4 access)")
+    args = _table_args(tables, dev)
+    n = x.numel()
+    blocks = blocks or k1_blocks(n, threads)
     o = torch.empty_like(x)
-    st = (torch.empty((n // threads, table_bytes(tables) // 4), dtype=torch.float32, device=dev)
+    st = (torch.empty((blocks, table_bytes(tables) // 4), dtype=torch.float32, device=dev)
           if staged else None)
     with torch.cuda.device(dev):
-        err = _launch_fn()(x.data_ptr(), o.data_ptr(), n // threads, threads, len(tables),
-                           ptrs, rows, cols, strides, None if st is None else st.data_ptr(),
-                           torch.cuda.current_stream(dev).cuda_stream)
+        err = _lib().ptx_smem_tables_launch(
+            STAGINGS.index(staging), x.data_ptr(), o.data_ptr(), n, blocks, threads, len(tables),
+            *args, None if st is None else st.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
     if err:
         raise RuntimeError(f"smem_tables launch failed: cudaError_t {err}")
     smem_tables.launches += 1
@@ -165,28 +230,46 @@ def table_bytes(tables) -> int:
 
 
 def sweep(reps: int = REPS):
-    """Best-of-`reps` launch ms of the script's three configurations and of
-    the K1 box tables at K1's shape, with each call's bytes."""
+    """Best-of-`reps` launch ms of the script's three configurations (bulk
+    staging, one block per tile) and of K1's box tables (each staging at
+    K1's shape and on the persistent grid, K1's shape without tables,
+    torch.add of the same shift), each with its grid and bytes."""
     need_cuda()
-    runs = dict(configurations("cuda"))
-    runs["k1_box_tables"] = k1_box_tables("cuda")
+    runs = {name: (x, tables, threads, None, "bulk")
+            for name, (x, tables, threads) in configurations("cuda").items()}
+    xk, tk, thk = k1_box_tables("cuda")
+    for staging in STAGINGS:
+        runs[f"k1_{staging}"] = (xk, tk, thk, None, staging)
+        runs[f"k1_{staging}_persistent"] = (xk, tk, thk, resident_blocks(xk, tk, thk, staging),
+                                            staging)
+    runs["k1_no_tables"] = (xk, [], thk, None, "bulk")
+    sms = torch.cuda.get_device_properties(xk.device).multi_processor_count
     out = {}
-    for name, (x, tables, threads) in runs.items():
-        ms = best_ms(lambda x=x, tables=tables, threads=threads: smem_tables(x, tables, threads),
-                     reps)
-        out[name] = dict(ms=ms, blocks=x.numel() // threads, threads=threads,
-                         tables=len(tables), bytes=x.numel() * 8 + table_bytes(tables))
+    for name, (x, tables, threads, blocks, staging) in runs.items():
+        ms = best_ms(lambda a=(x, tables, threads), b=blocks, s=staging:
+                     smem_tables(*a, blocks=b, staging=s), reps)
+        grid = blocks or k1_blocks(x.numel(), threads)
+        out[name] = dict(ms=ms, blocks=grid, threads=threads, staging=staging,
+                         blocks_per_sm=grid / sms, tables=len(tables),
+                         bytes=x.numel() * 8 + table_bytes(tables))
+    shift = smem_tables_reference(xk[:1], tk, thk) - xk[:1]
+    out["torch_add"] = dict(ms=best_ms(lambda: torch.add(xk, shift), reps),
+                            bytes=xk.numel() * 8)
     return out
 
 
 def main():
     res = sweep()
+    name = card()
     print(f"256 blocks: no tables {res['no_tables']['ms']:.4f} ms | 6 SMEM tables "
           f"{res['six_tables']['ms']:.4f} | +VMEM[128,128] {res['six_tables_vmem']['ms']:.4f}"
-          f"  ({card()})", flush=True)
-    k1 = res["k1_box_tables"]
-    print(f"K1 box tables, {k1['blocks']} blocks of {k1['threads']}: {k1['ms']:.4f} ms "
-          f"({k1['tables']} tables)  ({card()})", flush=True)
+          f"  ({name})", flush=True)
+    for key, r in res.items():
+        if key.startswith("k1_"):
+            print(f"K1 box tables, {key[3:]}: {r['ms']:.4f} ms on {r['blocks']} blocks of "
+                  f"{r['threads']} ({r['tables']} tables, {r['staging']} staging)  ({name})",
+                  flush=True)
+    print(f"K1 box tables, torch.add(x, s): {res['torch_add']['ms']:.4f} ms  ({name})", flush=True)
 
 
 if __name__ == "__main__":

@@ -639,3 +639,72 @@ def test_dot_formulations_match_plain(form):
         assert df.within_tolerance(c, pc, b, a)
     errs = df.script_errors(b, a, e, c, r, x)
     assert errs["matmul_rel_err"] < (1e-3 if form == "tf32" else 1e-6), errs
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", ["rows", "bulk"])
+@pytest.mark.parametrize("shape", ["k1", "persistent"])
+def test_smem_tables_launch_shapes_match_plain(staging, shape):
+    """X5 bit-equal to its plain version in every check configuration, at
+    K1's launch shape and on the persistent grid, in each staging instance:
+    the output and every launched block's staged tables; one launch a call."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import smem_tables as smt
+
+    for name, (x, tbl, threads) in smt.check_configurations("cuda").items():
+        blocks = smt.resident_blocks(x, tbl, threads, staging) if shape == "persistent" else None
+        launches = smt.smem_tables.launches
+        ko, kst = smt.smem_tables(x, tbl, threads, staged=True, blocks=blocks, staging=staging)
+        po, pst = smt.smem_tables_reference(x, tbl, threads, staged=True, blocks=blocks)
+        assert smt.smem_tables.launches == launches + 1
+        assert torch.equal(ko, po) and torch.equal(kst, pst), name
+        assert kst.shape[0] == (blocks or smt.k1_blocks(x.numel(), threads))
+        assert float((ko != x).float().mean()) > (0.99 if tbl else -1.0), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staging", ["rows", "bulk"])
+def test_smem_tables_ragged_rays_and_unaligned_tables(staging):
+    """A ragged ray count and tables that break the bulk copies' 16-byte
+    rule (a span starting 4 bytes past a 16-byte boundary, a strided table
+    of 5 of 9 columns) at both launch shapes: bit-equal, every block's
+    staged copy too."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import smem_tables as smt
+
+    x, tbl, threads = smt.check_configurations("cuda")["k1_box_tables"]
+    rng = np.random.default_rng(3)
+    base = torch.tensor(rng.uniform(0.5, 1.5, 300), dtype=torch.float32, device="cuda")
+    tables = tbl + [(base[1:1 + 39 * 7].view(39, 7), 7), (base[3:3 + 30 * 9].view(30, 9), 5)]
+    for n in (1_000_003, 4096 * 256 + 5):
+        xs = x[:n]
+        for blocks in (None, smt.resident_blocks(xs, tables, threads, staging)):
+            ko, kst = smt.smem_tables(xs, tables, threads, staged=True, blocks=blocks,
+                                      staging=staging)
+            po, pst = smt.smem_tables_reference(xs, tables, threads, staged=True, blocks=blocks)
+            assert torch.equal(ko, po) and torch.equal(kst, pst), (n, blocks)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["fma", "tf32", "3xtf32"])
+def test_dot_formulations_ties_match_plain(form):
+    """X4 on seed 1 and on the tie inputs (a column's minimum in two rows:
+    -0.0 / +0.0 in other warps, equal negatives in other warps and in one
+    thread): fma bit-equal to its plain version, the TF32 forms within
+    TOL_REL; R and X the min and the first row of the kernel's own C; one
+    launch a call."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import dot_formulations as df
+
+    for inputs in (df.script_inputs(1), df.tie_inputs()):
+        b, a, e = (torch.from_numpy(v).cuda() for v in inputs)
+        launches = df.dot_formulation.launches[form]
+        c, r, x = df.dot_formulation(form, b, a, e)
+        assert df.dot_formulation.launches[form] == launches + 1
+        pc, pr, px = df.dot_reference(form, b, a, e)
+        assert df.self_check(c, r, x, e)
+        if form == "fma":
+            assert torch.equal(c, pc) and torch.equal(r, pr) and torch.equal(x, px)
+        else:
+            assert df.within_tolerance(c, pc, b, a)
+    assert df.ties_hold(r, x, e)

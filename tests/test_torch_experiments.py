@@ -202,6 +202,50 @@ def test_smem_tables_k1_box_configuration():
     assert torch.allclose(o, 1.0 + torch.tensor(acc * 1e-9, dtype=torch.float32))
 
 
+@pytest.mark.parametrize("blocks", [1, 132, 1056, 16384])
+def test_smem_tables_blocks_give_one_staged_row_each(blocks):
+    """The plain X5 at any launch shape: the output is the one of K1's shape
+    and each launched block has its staged row."""
+    x, tables, threads = smt.check_configurations("cpu")["k1_box_tables"]
+    x = x[:1_000_003]  # a ragged last tile
+    o, staged = smt.smem_tables(x, tables, threads, staged=True, blocks=blocks)
+    o1, staged1 = smt.smem_tables(x, tables, threads, staged=True)
+    assert torch.equal(o, o1) and staged1.shape[0] == smt.k1_blocks(x.numel(), threads)
+    assert staged.shape == (blocks, smt.table_bytes(tables) // 4)
+    assert bool((staged == staged1[0]).all())
+
+
+@pytest.mark.parametrize("n", [1056 * 256 * 4, 4_194_304, 4_194_304 - 5, 1_000_003, 100])
+@pytest.mark.parametrize("blocks", [1056, 132])
+def test_block_tiles_cover_every_ray_once(n, blocks):
+    """The persistent walk (block b takes tiles b, b + blocks, ...) covers
+    each ray exactly once, at tile multiples and with a ragged last tile."""
+    tile = smt.K1_THREADS
+    count = np.zeros(n, np.int32)
+    walk = smt.block_tiles(n, tile, blocks)
+    assert len(walk) == blocks
+    for b, tiles in enumerate(walk):
+        assert all(t % blocks == b for t in tiles)
+        for t in tiles:
+            count[t * tile:min(n, (t + 1) * tile)] += 1
+    assert (count == 1).all()
+    # K1's shape: one block per tile, each with at most one tile.
+    k1 = smt.block_tiles(n, tile, smt.k1_blocks(n, tile))
+    assert [list(t) for t in k1] == [[b] for b in range(len(k1))]
+
+
+def test_smem_tables_refuses_what_the_kernel_does_not_take():
+    x, tables, threads = smt.configurations("cpu")["six_tables"]
+    with pytest.raises(ValueError, match="staging"):
+        smt.smem_tables(x, tables, threads, staging="tma")
+    with pytest.raises(ValueError, match="threads"):
+        smt.smem_tables(x, tables, 100)
+    with pytest.raises(ValueError, match="blocks"):
+        smt.smem_tables(x, tables, threads, blocks=0)
+    with pytest.raises(ValueError, match="no card"):
+        smt.resident_blocks(x, tables, threads)
+
+
 @pytest.fixture(scope="module")
 def x2():
     return load_experiment("microbench_cond_fat")
@@ -359,6 +403,44 @@ def test_dot_check_fails_a_first_zero_extraction():
     wrong = e[:, :1].expand(16, 128)[None].expand(8, 16, 128).contiguous()
     assert df.self_check(c, r, x, e) and not df.self_check(c, r, wrong, e)
     assert df.script_errors(b, a, e, c, r, wrong)["extract_err"] > 1.0
+
+
+@pytest.fixture(scope="module")
+def x4_ties(x4):
+    b, a, e = df.tie_inputs()
+    with pallas_interpret():
+        c, r, x = map(np.asarray, x4["run"](b, a, e))
+    return (b, a, e), (c, r, x)
+
+
+@pytest.mark.parametrize("form", df.FORMS)
+def test_dot_tie_inputs_take_the_first_row(x4_ties, form):
+    """On the tie inputs each column's minimum sits in two rows (-0.0 and
+    +0.0; equal negatives in other warps and in one thread of the kernel):
+    the plain version, like the TPU kernel, takes the first."""
+    (b, a, e), (c_ref, r_ref, x_ref) = x4_ties
+    bt, at, et = map(torch.from_numpy, (b, a, e))
+    c, r, x = df.dot_formulation(form, bt, at, et)
+    assert df.ties_hold(r, x, et) and df.self_check(c, r, x, et)
+    assert df.ties_hold(torch.tensor(r_ref), torch.tensor(x_ref), et)
+    for col, (_, rows, value) in df.TIES.items():
+        assert (c[:, list(rows), col] == value).all()
+        assert (c[:, :df.Q_MIN, col] == value).sum() == 2 * df.J
+    # Taking the last of the two rows fails the check.
+    wrong = x.clone()
+    wrong[:, :, 5] = et[:, df.TIES[5][1][1]]
+    assert not df.ties_hold(r, wrong, et) and not df.self_check(c, r, wrong, et)
+
+
+def test_extract_takes_the_first_of_signed_zeros():
+    """-0.0 and +0.0 are one value: the first row holding either wins."""
+    c = torch.ones((df.J, df.Q, df.R_COLS))
+    c[:, 3, 7], c[:, 70, 7] = -0.0, 0.0
+    c[:, 9, 8], c[:, 2, 8] = 0.0, -0.0
+    e = torch.arange(df.K * df.R_COLS, dtype=torch.float32).reshape(df.K, df.R_COLS)
+    r, x = df.extract(c, e)
+    assert (r[:, 7] == 0.0).all() and (r[:, 8] == 0.0).all()
+    assert (x[:, :, 7] == e[:, 3]).all() and (x[:, :, 8] == e[:, 2]).all()
 
 
 def test_tf32_round_matches_the_conversion():

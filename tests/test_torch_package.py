@@ -72,5 +72,6 @@ def test_kernel_sources_ship_without_binaries():
     assert {"megakernel.cu", "bounce.cu", "bounce_body.cuh", "cluster_query.cu",
             "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu", "binned_geo.cuh",
             "exp_supscan.cu", "exp_record_variants.cu", "exp_smem_tables.cu",
-            "exp_cond_fat.cu", "exp_dot_formulations.cu", "mma_tf32.cuh"} <= set(names)
+            "exp_cond_fat.cu", "exp_dot_formulations.cu", "mma_tf32.cuh",
+            "bulk_copy.cuh"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]
