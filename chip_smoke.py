@@ -5,7 +5,10 @@
 Phases, one line each; any failure exits non-zero:
   1. the card: torch's device name and nvidia-smi's name + power limit
   2. build the CUDA kernels from cpupathtrace_tpu_torch/csrc with nvcc,
-     with ptxas's registers, shared memory and spills per kernel instance
+     with ptxas's registers, shared memory and spills per kernel instance,
+     and the resident blocks per SM of every instance of K1's binned form
+     and K2 (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the walk's
+     rings alone)
   3. kernel vs its plain-torch twin on the card, same rays and seed
   4. golden parity: the port's render_chunk at 32x32 against the C++
      reference images in tests/golden, with tests/test_parity.py's checks
@@ -25,10 +28,14 @@ Phases, one line each; any failure exits non-zero:
      rays at max_depth 40, and the kernel's sorted and unsorted runs
   9. the binned main path at full size: render() of renderSceneDragonBox
      (128x128 @ 16 spp, max_depth 40) with K2's launch count, frame time
-     and Mrays/s, K2 and sort+gather milliseconds per bounce (and the
-     driver without the sort, for the host sync per bounce), one profiled
-     frame, and K2's time beside the twin's on the frame's 262,144 rays
-     at depth 1
+     and Mrays/s, K2 and sort+gather milliseconds per bounce on the frame's
+     own sorted state and K2's sum over the frame (and the driver without
+     the sort, for the host sync per bounce), the frame's bound from its
+     counters, K2's ring depth, block size, registers, blocks per SM and
+     lane utilisation from its warp steps, the frame through the twin's
+     driver (time, spectra at the K1 bounds), one profiled frame, and, as
+     a single-kernel reading, one bounce on a state the main path does not
+     launch (depth 1 of the camera rays, unsorted) against the twin
  10. the demo scene with its 20k-triangle dragon (binned), as phase 6
  11. the dense query K5 against its plain version on 262,144 rays (the box
      frame's camera rays and one bounce's worth of random rays in the box):
@@ -72,14 +79,18 @@ Phases, one line each; any failure exits non-zero:
  20. K1's binned while-loop form against its twin on the first 16,384 of
      the dragon frame's camera rays: spectrum and collected bit-equal, the
      traversal counters (debug_visits) equal column by column; then the
-     whole 262,144-ray chunk: the kernel timed, counted and held against
-     the twin; all of it again on the dragon rebuilt (lean) with
-     PTX_KRN_CLUSTER=128, its K1 ms beside the ms at 56 rows
+     whole 262,144-ray chunk: no ray left unwritten (NaN), the kernel
+     timed, counted and held against the twin, its ring depth, block size,
+     registers, blocks per SM and lane utilisation from its warp steps;
+     all of it again on the dragon rebuilt (lean) with PTX_KRN_CLUSTER=128,
+     its K1 ms beside the ms at 56 rows
  21. the 200k dragon (128x128 @ 16 spp, max_depth 40) through render()
      with PTX_SORTED_WAVEFRONT=0 (K1's binned form) beside the default
      sorted driver, in turns: frame ms, Mrays/s, launches and host reads
      of each, the means within 4 standard errors, one profiled K1 frame;
-     K2's bound over one counted sorted frame
+     K2's bound over one counted sorted frame; the two walks side by side
+     (K2's per-bounce and frame ms, K1's binned ms, each with its ring,
+     block, registers, occupancy and lane utilisation)
  22. the box (128x128 @ 256 spp) through the sorted driver
      (PTX_SORTED_WAVEFRONT=1, K2's dense form): frame ms, its mean within 4
      standard errors of K1's frame
@@ -105,7 +116,10 @@ last, the result line. Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
 tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
-With --out, the demo PNGs and every measured figure are also written there.
+With --out, the demo PNGs and every measured figure are also written there
+(chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
+the same machine, phases 9, 20 and 21 also print its K2 per-bounce times
+and sum, and its K1 binned ms.
 """
 from __future__ import annotations
 
@@ -615,7 +629,12 @@ def phase_bounce_vs_twin(sw, mk, scenes, scene, RenderOptions):
     return out
 
 
-def phase_dragon_main_path(pt, sw, mk, scenes, scene):
+# The walk's figures phase 21 repeats for K1's binned form and K2.
+WALK_KEYS = ("ring_depth", "threads", "registers", "spill_stores", "blocks_per_sm",
+             "warps_per_sm", "lane_utilisation")
+
+
+def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
     opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
                             max_depth=MAX_DEPTH)
     camera = scenes.bench_camera(device="cuda")
@@ -645,7 +664,8 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     n_paths = DRAGON_W * DRAGON_H * DRAGON_SPP
 
     # The sorted driver alone on the frame's 262,144 camera rays: its wall
-    # time, and K2 / sort+gather per bounce by CUDA events.
+    # time, and K2 / sort+gather per bounce by CUDA events: K2's eight
+    # launches on the frame's own (sorted) state.
     rays, st = camera_state(sw, camera, opts, DRAGON_SPP, 3)
     tables = mk.pack_tables(scene)
     sw.trace_megakernel_sorted(scene, rays, opts, 3, tables)
@@ -655,7 +675,7 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     sync()
     driver_s = time.perf_counter() - t0
     timing: dict = {}
-    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, timing=timing)
+    spec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, timing=timing)
     events_ms = sum(timing["bounce_ms"]) + sum(timing["sort_ms"])
     # The same without the sort: its event time after each K2 is the one
     # host sync of the bounce (the alive count) with its two small kernels.
@@ -668,9 +688,27 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, sort=False, timing=timing_u)
     unsorted.update(bounce_ms=timing_u["bounce_ms"], sync_ms=timing_u["sort_ms"])
 
-    # K2 beside its twin on the frame's state after its first bounce: the
-    # input of depth 1, where the bounces of the frame cost most (the first
-    # bounce only meets the walls and the front of the dragon).
+    # The frame's bound from its counters (the counting form on the same
+    # rays and seed, which visits the same states), its warp steps, and the
+    # frame through the twin's driver: its time, and the spectra held at the
+    # K1 bounds.
+    steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
+    _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, debug_visits=True,
+                                           warp_steps=steps)
+    frame = frame_bound(vis, n_paths, scene)
+    frame.update(walk_figures(kt, scene, tables, vis, steps, "bounce_binned_kernel"))
+    sync()
+    t0 = time.perf_counter()
+    tspec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, reference=True)
+    sync()
+    frame_plain_ms = (time.perf_counter() - t0) * 1e3
+    frame_agree = compare(spec, tspec)
+    check_agreement("K2's frame against the twin's driver", frame_agree)
+    k2_frame_ms = sum(timing["bounce_ms"])
+
+    # A single-kernel reading and the per-plane check, on a state the main
+    # path does not launch: depth 1 of the frame's camera rays after bounce
+    # 0 in place, unsorted (the bounce that costs most).
     sw.bounce(scene, st, torch.tensor([3, 0], dtype=torch.int32, device="cuda"), opts, tables)
     sd = torch.tensor([3, 1], dtype=torch.int32, device="cuda")
     k = st.clone()
@@ -686,10 +724,10 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     need(agree["min_plane_equal"] >= PLANE_FRAC, f"K2 at the main path's shape: {agree}")
     copies = iter([st.clone() for _ in range(5)])
     kernel_ms = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables), 5)
-    profile = profile_frame(pt, scene, camera, opts, kernel="bounce_kernel")
+    profile = profile_frame(pt, scene, camera, opts, kernel="bounce_binned_kernel")
     line("9 profile", **profile)
-    # The bound of the timed bounce from its counters (the counting form on
-    # the same state), held against the twin's counts.
+    # That bounce's bound from its counters (the counting form on the same
+    # state), held against the twin's counts.
     live = agree["alive_in"]
     n_blocks = -(-n_paths // 1024)
     vk = torch.zeros((n_blocks, sw.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
@@ -699,15 +737,66 @@ def phase_dragon_main_path(pt, sw, mk, scenes, scene):
     need(torch.equal(vk, vt), "K2's counters differ from its twin's")
     need(ray_bounces(vk) == live, f"K2 counted {ray_bounces(vk)} nearest queries, {live} live")
     flops, counts = traversal_flops(vk)
-    k2_bound = dict(counts=counts, **bound(live * 144 + (n_paths - live) * 4,
-                                           flops + live * vertex_flops(scene)))
+    depth1 = dict(what="one bounce on a state the main path does not launch (depth 1 of the "
+                       "camera rays after bounce 0 in place, unsorted)",
+                  kernel_ms=kernel_ms, twin_ms=plain_ms, agreement=agree, counts=counts,
+                  **bound(live * 144 + (n_paths - live) * 4, flops + live * vertex_flops(scene)))
     return dict(launches=launches, twin_calls=twin_calls, image_mean=mean, frame_s=frames,
                 frame_median_s=frame_s, mrays_per_s=n_paths / frame_s / 1e6, paths=n_paths,
                 bounces=len(timing["bounce_ms"]), bounce_ms=timing["bounce_ms"],
+                k2_frame_ms=k2_frame_ms, k2_frame_plain_ms=frame_plain_ms,
+                k2_frame_gap_ms=k2_frame_ms - frame["bound_ms"],
+                k2_gap_per_launch_ms=(k2_frame_ms - frame["bound_ms"]) / len(timing["bounce_ms"]),
+                frame=frame, frame_agreement=frame_agree,
                 sort_gather_ms=timing["sort_ms"], driver_wall_ms=driver_s * 1e3,
-                driver_events_ms=events_ms, unsorted=unsorted,
-                kernel_ms=kernel_ms, twin_ms=plain_ms, agreement=agree,
-                busy_share=profile["busy_share"], **k2_bound)
+                driver_events_ms=events_ms, unsorted=unsorted, depth1=depth1,
+                max_abs_err=max(agree["max_abs_err"], frame_agree["max_abs_err"]),
+                busy_share=profile["busy_share"])
+
+
+def frame_bound(vis, n_paths, scene):
+    """The bound of a sorted frame's K2 launches from its counters
+    [max_depth, n_blocks, 9]: per bounce the state traffic of its live rays
+    (144 bytes; 4 for a dead one) and the walk's and estimator's work."""
+    entering = [a for a in (ray_bounces(v) for v in vis) if a > 0]
+    flops, counts = traversal_flops(vis)
+    return dict(bounces=len(entering), ray_bounces=sum(entering), counts=counts,
+                **bound(sum(a * 144 + (n_paths - a) * 4 for a in entering),
+                        flops + sum(entering) * vertex_flops(scene)))
+
+
+def walk_figures(kt, scene, tables, vis, steps, kernel):
+    """The walk's shape and resources for K1's binned form (`kernel`
+    "megakernel_binned") or K2 ("bounce_binned_kernel"): ring depth,
+    threads a block, the plain instance's registers and spills (ptxas),
+    its resident blocks and warps a SM at the scene's shared memory, and
+    the lane utilisation of the counted run's warp steps (within their
+    bounds, kernel_traverse.warp_utilisation)."""
+    from cpupathtrace_tpu_torch import _build
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    k1 = kernel == "megakernel_binned"
+    layout = kt.walk_layout("megakernel" if k1 else "bounce")
+    smem = mk.block_smem_bytes(scene, tables, layout)
+    cull = int(scene.krn_big_cull_mode)
+    blocks, threads = (mk.binned_occupancy(smem, cull=cull) if k1
+                       else sw.bounce_occupancy(smem, cull=cull))
+    try:
+        util = kt.warp_utilisation(vis, steps)
+    except ValueError as e:
+        raise SmokeFailure(f"{kernel}: warp steps out of their bounds: {e}")
+    need(util["row_steps"] > 0 and util["slab_steps"] > 0, f"{kernel}: no warp steps counted")
+    # ptxas reports only what this process built (phase 2 builds cold).
+    inst = ptxas_instances(_build.ptxas_report.get("megakernel" if k1 else "bounce", ""))
+    plain = f"{kernel}<{cull}, 0>" if k1 else f"{kernel}<{cull}, 0, 0>"
+    regs = inst.get(plain, {})
+    need(threads == layout.threads, f"{kernel}: {threads} threads a block, laid out for "
+                                    f"{layout.threads}")
+    return dict(ring_depth=layout.depth, threads=threads, smem_bytes=smem,
+                blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32, instance=plain,
+                registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
+                lane_utilisation=util)
 
 
 def twin_ray_bounces(sw, scene, camera, opts, n_rays):
@@ -1374,6 +1463,8 @@ def phase_k1_binned(mk, sw, scenes, dragon, RenderOptions):
 
 
 def k1_binned_run(mk, dragon, rays, opts):
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
     """K1's binned form against its twin on `rays`: the first
     K1B_CHECK_RAYS bit-equal with equal counters; the whole chunk timed,
     counted and held against the twin at the K1 bounds."""
@@ -1391,11 +1482,17 @@ def k1_binned_run(mk, dragon, rays, opts):
                counters=kv.sum(0).tolist(), max_abs_err=max_err(k, t))
     need(out["spectrum_bit_equal"] == 1.0 and out["collected_equal"] and out["counters_equal"],
          f"K1's binned form disagrees with its twin: {out}")
-    # The whole chunk: the main path's shape.
+    # The whole chunk: the main path's shape. The binned form's output
+    # starts as NaN, so a ray its refilling warps missed shows.
     spec, _ = mk.trace_megakernel(dragon, rays, opts, 21, tables)
-    out["ms"] = cuda_ms(lambda: mk.trace_megakernel(dragon, rays, opts, 21, tables), 3)
-    _, _, vis = mk.trace_megakernel(dragon, rays, opts, 21, tables, debug_visits=True)
     sync()
+    need(not bool(torch.isnan(spec).any()), "K1's binned form left rays unwritten (NaN)")
+    out["ms"] = cuda_ms(lambda: mk.trace_megakernel(dragon, rays, opts, 21, tables), 3)
+    steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
+    _, _, vis = mk.trace_megakernel(dragon, rays, opts, 21, tables, debug_visits=True,
+                                    warp_steps=steps)
+    sync()
+    out["walk"] = walk_figures(kt, dragon, tables, vis, steps, "megakernel_binned")
     t0 = time.perf_counter()
     tspec, _ = mk.trace_megakernel_reference(dragon, rays, opts, 21, tables)
     sync()
@@ -1709,9 +1806,49 @@ def phase_dot_formulations(df, best_ms):
     return out
 
 
-# A kernel instance in ptxas's report: its name and template arguments,
-# read from the mangled entry name (`...18smem_tables_kernelILi1EE...`).
-PTXAS_ENTRY = re.compile(r"entry function '\w*?\d+([a-z][a-z_]*kernel)(?:I((?:L[a-z]n?\d+E)+)E)?")
+# A kernel entry in ptxas's report: its mangled name after _Z or _ZN.
+PTXAS_ENTRY = re.compile(r"entry function '_ZN?(\w+)'")
+
+
+def instance_name(mangled):
+    """`megakernel_binned<-1, 0>` from the mangled entry name (after _ZN):
+    the last length-prefixed name of the nested name, then its template
+    arguments."""
+    i, names = 0, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    args = []
+    if mangled[i:i + 1] == "I":  # literal template arguments: L <type> <value> E
+        i += 1
+        while mangled[i:i + 1] == "L":
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+    name = names[-1] if names else mangled
+    return name + (f"<{', '.join(a.replace('n', '-') for a in args)}>" if args else "")
+
+
+def ptxas_instances(text):
+    """Per kernel instance of a library's ptxas report: its registers and
+    spill stores."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = PTXAS_ENTRY.search(ln)
+        if m:
+            cur = out.setdefault(instance_name(m.group(1)), {})
+        elif cur is not None:
+            r = re.search(r"Used (\d+) registers", ln)
+            if r:
+                cur["registers"] = int(r.group(1))
+            sp = re.search(r"(\d+) bytes spill stores", ln)
+            if sp:
+                cur["spill_stores"] = int(sp.group(1))
+    return out
 
 
 def ptxas_summary(text):
@@ -1722,17 +1859,50 @@ def ptxas_summary(text):
     for ln in text.splitlines():
         m = PTXAS_ENTRY.search(ln)
         if m:
-            args = re.findall(r"L[a-z](n?\d+)E", m.group(2) or "")
-            out.append(m.group(1) + (f"<{', '.join(a.replace('n', '-') for a in args)}>"
-                                     if args else ""))
+            out.append(instance_name(m.group(1)))
         elif "Used" in ln or "spill" in ln:
             out.append(ln.replace("ptxas info    :", "").strip())
     return " | ".join(out)
 
 
+def walk_occupancy(mk, sw, kt):
+    """Resident blocks per SM of every instance of K1's binned form and of
+    K2 at the walk's rings alone (binned; the tables of a scene add a few
+    KB) or no shared memory (K2's dense instances)."""
+    layout = kt.walk_layout("megakernel")
+    need(kt.walk_layout("bounce") == layout, "K1 and K2 were built with different walk layouts")
+    ring = kt.kernel_smem_bytes(0, 0, layout)
+    out = dict(ring_depth=layout.depth, walk_threads=layout.threads, ring_smem_bytes=ring)
+    for cull in (-1, 0, 1):
+        for count in (0, 1):
+            out[f"megakernel_binned<{cull}, {count}>"] = mk.binned_occupancy(ring, count, cull)[0]
+        for rec, count in ((0, 0), (1, 0), (0, 1)):
+            out[f"bounce_binned_kernel<{cull}, {rec}, {count}>"] = sw.bounce_occupancy(
+                ring, True, cull, rec, count)[0]
+        for rec in (0, 1):
+            out[f"bounce_kernel<{cull}, {rec}>"] = sw.bounce_occupancy(0, False, cull, rec)[0]
+    return out
+
+
+def parent_figures(parent):
+    """The figures of phases 9, 20 and 21 in a parent's chip_smoke.json
+    (its --out), run on the same machine, or None."""
+    if parent is None:
+        return None
+    dm, k1, fr = parent["dragon_main_path"], parent["k1_binned"], parent["dragon_k1_frame"]
+    depth1 = dm.get("depth1", dm)  # before the frame's K2 figures: at the top
+    return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
+                k2_frame_ms=sum(dm["bounce_ms"]), k2_depth1_unsorted_ms=depth1["kernel_ms"],
+                k1_binned_ms=k1["ms"], k1_binned_ms_cluster128=k1["cluster128"]["ms"],
+                sorted_frame_median_s=fr["sorted"]["frame_median_s"],
+                k1_frame_median_s=fr["k1"]["frame_median_s"])
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
+    ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
+                                     "the same machine: phases 9, 20 and 21 print its figures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1777,8 +1947,13 @@ def main():
     ptxas = {name: ptxas_summary(_build.ptxas_report.get(name, ""))
              for name in KERNELS if name != "bvh_build"}
     report["build"] = dict(seconds=time.perf_counter() - t0,
-                           compiler_seconds=dict(_build.build_seconds), ptxas=ptxas)
+                           compiler_seconds=dict(_build.build_seconds), ptxas=ptxas,
+                           walk_occupancy=walk_occupancy(mk, sw, kt))
     line("2 build", **report["build"])
+    parent = None
+    if args.parent:
+        with open(args.parent) as f:
+            parent = parent_figures(json.load(f))
 
     report["kernel_vs_twin"] = phase_kernel_vs_twin(mk, scenes, Rays, pt.RenderOptions)
     line("3 kernel vs twin", **report["kernel_vs_twin"])
@@ -1795,7 +1970,10 @@ def main():
     line("7 cluster query vs plain", **report["cluster_query"])
     report["bounce_vs_twin"] = phase_bounce_vs_twin(sw, mk, scenes, dragon, pt.RenderOptions)
     line("8 bounce vs twin", **report["bounce_vs_twin"])
-    report["dragon_main_path"] = phase_dragon_main_path(pt, sw, mk, scenes, dragon)
+    report["dragon_main_path"] = phase_dragon_main_path(pt, sw, mk, kt, scenes, dragon)
+    if parent:
+        report["dragon_main_path"]["parent"] = {k: parent[k] for k in (
+            "device", "k2_bounce_ms", "k2_frame_ms", "k2_depth1_unsorted_ms")}
     line("9 dragon main path", **report["dragon_main_path"])
     sw.bounce.launches = 0
     sw.bounce_reference.calls = 0
@@ -1830,8 +2008,21 @@ def main():
                                               pt.RenderOptions)
     line("19 dragon gradients vs FD", **report["dragon_grad"])
     report["k1_binned"] = phase_k1_binned(mk, sw, scenes, dragon, pt.RenderOptions)
+    if parent:
+        report["k1_binned"]["parent"] = {k: parent[k] for k in (
+            "device", "k1_binned_ms", "k1_binned_ms_cluster128")}
     line("20 K1 binned form vs twin", **report["k1_binned"])
     report["dragon_k1_frame"] = phase_dragon_k1_frame(pt, sw, mk, scenes, dragon)
+    # The two redesigned walks side by side: K2 on the sorted frame's own
+    # state (phase 9), K1's binned kernel (phase 20).
+    dm, k1w = report["dragon_main_path"], report["k1_binned"]
+    report["dragon_k1_frame"]["walks"] = dict(
+        k2=dict(bounce_ms=dm["bounce_ms"], frame_ms=dm["k2_frame_ms"],
+                frame_bound_ms=dm["frame"]["bound_ms"], launches=dm["launches"],
+                **{k: dm["frame"][k] for k in WALK_KEYS}),
+        k1_binned=dict(ms=k1w["ms"], bound_ms=k1w["bound_ms"],
+                       **{k: k1w["walk"][k] for k in WALK_KEYS}),
+        parent=parent)
     line("21 dragon frame: K1 binned vs sorted driver", **report["dragon_k1_frame"])
     report["box_sorted"] = phase_box_sorted(pt, sw, mk, scenes)
     line("22 box through the sorted driver", **report["box_sorted"])
@@ -1840,6 +2031,7 @@ def main():
 
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
+    depth1 = dragon_path["depth1"]
     query = report["cluster_query"]
     k5 = report["dense_query"]
     grad = report["box_grad"]
@@ -1870,10 +2062,13 @@ def main():
         "replaces": "cpupathtrace_tpu/integrator/sorted_wavefront.py:252",
         "inlines": k3,
         "launches": dragon_path["launches"],
-        "max_abs_err": dragon_path["agreement"]["max_abs_err"],
-        "ms": dragon_path["kernel_ms"], "plain_ms": dragon_path["twin_ms"],
-        "bound_ms": dragon_path["bound_ms"], "bound_by": dragon_path["bound_by"],
+        "max_abs_err": dragon_path["max_abs_err"],
+        "ms": depth1["kernel_ms"], "plain_ms": depth1["twin_ms"],
+        "bound_ms": depth1["bound_ms"], "bound_by": depth1["bound_by"],
+        "per": "one launch: depth 1 of the frame's camera rays, unsorted",
         "library_ms": None,
+        "frame_ms": dragon_path["k2_frame_ms"], "frame_bounce_ms": dragon_path["bounce_ms"],
+        "frame_bound_ms": dragon_path["frame"]["bound_ms"],
     }, {
         "name": "bounce_records", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",

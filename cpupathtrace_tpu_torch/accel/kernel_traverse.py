@@ -45,6 +45,7 @@ lane needed it), so they do not compare with the JAX package's.
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -586,6 +587,96 @@ GEO_VISIT_COLS = 9
 NEAR_COLS = [0, 1, 4, 5]
 SHADOW_COLS = [2, 3, 6, 7]
 QUERY_COL = 8
+
+
+# The walk's warp steps (csrc/binned_geo.cuh kWarpStepCols), counted by
+# K1's binned form and K2 beside their counters: the slab-test steps and the
+# filled-row steps the warps execute (once per step, by the lowest active
+# lane), summed over a launch. They depend on how the card schedules lanes,
+# so no plain version reproduces them.
+WARP_STEP_COLS = 2
+WARP_LANES = 32
+
+
+def warp_utilisation(visits, steps):
+    """Lane utilisation of the walks of K1 / K2 counters `visits` [..., 9]
+    against their warp steps `steps` [2] (slab-test steps, filled-row
+    steps): work / (32 x steps) for the slab tests and the filled rows
+    tested. Raises ValueError unless steps <= work <= 32 x steps for each,
+    which also makes steps > 0 wherever work > 0."""
+    v = torch.as_tensor(visits).reshape(-1, GEO_VISIT_COLS).long().sum(0).tolist()
+    st = torch.as_tensor(steps).reshape(-1).long().tolist()
+    if len(st) != WARP_STEP_COLS:
+        raise ValueError(f"warp steps: need {WARP_STEP_COLS} columns, got {len(st)}")
+    work = dict(slab=v[NEAR_COLS[2]] + v[SHADOW_COLS[2]], row=v[NEAR_COLS[3]] + v[SHADOW_COLS[3]])
+    out = {}
+    for (name, w), n in zip(work.items(), st):
+        if not n <= w <= WARP_LANES * n:
+            raise ValueError(f"{name} steps {n} against {w} tests: need steps <= tests <= "
+                             f"{WARP_LANES} x steps")
+        out.update({f"{name}_tests": w, f"{name}_steps": n,
+                    f"{name}_lane_utilisation": w / (WARP_LANES * n) if n else None})
+    return out
+
+
+class WalkLayout(NamedTuple):
+    """The layout of a binned K1 / K2 block's dynamic shared memory as the
+    kernels are built (csrc/binned_geo.cuh ptx_walk_layout): threads a
+    block, ring slots a thread, bytes a slot, and the most tier floats
+    staged (larger tiers are read from global memory)."""
+
+    threads: int
+    depth: int
+    slot_bytes: int
+    tier_floats: int
+
+
+# The dynamic shared memory a Hopper block can use (227 KB).
+SMEM_LIMIT = 232448
+
+_LAYOUTS: dict = {}
+
+
+def walk_layout(library):
+    """The WalkLayout that csrc/<library>.cu ("megakernel" or "bounce") was
+    built with, read from the library (built at first use)."""
+    if library not in _LAYOUTS:
+        fn = _build.load(library).ptx_walk_layout
+        fn.argtypes = [ctypes.POINTER(ctypes.c_int)] * 4
+        fn.restype = ctypes.c_int
+        out = [ctypes.c_int(0) for _ in range(4)]
+        fn(*(ctypes.byref(v) for v in out))
+        _LAYOUTS[library] = WalkLayout(*(v.value for v in out))
+    return _LAYOUTS[library]
+
+
+def walk_smem_bytes(layout):
+    """Bytes of the rings of a block: `layout.depth` slots of
+    `layout.slot_bytes` for each of its `layout.threads` walks."""
+    return layout.depth * layout.slot_bytes * layout.threads
+
+
+def tier_floats(n_pages, layout):
+    """Shared floats of the staged hyper and supercluster boxes (0 when
+    they exceed `layout.tier_floats` and are read from global memory)."""
+    n = n_pages * (BND_COLS + GROUP2 * BND_COLS)
+    return n if n <= layout.tier_floats else 0
+
+
+def kernel_smem_bytes(table_floats, n_pages=None, layout=None):
+    """Dynamic shared memory of a K1 / K2 block: `table_floats` floats of
+    staged tables, and for a binned scene (`n_pages` supercluster pages, the
+    kernels' WalkLayout `layout`) the staged tiers, then the rings at a
+    16-byte boundary. Raises ValueError above SMEM_LIMIT: the launch would
+    be refused, and no smaller form is taken instead."""
+    if n_pages is None:
+        total = table_floats * 4
+    else:
+        floats = table_floats + tier_floats(n_pages, layout)
+        total = -(-floats // 4) * 16 + walk_smem_bytes(layout)
+    if total > SMEM_LIMIT:
+        raise ValueError(f"the block needs {total} bytes of shared memory: above {SMEM_LIMIT}")
+    return total
 
 
 def block_sums(per_ray, block=VISIT_BLOCK):

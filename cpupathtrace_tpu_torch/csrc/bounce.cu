@@ -26,7 +26,8 @@
 // Counters (template flag kCount, binned scenes without records; the JAX
 // package's debug_visits): each thread adds its nearest and shadow traversal
 // counts to its 1024-ray block's row of `visits` [n_blocks, 9]
-// (binned_geo.cuh kGeoVisitCols).
+// (binned_geo.cuh kGeoVisitCols), and its warp steps to `steps` [2] int64
+// (kWarpStepCols).
 //
 // Record form (template flag kRec; `_make_megakernel(diff_records=True)`):
 // n_drec = 3 + n_lights + 2 * em_k more [n] planes, written by the body's
@@ -36,11 +37,16 @@
 // TPU.
 //
 // What bounds it on this card: the cluster traversal (see
-// cluster_traverse.cuh): dependent global loads and divergent per-thread
-// descents, plus ~152 bytes of state traffic per live ray per bounce. The
-// design keeps every small table in shared memory, walks the clusters per
-// thread with per-ray pruning, and relies on the driver's per-bounce sort
-// for coherent warps and for packing live rays at the head.
+// cluster_traverse.cuh): the latency of its row and box loads and divergent
+// per-thread descents, plus ~144 bytes of state traffic per live ray per
+// bounce. The design keeps every small table in shared memory, walks the
+// clusters per thread with per-ray pruning, streams each thread's rows and
+// cluster boxes through its cp.async ring in shared memory (kRingDepth - 1
+// in flight while one is tested), in blocks of kWalkThreads, 20 warps an
+// SM (cluster_traverse.cuh kWalkMinBlocks; capped to 24 warps the walk
+// spills and ran slower). It relies on the driver's per-bounce sort for
+// coherent warps and for packing live rays at the head. Dense instances
+// keep 256 threads.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -56,9 +62,6 @@ namespace ptx {
 namespace {
 
 constexpr int kThreads = 256;
-// Shared-memory floats the hyper + supercluster boxes may take (64 KB);
-// larger tier tables are read from global memory.
-constexpr int kTierFloats = 16384;
 
 struct Params {
   float* state;  // [18, n_rays]
@@ -82,10 +85,11 @@ struct Params {
   ClusterTables cl;
   int tier_floats;  // shared floats for the staged tiers (0: read from global)
   int* visits;      // [ceil(n_rays / 1024), 9] traversal counters, or null
+  unsigned long long* steps;  // [kWarpStepCols] warp steps (with visits), or null
   float eps;
 };
 
-size_t smem_floats(const Params& p) {
+__device__ __forceinline__ size_t smem_floats(const Params& p) {
   return static_cast<size_t>(p.rec_rows) * kRecCols + static_cast<size_t>(p.n_tri) * kTriCols +
          static_cast<size_t>(p.n_sph) * kSphCols +
          static_cast<size_t>(p.n_mat) * kMatCols + static_cast<size_t>(p.n_lights) * kLgtCols +
@@ -93,15 +97,20 @@ size_t smem_floats(const Params& p) {
 }
 
 template <bool kBinned, int CULL, bool kCount, class Rec>
-__device__ __forceinline__ bool run_body(const Params& p, const float* s_rec, const float* s_tri,
+__device__ __forceinline__ bool run_body(const Params& p, float* smem, const float* s_rec,
+                                         const float* s_tri,
                                          const float* s_sph, const ClusterTables& cl,
                                          const Shading& sh, PathState& s, const Rec& rec,
                                          int64_t i) {
   if constexpr (kBinned) {
-    using Count = std::conditional_t<kCount, Visits, NoVisits>;
-    const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl};
+    using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
+    const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl,
+                                     ring_base(smem, smem_floats(p))};
     const bool alive = bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
-    if constexpr (kCount) add_geo_visits(p.visits, i, geo);
+    if constexpr (kCount) {
+      add_geo_visits(p.visits, i, geo);
+      add_warp_steps(p.steps, geo);
+    }
     return alive;
   } else {
     const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
@@ -109,10 +118,11 @@ __device__ __forceinline__ bool run_body(const Params& p, const float* s_rec, co
   }
 }
 
-// kBinned: the geometry; CULL: the cull class of the pair record; kRec: the
-// record form; kCount: the traversal counters (binned, plain form only).
+// One thread's bounce. kBinned: the geometry; CULL: the cull class of the
+// pair record; kRec: the record form; kCount: the traversal counters
+// (binned, plain form only).
 template <bool kBinned, int CULL, bool kRec, bool kCount>
-__global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
+__device__ __forceinline__ void bounce_thread(const Params& p) {
   extern __shared__ float smem[];
   float* s_rec = smem;
   float* s_tri = s_rec + p.rec_rows * kRecCols;
@@ -154,10 +164,11 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
 
   bool alive;
   if constexpr (kRec) {
-    alive = run_body<kBinned, CULL, kCount>(p, s_rec, s_tri, s_sph, cl, sh, s,
+    alive = run_body<kBinned, CULL, kCount>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
                                             Records{p.drec + i, n, p.n_lights}, i);
   } else {
-    alive = run_body<kBinned, CULL, kCount>(p, s_rec, s_tri, s_sph, cl, sh, s, NoRecords{}, i);
+    alive = run_body<kBinned, CULL, kCount>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
+                                            NoRecords{}, i);
   }
 
   st[0] = __uint_as_float(s.rng);
@@ -180,17 +191,54 @@ __global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
   st[17 * n] = alive ? 1.0f : 0.0f;
 }
 
+// The dense instances, 256 threads a block.
+template <int CULL, bool kRec>
+__global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
+  bounce_thread<false, CULL, kRec, false>(p);
+}
+
+// The binned instances: blocks of kWalkThreads, kWalkMinBlocks an SM at least.
+template <int CULL, bool kRec, bool kCount>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks) bounce_binned_kernel(const Params p) {
+  bounce_thread<true, CULL, kRec, kCount>(p);
+}
+
+template <bool kBinned, int CULL, bool kRec, bool kCount>
+constexpr auto kernel_of() {
+  if constexpr (kBinned)
+    return bounce_binned_kernel<CULL, kRec, kCount>;
+  else
+    return bounce_kernel<CULL, kRec>;
+}
+
 template <bool kBinned, int CULL, bool kRec, bool kCount>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
+  const auto kernel = kernel_of<kBinned, CULL, kRec, kCount>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        bounce_kernel<kBinned, CULL, kRec, kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  const int blocks = (p.n_rays + kThreads - 1) / kThreads;
-  bounce_kernel<kBinned, CULL, kRec, kCount><<<blocks, kThreads, smem, stream>>>(p);
+  constexpr int threads = kBinned ? kWalkThreads : kThreads;
+  const int blocks = (p.n_rays + threads - 1) / threads;
+  kernel<<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+// Resident blocks per SM of an instance at `smem` bytes of dynamic shared
+// memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
+template <bool kBinned, int CULL, bool kRec, bool kCount>
+cudaError_t occupancy(size_t smem, int* blocks) {
+  const auto kernel = kernel_of<kBinned, CULL, kRec, kCount>();
+  // Only ever raised past the 48 KB default, as launch does: a query must
+  // not lower the limit a later launch relies on.
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+    if (err != cudaSuccess) return err;
+  }
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
+                                                       kBinned ? kWalkThreads : kThreads, smem);
 }
 
 template <bool kBinned, bool kRec, bool kCount = false>
@@ -198,6 +246,13 @@ cudaError_t launch_cull(const Params& p, int cull, size_t smem, cudaStream_t str
   if (cull == 0) return launch<kBinned, 0, kRec, kCount>(p, smem, stream);
   if (cull == 1) return launch<kBinned, 1, kRec, kCount>(p, smem, stream);
   return launch<kBinned, -1, kRec, kCount>(p, smem, stream);
+}
+
+template <bool kBinned, bool kRec, bool kCount = false>
+cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
+  if (cull == 0) return occupancy<kBinned, 0, kRec, kCount>(smem, blocks);
+  if (cull == 1) return occupancy<kBinned, 1, kRec, kCount>(smem, blocks);
+  return occupancy<kBinned, -1, kRec, kCount>(smem, blocks);
 }
 
 }  // namespace
@@ -208,7 +263,10 @@ cudaError_t launch_cull(const Params& p, int cull, size_t smem, cudaStream_t str
 // binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else
 // the triangle table), the traversal tables unused. drec: the record planes
 // or null. visits: the counters [ceil(n_rays / 1024), 9] int32, zeroed by the
-// caller, or null (binned scenes without records only).
+// caller, or null (binned scenes without records only); steps: the warp
+// steps [2] int64, zeroed by the caller, with visits. smem_bytes: the
+// block's dynamic shared memory, sized by the wrapper (kernel_traverse.py
+// kernel_smem_bytes, from ptx_walk_layout).
 extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth, float* drec,
                                  const float* tri, int n_tri, const float* sph, int n_sph,
                                  const float* mat, int n_mat, const float* lgt, int n_lights,
@@ -216,7 +274,8 @@ extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth
                                  int rec_rows, int rec_stride, int big_cull, int binned,
                                  const float* krec, int n_rec, int krec_rows, const float* clb,
                                  const float* sup, int n_pages, const float* hyp, int hyp_rows,
-                                 const float* root, int cl_cull, int* visits, float epsilon,
+                                 const float* root, int cl_cull, int* visits,
+                                 unsigned long long* steps, float epsilon, long long smem_bytes,
                                  void* stream) {
   using namespace ptx;
   (void)hyp_rows;
@@ -224,10 +283,10 @@ extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth
   const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
   const Params p{state, n_rays, seed_depth, drec, tri, n_tri, sph, n_sph, mat, n_mat, lgt,
                  n_lights, em, n_em, em_k, rec, rec_rows, rec_stride, cl,
-                 tiers <= kTierFloats ? tiers : 0, visits, epsilon};
-  const size_t smem = smem_floats(p) * sizeof(float);
+                 tiers <= kTierFloats ? tiers : 0, visits, steps, epsilon};
+  const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (visits && (!binned || drec)) return static_cast<int>(cudaErrorInvalidValue);
+  if (visits && (!binned || drec || !steps)) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (visits)
     err = launch_cull<true, false, true>(p, big_cull, smem, s);
@@ -237,5 +296,25 @@ extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth
   else
     err = drec ? launch_cull<false, true>(p, big_cull, smem, s)
                : launch_cull<false, false>(p, big_cull, smem, s);
+  return static_cast<int>(err);
+}
+
+// Resident blocks per SM of the instance (binned, cull, rec, count) at
+// `smem_bytes`, and its threads per block.
+extern "C" int ptx_bounce_occupancy(int binned, int cull, int rec, int count,
+                                    long long smem_bytes, int* blocks, int* threads) {
+  using namespace ptx;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  if (count && (!binned || rec)) return static_cast<int>(cudaErrorInvalidValue);
+  *threads = binned ? kWalkThreads : kThreads;
+  cudaError_t err;
+  if (count)
+    err = occupancy_cull<true, false, true>(cull, smem, blocks);
+  else if (binned)
+    err = rec ? occupancy_cull<true, true>(cull, smem, blocks)
+              : occupancy_cull<true, false>(cull, smem, blocks);
+  else
+    err = rec ? occupancy_cull<false, true>(cull, smem, blocks)
+              : occupancy_cull<false, false>(cull, smem, blocks);
   return static_cast<int>(err);
 }

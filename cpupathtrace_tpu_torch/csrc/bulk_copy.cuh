@@ -1,6 +1,8 @@
 // Hopper's asynchronous copies from global into shared memory, completing
 // on one mbarrier (sm_90; PTX ISA "cp.async.bulk", "cp.async",
-// "mbarrier"). Used by the microbenchmark X5 (exp_smem_tables.cu).
+// "mbarrier"). Used by the microbenchmark X5 (exp_smem_tables.cu) and, with
+// commit groups in place of the barrier, by the walk's ring of record rows
+// and cluster boxes (cluster_traverse.cuh, K1's binned form and K2).
 //
 // The barrier's phase completes when every expected arrival has come and
 // its transaction count is back to zero:
@@ -75,6 +77,23 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 __device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(smem_addr(dst)), "l"(src)
                : "memory");
+}
+
+// Per-thread commit groups: `cp_async_commit` closes the thread's copies
+// issued since the last commit into one group (an empty group is allowed);
+// `cp_async_wait<N>` waits until at most the N most recent groups are
+// pending; `cp_async_wait_all` until none is.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;" ::: "memory");
 }
 
 __device__ __forceinline__ void cp_async_arrive_noinc(uint64_t* bar) {

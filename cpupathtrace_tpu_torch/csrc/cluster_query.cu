@@ -18,7 +18,9 @@
 //
 // What bounds it: the traversal (see cluster_traverse.cuh); the query adds
 // 28 bytes of ray in and 8 bytes out per ray. The block stages the hyper and
-// supercluster boxes in shared memory when they fit.
+// supercluster boxes in shared memory when they fit; rows and cluster boxes
+// come from global memory as they are tested (the walk's GlobalRows source,
+// not the ring K1's binned form and K2 use).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -47,14 +49,15 @@ __global__ void __launch_bounds__(kThreads)
               direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]};
   const float lim = t_lim[i];
   std::conditional_t<kCount, Visits, NoVisits> count;
+  GlobalRows rows;
   if (any_hit) {
-    const bool occ = cluster_anyhit(cl, r, lim, count);
+    const bool occ = cluster_anyhit(cl, r, lim, count, rows);
     t_out[i] = occ ? 1.0f : -1.0f;
     p_out[i] = occ ? 0 : -1;
   } else {
     Hit h = no_hit();
     h.t = lim;
-    cluster_nearest<false>(cl, r, h, count);
+    cluster_nearest<false>(cl, r, h, count, rows);
     t_out[i] = h.prim >= 0 ? h.t : -1.0f;
     p_out[i] = h.prim;
   }

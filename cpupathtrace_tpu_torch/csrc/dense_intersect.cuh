@@ -148,9 +148,11 @@ __device__ __forceinline__ bool table_occluded(const float* tri, int n_tri, cons
 
 // Sign-normalised Plucker quantities of one record row (kRecCols floats)
 // against a ray with moment m = o x d. CULL: -1 per-row cull column, 0 no
-// row culls, 1 every row culls.
-template <int CULL>
-__device__ __forceinline__ bool pair_quantities(const float* c, const Ray& r, float mx, float my,
+// row culls, 1 every row culls. `c` is any row with c[i] the i-th column: a
+// pointer, or a view of a row in the walk's shared-memory ring
+// (cluster_traverse.cuh).
+template <int CULL, class C>
+__device__ __forceinline__ bool pair_quantities(const C& c, const Ray& r, float mx, float my,
                                                 float mz, float& sd, float& su, float& sv,
                                                 float& st) {
   const float det = c[0] * r.dx + c[1] * r.dy + c[2] * r.dz;

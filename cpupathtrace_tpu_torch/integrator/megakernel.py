@@ -33,6 +33,14 @@ tested, shadow slab tests, shadow filled rows tested (the walks' work) and
 the nearest queries, one per ray-bounce (accel/kernel_traverse.py
 GEO_VISIT_COLS). The TPU counted per ray block (a block descended when any
 lane needed it), so the numbers do not compare with the JAX package's.
+On the card the counting form also adds the walks' warp steps to
+`warp_steps` ([2] int64: slab-test steps, filled-row steps;
+kernel_traverse.warp_utilisation), which no plain version reproduces.
+
+The binned form launches only the resident blocks, whose warps refill
+their free lanes from a counter (csrc/megakernel.cu); its blocks and K2's
+hold each thread's ring of record rows and cluster boxes in shared memory
+beside the tables, sized by `block_smem_bytes`.
 """
 from __future__ import annotations
 
@@ -49,14 +57,17 @@ from ..accel.kernel_traverse import (
     SHADOW_COLS,
     VISIT_BLOCK,
     WALK_COLS,
+    WARP_STEP_COLS,
     block_sums,
     check_tables,
     check_tensor,
+    kernel_smem_bytes,
     kernel_tables,
     pair_quantities,
     table_args,
     traverse_clusters,
     traverse_clusters_anyhit,
+    walk_layout,
 )
 from ..accel.pair_record import C_MAT, C_N0, C_PRIM, REC_USED_COLS
 from ..ops.intersect import table_nearest
@@ -112,6 +123,31 @@ def megakernel_supported(scene: SceneData) -> bool:
         and scene.n_point_lights <= MAX_LIGHTS
         and scene.n_emissive <= MAX_EM
     )
+
+
+def block_smem_bytes(scene: SceneData, tables, layout=None) -> int:
+    """Dynamic shared memory of a K1 or K2 block on `scene` with its packed
+    `tables` (kernel_traverse.kernel_smem_bytes): the pair record, triangle,
+    sphere, material, light and emitter tables, and for a binned scene the
+    staged tiers and the walks' rings, laid out by the kernel's
+    `layout` (kernel_traverse.walk_layout). Raises ValueError when it
+    exceeds what a block can use."""
+    tri, sph, mat, _, _ = tables
+    rec_rows = scene.krn_big_pair.shape[0] if scene.dense_pair else 0
+    n_tri = 0 if scene.dense_pair else tri.shape[0]
+    floats = (rec_rows * REC_USED_COLS + n_tri * TRI_COLS + sph.shape[0] * SPH_COLS
+              + mat.shape[0] * MAT_COLS + scene.n_point_lights * LGT_COLS
+              + scene.n_emissive * EM_COLS)
+    n_pages = scene.krn_sup_bounds.shape[0] if scene.has_kernel_records else None
+    return kernel_smem_bytes(floats, n_pages, layout)
+
+
+def check_warp_steps(warp_steps, device):
+    """The warp-step output of a counting launch: zeroed by the caller,
+    [2] int64 on the card."""
+    if device.type != "cuda":
+        raise ValueError("warp_steps: the warps' steps are counted on the card only")
+    check_tensor("warp_steps", warp_steps, device, torch.int64, (WARP_STEP_COLS,))
 
 
 def pack_tables(scene: SceneData):
@@ -667,7 +703,8 @@ _ARGTYPES = (
     + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
     + [_P, _I, _I, _I, _I]  # rec, rec_rows, rec_stride, cull_mode; binned
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P]  # traversal tables, cull mode; visits
-    + [_P, _I, ctypes.c_float, _P]  # seed, max_depth, epsilon, stream
+    + [_P, _P]  # warp steps, refill counter
+    + [_P, _I, ctypes.c_float, ctypes.c_longlong, _P]  # seed, max_depth, epsilon, smem, stream
 )
 
 
@@ -680,15 +717,22 @@ def _library():
     return fn
 
 
-def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_visits=False):
+def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_visits=False,
+                     warp_steps=None):
     """Full-path trace of a ray batch: (spectrum [R,4] with alpha =
     collected, collected [R] bool), and with `debug_visits` the traversal
     counters [ceil(R / 1024), 9] int32 (zero for a dense scene). `seed`
     is an int32 Python int or a 1-element tensor (read on the device, so
-    drawing it costs no sync). CPU rays go to the twin; CUDA rays launch
-    csrc/megakernel.cu, its binned form for a scene with kernel records."""
+    drawing it costs no sync). `warp_steps` (binned, with `debug_visits`,
+    on the card): a zeroed [2] int64 tensor the walks' warp steps are added
+    to. CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its
+    binned form for a scene with kernel records."""
     origin, direction = rays.origin, rays.direction
     dev = origin.device
+    if warp_steps is not None:
+        if not debug_visits or not scene.has_kernel_records:
+            raise ValueError("trace_megakernel: warp_steps count binned scenes with debug_visits")
+        check_warp_steps(warp_steps, dev)
     if dev.type == "cpu":
         return trace_megakernel_reference(scene, rays, options, seed, tables, debug_visits)
     if dev.type != "cuda":
@@ -735,10 +779,19 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
     else:
         seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
 
+    smem = block_smem_bytes(scene, tables, walk_layout("megakernel") if binned else None)
     n = origin.shape[0]
-    spectrum = torch.empty((n, 4), dtype=torch.float32, device=dev)
+    # The binned form hands rays out from a counter: its output starts as
+    # NaN, so a ray that no lane traced shows.
+    spectrum = (torch.full((n, 4), float("nan"), device=dev) if binned
+                else torch.empty((n, 4), dtype=torch.float32, device=dev))
     visits = (torch.zeros((-(-n // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32, device=dev)
               if debug_visits else None)
+    count = binned and debug_visits
+    if count and warp_steps is None:
+        warp_steps = torch.zeros(WARP_STEP_COLS, dtype=torch.int64, device=dev)
+    # The binned form's refill counter: the next ray index to hand out.
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev) if binned else None
     # Temporaries made here (seed_t, tables) may be freed before the
     # kernel runs: the caching allocator reuses memory in the order of
     # the current stream, which the launch is on.
@@ -751,8 +804,10 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
                 mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
                 em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
                 rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode), int(binned),
-                *tier_args, visits.data_ptr() if binned and debug_visits else None,
-                seed_t.data_ptr(), int(options.max_depth), float(options.epsilon),
+                *tier_args, visits.data_ptr() if count else None,
+                warp_steps.data_ptr() if count else None,
+                next_ray.data_ptr() if binned else None,
+                seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), smem,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
@@ -763,3 +818,19 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
 
 
 trace_megakernel.launches = 0
+
+
+def binned_occupancy(smem_bytes, count=False, cull=-1):
+    """(resident blocks per SM, threads per block) of K1's binned instance
+    (cull class, counting or not) at `smem_bytes` of dynamic shared memory,
+    by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    fn = _build.load("megakernel").ptx_megakernel_binned_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.restype = ctypes.c_int
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(int(cull), int(bool(count)), int(smem_bytes), ctypes.byref(blocks),
+             ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"megakernel occupancy query failed: cudaError_t {err}")
+    return blocks.value, threads.value

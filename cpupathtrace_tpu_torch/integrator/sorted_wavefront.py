@@ -28,7 +28,8 @@ twin's bounce (integrator/megakernel.py `_bounce`) over the live rays. With
 `records`, both also write the differentiable replay's record planes
 (integrator/diff_megakernel.py); with `visits`, the traversal counters
 (debug_visits: per-ray counts summed per 1024 state positions, see
-integrator/megakernel.py). The alive count is read on the host once per
+integrator/megakernel.py), and on the card with `warp_steps` the walks'
+warp steps. The alive count is read on the host once per
 bounce, for the loop test and the sort threshold together.
 
 Not ported: the TPU's sort glue variants (PTX_SORT_GLUE).
@@ -45,11 +46,13 @@ from ..accel.kernel_traverse import (
     GEO_VISIT_COLS,
     NO_TIERS,
     VISIT_BLOCK,
+    WARP_STEP_COLS,
     block_sums,
     check_tables,
     check_tensor,
     kernel_tables,
     table_args,
+    walk_layout,
 )
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
@@ -61,6 +64,8 @@ from .megakernel import (
     TRI_COLS,
     _bounce,
     _Ctx,
+    block_smem_bytes,
+    check_warp_steps,
     megakernel_supported,
     pack_tables,
 )
@@ -247,7 +252,7 @@ _ARGTYPES = (
     + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
     + [_P, _I, _I, _I, _I]  # pair record, rows, stride, cull mode; binned
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I]  # traversal tables, cull mode
-    + [_P, ctypes.c_float, _P]  # visits, epsilon, stream
+    + [_P, _P, ctypes.c_float, ctypes.c_longlong, _P]  # visits, steps, epsilon, smem, stream
 )
 
 
@@ -261,18 +266,24 @@ def _bounce_fn():
 
 
 def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, options,
-           tables=None, ktables=None, records=None, visits=None) -> None:
+           tables=None, ktables=None, records=None, visits=None, warp_steps=None) -> None:
     """One bounce over `state` [18, R] in place. `seed_depth` is a [2]
     int32 tensor (seed, depth) on the state's device: the kernel reads the
     depth there, so the host need not sync to hand it over. `records`
     ([n_diff_records, R] f32, or None) selects K2's record form; it is
     cleared to the no-contribution encoding before the launch. `visits`
     ([ceil(R / 1024), 9] int32, or None) selects the counting form: the
-    traversal counts are added to it (binned scenes, not with records).
+    traversal counts are added to it (binned scenes, not with records), and
+    `warp_steps` ([2] int64, zeroed by the caller, on the card) gets the
+    walks' warp steps (kernel_traverse.warp_utilisation).
     CPU state runs `bounce_reference`; CUDA state launches csrc/bounce.cu,
     with the cluster traversal for a binned scene and K1's dense geometry
     otherwise."""
     dev = state.device
+    if warp_steps is not None:
+        if visits is None:
+            raise ValueError("bounce: warp_steps count with visits")
+        check_warp_steps(warp_steps, dev)
     if dev.type == "cpu":
         return bounce_reference(scene, state, int(seed_depth[1]), options, tables,
                                 records=records, visits=visits)
@@ -318,6 +329,9 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
             raise ValueError("bounce: visits count binned scenes without records only")
         check_tensor("visits", visits, dev, torch.int32, (-(-n // VISIT_BLOCK), GEO_VISIT_COLS))
         vis_ptr = visits.data_ptr()
+        if warp_steps is None:
+            warp_steps = torch.zeros(WARP_STEP_COLS, dtype=torch.int64, device=dev)
+    smem = block_smem_bytes(scene, tables, walk_layout("bounce") if binned else None)
     if n:
         with torch.cuda.device(dev):
             err = _bounce_fn()(
@@ -326,8 +340,8 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
                 mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
                 em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
                 *rec_args, int(scene.krn_big_cull_mode), int(binned),
-                *tier_args, vis_ptr, float(options.epsilon),
-                torch.cuda.current_stream(dev).cuda_stream,
+                *tier_args, vis_ptr, None if vis_ptr is None else warp_steps.data_ptr(),
+                float(options.epsilon), smem, torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"bounce launch failed: cudaError_t {err}")
@@ -340,6 +354,23 @@ bounce.launches = 0
 bounce.record_launches = 0
 
 
+def bounce_occupancy(smem_bytes, binned=True, cull=-1, rec=False, count=False):
+    """(resident blocks per SM, threads per block) of K2's instance
+    (geometry, cull class, record form, counting form) at `smem_bytes` of
+    dynamic shared memory, by cudaOccupancyMaxActiveBlocksPerMultiprocessor
+    on the current card."""
+    fn = _build.load("bounce").ptx_bounce_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I, _I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.restype = ctypes.c_int
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(int(bool(binned)), int(cull), int(bool(rec)), int(bool(count)), int(smem_bytes),
+             ctypes.byref(blocks), ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"bounce occupancy query failed: cudaError_t {err}")
+    return blocks.value, threads.value
+
+
 # ---------------------------------------------------------------------------
 # The driver.
 # ---------------------------------------------------------------------------
@@ -347,7 +378,8 @@ bounce.record_launches = 0
 
 def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed,
                             tables=None, sort: bool = True, timing: dict | None = None,
-                            reference: bool = False, debug_visits: bool = False):
+                            reference: bool = False, debug_visits: bool = False,
+                            warp_steps=None):
     """Full-path trace of a ray batch with per-bounce coherence sorting.
     Returns (spectrum [R,4] with alpha = collected, collected [R] bool),
     as trace_megakernel, and with `debug_visits` the per-bounce traversal
@@ -358,7 +390,9 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     for ray. Each bounce runs `bounce` (the kernel for CUDA rays, the twin
     for CPU rays), or with `reference` the twin on any device. A `timing`
     dict (CUDA only) gets the milliseconds of each bounce's kernel
-    ("bounce_ms") and of its sort + gather ("sort_ms"), by CUDA events. The
+    ("bounce_ms") and of its sort + gather ("sort_ms"), by CUDA events.
+    `warp_steps` ([2] int64, zeroed, on the card; binned, with
+    `debug_visits`): the warp steps of every bounce are added to it. The
     driver reads the host
     once per bounce (counted in `trace_megakernel_sorted.host_reads`)."""
     origin, direction = rays.origin, rays.direction
@@ -372,6 +406,9 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
         tables = pack_tables(scene)
     ktables = kernel_tables(scene) if binned else None
     ctx = _Ctx(scene, tables, options, dev) if reference or dev.type == "cpu" else None
+    if warp_steps is not None and (not (debug_visits and binned) or ctx is not None):
+        raise ValueError("trace_megakernel_sorted: warp_steps count the kernel's binned "
+                         "bounces with debug_visits")
     r = origin.shape[0]
     st = initial_state(origin, direction, seed)
     idx = torch.arange(r, device=dev)
@@ -395,7 +432,8 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
         if ctx is not None:
             bounce_reference(scene, st, depth, options, ctx=ctx, visits=v)
         else:
-            bounce(scene, st, seed_depth[depth], options, tables, ktables, visits=v)
+            bounce(scene, st, seed_depth[depth], options, tables, ktables, visits=v,
+                   warp_steps=warp_steps if count else None)
         if timing is not None:
             e[1].record()
         alive = st[17] > 0.5

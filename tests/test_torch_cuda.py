@@ -708,3 +708,219 @@ def test_dot_formulations_ties_match_plain(form):
         else:
             assert df.within_tolerance(c, pc, b, a)
     assert df.ties_hold(r, x, e)
+
+
+# ---------------------------------------------------------------------------
+# The walk's cp.async ring (K1's binned form and K2): the 200k dragon at 56-
+# and 128-row records, ragged ray counts, the ring's early exits, the warp
+# steps, and K1's refilling persistent warps.
+# ---------------------------------------------------------------------------
+
+_DRAGONS_200K: dict = {}
+
+
+def _dragon_200k(cluster):
+    """The 200k dragon built lean (the megakernel tables alone) with
+    PTX_KRN_CLUSTER=cluster, once per module."""
+    import os
+
+    from cpupathtrace_tpu_torch.models import scenes
+
+    if cluster not in _DRAGONS_200K:
+        old = os.environ.get("PTX_KRN_CLUSTER")
+        os.environ["PTX_KRN_CLUSTER"] = str(cluster)
+        try:
+            scene = scenes.bench_dragon_scene(dragon_tris=200000, lean=True, device="cuda")
+        finally:
+            os.environ.pop("PTX_KRN_CLUSTER")
+            if old is not None:
+                os.environ["PTX_KRN_CLUSTER"] = old
+        assert scene.krn_records.shape[1] == cluster
+        _DRAGONS_200K[cluster] = scene
+    return _DRAGONS_200K[cluster]
+
+
+def _warp_steps():
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    return torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
+
+
+def _check_k1_binned(scene, n, seed=321):
+    """K1's binned form on `n` camera rays against its twin: spectrum and
+    collected bit-equal, counters equal, no ray left unwritten (the output
+    starts as NaN), the warp steps within their bounds. Returns the
+    counters."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.core.rays import Rays
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    st = _camera_state(scene, n=n)
+    rays = Rays(st[1:4].t().contiguous(), st[4:7].t().contiguous())
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    steps = _warp_steps()
+    k, kc, kv = mk.trace_megakernel(scene, rays, opts, seed, debug_visits=True, warp_steps=steps)
+    plain, _ = mk.trace_megakernel(scene, rays, opts, seed)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(k).any()) and not bool(torch.isnan(plain).any())
+    t, tc, tv = mk.trace_megakernel_reference(scene, rays, opts, seed, debug_visits=True)
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32)) and torch.equal(kc, tc)
+    assert torch.equal(plain.view(torch.int32), k.view(torch.int32))
+    assert torch.equal(kv, tv)
+    util = kt.warp_utilisation(kv, steps.cpu())
+    assert util["row_steps"] > 0 and util["slab_steps"] > 0
+    return kv
+
+
+def _check_bounce(scene, n, depths=(0, 1, 2)):
+    """K2's plain, counting and record forms on `n` camera rays against the
+    twin, bounce after bounce: the 18 planes and the live rays' record
+    planes bit-equal, the counters equal, the warp steps within their
+    bounds (none where the walks test nothing: the dragon box's camera
+    rays stop at the box before the dragon's root box), and counted in
+    some bounce."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    tables = mk.pack_tables(scene)
+    st = _camera_state(scene, n=n)
+    nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+    rows = -(-n // kt.VISIT_BLOCK)
+    row_steps = 0
+    for depth in depths:
+        sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
+        k, c, r, t = st.clone(), st.clone(), st.clone(), st.clone()
+        kv = torch.zeros((rows, kt.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
+        tv = torch.zeros_like(kv)
+        rk = torch.empty((nd, n), device="cuda")
+        rt = torch.empty_like(rk)
+        steps = _warp_steps()
+        sw.bounce(scene, k, sd, opts, tables)
+        sw.bounce(scene, c, sd, opts, tables, visits=kv, warp_steps=steps)
+        sw.bounce(scene, r, sd, opts, tables, records=rk)
+        sw.bounce_reference(scene, t, depth, opts, tables, records=rt, visits=tv)
+        live = st[17] > 0.5
+        for form in (k, c, r):
+            assert torch.equal(form.view(torch.int32), t.view(torch.int32)), depth
+        assert torch.equal(rk[:, live].view(torch.int32), rt[:, live].view(torch.int32)), depth
+        assert torch.equal(kv, tv), depth
+        row_steps += kt.warp_utilisation(kv, steps.cpu())["row_steps"]
+        st = k
+    assert row_steps > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4096 + 77])
+@pytest.mark.parametrize("cluster", [56, 128])
+def test_ring_k1_binned_on_the_200k_dragon(cluster, n):
+    """K1's binned form (the ring walk on refilling persistent warps) on the
+    200k dragon at 56- and 128-row records, a whole and a ragged ray count:
+    bit-equal to its twin with equal counters."""
+    _require_cuda()
+    _check_k1_binned(_dragon_200k(cluster), n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4096, 4096 + 77])
+@pytest.mark.parametrize("cluster", [56, 128])
+def test_ring_bounce_forms_on_the_200k_dragon(cluster, n):
+    """K2's plain, counting and record forms on the 200k dragon at 56- and
+    128-row records, a whole and a ragged ray count: planes and counters
+    equal to the twin's."""
+    _require_cuda()
+    _check_bounce(_dragon_200k(cluster), n)
+
+
+def _shadowed_plate_scene():
+    """A binned scene built to end shadow walks early: a white box, an
+    opaque plate of 8,192 small triangles between the floor and two point
+    lights, so that the shadow rays of floor points stop at an occluding
+    row of a cluster (row 0 for some, rows well before the last for most)
+    while the rows after it are in flight, and the next shadow walk (the
+    second light) or nearest walk (K1's next bounce) of the same thread
+    follows in the same launch."""
+    from cpupathtrace_tpu_torch.scene.geometry import make_box
+    from cpupathtrace_tpu_torch.scene.mesh import mesh_from_arrays
+    from cpupathtrace_tpu_torch.scene.scene import SceneBuilder
+
+    m = 64
+    g = np.linspace(-0.8, 0.8, m + 1)
+    xs, zs = np.meshgrid(g, g, indexing="ij")
+    verts = np.stack([xs.ravel(), np.full(xs.size, 0.2), zs.ravel()], axis=1)
+    idx = np.arange((m + 1) * (m + 1)).reshape(m + 1, m + 1)
+    a, b, c, d = idx[:-1, :-1], idx[1:, :-1], idx[1:, 1:], idx[:-1, 1:]
+    faces = np.concatenate([np.stack([a, b, c], -1).reshape(-1, 3),
+                            np.stack([a, c, d], -1).reshape(-1, 3)])
+    bld = SceneBuilder()
+    white = bld.add_material(diffuse=(0.8, 0.8, 0.8, 1))
+    bld.add_triangles(make_box((-1, -1, -1), (1, 1, 1)), white)
+    bld.add_triangles(mesh_from_arrays(verts, faces, np.eye(4), cull_backface=False,
+                                       smooth=False, as_batch=True), white)
+    bld.add_point_light((0.3, 0.8, 0.1), (1.0, 1.0, 1.0, 1.0))
+    bld.add_point_light((-0.3, 0.7, -0.2), (0.5, 0.5, 0.5, 1.0))
+    scene = bld.build(device="cuda")
+    assert scene.has_kernel_records
+    return scene
+
+
+@pytest.mark.cuda
+def test_ring_early_exits_leave_no_stale_rows():
+    """The ring's early ways out (an any-hit walk stopping at an occluding
+    row with later rows in flight, a passing box in the middle of a page)
+    followed by more walks of the same thread in the same launch: K1's
+    binned form and K2 bit-equal to their twins with equal counters, and
+    the counters show the shadow walks stopping early."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    scene = _shadowed_plate_scene()
+    kv = _check_k1_binned(scene, 8192)
+    _check_bounce(scene, 8192, depths=(0, 1, 2))
+    v = kv.long().sum(0)
+    rows_per_record = scene.krn_records.shape[1]
+    shadow_visits, shadow_rows = int(v[kt.SHADOW_COLS[1]]), int(v[kt.SHADOW_COLS[3]])
+    assert shadow_visits > 1000
+    assert shadow_rows < 0.8 * shadow_visits * rows_per_record
+
+
+@pytest.mark.cuda
+def test_persistent_megakernel_writes_every_ray_once():
+    """K1's binned form on more rays than its resident threads hold (so
+    lanes refill): every ray's spectrum written (the output starts as NaN),
+    two launches bit-equal whatever lane traced which ray, and the first
+    rays equal to the twin's on the same indices (each ray seeded from its
+    own index)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.core.rays import Rays
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    scene = _dragon()
+    n = 3 * torch.cuda.get_device_properties(0).multi_processor_count * 2048 + 5
+    st = _camera_state(scene, n=n)
+    rays = Rays(st[1:4].t().contiguous(), st[4:7].t().contiguous())
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    a, _ = mk.trace_megakernel(scene, rays, opts, 9)
+    b, _ = mk.trace_megakernel(scene, rays, opts, 9)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(a).any())
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    head = Rays(rays.origin[:2048].contiguous(), rays.direction[:2048].contiguous())
+    t, _ = mk.trace_megakernel_reference(scene, head, opts, 9)
+    assert torch.equal(a[:2048].view(torch.int32), t.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_walk_layout_is_the_one_the_cpu_tests_size():
+    """K1's and K2's libraries report the shared-memory layout they were
+    built with (ptx_walk_layout): the one tests/test_torch_walk.py sizes
+    the main path's scenes at (its BUILT)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    built = kt.WalkLayout(threads=128, depth=3, slot_bytes=80, tier_floats=16384)
+    assert kt.walk_layout("megakernel") == kt.walk_layout("bounce") == built
