@@ -6,9 +6,9 @@ Phases, one line each; any failure exits non-zero:
   1. the card: torch's device name and nvidia-smi's name + power limit
   2. build the CUDA kernels from cpupathtrace_tpu_torch/csrc with nvcc,
      with ptxas's registers, shared memory and spills per kernel instance,
-     and the resident blocks per SM of every instance of K1's binned form
-     and K2 (cudaOccupancyMaxActiveBlocksPerMultiprocessor at the walk's
-     rings alone)
+     and the resident blocks per SM of every instance of K1 and K2
+     (cudaOccupancyMaxActiveBlocksPerMultiprocessor; binned at the walk's
+     rings alone, dense at the box's tables)
   3. kernel vs its plain-torch twin on the card, same rays and seed
   4. golden parity: the port's render_chunk at 32x32 against the C++
      reference images in tests/golden, with tests/test_parity.py's checks
@@ -16,7 +16,12 @@ Phases, one line each; any failure exits non-zero:
      (128x128 @ 256 spp, max_depth 40), with the kernel's launch count,
      frame time in Mrays/s (w*h*spp / s), one frame traced with
      torch.profiler (device time by kernel, the device's busy share) and
-     the kernel's time beside the twin's at that shape
+     the kernel's time (whole calls, and `best_ms`) beside the twin's at
+     that shape, bit-equal to the twin there and on a ragged count below
+     one resident wave (NaN-filled output), with its refilling warps'
+     occupancy and lane use (the counting instance's bounce steps) beside
+     the lane use one path per thread would have had (from the twin's
+     live counts per bounce)
   6. the demo scene without its dragon, 256x256 adaptive 16-64 spp, thin
      lens, post-processed, written as PNG and read back
   7. the binned build of renderSceneDragonBox (200k-triangle stand-in
@@ -45,14 +50,19 @@ Phases, one line each; any failure exits non-zero:
      max_depth 12 against K1's frame (mean within 4 standard errors), with
      K5's launch count > 0 and no plain calls
  13. K2's record form against its twin on the box (dense) and the 200k
-     dragon (binned) at depths 0 and 5: the 18 planes and the record planes
-     of live rays equal, and the recording forward bit-equal to the plain
+     dragon (binned) at depths 0 and 5, a seeded third of the rays dead on
+     entry at depth 5: the 18 planes and the record planes (NaN-filled
+     before, so the kernel writes every column) equal on every ray, and
+     the recording forward bit-equal to the plain
  14. renderSceneBoxGrad at full width (bench.py:253-260: 128x128 @ 16 spp,
      max_depth 12, zero target) through `loss_and_grad`: ms per pass
      (median of 3 batches of 5 after 2 warm passes), Mrays/s fwd+bwd, K2
      record launches, peak memory, one profiled pass; the same pass with
      PTX_DIFF_MEGAKERNEL=0 (the wavefront and K5); analytic vs finite
-     difference gradients for both routes at 32x32 @ 8 spp, max_depth 4
+     difference gradients for both routes at 32x32 @ 8 spp, max_depth 4;
+     K2's record form on one bounce of the pass's rays against its twin,
+     timed as whole calls, as the launch alone (`best_ms`) and beside the
+     two-kernel fill its wrapper no longer makes
  15. inverse_render: 10 Adam steps at 32x32 @ 8 spp on the card
  16. the binned wavefront's kernels against their plain versions on the
      200k dragon built with lean=False: the candidate scan K6 and the
@@ -118,15 +128,15 @@ tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there
 (chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
-the same machine, phases 9, 20 and 21 also print its K2 per-bounce times
-and sum, and its K1 binned ms.
+the same machine, phases 5, 9, 14, 20 and 21 also print its K1 dense ms
+and box frame, its K2 per-bounce times and sum, its gradient pass and K2
+record-form ms, and its K1 binned ms.
 """
 from __future__ import annotations
 
 import argparse
 import json
 import os
-import re
 import subprocess
 import sys
 import tempfile
@@ -328,7 +338,7 @@ def phase_golden(film, RenderOptions):
     return results
 
 
-def phase_main_path(pt, mk, sw, scenes):
+def phase_main_path(pt, mk, sw, scenes, best_ms):
     opts = pt.RenderOptions(BOX_W, BOX_H, BOX_SPP, BOX_SPP, epsilon=1e-3, max_depth=MAX_DEPTH)
     scene = scenes.bench_box_scene()
     camera = scenes.bench_camera()
@@ -371,20 +381,50 @@ def phase_main_path(pt, mk, sw, scenes):
     tables = mk.pack_tables(sc)
     k_spec, _ = mk.trace_megakernel(sc, rays, opts, 99, tables)
     kernel_ms = cuda_ms(lambda: mk.trace_megakernel(sc, rays, opts, 99, tables), 5)
+    # The seed on the card: a host int would be copied from pageable memory,
+    # which waits for the stream, and best_ms needs the host ahead.
+    seed_t = torch.tensor([99], dtype=torch.int32, device="cuda")
+    kernel_best_ms = best_ms(lambda: mk.trace_megakernel(sc, rays, opts, seed_t, tables), 5)
     plain_ms = cuda_ms(lambda: mk.trace_megakernel_reference(sc, rays, opts, 99, tables), 1)
     t_spec, _ = mk.trace_megakernel_reference(sc, rays, opts, 99, tables)
     agree = compare(k_spec, t_spec)
+    agree["bit_equal"] = bits_equal(k_spec, t_spec)
     check_agreement("main-path shape", agree)
+    need(agree["bit_equal"], f"K1 dense at the main path's shape is not bit-equal: {agree}")
     line("5 profile", **profile_frame(pt, scene, camera, opts))
     n = int(rays.origin.shape[0])
     ray_bounces, live = twin_ray_bounces(sw, sc, camera.to("cuda"), opts, n)
     k1_bound = bound(n * (24 + 16), ray_bounces * (
         tests_per_vertex(sc, sc.n_tri + sc.n_sph) * TEST_FLOPS + VERTEX_FLOPS))
+    # The refilling warps: occupancy, lane use from the counting instance's
+    # bounce steps (the prediction for one path per thread from the twin's
+    # live counts beside it), and a ragged count below one resident wave
+    # (not a multiple of 32 or of the block), each bit-equal to the twin.
+    smem = mk.block_smem_bytes(sc, tables)
+    per_sm, threads = mk.occupancy(smem, False, False, sc.krn_big_cull_mode)
+    steps = torch.zeros(mk.BOUNCE_STEP_COLS, dtype=torch.int64, device="cuda")
+    c_spec, _ = mk.trace_megakernel(sc, rays, opts, 99, tables, bounce_steps=steps)
+    sync()
+    need(bits_equal(c_spec, k_spec), "K1 dense: the counting instance differs from the plain one")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    wave = sms * per_sm * threads
+    ragged = wave // 3 // 32 * 32 + 17
+    head = type(rays)(rays.origin[:ragged].contiguous(), rays.direction[:ragged].contiguous())
+    r_spec, _ = mk.trace_megakernel(sc, head, opts, 99, tables)
+    sync()
+    need(not bool(torch.isnan(r_spec).any()), "K1 dense left a ray of the ragged count unwritten")
+    need(bits_equal(r_spec, t_spec[:ragged]), "K1 dense on the ragged count is not bit-equal")
+    refill = dict(threads=threads, blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
+                  resident_threads=wave, bounce_steps=int(steps[0]),
+                  ray_bounces_counted=int(steps[1]), lane_use=mk.lane_use(steps.cpu()),
+                  lane_use_one_path_per_thread=mk.predicted_lane_use(live),
+                  ragged_rays=ragged, ragged_bit_equal=True)
     return dict(launches=launches, twin_calls=twin_calls, image_mean=mean,
                 frame_s=frames, frame_median_s=frame_s, mrays_per_s=mrays,
-                rays=n, kernel_ms=kernel_ms,
+                rays=n, kernel_ms=kernel_ms, kernel_best_ms=kernel_best_ms,
                 twin_ms=plain_ms, kernel_mrays_per_s=n / kernel_ms / 1e3,
-                agreement=agree, ray_bounces=ray_bounces, twin_live_per_bounce=live, **k1_bound)
+                agreement=agree, ray_bounces=ray_bounces, twin_live_per_bounce=live,
+                refill=refill, **k1_bound)
 
 
 def bound(nbytes, flops, tf32_flops=0):
@@ -780,7 +820,7 @@ def walk_figures(kt, scene, tables, vis, steps, kernel):
     layout = kt.walk_layout("megakernel" if k1 else "bounce")
     smem = mk.block_smem_bytes(scene, tables, layout)
     cull = int(scene.krn_big_cull_mode)
-    blocks, threads = (mk.binned_occupancy(smem, cull=cull) if k1
+    blocks, threads = (mk.occupancy(smem, True, cull=cull) if k1
                        else sw.bounce_occupancy(smem, cull=cull))
     try:
         util = kt.warp_utilisation(vis, steps)
@@ -788,7 +828,7 @@ def walk_figures(kt, scene, tables, vis, steps, kernel):
         raise SmokeFailure(f"{kernel}: warp steps out of their bounds: {e}")
     need(util["row_steps"] > 0 and util["slab_steps"] > 0, f"{kernel}: no warp steps counted")
     # ptxas reports only what this process built (phase 2 builds cold).
-    inst = ptxas_instances(_build.ptxas_report.get("megakernel" if k1 else "bounce", ""))
+    inst = _build.ptxas_instances(_build.ptxas_report.get("megakernel" if k1 else "bounce", ""))
     plain = f"{kernel}<{cull}, 0>" if k1 else f"{kernel}<{cull}, 0, 0>"
     regs = inst.get(plain, {})
     need(threads == layout.threads, f"{kernel}: {threads} threads a block, laid out for "
@@ -886,15 +926,26 @@ def phase_wavefront(pt, film, oi, mk, scenes, RenderOptions):
     return res
 
 
-def compare_records(rk, rt, live):
-    same = (rk[:, live].view(torch.int32) == rt[:, live].view(torch.int32)).float().mean(1)
-    return [round(float(v), 6) for v in same], float((rk[:, live] - rt[:, live]).abs().max())
+def compare_records(rk, rt):
+    """Per record plane, the share of rays (dead ones included) whose bits
+    are equal, and the largest difference."""
+    same = (rk.view(torch.int32) == rt.view(torch.int32)).float().mean(1)
+    return [round(float(v), 6) for v in same], max_err(rk, rt)
+
+
+def nan_records(sw, scene, n):
+    """K2's record planes for `n` rays, NaN-filled: the kernel writes every
+    column itself, so a column it skipped shows."""
+    nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+    return torch.full((nd, n), float("nan"), device="cuda")
 
 
 def phase_records(sw, mk, scenes, dragon, RenderOptions):
     """K2's record form against its twin from the same state, dense (the
-    box) and binned (the 200k dragon); the recording forward against the
-    plain kernel."""
+    box) and binned (the 200k dragon), with the record planes NaN-filled
+    and compared on every ray; at depth 5 a seeded third of the rays enter
+    dead, so the kernel writes their no-contribution encoding itself; the
+    recording forward against the plain kernel."""
     camera = scenes.bench_camera()
     opts = RenderOptions(DRAGON_W, DRAGON_H, 1, 1, epsilon=1e-3, max_depth=MAX_DEPTH)
     out = {}
@@ -902,24 +953,28 @@ def phase_records(sw, mk, scenes, dragon, RenderOptions):
         tables = mk.pack_tables(scene)
         _, st = camera_state(sw, camera, opts, 1, 77)
         n = st.shape[1]
-        nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
         for depth in (0, 5):
+            if depth:
+                gen = torch.Generator(device="cuda")
+                gen.manual_seed(depth)
+                st[17, torch.rand(n, generator=gen, device="cuda") < 1 / 3] = 0.0
             k, t, plain = st.clone(), st.clone(), st.clone()
-            rk = torch.empty((nd, n), device="cuda")
-            rt = torch.empty((nd, n), device="cuda")
+            rk, rt = nan_records(sw, scene, n), nan_records(sw, scene, n)
             sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
             sw.bounce(scene, k, sd, opts, tables, records=rk)
             sw.bounce(scene, plain, sd, opts, tables)
             sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
             sync()
             res = compare_planes(k, t)
-            res["records_equal"], res["records_max_abs_err"] = compare_records(rk, rt, st[17] > 0.5)
+            res["records_equal"], res["records_max_abs_err"] = compare_records(rk, rt)
             res["recording_equals_plain"] = bool(torch.equal(k.view(torch.int32),
                                                              plain.view(torch.int32)))
             res["alive_in"] = int((st[17] > 0.5).sum())
+            res["dead_in"] = n - res["alive_in"]
             out[f"{name}_depth{depth}"] = res
             need(res["min_plane_equal"] == 1.0 and min(res["records_equal"]) == 1.0
-                 and res["recording_equals_plain"], f"K2 record form, {name} depth {depth}: {res}")
+                 and res["recording_equals_plain"] and (res["dead_in"] > 0 or not depth),
+                 f"K2 record form, {name} depth {depth}: {res}")
             st = k
     out["max_abs_err"] = max(max(v["max_abs_err"], v["records_max_abs_err"])
                              for v in out.values())
@@ -948,7 +1003,7 @@ def grad_checks(diff, golden, RenderOptions, scene=None, cam=None, entries=None)
     return out
 
 
-def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions):
+def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
     """renderSceneBoxGrad through loss_and_grad (bench.py:240-319), the
     record route and then the wavefront route."""
     scene, camera = scenes.bench_box_scene(), scenes.bench_camera()
@@ -1024,7 +1079,7 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions):
               records=rec)
     sd = torch.tensor([5, 1], dtype=torch.int32, device="cuda")
     k, t = st.clone(), st.clone()
-    rk, rt = torch.empty_like(rec), torch.empty_like(rec)
+    rk, rt = nan_records(sw, scene, n_rays), nan_records(sw, scene, n_rays)
     sw.bounce(scene, k, sd, opts, tables, records=rk)
     sync()
     t0 = time.perf_counter()
@@ -1032,11 +1087,22 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions):
     sync()
     kr = dict(plain_ms=(time.perf_counter() - t0) * 1e3, alive_in=int((st[17] > 0.5).sum()))
     kr.update(compare_planes(k, t))
-    kr["records_equal"], kr["records_max_abs_err"] = compare_records(rk, rt, st[17] > 0.5)
+    kr["records_equal"], kr["records_max_abs_err"] = compare_records(rk, rt)
     need(kr["min_plane_equal"] == 1.0 and min(kr["records_equal"]) == 1.0,
          f"K2 record form at the gradient pass's shape: {kr}")
+    # `ms`: whole calls (the wrapper's host work and the launch), as in
+    # earlier runs; `kernel_ms`: the launch alone on the card (best_ms);
+    # `fill_ms`: the two-kernel fill of the record planes that preceded
+    # each launch until the kernel wrote every column itself.
     copies = iter([st.clone() for _ in range(5)])
     kr["ms"] = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables, records=rk), 5)
+    copies = iter([st.clone() for _ in range(11)])
+    kr["kernel_ms"] = best_ms(
+        lambda: sw.bounce(scene, next(copies), sd, opts, tables, records=rk), 10)
+    kr["fill_ms"] = best_ms(lambda: sw.clear_records(rk), 10)
+    smem = mk.block_smem_bytes(scene, tables)
+    kr["blocks_per_sm"], kr["threads"] = sw.bounce_occupancy(smem, False,
+                                                             scene.krn_big_cull_mode, True)
     live = kr["alive_in"]
     kr.update(bound(live * 144 + (n_rays - live) * 4 + n_rays * nd * 4,
                     live * (tests_per_vertex(scene, scene.n_tri + scene.n_sph) * TEST_FLOPS
@@ -1806,92 +1872,40 @@ def phase_dot_formulations(df, best_ms):
     return out
 
 
-# A kernel entry in ptxas's report: its mangled name after _Z or _ZN.
-PTXAS_ENTRY = re.compile(r"entry function '_ZN?(\w+)'")
-
-
-def instance_name(mangled):
-    """`megakernel_binned<-1, 0>` from the mangled entry name (after _ZN):
-    the last length-prefixed name of the nested name, then its template
-    arguments."""
-    i, names = 0, []
-    while i < len(mangled) and mangled[i].isdigit():
-        j = i
-        while mangled[j].isdigit():
-            j += 1
-        n = int(mangled[i:j])
-        names.append(mangled[j:j + n])
-        i = j + n
-    args = []
-    if mangled[i:i + 1] == "I":  # literal template arguments: L <type> <value> E
-        i += 1
-        while mangled[i:i + 1] == "L":
-            j = mangled.index("E", i)
-            args.append(mangled[i + 2:j])
-            i = j + 1
-    name = names[-1] if names else mangled
-    return name + (f"<{', '.join(a.replace('n', '-') for a in args)}>" if args else "")
-
-
-def ptxas_instances(text):
-    """Per kernel instance of a library's ptxas report: its registers and
-    spill stores."""
-    out, cur = {}, None
-    for ln in text.splitlines():
-        m = PTXAS_ENTRY.search(ln)
-        if m:
-            cur = out.setdefault(instance_name(m.group(1)), {})
-        elif cur is not None:
-            r = re.search(r"Used (\d+) registers", ln)
-            if r:
-                cur["registers"] = int(r.group(1))
-            sp = re.search(r"(\d+) bytes spill stores", ln)
-            if sp:
-                cur["spill_stores"] = int(sp.group(1))
-    return out
-
-
-def ptxas_summary(text):
-    """A library's ptxas report on one line: per kernel instance its name
-    (`smem_tables_kernel<1>`), then its registers, shared memory and
-    spills."""
-    out = []
-    for ln in text.splitlines():
-        m = PTXAS_ENTRY.search(ln)
-        if m:
-            out.append(instance_name(m.group(1)))
-        elif "Used" in ln or "spill" in ln:
-            out.append(ln.replace("ptxas info    :", "").strip())
-    return " | ".join(out)
-
-
-def walk_occupancy(mk, sw, kt):
-    """Resident blocks per SM of every instance of K1's binned form and of
-    K2 at the walk's rings alone (binned; the tables of a scene add a few
-    KB) or no shared memory (K2's dense instances)."""
+def kernel_occupancy(mk, sw, kt, dense_smem):
+    """Resident blocks per SM (and threads per block) of every instance of
+    K1 and K2: the binned ones at the walk's rings alone (the tables of a
+    scene add a few KB), the dense ones at `dense_smem` (the box's tables)."""
     layout = kt.walk_layout("megakernel")
     need(kt.walk_layout("bounce") == layout, "K1 and K2 were built with different walk layouts")
     ring = kt.kernel_smem_bytes(0, 0, layout)
-    out = dict(ring_depth=layout.depth, walk_threads=layout.threads, ring_smem_bytes=ring)
+    out = dict(ring_depth=layout.depth, walk_threads=layout.threads, ring_smem_bytes=ring,
+               dense_smem_bytes=dense_smem)
     for cull in (-1, 0, 1):
         for count in (0, 1):
-            out[f"megakernel_binned<{cull}, {count}>"] = mk.binned_occupancy(ring, count, cull)[0]
+            out[f"megakernel_binned<{cull}, {count}>"] = mk.occupancy(ring, True, count, cull)
+            out[f"megakernel<{cull}, {count}>"] = mk.occupancy(dense_smem, False, count, cull)
         for rec, count in ((0, 0), (1, 0), (0, 1)):
             out[f"bounce_binned_kernel<{cull}, {rec}, {count}>"] = sw.bounce_occupancy(
-                ring, True, cull, rec, count)[0]
+                ring, True, cull, rec, count)
         for rec in (0, 1):
-            out[f"bounce_kernel<{cull}, {rec}>"] = sw.bounce_occupancy(0, False, cull, rec)[0]
+            out[f"bounce_kernel<{cull}, {rec}>"] = sw.bounce_occupancy(dense_smem, False, cull,
+                                                                        rec)
     return out
 
 
 def parent_figures(parent):
-    """The figures of phases 9, 20 and 21 in a parent's chip_smoke.json
-    (its --out), run on the same machine, or None."""
+    """The figures of phases 5, 9, 14, 20 and 21 in a parent's
+    chip_smoke.json (its --out), run on the same machine, or None."""
     if parent is None:
         return None
     dm, k1, fr = parent["dragon_main_path"], parent["k1_binned"], parent["dragon_k1_frame"]
     depth1 = dm.get("depth1", dm)  # before the frame's K2 figures: at the top
+    mp, gr = parent["main_path"], parent["box_grad"]
     return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
+                k1_dense_ms=mp["kernel_ms"], box_frame_median_s=mp["frame_median_s"],
+                grad_ms_per_pass=gr["replay"]["ms_per_pass"],
+                k2_records_ms=gr["record_kernel"]["ms"],
                 k2_frame_ms=sum(dm["bounce_ms"]), k2_depth1_unsorted_ms=depth1["kernel_ms"],
                 k1_binned_ms=k1["ms"], k1_binned_ms_cluster128=k1["cluster128"]["ms"],
                 sorted_frame_median_s=fr["sorted"]["frame_median_s"],
@@ -1902,7 +1916,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
     ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
-                                     "the same machine: phases 9, 20 and 21 print its figures")
+                                     "the same machine: phases 5, 9, 14, 20 and 21 print its "
+                                     "figures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1944,11 +1959,13 @@ def main():
     _build.build_all(KERNELS)
     for name in KERNELS:
         _build.load(name)
-    ptxas = {name: ptxas_summary(_build.ptxas_report.get(name, ""))
+    ptxas = {name: _build.ptxas_summary(_build.ptxas_report.get(name, ""))
              for name in KERNELS if name != "bvh_build"}
+    box = scenes.bench_box_scene()
     report["build"] = dict(seconds=time.perf_counter() - t0,
                            compiler_seconds=dict(_build.build_seconds), ptxas=ptxas,
-                           walk_occupancy=walk_occupancy(mk, sw, kt))
+                           occupancy=kernel_occupancy(
+                               mk, sw, kt, mk.block_smem_bytes(box, mk.pack_tables(box))))
     line("2 build", **report["build"])
     parent = None
     if args.parent:
@@ -1959,7 +1976,10 @@ def main():
     line("3 kernel vs twin", **report["kernel_vs_twin"])
     report["golden"] = phase_golden(film, pt.RenderOptions)
     line("4 golden parity", **report["golden"])
-    report["main_path"] = phase_main_path(pt, mk, sw, scenes)
+    report["main_path"] = phase_main_path(pt, mk, sw, scenes, best_ms)
+    if parent:
+        report["main_path"]["parent"] = {k: parent[k] for k in (
+            "device", "k1_dense_ms", "box_frame_median_s")}
     line("5 main path", **report["main_path"])
     report["demo"] = phase_demo(pt, scenes, args.out)
     line("6 demo", **report["demo"])
@@ -1990,7 +2010,10 @@ def main():
     line("12 wavefront forward", **report["wavefront"])
     report["records"] = phase_records(sw, mk, scenes, dragon, pt.RenderOptions)
     line("13 record form vs twin", **report["records"])
-    report["box_grad"] = phase_box_grad(diff, sw, oi, scenes, golden, pt.RenderOptions)
+    report["box_grad"] = phase_box_grad(diff, sw, oi, scenes, golden, pt.RenderOptions, best_ms)
+    if parent:
+        report["box_grad"]["parent"] = {k: parent[k] for k in (
+            "device", "grad_ms_per_pass", "k2_records_ms")}
     line("14 renderSceneBoxGrad", **report["box_grad"])
     report["inverse_render"] = phase_inverse_render(diff, golden, pt.RenderOptions)
     line("15 inverse_render", **report["inverse_render"])
@@ -2056,6 +2079,8 @@ def main():
         "ms": main_path["kernel_ms"], "plain_ms": main_path["twin_ms"],
         "bound_ms": main_path["bound_ms"], "bound_by": main_path["bound_by"],
         "library_ms": None,
+        "lane_use": main_path["refill"]["lane_use"],
+        "occupancy": main_path["refill"]["blocks_per_sm"],
     }, {
         "name": "bounce", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -2076,7 +2101,7 @@ def main():
         "launches": grad["replay"]["counts"]["k2_records"],
         "max_abs_err": max(report["records"]["max_abs_err"], krec["max_abs_err"],
                            krec["records_max_abs_err"]),
-        **figures(krec), "library_ms": None,
+        **figures(krec), "library_ms": None, "kernel_ms": krec["kernel_ms"],
     }, {
         "name": "cluster_query", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/cluster_query.cu",

@@ -19,6 +19,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -127,3 +128,62 @@ def load_host(name: str) -> ctypes.CDLL:
     if not (CSRC / f"{name}.cpp").exists():
         raise FileNotFoundError(f"no host source csrc/{name}.cpp")
     return load(name)
+
+
+# A kernel entry in ptxas's report: its mangled name after _Z or _ZN.
+PTXAS_ENTRY = re.compile(r"entry function '_ZN?(\w+)'")
+
+
+def instance_name(mangled):
+    """`megakernel_binned<-1, 0>` from the mangled entry name (after _ZN):
+    the last length-prefixed name of the nested name, then its template
+    arguments."""
+    i, names = 0, []
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        n = int(mangled[i:j])
+        names.append(mangled[j:j + n])
+        i = j + n
+    args = []
+    if mangled[i:i + 1] == "I":  # literal template arguments: L <type> <value> E
+        i += 1
+        while mangled[i:i + 1] == "L":
+            j = mangled.index("E", i)
+            args.append(mangled[i + 2:j])
+            i = j + 1
+    name = names[-1] if names else mangled
+    return name + (f"<{', '.join(a.replace('n', '-') for a in args)}>" if args else "")
+
+
+def ptxas_instances(text):
+    """Per kernel instance of a library's ptxas report: its registers and
+    spill stores."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = PTXAS_ENTRY.search(ln)
+        if m:
+            cur = out.setdefault(instance_name(m.group(1)), {})
+        elif cur is not None:
+            r = re.search(r"Used (\d+) registers", ln)
+            if r:
+                cur["registers"] = int(r.group(1))
+            sp = re.search(r"(\d+) bytes spill stores", ln)
+            if sp:
+                cur["spill_stores"] = int(sp.group(1))
+    return out
+
+
+def ptxas_summary(text):
+    """A library's ptxas report on one line: per kernel instance its name
+    (`smem_tables_kernel<1>`), then its registers, shared memory and
+    spills."""
+    out = []
+    for ln in text.splitlines():
+        m = PTXAS_ENTRY.search(ln)
+        if m:
+            out.append(instance_name(m.group(1)))
+        elif "Used" in ln or "spill" in ln:
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return " | ".join(out)

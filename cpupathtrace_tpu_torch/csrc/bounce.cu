@@ -30,11 +30,12 @@
 // (kWarpStepCols).
 //
 // Record form (template flag kRec; `_make_megakernel(diff_records=True)`):
-// n_drec = 3 + n_lights + 2 * em_k more [n] planes, written by the body's
-// Records policy for the rays alive on entry. The wrapper fills them with
-// (-1, 0, ...) first, so a dead ray keeps the replay's no-contribution
-// encoding; a live ray that misses still gets its drawn CDF rows, as on the
-// TPU.
+// n_drec = 3 + n_lights + 2 * em_k more [n] planes. Thread i writes every
+// plane of its column i once: a ray dead on entry the replay's
+// no-contribution encoding (-1, 0, ...), a live one through the body's
+// Records policy (a live ray that misses still gets its drawn CDF rows, as
+// on the TPU). So no fill precedes the launch, and the planes' bytes are
+// written once.
 //
 // What bounds it on this card: the cluster traversal (see
 // cluster_traverse.cuh): the latency of its row and box loads and divergent
@@ -45,8 +46,15 @@
 // in flight while one is tested), in blocks of kWalkThreads, 20 warps an
 // SM (cluster_traverse.cuh kWalkMinBlocks; capped to 24 warps the walk
 // spills and ran slower). It relies on the driver's per-bounce sort for
-// coherent warps and for packing live rays at the head. Dense instances
-// keep 256 threads.
+// coherent warps and for packing live rays at the head.
+//
+// Dense instances (the box through the sorted driver, and the gradient
+// pass's record form): no walk; each live thread runs K1's dense geometry,
+// whose pair-record rows it reads as 16-byte broadcast loads from shared
+// memory (dense_intersect.cuh load_row), in blocks of kDenseThreads with
+// kDenseMinBlocks an SM at least: 24 warps at 80 registers, where the
+// record form spills 64 bytes; uncapped (96 registers, no spills) it held
+// 16 or 20 warps and ran 4-10% slower in the sweep (PERF.md §6).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -61,7 +69,11 @@
 namespace ptx {
 namespace {
 
-constexpr int kThreads = 256;
+// The dense instances' block: threads, and the blocks each SM must hold
+// (__launch_bounds__'s minimum, which caps the registers). Chosen by the
+// sweep of experiments/dense_sweep.py (PERF.md §6).
+constexpr int kDenseThreads = 256;
+constexpr int kDenseMinBlocks = 3;
 
 struct Params {
   float* state;  // [18, n_rays]
@@ -145,7 +157,10 @@ __device__ __forceinline__ void bounce_thread(const Params& p) {
   if (i >= p.n_rays) return;
   const int64_t n = p.n_rays;
   float* st = p.state + i;
-  if (!(st[17 * n] > 0.5f)) return;  // dead: nothing changes
+  if (!(st[17 * n] > 0.5f)) {  // dead: the state stays as it is
+    if constexpr (kRec) Records{p.drec + i, n, p.n_lights}.none(p.em_k);
+    return;
+  }
 
   const Shading sh{s_mat, p.n_mat, s_lgt, p.n_lights, s_em, p.n_em, p.em_k, p.eps};
   PathState s;
@@ -191,9 +206,9 @@ __device__ __forceinline__ void bounce_thread(const Params& p) {
   st[17 * n] = alive ? 1.0f : 0.0f;
 }
 
-// The dense instances, 256 threads a block.
+// The dense instances: blocks of kDenseThreads, kDenseMinBlocks an SM at least.
 template <int CULL, bool kRec>
-__global__ void __launch_bounds__(kThreads) bounce_kernel(const Params p) {
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks) bounce_kernel(const Params p) {
   bounce_thread<false, CULL, kRec, false>(p);
 }
 
@@ -219,7 +234,7 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  constexpr int threads = kBinned ? kWalkThreads : kThreads;
+  constexpr int threads = kBinned ? kWalkThreads : kDenseThreads;
   const int blocks = (p.n_rays + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(p);
   return cudaGetLastError();
@@ -237,8 +252,8 @@ cudaError_t occupancy(size_t smem, int* blocks) {
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
     if (err != cudaSuccess) return err;
   }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel,
-                                                       kBinned ? kWalkThreads : kThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, kernel, kBinned ? kWalkThreads : kDenseThreads, smem);
 }
 
 template <bool kBinned, bool kRec, bool kCount = false>
@@ -262,7 +277,8 @@ cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
 // synchronise, allocates nothing, returns the launch's cudaError_t.
 // binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else
 // the triangle table), the traversal tables unused. drec: the record planes
-// or null. visits: the counters [ceil(n_rays / 1024), 9] int32, zeroed by the
+// [n_drec, n_rays], every column of which the launch writes, or null.
+// visits: the counters [ceil(n_rays / 1024), 9] int32, zeroed by the
 // caller, or null (binned scenes without records only); steps: the warp
 // steps [2] int64, zeroed by the caller, with visits. smem_bytes: the
 // block's dynamic shared memory, sized by the wrapper (kernel_traverse.py
@@ -306,7 +322,7 @@ extern "C" int ptx_bounce_occupancy(int binned, int cull, int rec, int count,
   using namespace ptx;
   const size_t smem = static_cast<size_t>(smem_bytes);
   if (count && (!binned || rec)) return static_cast<int>(cudaErrorInvalidValue);
-  *threads = binned ? kWalkThreads : kThreads;
+  *threads = binned ? kWalkThreads : kDenseThreads;
   cudaError_t err;
   if (count)
     err = occupancy_cull<true, false, true>(cull, smem, blocks);

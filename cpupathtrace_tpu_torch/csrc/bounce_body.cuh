@@ -19,7 +19,10 @@
 // the differentiable replay needs (pallas_megakernel.py:485-489, 581-586,
 // 711-712, 737-738, 851-862): the hit material and emission weight, each
 // NEE weight, each emitter draw's CDF row, and the chain selector. With
-// NoRecords every call is empty and the body is the plain one.
+// NoRecords every call is empty and the body is the plain one. Records
+// writes each plane of a live ray exactly once, the no-contribution
+// encoding (mid -1, all else 0) where the bounce leaves it, so no fill
+// precedes the kernel.
 #pragma once
 
 #include <stdint.h>
@@ -78,13 +81,14 @@ struct NoRecords {
   __device__ __forceinline__ void emitter_row(int, int) const {}
   __device__ __forceinline__ void emitter_weight(int, float) const {}
   __device__ __forceinline__ void chain(float) const {}
+  __device__ __forceinline__ void none(int) const {}
 };
 
 // K2's record planes of one ray (pallas_megakernel.py n_diff_records, in
 // diff_megakernel.py:891-895's order): mid, W, sel, one weight per point
 // light, then (CDF row, weight) per emitter draw, each a plane of `stride`
-// floats. The caller fills them with (-1, 0, ...) first, so only what a
-// bounce sets is written.
+// floats. The body writes every plane of a live ray once; `none` writes the
+// no-contribution encoding of a ray dead on entry.
 struct Records {
   static constexpr bool kOn = true;
   float* p;  // plane 0 of this ray
@@ -103,6 +107,12 @@ struct Records {
   }
   // 0 = no advance, 1 = diffuse, 2 = specular, 3 = ones.
   __device__ __forceinline__ void chain(float code) const { p[2 * stride] = code; }
+  // mid -1, all else 0 (sorted_wavefront.py clear_records).
+  __device__ __forceinline__ void none(int em_k) const {
+    p[0] = -1.0f;
+    const int planes = 3 + n_lights + 2 * em_k;
+    for (int j = 1; j < planes; ++j) p[j * stride] = 0.0f;
+  }
 };
 
 // One bounce of path `s` at loop index `depth`; returns true while the path
@@ -119,10 +129,15 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   // A miss ends the path: from here on the TPU kernel changes nothing.
   if (h.prim < 0) {
     if (Rec::kOn) {
-      // The TPU body draws every emitter's CDF row on a live lane.
+      // The TPU body draws every emitter's CDF row on a live lane; the
+      // other planes take the no-contribution encoding.
+      rec.hit(-1, 0.0f);
+      rec.chain(0.0f);
+      for (int li = 0; li < sh.n_lights; ++li) rec.light(li, 0.0f);
       next_u01(s.rng);
       for (int k = 0; k < sh.em_k; ++k) {
         rec.emitter_row(k, cdf_row(sh, next_u01(s.rng)));
+        rec.emitter_weight(k, 0.0f);
         skip_draws(s.rng, 2);
       }
       skip_draws(s.rng, 3);
@@ -201,7 +216,10 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
     const float u2 = next_u01(s.rng);
     const int row = cdf_row(sh, rsel);
     rec.emitter_row(k, row);
-    if (is_spec) continue;
+    if (is_spec) {
+      rec.emitter_weight(k, 0.0f);
+      continue;
+    }
     const float* q = sh.em + row * kEmCols;
     const float sq = sqrtf(u1);
     const float w2 = sq * (1.0f - u2);
@@ -248,6 +266,7 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   // ---- Roulette bookkeeping (ref: worker.cpp:106-110) ----
   s.bounce_pd = do_bounce ? bounce_pd0 * bpv : bounce_pd0 * (1.0f - bpv);
   if (!(do_bounce && s.bounce_pd > kPdCutoff)) {
+    rec.chain(0.0f);
     if (kSingle) skip_draws(s.rng, 3);
     return false;
   }

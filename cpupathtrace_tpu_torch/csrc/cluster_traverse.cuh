@@ -130,21 +130,13 @@ __device__ __forceinline__ bool pair_quantities_rt(const C& c, const Ray& r, flo
   return pair_quantities<-1>(c, r, mx, my, mz, sd, su, sv, st);
 }
 
-// A stream's element: P 16-byte pieces (rows 5, the 17 columns the test
-// reads; boxes 2), at a stride of the row or box. Rows and boxes are 16-byte
-// aligned in the tables.
-constexpr int kRowPieces = 5;
+// A stream's element: P 16-byte pieces (rows kRowPieces, the 17 columns
+// the test reads; boxes 2), at a stride of the row or box. Rows and boxes
+// are 16-byte aligned in the tables.
 constexpr int kBoxPieces = 2;
 
 template <int P>
 constexpr int kElementStride = P == kRowPieces ? kKrnCols : kBndCols;
-
-// P pieces loaded into registers (GlobalRows).
-template <int P>
-struct Loaded {
-  float v[4 * P];
-  __device__ __forceinline__ float operator[](int i) const { return v[i]; }
-};
 
 // The row source of K4: each element loaded from global memory when the
 // walk tests it. begin and drain do nothing.

@@ -146,11 +146,42 @@ __device__ __forceinline__ bool table_occluded(const float* tri, int n_tri, cons
   return (k_tri >= 0 || k_sph >= 0) && !(t >= t_max);
 }
 
+// The first P 16-byte pieces of a row in registers; out[i] its i-th column.
+template <int P>
+struct Loaded {
+  float v[4 * P];
+  __device__ __forceinline__ float operator[](int i) const { return v[i]; }
+};
+
+// Pieces of a record row the pair test loads: columns 0-19, the 17 it reads
+// (0-15 and the cull column 16), then prim, mat and the first normal column.
+constexpr int kRowPieces = 5;
+
+// A record row of the dense tables in shared memory as kRowPieces 16-byte
+// broadcast loads (every lane of a warp reads the same row); the float4
+// pointer states the alignment the tables keep: rows of kRecCols floats
+// (112 bytes) from a 16-byte aligned base. The compiler narrows a piece
+// whose columns the test leaves unread (the any-hit test's last piece: the
+// cull column alone), so a row test issues 4 LDS.128 and 1 LDS.
+__device__ __forceinline__ Loaded<kRowPieces> load_row(const float* row) {
+  const float4* q = reinterpret_cast<const float4*>(row);
+  Loaded<kRowPieces> out;
+#pragma unroll
+  for (int j = 0; j < kRowPieces; ++j) {
+    const float4 v = q[j];
+    out.v[4 * j] = v.x;
+    out.v[4 * j + 1] = v.y;
+    out.v[4 * j + 2] = v.z;
+    out.v[4 * j + 3] = v.w;
+  }
+  return out;
+}
+
 // Sign-normalised Plucker quantities of one record row (kRecCols floats)
 // against a ray with moment m = o x d. CULL: -1 per-row cull column, 0 no
-// row culls, 1 every row culls. `c` is any row with c[i] the i-th column: a
-// pointer, or a view of a row in the walk's shared-memory ring
-// (cluster_traverse.cuh).
+// row culls, 1 every row culls. `c` is any row with c[i] the i-th column:
+// a row loaded by load_row, or a view of a row in the walk's shared-memory
+// ring (cluster_traverse.cuh).
 template <int CULL, class C>
 __device__ __forceinline__ bool pair_quantities(const C& c, const Ray& r, float mx, float my,
                                                 float mz, float& sd, float& su, float& sv,
@@ -171,8 +202,8 @@ __device__ __forceinline__ bool pair_quantities(const C& c, const Ray& r, float 
   return inside >= 0.0f && sd > kTriEps && (c[kRecCull] < 0.5f || det > 0.0f);
 }
 
-// Nearest hit over a pair record of `rows` rows (row stride kRecCols),
-// improving strictly on h.t.
+// Nearest hit over a pair record of `rows` rows (row stride kRecCols,
+// 16-byte aligned in shared memory), improving strictly on h.t.
 template <int CULL>
 __device__ __forceinline__ void pair_nearest(const float* rec, int rows, const Ray& r, Hit& h) {
   const float mx = r.oy * r.dz - r.oz * r.dy;
@@ -182,7 +213,7 @@ __device__ __forceinline__ void pair_nearest(const float* rec, int rows, const R
   float bt = h.t, bsd = 0.0f, bsu = 0.0f, bsv = 0.0f;
   for (int k = 0; k < rows; ++k) {
     float sd, su, sv, st;
-    if (pair_quantities<CULL>(rec + k * kRecCols, r, mx, my, mz, sd, su, sv, st)) {
+    if (pair_quantities<CULL>(load_row(rec + k * kRecCols), r, mx, my, mz, sd, su, sv, st)) {
       const float tv = st / sd;
       if (tv < bt) {
         bt = tv;
@@ -212,7 +243,7 @@ __device__ __forceinline__ void pair_nearest(const float* rec, int rows, const R
   h.mat = static_cast<int>(c[kRecMat]);
 }
 
-// Any-hit below t_lim over a pair record, division-free:
+// Any-hit below t_lim over a pair record (as pair_nearest's), division-free:
 // t < t_lim  <=>  st < t_lim * sd  (sd > 0 after sign normalisation).
 template <int CULL>
 __device__ __forceinline__ bool pair_anyhit(const float* rec, int rows, const Ray& r,
@@ -222,7 +253,7 @@ __device__ __forceinline__ bool pair_anyhit(const float* rec, int rows, const Ra
   const float mz = r.ox * r.dy - r.oy * r.dx;
   for (int k = 0; k < rows; ++k) {
     float sd, su, sv, st;
-    if (pair_quantities<CULL>(rec + k * kRecCols, r, mx, my, mz, sd, su, sv, st) &&
+    if (pair_quantities<CULL>(load_row(rec + k * kRecCols), r, mx, my, mz, sd, su, sv, st) &&
         st < t_lim * sd)
       return true;
   }

@@ -15,17 +15,27 @@
 // max_depth bounces. Each bounce is a few hundred flops per record row
 // tested (nearest hit, one shadow ray per point light and per emitter draw)
 // in loops whose every iteration reads a table row, so the kernel is bound
-// by instruction latency and by divergence: lanes of a warp end their paths
-// at different depths (misses, roulette) and take different BSDF branches.
+// by the issue of those loops' loads and float32 operations (built with
+// --fmad=false, no FMA is issued: the float32 units reach half the FMA
+// peak) and by divergence: lanes of a warp end their paths at different
+// depths (roulette, misses) and take different BSDF branches.
 //
-// What the design does about it: one thread per ray with the whole path
+// What the design does about it: one thread per path with the whole path
 // state in registers (the per-bounce body is bounce_body.cuh, shared with
-// the single-bounce kernel K2); every table (pair record, triangles, spheres,
-// materials, lights, emitters) staged once per block in shared memory,
-// where all lanes read the same row at the same time (a broadcast, no bank
-// conflicts); each thread leaves its loop when its path ends instead of
-// waiting for the block; only the chosen BSDF branch is computed; shadow
-// rays stop at the first occluder.
+// the single-bounce kernel K2); every table (pair record, triangles,
+// spheres, materials, lights, emitters) staged once per resident block in
+// shared memory, where all lanes read the same row at the same time (a
+// broadcast, no bank conflicts), each pair-record row in 16-byte loads
+// (dense_intersect.cuh load_row); only the chosen BSDF branch is computed;
+// shadow rays stop at the first occluder. Both forms run on refilling
+// persistent warps (trace_refilling): the grid is only the resident blocks
+// (SMs x occupancy, sized by the wrapper), and a lane whose path ends takes
+// the next ray index from a global counter (one warp-aggregated atomicAdd
+// per refill, over the lanes that are free), so a warp keeps its lanes
+// busy instead of running as long as its longest path while its other
+// lanes idle (the box's paths end after 3 to 7 bounces). Each ray is seeded
+// from its own index and writes its own spectrum row (and counter row), so
+// the results do not depend on which lane traced it.
 //
 // Parity with the TPU kernel and with the torch twin
 // (cpupathtrace_tpu_torch/integrator/megakernel.py): the same arithmetic in
@@ -41,28 +51,20 @@
 // in the tree as their paths scatter, and they end at different depths
 // (a mean of 3.8 bounces a path on the 200k dragon, up to max_depth); in
 // exchange a chunk is one launch, with no per-bounce state traffic, glue
-// kernels or host reads.
+// kernels or host reads. Each thread streams its rows and cluster boxes
+// through its cp.async ring in shared memory (kRingDepth - 1 in flight
+// while one is tested), in blocks of kWalkThreads (cluster_traverse.cuh).
 //
-// Binned form, what the design does about it (megakernel_binned): each
-// thread streams its rows and cluster boxes through its cp.async ring in
-// shared memory (kRingDepth - 1 in flight while one is tested), in blocks
-// of kWalkThreads (cluster_traverse.cuh); and the grid is only the
-// resident blocks (SMs x occupancy), whose warps refill: a lane whose path
-// ends takes the next ray index from a global counter (one warp-aggregated
-// atomicAdd per refill, over the lanes that are free), so a block keeps its
-// lanes busy instead of holding its SM slot while its warps empty. Each ray
-// is seeded from its own index and writes its own spectrum row and counter
-// row, so the results do not depend on which lane traced it.
-//
-// Counters (template flag kCount, binned form; the JAX package's
+// Counters (template flag kCount). Binned form (the JAX package's
 // debug_visits): each thread adds each path's nearest and shadow traversal
 // counts to its ray's 1024-ray block's row of `visits` [n_blocks, 9]
 // (binned_geo.cuh kGeoVisitCols), and its warp steps to `steps` [2] int64
-// (kWarpStepCols).
+// (kWarpStepCols). Dense form: `steps` [2] int64 gets the bounce steps the
+// warps execute (once per step, by the lowest active lane) and the
+// ray-bounces, so lane use = ray-bounces / (32 x steps).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <algorithm>
 #include <type_traits>
 
 #include "binned_geo.cuh"
@@ -74,7 +76,11 @@
 namespace ptx {
 namespace {
 
-constexpr int kThreads = 256;
+// The dense form's block: threads, and the blocks each SM must hold
+// (__launch_bounds__'s minimum, which caps the registers). Chosen by the
+// sweep of experiments/dense_sweep.py (PERF.md §6).
+constexpr int kDenseThreads = 256;
+constexpr int kDenseMinBlocks = 3;
 
 struct Params {
   const float* origin;     // [n_rays, 3]
@@ -99,9 +105,9 @@ struct Params {
   int max_depth;
   ClusterTables cl;  // binned form: the traversal tiers
   int tier_floats;   // shared floats for the staged tiers (0: read from global)
-  int* visits;       // [ceil(n_rays / 1024), 9] traversal counters, or null
-  unsigned long long* steps;  // [kWarpStepCols] warp steps (with visits), or null
-  int* next_ray;     // binned form: the refill counter, zeroed by the wrapper
+  int* visits;       // binned: [ceil(n_rays / 1024), 9] traversal counters, or null
+  unsigned long long* steps;  // [2] warp steps (counting instances), or null
+  int* next_ray;     // the refill counter, zeroed by the wrapper
   float eps;
 };
 
@@ -110,15 +116,6 @@ __device__ __forceinline__ size_t smem_floats(const Params& p) {
          static_cast<size_t>(p.n_sph) * kSphCols + static_cast<size_t>(p.n_mat) * kMatCols +
          static_cast<size_t>(p.n_lights) * kLgtCols + static_cast<size_t>(p.n_em) * kEmCols +
          static_cast<size_t>(p.tier_floats);
-}
-
-// The path loop: the bounce body until the path ends or max_depth.
-template <class Geo>
-__device__ __forceinline__ void trace_path(const Geo& geo, const Shading& sh, int max_depth,
-                                           PathState& s) {
-  for (int depth = 0; depth < max_depth; ++depth) {
-    if (!bounce_body<false>(geo, sh, depth, s)) break;
-  }
 }
 
 // Stages the tables of a block in shared memory (the tiers when binned);
@@ -166,42 +163,43 @@ __device__ __forceinline__ void write_spectrum(const Params& p, int64_t i, const
       make_float4(s.out_r, s.out_g, s.out_b, s.collected ? 1.0f : 0.0f);
 }
 
-// The dense form; CULL: the cull class of the pair record.
-template <int CULL>
-__global__ void __launch_bounds__(kThreads) megakernel(const Params p) {
-  extern __shared__ float smem[];
-  stage_tables<false>(p, smem);
-  __syncthreads();
+// The steps of the dense counting instance: a step is one bounce that the
+// lanes of a warp execute together, counted by the lowest of them; each
+// lane also counts its ray-bounces. NoSteps builds the plain instances.
+struct NoSteps {
+  __device__ __forceinline__ void step() {}
+  __device__ __forceinline__ void add(unsigned long long*) const {}
+};
 
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= p.n_rays) return;
+struct BounceSteps {
+  unsigned steps = 0;
+  unsigned bounces = 0;
+  __device__ __forceinline__ void step() {
+    ++bounces;
+    if (WarpVisits::lowest(__activemask())) ++steps;
+  }
+  // Called by every lane of the warp together, after the path loop.
+  __device__ __forceinline__ void add(unsigned long long* out) const {
+    const unsigned s = __reduce_add_sync(0xffffffffu, steps);
+    const unsigned b = __reduce_add_sync(0xffffffffu, bounces);
+    if ((threadIdx.x & 31) == 0) {
+      atomicAdd(out, static_cast<unsigned long long>(s));
+      atomicAdd(out + 1, static_cast<unsigned long long>(b));
+    }
+  }
+};
 
-  const Shading sh = shading(p, smem);
-  const float* s_rec = smem;
-  const float* s_tri = s_rec + p.rec_rows * kRecCols;
-  const float* s_sph = s_tri + p.n_tri * kTriCols;
-  PathState s;
-  start_path(p, i, seed_rng(*p.seed, i), s);
-  const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
-  trace_path(geo, sh, p.max_depth, s);
-  write_spectrum(p, i, s);
-}
-
-// The binned form on refilling persistent warps. CULL: the cull class of
-// the big partition's pair record; kCount: the traversal counters.
-template <int CULL, bool kCount>
-__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
-    megakernel_binned(const Params p) {
-  extern __shared__ float smem[];
-  const ClusterTables cl = stage_tables<true>(p, smem);
-  __syncthreads();
-
-  const Shading sh = shading(p, smem);
-  const float* s_rec = smem;
-  const float* s_sph = s_rec + p.rec_rows * kRecCols + p.n_tri * kTriCols;
-  using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
-  const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl,
-                                   ring_base(smem, smem_floats(p))};
+// Traces the rays [0, n_rays) on refilling persistent warps, the loop of
+// both forms: a free lane takes the next ray index from p.next_ray (the
+// warp's free lanes take consecutive indices by one atomicAdd), seeds it
+// from its index in blocks of kRows x 128 rays, and runs the bounce body
+// until the path ends or max_depth; then it writes the ray's spectrum row,
+// calls end(i) and is free again. step() runs before each bounce. Every
+// lane of the warp must call it; it returns when the counter is spent and
+// no lane of the warp holds a path.
+template <int kRows, class Geo, class Step, class End>
+__device__ __forceinline__ void trace_refilling(const Params& p, const Geo& geo,
+                                                const Shading& sh, Step step, End end) {
   const unsigned lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   int64_t i = -1;  // this lane's ray; -1 while the lane is free
@@ -223,7 +221,7 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
         if (j < p.n_rays) {
           i = j;
           depth = 0;
-          start_path(p, i, seed_rng<kBinnedBlockRows>(*p.seed, i), s);
+          start_path(p, i, seed_rng<kRows>(*p.seed, i), s);
         }
       }
     }
@@ -231,96 +229,114 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
     if (i < 0) continue;
     // One bounce of this lane's path; at its end the lane writes its ray's
     // results and becomes free.
-    if (depth < p.max_depth && bounce_body<false>(geo, sh, depth, s) && ++depth < p.max_depth)
-      continue;
+    if (depth < p.max_depth) {
+      step();
+      if (bounce_body<false>(geo, sh, depth, s) && ++depth < p.max_depth) continue;
+    }
     write_spectrum(p, i, s);
+    end(i);
+    i = -1;
+  }
+}
+
+// The dense form. CULL: the cull class of the pair record; kCount: the
+// bounce steps.
+template <int CULL, bool kCount>
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks) megakernel(const Params p) {
+  extern __shared__ float smem[];
+  stage_tables<false>(p, smem);
+  __syncthreads();
+
+  const Shading sh = shading(p, smem);
+  const float* s_rec = smem;
+  const float* s_tri = s_rec + p.rec_rows * kRecCols;
+  const float* s_sph = s_tri + p.n_tri * kTriCols;
+  const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
+  std::conditional_t<kCount, BounceSteps, NoSteps> steps;
+  trace_refilling<kBlockRows>(p, geo, sh, [&] { steps.step(); }, [](int64_t) {});
+  steps.add(p.steps);
+}
+
+// The binned form. CULL: the cull class of the big partition's pair record;
+// kCount: the traversal counters.
+template <int CULL, bool kCount>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
+    megakernel_binned(const Params p) {
+  extern __shared__ float smem[];
+  const ClusterTables cl = stage_tables<true>(p, smem);
+  __syncthreads();
+
+  const Shading sh = shading(p, smem);
+  const float* s_rec = smem;
+  const float* s_sph = s_rec + p.rec_rows * kRecCols + p.n_tri * kTriCols;
+  using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
+  const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl,
+                                   ring_base(smem, smem_floats(p))};
+  trace_refilling<kBinnedBlockRows>(p, geo, sh, [] {}, [&](int64_t i) {
     if constexpr (kCount) {
       add_geo_visits(p.visits, i, geo);
       static_cast<Visits&>(geo.near) = Visits{};
       static_cast<Visits&>(geo.shadow) = Visits{};
     }
-    i = -1;
-  }
+  });
   if constexpr (kCount) add_warp_steps(p.steps, geo);
 }
 
-template <int CULL>
-cudaError_t launch_dense(const Params& p, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        megakernel<CULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int blocks = (p.n_rays + kThreads - 1) / kThreads;
-  megakernel<CULL><<<blocks, kThreads, smem, stream>>>(p);
-  return cudaGetLastError();
+template <bool kBinned, int CULL, bool kCount>
+constexpr auto kernel_of() {
+  if constexpr (kBinned)
+    return megakernel_binned<CULL, kCount>;
+  else
+    return megakernel<CULL, kCount>;
 }
 
-// Resident blocks per SM of the binned instance at `smem` bytes; past the
-// 48 KB default it sets the instance's shared-memory limit to `smem`, which
-// a launch at that size needs.
-template <int CULL, bool kCount>
-cudaError_t binned_occupancy(size_t smem, int* blocks) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(megakernel_binned<CULL, kCount>,
-                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                                 static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, megakernel_binned<CULL, kCount>,
-                                                       kWalkThreads, smem);
+template <bool kBinned>
+constexpr int kThreadsOf = kBinned ? kWalkThreads : kDenseThreads;
+
+// Past the 48 KB default, an instance's shared-memory limit must be set to
+// the size of each launch (an occupancy query at another size may have set
+// it since).
+template <class K>
+cudaError_t allow_smem(K kernel, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
-// The binned form's grid: the resident blocks (SMs x occupancy at `smem`),
-// at most one thread per ray. The resident count is queried at an
-// instance's first launch on a card at a given shared-memory size and then
-// kept, so a steady-state launch makes the calls the dense form makes (the
-// shared-memory limit, the launch). Any grid would be correct, since the
-// warps claim the rays; only the speed depends on the count.
-constexpr int kMaxDevices = 64;
-
-template <int CULL, bool kCount>
-cudaError_t launch_binned(const Params& p, size_t smem, cudaStream_t stream) {
-  static size_t known_smem[kMaxDevices] = {};
-  static int resident[kMaxDevices] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
+// Resident blocks per SM of an instance at `smem` bytes.
+template <bool kBinned, int CULL, bool kCount>
+cudaError_t occupancy(size_t smem, int* blocks) {
+  const auto kernel = kernel_of<kBinned, CULL, kCount>();
+  const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
-  if (device >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (smem != known_smem[device]) {
-    int per_sm = 0, sms = 0;
-    err = binned_occupancy<CULL, kCount>(smem, &per_sm);
-    if (err == cudaSuccess)
-      err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-    if (err != cudaSuccess) return err;
-    if (per_sm < 1) return cudaErrorInvalidConfiguration;
-    resident[device] = sms * per_sm;
-    known_smem[device] = smem;
-  } else if (smem > 48 * 1024) {
-    // An occupancy query at another size may have set the limit since.
-    err = cudaFuncSetAttribute(megakernel_binned<CULL, kCount>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int64_t one_each = (static_cast<int64_t>(p.n_rays) + kWalkThreads - 1) / kWalkThreads;
-  const int blocks = static_cast<int>(std::min<int64_t>(one_each, resident[device]));
-  megakernel_binned<CULL, kCount><<<blocks, kWalkThreads, smem, stream>>>(p);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreadsOf<kBinned>,
+                                                       smem);
+}
+
+// A launch on `grid` blocks, which the wrapper sizes to the resident blocks
+// (megakernel.py resident_grid). Any grid is correct, since the warps claim
+// the rays; only the speed depends on it.
+template <bool kBinned, int CULL, bool kCount>
+cudaError_t launch(const Params& p, int grid, size_t smem, cudaStream_t stream) {
+  const auto kernel = kernel_of<kBinned, CULL, kCount>();
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kThreadsOf<kBinned>, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kCount>
-cudaError_t launch_binned_cull(const Params& p, int cull, size_t smem, cudaStream_t stream) {
-  if (cull == 0) return launch_binned<0, kCount>(p, smem, stream);
-  if (cull == 1) return launch_binned<1, kCount>(p, smem, stream);
-  return launch_binned<-1, kCount>(p, smem, stream);
+template <bool kBinned, bool kCount>
+cudaError_t launch_cull(const Params& p, int cull, int grid, size_t smem, cudaStream_t stream) {
+  if (cull == 0) return launch<kBinned, 0, kCount>(p, grid, smem, stream);
+  if (cull == 1) return launch<kBinned, 1, kCount>(p, grid, smem, stream);
+  return launch<kBinned, -1, kCount>(p, grid, smem, stream);
 }
 
-template <bool kCount>
-cudaError_t binned_occupancy_cull(int cull, size_t smem, int* blocks) {
-  if (cull == 0) return binned_occupancy<0, kCount>(smem, blocks);
-  if (cull == 1) return binned_occupancy<1, kCount>(smem, blocks);
-  return binned_occupancy<-1, kCount>(smem, blocks);
+template <bool kBinned, bool kCount>
+cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
+  if (cull == 0) return occupancy<kBinned, 0, kCount>(smem, blocks);
+  if (cull == 1) return occupancy<kBinned, 1, kCount>(smem, blocks);
+  return occupancy<kBinned, -1, kCount>(smem, blocks);
 }
 
 }  // namespace
@@ -329,13 +345,15 @@ cudaError_t binned_occupancy_cull(int cull, size_t smem, int* blocks) {
 // Plain C entry point for ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing, returns the launch's cudaError_t.
 // binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else the
-// table form), the traversal tables unused. binned = 1: rec is the big
-// partition's pair record (cull_mode its class), krec ... root the cluster
-// tiers (cl_cull their class), visits the zeroed counters
-// [ceil(n_rays / 1024), 9] int32 or null, steps the zeroed warp steps [2]
-// int64 with visits, next_ray the zeroed refill counter [1] int32.
-// smem_bytes: the block's dynamic shared memory, sized by the wrapper
-// (kernel_traverse.py kernel_smem_bytes, from ptx_walk_layout).
+// table form; cull_mode the record's class), the traversal tables unused;
+// steps: the zeroed bounce steps [2] int64 (the counting instance) or null.
+// binned = 1: rec is the big partition's pair record (cull_mode its class),
+// krec ... root the cluster tiers (cl_cull their class), visits the zeroed
+// counters [ceil(n_rays / 1024), 9] int32 or null, steps the zeroed warp
+// steps [2] int64 with visits. next_ray: the zeroed refill counter [1]
+// int32. grid: the blocks of the launch (the resident blocks, at most one
+// thread per ray). smem_bytes: the block's dynamic shared memory, sized by
+// the wrapper (kernel_traverse.py kernel_smem_bytes, from ptx_walk_layout).
 extern "C" int ptx_megakernel_launch(const float* origin, const float* direction,
                                      float* spectrum, int n_rays, const float* tri, int n_tri,
                                      const float* sph, int n_sph, const float* mat, int n_mat,
@@ -346,12 +364,13 @@ extern "C" int ptx_megakernel_launch(const float* origin, const float* direction
                                      int n_pages, const float* hyp, int hyp_rows,
                                      const float* root, int cl_cull, int* visits,
                                      unsigned long long* steps, int* next_ray, const int* seed,
-                                     int max_depth, float epsilon, long long smem_bytes,
-                                     void* stream) {
+                                     int max_depth, float epsilon, int grid,
+                                     long long smem_bytes, void* stream) {
   using namespace ptx;
   (void)hyp_rows;
-  if (visits && (!binned || !steps)) return static_cast<int>(cudaErrorInvalidValue);
-  if (binned && !next_ray) return static_cast<int>(cudaErrorInvalidValue);
+  if (!next_ray || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (binned ? (visits != nullptr) != (steps != nullptr) : visits != nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
   const ClusterTables cl{krec, n_rec, krec_rows, clb, sup, n_pages, hyp, root, cl_cull};
   const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
   const Params p{origin, direction, spectrum, n_rays, tri, n_tri, sph, n_sph,
@@ -360,25 +379,33 @@ extern "C" int ptx_megakernel_launch(const float* origin, const float* direction
                  next_ray, epsilon};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  // A dense table form has no record: its instances are the per-row class.
+  const int cull = binned || rec_rows ? cull_mode : -1;
   cudaError_t err;
   if (binned)
-    err = visits ? launch_binned_cull<true>(p, cull_mode, smem, s)
-                 : launch_binned_cull<false>(p, cull_mode, smem, s);
-  else if (!rec_rows || cull_mode == -1)
-    err = launch_dense<-1>(p, smem, s);
+    err = steps ? launch_cull<true, true>(p, cull, grid, smem, s)
+                : launch_cull<true, false>(p, cull, grid, smem, s);
   else
-    err = cull_mode == 0 ? launch_dense<0>(p, smem, s) : launch_dense<1>(p, smem, s);
+    err = steps ? launch_cull<false, true>(p, cull, grid, smem, s)
+                : launch_cull<false, false>(p, cull, grid, smem, s);
   return static_cast<int>(err);
 }
 
-// Resident blocks per SM of the binned instance (cull, count) at
+// Resident blocks per SM of the instance (binned, cull, count) at
 // `smem_bytes`, and its threads per block.
-extern "C" int ptx_megakernel_binned_occupancy(int cull, int count, long long smem_bytes,
-                                               int* blocks, int* threads) {
+extern "C" int ptx_megakernel_occupancy(int binned, int cull, int count, long long smem_bytes,
+                                        int* blocks, int* threads) {
   using namespace ptx;
-  *threads = kWalkThreads;
   const size_t smem = static_cast<size_t>(smem_bytes);
-  const cudaError_t err = count ? binned_occupancy_cull<true>(cull, smem, blocks)
-                                : binned_occupancy_cull<false>(cull, smem, blocks);
+  cudaError_t err;
+  if (binned) {
+    *threads = kThreadsOf<true>;
+    err = count ? occupancy_cull<true, true>(cull, smem, blocks)
+                : occupancy_cull<true, false>(cull, smem, blocks);
+  } else {
+    *threads = kThreadsOf<false>;
+    err = count ? occupancy_cull<false, true>(cull, smem, blocks)
+                : occupancy_cull<false, false>(cull, smem, blocks);
+  }
   return static_cast<int>(err);
 }

@@ -10,6 +10,9 @@ configuration beside the card's name and power limit:
     python -m cpupathtrace_tpu_torch.experiments.dot_formulations  # X4
     python -m cpupathtrace_tpu_torch.experiments.smem_tables       # X5
 
+`dense_sweep` (no TPU script) sweeps the block shape of the dense forms of
+K1 and K2 (csrc/megakernel.cu, csrc/bounce.cu) on the card.
+
 Each keeps its TPU script's method: the difference between two in-kernel
 iteration counts (X1, X2, X3) or the best of several launches (X4, X5),
 timed with CUDA events. The wrappers launch the kernel for CUDA tensors

@@ -34,7 +34,13 @@ import torch
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
 from .megakernel import megakernel_supported, pack_tables
-from .sorted_wavefront import bounce, initial_state, n_diff_records, seed_depth_table
+from .sorted_wavefront import (
+    bounce,
+    clear_records,
+    initial_state,
+    n_diff_records,
+    seed_depth_table,
+)
 
 #: The differentiable scene fields (diff/render.py).
 DIFF_FIELDS = ("mat_diffuse", "mat_specular", "mat_emission")
@@ -72,9 +78,9 @@ def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, 
     max_depth = int(options.max_depth)
     n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
     st = initial_state(origin, direction, seed)
+    # Each bounce writes its depth's planes whole; the depths the loop
+    # never reaches are cleared after it.
     planes = torch.empty((max_depth, n_drec, r), dtype=torch.float32, device=dev)
-    planes[:, 0] = -1.0
-    planes[:, 1:] = 0.0
     seed_depth = seed_depth_table(seed, max_depth, dev)
     n_alive = r
     depth = 0
@@ -82,6 +88,8 @@ def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, 
         bounce(scene, st, seed_depth[depth], options, tables, records=planes[depth])
         n_alive = int((st[17] > 0.5).sum())  # the one host sync of the bounce
         depth += 1
+    if depth < max_depth:
+        clear_records(planes[depth:].transpose(0, 1))
     coll = st[16] > 0.5
     spectrum = torch.stack([st[10], st[11], st[12], coll.float()], dim=-1)
     return spectrum, coll, planes.permute(0, 2, 1)

@@ -37,10 +37,14 @@ On the card the counting form also adds the walks' warp steps to
 `warp_steps` ([2] int64: slab-test steps, filled-row steps;
 kernel_traverse.warp_utilisation), which no plain version reproduces.
 
-The binned form launches only the resident blocks, whose warps refill
-their free lanes from a counter (csrc/megakernel.cu); its blocks and K2's
-hold each thread's ring of record rows and cluster boxes in shared memory
-beside the tables, sized by `block_smem_bytes`.
+Both forms launch only the resident blocks (`resident_grid`, from the
+instance's occupancy, queried once per card and size by
+`resident_blocks`), whose warps refill their free lanes from a counter
+(csrc/megakernel.cu); the output starts as NaN, so a ray that no lane
+traced shows. Binned blocks and K2's hold each thread's ring of record
+rows and cluster boxes in shared memory beside the tables, sized by
+`block_smem_bytes`. On the card the dense form counts its warps' bounce
+steps and ray-bounces into `bounce_steps` (`lane_use`).
 """
 from __future__ import annotations
 
@@ -57,6 +61,7 @@ from ..accel.kernel_traverse import (
     SHADOW_COLS,
     VISIT_BLOCK,
     WALK_COLS,
+    WARP_LANES,
     WARP_STEP_COLS,
     block_sums,
     check_tables,
@@ -704,8 +709,12 @@ _ARGTYPES = (
     + [_P, _I, _I, _I, _I]  # rec, rec_rows, rec_stride, cull_mode; binned
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P]  # traversal tables, cull mode; visits
     + [_P, _P]  # warp steps, refill counter
-    + [_P, _I, ctypes.c_float, ctypes.c_longlong, _P]  # seed, max_depth, epsilon, smem, stream
+    + [_P, _I, ctypes.c_float]  # seed, max_depth, epsilon
+    + [_I, ctypes.c_longlong, _P]  # grid, smem, stream
 )
+# The dense counting instance's output (csrc/megakernel.cu BounceSteps):
+# the bounce steps the warps execute, then the ray-bounces.
+BOUNCE_STEP_COLS = 2
 
 
 def _library():
@@ -717,27 +726,70 @@ def _library():
     return fn
 
 
+def resident_grid(n_rays, threads, blocks_per_sm, sms):
+    """The grid of a K1 launch on refilling persistent warps: the resident
+    blocks (`sms` x `blocks_per_sm` of `threads` threads), at most one
+    thread per ray. Raises ValueError when no block of the instance fits
+    an SM (its shared memory or registers)."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"megakernel: no block of {threads} threads fits an SM")
+    return max(1, min(-(-n_rays // threads), sms * blocks_per_sm))
+
+
+def lane_use(bounce_steps):
+    """Lane use of a dense counting launch from its `bounce_steps` [2]
+    (warp bounce steps, ray-bounces): ray-bounces / (32 x steps). Raises
+    ValueError unless 0 < steps <= ray-bounces <= 32 x steps."""
+    steps, bounces = torch.as_tensor(bounce_steps).reshape(-1).long().tolist()
+    if not 0 < steps <= bounces <= WARP_LANES * steps:
+        raise ValueError(f"bounce steps {steps} against {bounces} ray-bounces: need "
+                         f"0 < steps <= ray-bounces <= {WARP_LANES} x steps")
+    return bounces / (WARP_LANES * steps)
+
+
+def predicted_lane_use(live, lanes=WARP_LANES):
+    """Lane use of one path per thread in warps of `lanes` rays, from the
+    live counts per bounce `live` (rays entering bounce 0, 1, ...) of
+    paths whose lengths are independent across lanes: a warp runs bounce d
+    while any of its lanes is alive there, so lane use = sum_d p_d /
+    sum_d (1 - (1 - p_d)^lanes), with p_d = live[d] / live[0]. Raises
+    ValueError unless the counts are positive and do not grow."""
+    p = torch.as_tensor(live, dtype=torch.float64).reshape(-1)
+    if p.numel() == 0 or not bool((p > 0).all()) or bool((p[1:] > p[:-1]).any()):
+        raise ValueError(f"live counts per bounce must be positive and not grow: {live}")
+    p = p / p[0]
+    return float(p.sum() / (1.0 - (1.0 - p) ** lanes).sum())
+
+
 def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_visits=False,
-                     warp_steps=None):
+                     warp_steps=None, bounce_steps=None):
     """Full-path trace of a ray batch: (spectrum [R,4] with alpha =
     collected, collected [R] bool), and with `debug_visits` the traversal
     counters [ceil(R / 1024), 9] int32 (zero for a dense scene). `seed`
     is an int32 Python int or a 1-element tensor (read on the device, so
     drawing it costs no sync). `warp_steps` (binned, with `debug_visits`,
     on the card): a zeroed [2] int64 tensor the walks' warp steps are added
-    to. CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its
+    to. `bounce_steps` (dense, on the card): a zeroed [2] int64 tensor the
+    warps' bounce steps and the ray-bounces are added to (`lane_use`).
+    CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its
     binned form for a scene with kernel records."""
     origin, direction = rays.origin, rays.direction
     dev = origin.device
+    binned = scene.has_kernel_records
     if warp_steps is not None:
-        if not debug_visits or not scene.has_kernel_records:
+        if not debug_visits or not binned:
             raise ValueError("trace_megakernel: warp_steps count binned scenes with debug_visits")
         check_warp_steps(warp_steps, dev)
+    if bounce_steps is not None:
+        if binned:
+            raise ValueError("trace_megakernel: bounce_steps count dense scenes")
+        if dev.type != "cuda":
+            raise ValueError("bounce_steps: the warps' steps are counted on the card only")
+        check_tensor("bounce_steps", bounce_steps, dev, torch.int64, (BOUNCE_STEP_COLS,))
     if dev.type == "cpu":
         return trace_megakernel_reference(scene, rays, options, seed, tables, debug_visits)
     if dev.type != "cuda":
         raise ValueError(f"trace_megakernel: no kernel for device {dev}")
-    binned = scene.has_kernel_records
     if binned and scene.big_v0.shape[0] > scene.krn_big_pair.shape[0]:
         # pallas_megakernel.py:1219-1229: the big partition outgrew the one
         # pair record.
@@ -781,33 +833,36 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
 
     smem = block_smem_bytes(scene, tables, walk_layout("megakernel") if binned else None)
     n = origin.shape[0]
-    # The binned form hands rays out from a counter: its output starts as
-    # NaN, so a ray that no lane traced shows.
-    spectrum = (torch.full((n, 4), float("nan"), device=dev) if binned
-                else torch.empty((n, 4), dtype=torch.float32, device=dev))
+    # The warps hand rays out from a counter: the output starts as NaN, so
+    # a ray that no lane traced shows.
+    spectrum = torch.full((n, 4), float("nan"), device=dev)
     visits = (torch.zeros((-(-n // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32, device=dev)
               if debug_visits else None)
     count = binned and debug_visits
     if count and warp_steps is None:
         warp_steps = torch.zeros(WARP_STEP_COLS, dtype=torch.int64, device=dev)
-    # The binned form's refill counter: the next ray index to hand out.
-    next_ray = torch.zeros(1, dtype=torch.int32, device=dev) if binned else None
+    steps = warp_steps if count else bounce_steps
+    # The refill counter: the next ray index to hand out.
+    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+    # A dense table form has no record: its instances are the per-row class.
+    cull = int(scene.krn_big_cull_mode) if binned or rec_rows else -1
     # Temporaries made here (seed_t, tables) may be freed before the
     # kernel runs: the caching allocator reuses memory in the order of
     # the current stream, which the launch is on.
     if n:
-        launch = _library()
         with torch.cuda.device(dev):
-            err = launch(
+            per_sm, threads = resident_blocks(smem, binned, steps is not None, cull)
+            grid = resident_grid(n, threads, per_sm,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+            err = _library()(
                 origin.data_ptr(), direction.data_ptr(), spectrum.data_ptr(), n,
                 tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
                 mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
                 em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
                 rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode), int(binned),
                 *tier_args, visits.data_ptr() if count else None,
-                warp_steps.data_ptr() if count else None,
-                next_ray.data_ptr() if binned else None,
-                seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), smem,
+                None if steps is None else steps.data_ptr(), next_ray.data_ptr(),
+                seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), grid, smem,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
@@ -820,17 +875,32 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
 trace_megakernel.launches = 0
 
 
-def binned_occupancy(smem_bytes, count=False, cull=-1):
-    """(resident blocks per SM, threads per block) of K1's binned instance
-    (cull class, counting or not) at `smem_bytes` of dynamic shared memory,
+def occupancy(smem_bytes, binned, count=False, cull=-1):
+    """(resident blocks per SM, threads per block) of K1's instance (form,
+    counting or not, cull class) at `smem_bytes` of dynamic shared memory,
     by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
-    fn = _build.load("megakernel").ptx_megakernel_binned_occupancy
+    fn = _build.load("megakernel").ptx_megakernel_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(int(cull), int(bool(count)), int(smem_bytes), ctypes.byref(blocks),
-             ctypes.byref(threads))
+    err = fn(int(bool(binned)), int(cull), int(bool(count)), int(smem_bytes),
+             ctypes.byref(blocks), ctypes.byref(threads))
     if err:
         raise RuntimeError(f"megakernel occupancy query failed: cudaError_t {err}")
     return blocks.value, threads.value
+
+
+# (library, card, instance, shared memory) -> (blocks per SM, threads): a
+# launch queries its instance's occupancy once and then keeps it.
+_RESIDENT: dict = {}
+
+
+def resident_blocks(smem_bytes, binned, count=False, cull=-1):
+    """`occupancy` on the current card, queried at an instance's first
+    launch at a given shared-memory size and then kept."""
+    key = (_build.load("megakernel")._name, torch.cuda.current_device(), bool(binned),
+           bool(count), int(cull), int(smem_bytes))
+    if key not in _RESIDENT:
+        _RESIDENT[key] = occupancy(smem_bytes, binned, count, cull)
+    return _RESIDENT[key]

@@ -197,7 +197,9 @@ def n_diff_records(n_lights: int, em_k: int) -> int:
 
 
 def clear_records(records: torch.Tensor) -> None:
-    """The replay's no-contribution encoding: mid = -1, all else 0."""
+    """The replay's no-contribution encoding: mid = -1, all else 0. The
+    twin clears its records with it; K2 writes it into the columns of the
+    rays dead on entry itself (csrc/bounce_body.cuh Records)."""
     records[0] = -1.0
     records[1:] = 0.0
 
@@ -270,8 +272,9 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
     """One bounce over `state` [18, R] in place. `seed_depth` is a [2]
     int32 tensor (seed, depth) on the state's device: the kernel reads the
     depth there, so the host need not sync to hand it over. `records`
-    ([n_diff_records, R] f32, or None) selects K2's record form; it is
-    cleared to the no-contribution encoding before the launch. `visits`
+    ([n_diff_records, R] f32, or None) selects K2's record form; every
+    column is written (a ray dead on entry gets the no-contribution
+    encoding of `clear_records`), so it may come uninitialised. `visits`
     ([ceil(R / 1024), 9] int32, or None) selects the counting form: the
     traversal counts are added to it (binned scenes, not with records), and
     `warp_steps` ([2] int64, zeroed by the caller, on the card) gets the
@@ -321,7 +324,6 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
     if records is not None:
         n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
         check_tensor("records", records, dev, torch.float32, (n_drec, n))
-        clear_records(records)
         rec_ptr = records.data_ptr()
     vis_ptr = None
     if visits is not None:

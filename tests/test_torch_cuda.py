@@ -924,3 +924,109 @@ def test_walk_layout_is_the_one_the_cpu_tests_size():
 
     built = kt.WalkLayout(threads=128, depth=3, slot_bytes=80, tier_floats=16384)
     assert kt.walk_layout("megakernel") == kt.walk_layout("bounce") == built
+
+
+def _dense_wave(scene):
+    """The threads of one resident wave of K1's dense form on `scene`."""
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    smem = mk.block_smem_bytes(scene, mk.pack_tables(scene))
+    cull = scene.krn_big_cull_mode if scene.dense_pair else -1
+    per_sm, threads = mk.occupancy(smem, False, False, cull)
+    return torch.cuda.get_device_properties(0).multi_processor_count * per_sm * threads
+
+
+# The adaptive film's launches at 48x48 @ 16-64 spp (film.py
+# adaptive_constants): one stats batch of 4 samples a pixel, and
+# ADAPTIVE_FUSE = 4 batches fused into one launch.
+_FILM_CHUNKS = {"film_stats": 48 * 48 * 4, "film_fused": 48 * 48 * 4 * 4}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,n",
+    [(name, n) for name in ("box", "sphere", "specular") for n in ("1", "31", "257", "wave+1")]
+    + [("box", "film_stats"), ("box", "film_fused")],
+)
+def test_dense_refill_is_bit_equal_on_ragged_counts(name, n):
+    """K1's dense form on refilling persistent warps, on ray counts that are
+    not multiples of 32 or of the block (one ray, a partial warp, a partial
+    block, one resident wave and one ray more, so a lane refills) and on
+    the adaptive film's launch sizes: every ray written (the output starts
+    as NaN) and bit-equal to the twin, each ray seeded by its own index."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    scene = _scene(name)
+    count = (_dense_wave(scene) + 1 if n == "wave+1" else _FILM_CHUNKS[n] if n in _FILM_CHUNKS
+             else int(n))
+    rays = _rays(forward=name == "sphere", n=count, seed=count)
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    ours, _ = mk.trace_megakernel(scene, rays, opts, 4321)
+    torch.cuda.synchronize()
+    assert not bool(torch.isnan(ours).any())
+    twin, _ = mk.trace_megakernel_reference(scene, rays, opts, 4321)
+    assert torch.equal(ours.view(torch.int32), twin.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_dense_bounce_steps_within_their_bounds():
+    """The dense counting instance on three resident waves and five rays:
+    its spectrum bit-equal to the plain instance's, its warp bounce steps
+    and ray-bounces within steps <= ray-bounces <= 32 x steps, and at least
+    one bounce per ray."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    scene = _scene("box")
+    n = 3 * _dense_wave(scene) + 5
+    rays = _rays(forward=False, n=n, seed=3)
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    steps = torch.zeros(mk.BOUNCE_STEP_COLS, dtype=torch.int64, device="cuda")
+    counted, _ = mk.trace_megakernel(scene, rays, opts, 8, bounce_steps=steps)
+    plain, _ = mk.trace_megakernel(scene, rays, opts, 8)
+    torch.cuda.synchronize()
+    assert torch.equal(counted.view(torch.int32), plain.view(torch.int32))
+    use = mk.lane_use(steps.cpu())
+    assert 0.0 < use <= 1.0 and int(steps[1]) >= n
+    with pytest.raises(ValueError, match="dense"):
+        mk.trace_megakernel(_dragon(), rays, opts, 8, bounce_steps=steps)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["box", "dragon"])
+def test_record_form_writes_every_dead_column_without_a_fill(name):
+    """K2's record form on a state where a seeded third of the rays enter
+    dead, into NaN-filled record planes (no fill before the launch): no
+    column left NaN, every dead column the no-contribution encoding
+    (mid -1, all else 0), and every column, live or dead, bit-equal to
+    the twin's; the state planes equal and the dead rays' unchanged."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    scene = _scene("box") if name == "box" else _dragon()
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    tables = mk.pack_tables(scene)
+    st = _camera_state(scene, n=16384 + 77)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    dead = torch.rand(st.shape[1], generator=gen, device="cuda") < 1 / 3
+    st[17, dead] = 0.0
+    nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+    for depth in (0, 5):
+        k, t = st.clone(), st.clone()
+        rk = torch.full((nd, st.shape[1]), float("nan"), device="cuda")
+        rt = torch.full_like(rk, float("nan"))
+        sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
+        sw.bounce(scene, k, sd, opts, tables, records=rk)
+        sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
+        torch.cuda.synchronize()
+        assert not bool(torch.isnan(rk).any()), depth
+        assert (rk[0, dead] == -1).all() and (rk[1:, dead] == 0).all(), depth
+        assert torch.equal(rk.view(torch.int32), rt.view(torch.int32)), depth
+        assert torch.equal(k.view(torch.int32), t.view(torch.int32)), depth
+        assert torch.equal(k[:, dead].view(torch.int32), st[:, dead].view(torch.int32)), depth
