@@ -6,9 +6,9 @@ Phases, one line each; any failure exits non-zero:
   1. the card: torch's device name and nvidia-smi's name + power limit
   2. build the CUDA kernels from cpupathtrace_tpu_torch/csrc with nvcc,
      with ptxas's registers, shared memory and spills per kernel instance,
-     and the resident blocks per SM of every instance of K1 and K2
-     (cudaOccupancyMaxActiveBlocksPerMultiprocessor; binned at the walk's
-     rings alone, dense at the box's tables)
+     and the resident blocks per SM of every instance of K1, K2 and K4 and
+     of K7 (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the walking ones
+     at their rings alone, dense ones at the box's tables)
   3. kernel vs its plain-torch twin on the card, same rays and seed
   4. golden parity: the port's render_chunk at 32x32 against the C++
      reference images in tests/golden, with tests/test_parity.py's checks
@@ -26,8 +26,16 @@ Phases, one line each; any failure exits non-zero:
      lens, post-processed, written as PNG and read back
   7. the binned build of renderSceneDragonBox (200k-triangle stand-in
      dragon), timed by stage (mesh, BVH and which builder ran, packing,
-     upload), then the cluster query (K4) against its plain version on
-     65,536 rays in the box, nearest and any-hit
+     upload), then the cluster query (K4) through its path (2 launches),
+     and on 65,536 rays in the box and on the dragon frame's 262,144
+     camera rays, nearest and any-hit: t, prim and the four counter
+     columns equal to the plain version on every ray, whole calls and
+     `best_ms`, the bound from the counters, lane use and distinct
+     clusters per filled-row step from the counting instance's warp
+     steps; ring depth, threads, registers and blocks per SM; a ragged
+     count below one resident wave (17 past a multiple of 32) and the
+     frame's rays with the first wave's inactive (whole claims ending at
+     the root gate): no ray left NaN, equal to the plain version
   8. the bounce kernel (K2) against its twin: one bounce from the same
      state at depth 0 and 5 (all 18 planes), whole paths on 16,384 camera
      rays at max_depth 40, and the kernel's sorted and unsorted runs
@@ -70,6 +78,9 @@ Phases, one line each; any failure exits non-zero:
      round with a nonzero lower bound) and on the first round of the
      dragon frame's 262,144 camera rays (the main path's shape, timed as
      the mean of 10 whole calls and as the best of 10 on the card alone);
+     K7 also on round 2's pairs, with where the dragon's padding rows sit
+     (the rows up to each cluster's last filled group are tested), its
+     lane use, registers and blocks per SM;
      the whole `binned_intersect` (nearest; any-hit with t_max and a live
      mask) against `binned_intersect_ref` on a chunk of rays and against
      the cluster query K4 on every ray; rounds per query and host reads
@@ -82,7 +93,10 @@ Phases, one line each; any failure exits non-zero:
      call, one profiled frame, the mean against the sorted driver's frame
      (within 4 standard errors); the scene rebuilt under PTX_KRN_MAX_TRIS
      below its small count (no kernel records) reaching the wavefront by
-     the dispatch alone; the lean build through the wavefront (K4 + K5)
+     the dispatch alone; the lean build through the wavefront (K4 + K5) at
+     the same 128x128 @ 16 spp: frame time, launches, one profiled frame,
+     its mean within 4 standard errors of the binned wavefront frame's;
+     both profiles give the device time and launches of K4, K5, K6, K7
  19. gradients on the 200k dragon: loss_and_grad at 32x32 @ 8 spp,
      max_depth 4, through the wavefront (PTX_DIFF_MEGAKERNEL=0) and the
      record route, each against central differences
@@ -128,9 +142,9 @@ tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there
 (chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
-the same machine, phases 5, 9, 14, 20 and 21 also print its K1 dense ms
-and box frame, its K2 per-bounce times and sum, its gradient pass and K2
-record-form ms, and its K1 binned ms.
+the same machine, phases 5, 7, 9, 14, 16, 20 and 21 also print its K1
+dense ms and box frame, its K4 ms, its K2 per-bounce times and sum, its
+gradient pass and K2 record-form ms, its K7 ms and its K1 binned ms.
 """
 from __future__ import annotations
 
@@ -162,12 +176,12 @@ DRAGON_W = DRAGON_H = 128
 DRAGON_SPP = 16
 QUERY_RAYS = 65536
 PATH_RAYS = 16384
-# K4 vs its plain version: hit mask and prim equal on >= QUERY_FRAC of the
-# rays, t within QUERY_RTOL where both hit. K2 vs its twin: every state
-# plane equal on >= PLANE_FRAC of the rays; whole paths at the K1 bounds
-# above. Both kernels do their plain versions' float32 operations in the
-# same order; on an H100 they measured equal on every ray.
-QUERY_FRAC, QUERY_RTOL, PLANE_FRAC = 0.999, 1e-6, 0.999
+# K4 vs its plain version: t, prim and the counters equal on every ray. K2
+# vs its twin: every state plane equal on >= PLANE_FRAC of the rays; whole
+# paths at the K1 bounds above. Both kernels do their plain versions'
+# float32 operations in the same order; on an H100 they measured equal on
+# every ray.
+PLANE_FRAC = 0.999
 KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
            "binned_isect", "bvh_build", "exp_supscan", "exp_record_variants", "exp_smem_tables",
            "exp_cond_fat", "exp_dot_formulations")
@@ -187,6 +201,10 @@ GRAD_W = GRAD_H = 128
 GRAD_SPP = 16
 GRAD_DEPTH = 12
 K5_RAYS = 262144
+# The kernels whose device time and launches the profiled wavefront frames
+# of phase 18 report: K4, K5, K6, K7.
+FRAME_KERNELS = ("cluster_query_kernel", "dense_query", "binned_cand_kernel",
+                 "binned_isect_kernel")
 # The binned wavefront (phases 16-19): candidate slots per round, the
 # share of rays on which the pipeline and the independent cluster query K4
 # must give the same prim (they may differ only on exact-t ties between
@@ -482,10 +500,11 @@ def profile_frame(pt, scene, camera, opts, kernel="megakernel"):
     return profile_run(lambda: pt.render(scene, camera, opts, seed=7, device="cuda"), kernel)
 
 
-def profile_run(fn, kernel):
+def profile_run(fn, kernel, names=()):
     """fn() under torch.profiler: device time by kernel name (top 6), the
-    share of kernels named `kernel`, and the device's busy share of the
-    wall time (the union of kernel intervals)."""
+    share of kernels named `kernel`, the device time and launches of the
+    kernels whose name holds each of `names`, and the device's busy share
+    of the wall time (the union of kernel intervals)."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -512,10 +531,12 @@ def profile_run(fn, kernel):
     total = sum(by_name.values())
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     mine = sum(v for k, v in by_name.items() if kernel in k)
+    named = {n: dict(us=sum(e.time_range.elapsed_us() for e in kernels if n in e.name),
+                     launches=sum(1 for e in kernels if n in e.name)) for n in names}
     return dict(wall_us=wall_us, device_kernel_us=total, device_busy_us=busy,
                 busy_share=busy / wall_us, **{f"{kernel}_share_of_device": mine / total},
                 n_kernels=len(kernels),
-                top_us=dict(top))
+                top_us=dict(top), **({"kernels": named} if names else {}))
 
 
 def phase_demo(pt, scenes, out_dir, include_dragon=False):
@@ -566,53 +587,132 @@ def phase_dragon_build(scenes):
                        record_mb=scene.krn_records.numel() * 4 / 1e6)
 
 
-def phase_cluster_query(kt, scene):
+def k4_check(kt, scene, o, d, lim, any_hit, what):
+    """K4 against its plain version on the same rays: t and prim bit-equal
+    on every ray, and the counting instance's four counter columns equal
+    to the plain version's. Returns the figures, the counters and the
+    counting run's warp steps."""
+    t_k, p_k = kt.cluster_intersect(scene, o, d, lim, any_hit=any_hit)
+    steps = torch.zeros(kt.QUERY_STEP_COLS, dtype=torch.int64, device="cuda")
+    tc, pc, vis = kt.cluster_intersect(scene, o, d, lim, any_hit=any_hit, debug_visits=True,
+                                       warp_steps=steps)
+    sync()
+    t0 = time.perf_counter()
+    t_p, p_p, vis_p = kt.cluster_intersect_reference(scene, o, d, lim, any_hit=any_hit,
+                                                     debug_visits=True)
+    sync()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    res = dict(rays=int(o.shape[0]), hits=int((p_p >= 0).sum()), plain_ms=plain_ms,
+               t_equal=bits_equal(t_k, t_p) and bits_equal(tc, t_p),
+               prim_equal=bool(torch.equal(p_k, p_p) and torch.equal(pc, p_p)),
+               counters_equal=bool(torch.equal(vis, vis_p)), max_abs_err=max_err(t_k, t_p))
+    need(res["t_equal"] and res["prim_equal"] and res["counters_equal"] and res["hits"] > 1000,
+         f"cluster query {what} disagrees with its plain version: {res}")
+    return res, vis, steps
+
+
+def k4_bound(vis, n):
+    """K4's bound from its counters on `n` rays: the walk's work and the
+    root test per ray; 28 bytes of ray in and 8 out per ray."""
+    flops, counts = traversal_flops(vis)
+    return dict(counts=counts, **bound(n * (24 + 4 + 8), flops + n * SLAB_FLOPS))
+
+
+def phase_cluster_query(kt, sw, scenes, scene, best_ms):
     """K4 through `cluster_intersect` (its path: counts zeroed just before,
-    read just after), then against the plain traversal on the same rays."""
-    rng = np.random.default_rng(1)
-    n = QUERY_RAYS
-    o = torch.tensor(rng.uniform(-0.95, 0.95, (n, 3)), dtype=torch.float32, device="cuda")
-    d = rng.normal(size=(n, 3))
-    d = torch.tensor(d / np.linalg.norm(d, axis=1, keepdims=True), dtype=torch.float32,
-                     device="cuda")
-    lim = torch.tensor(rng.uniform(0.05, 1.5, n), dtype=torch.float32, device="cuda")
+    read just after), then, at phase 7's 65,536 rays in the box and at the
+    dragon frame's 262,144 camera rays, nearest and any-hit: bit-equal to
+    the plain traversal with its counters, timed (whole calls and the card
+    alone), bounded from the counters, with the counting instance's lane
+    use and distinct clusters per row step; and a ragged count below one
+    resident wave into NaN-filled outputs."""
+    from cpupathtrace_tpu_torch import _build
+
+    o, d, lim = query_rays_phase7()
     kt.cluster_intersect.launches = 0
     kt.cluster_intersect_reference.calls = 0
-    t_k, p_k = kt.cluster_intersect(scene, o, d)
-    ta_k, pa_k = kt.cluster_intersect(scene, o, d, lim, any_hit=True)
+    kt.cluster_intersect(scene, o, d)
+    kt.cluster_intersect(scene, o, d, lim, any_hit=True)
     sync()
     launches = kt.cluster_intersect.launches
     need(launches == 2 and kt.cluster_intersect_reference.calls == 0,
          f"cluster query path: {launches} launches, "
          f"{kt.cluster_intersect_reference.calls} plain calls")
-    t0 = time.perf_counter()
-    t_p, p_p = kt.cluster_intersect_reference(scene, o, d)
-    sync()
-    plain_s = time.perf_counter() - t0
-    ta_p, pa_p = kt.cluster_intersect_reference(scene, o, d, lim, any_hit=True)
-    out = dict(launches=launches, rays=n, plain_ms=plain_s * 1e3)
-    for name, tk, pk, tp, pp in (("nearest", t_k, p_k, t_p, p_p),
-                                 ("any_hit", ta_k, pa_k, ta_p, pa_p)):
-        hit_eq = float(((pk >= 0) == (pp >= 0)).float().mean())
-        prim_eq = float((pk == pp).float().mean())
-        both = (pk >= 0) & (pp >= 0)
-        err = float((tk[both] - tp[both]).abs().max()) if bool(both.any()) else 0.0
-        rel_ok = bool(torch.allclose(tk[both], tp[both], rtol=QUERY_RTOL, atol=0.0))
-        out[name] = dict(hits=int((pp >= 0).sum()), hit_equal=hit_eq, prim_equal=prim_eq,
-                         max_abs_err=err)
-        need(hit_eq >= QUERY_FRAC and prim_eq >= QUERY_FRAC and rel_ok and int(both.sum()) > 1000,
-             f"cluster query {name} disagrees with its plain version: {out[name]}")
-    out["max_abs_err"] = max(out["nearest"]["max_abs_err"], out["any_hit"]["max_abs_err"])
-    out["ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, o, d), 5)
-    out["any_hit_ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, o, d, lim, any_hit=True), 5)
-    # The bound from the nearest query's counters, held against the plain
-    # version's counts of the same rays.
-    *_, vis = kt.cluster_intersect(scene, o, d, debug_visits=True)
-    *_, vis_p = kt.cluster_intersect_reference(scene, o, d, debug_visits=True)
-    need(torch.equal(vis, vis_p), "K4's counters differ from the plain version's")
-    flops, counts = traversal_flops(vis)
-    out.update(counts=counts, **bound(n * (24 + 4 + 8), flops + n * SLAB_FLOPS))
+    frame = camera_state(sw, scenes.bench_camera(), _frame_options(), DRAGON_SPP, 3)[0]
+    fo, fd = frame.origin.contiguous(), frame.direction.contiguous()
+    flim = frame_limits(kt.cluster_intersect(scene, fo, fd)[0])
+    layout = kt.walk_layout("cluster_query")
+    smem = kt.query_smem_bytes(scene.krn_sup_bounds.shape[0])
+    per_sm, threads = kt.query_occupancy(smem)
+    inst = _build.ptxas_instances(_build.ptxas_report.get("cluster_query", ""))
+    out = dict(launches=launches, ring_depth=layout.depth, threads=threads, smem_bytes=smem,
+               blocks_per_sm=per_sm, warps_per_sm=per_sm * threads // 32,
+               counting_blocks_per_sm=kt.query_occupancy(smem, True)[0],
+               ptxas={k: v for k, v in inst.items() if "cluster_query" in k})
+    for shape, (qo, qd, ql) in (("phase7", (o, d, lim)), ("frame", (fo, fd, flim))):
+        for kind, any_hit in (("nearest", False), ("any_hit", True)):
+            lim_q = ql if any_hit else None
+            res, vis, steps = k4_check(kt, scene, qo, qd, lim_q, any_hit, f"{shape} {kind}")
+            try:
+                res["walk"] = kt.warp_utilisation(vis, steps)
+            except ValueError as e:
+                raise SmokeFailure(f"K4 {shape} {kind}: warp steps out of their bounds: {e}")
+            res["ms"] = cuda_ms(lambda: kt.cluster_intersect(scene, qo, qd, lim_q,
+                                                             any_hit=any_hit), 5)
+            res["best_ms"] = best_ms(lambda: kt.cluster_intersect(scene, qo, qd, lim_q,
+                                                                  any_hit=any_hit), 10)
+            res.update(k4_bound(vis, res["rays"]))
+            out[f"{shape}_{kind}"] = res
+    # A ragged count below one resident wave, 17 past a multiple of 32.
+    wave = per_sm * threads * torch.cuda.get_device_properties(0).multi_processor_count
+    n = (wave // 2) // 32 * 32 + 17
+    rag = {}
+    for kind, any_hit in (("nearest", False), ("any_hit", True)):
+        t_k, p_k = kt.cluster_intersect(scene, o[:n], d[:n], lim[:n], any_hit=any_hit)
+        t_p, p_p = kt.cluster_intersect_reference(scene, o[:n], d[:n], lim[:n], any_hit=any_hit)
+        rag[kind] = dict(nan_left=int(torch.isnan(t_k).sum()),
+                         equal=bits_equal(t_k, t_p) and bool(torch.equal(p_k, p_p)))
+        need(rag[kind]["nan_left"] == 0 and rag[kind]["equal"],
+             f"K4 on {n} rays ({kind}): {rag[kind]}")
+    out["ragged"] = dict(rays=n, resident_wave=wave, **rag)
+    # Past one wave with whole claims ending at the root gate (t_lim 0 on
+    # the first wave's rays, as a wavefront frame's camera rays end on the
+    # box's front wall): the warps go on claiming, every ray is written.
+    glim = flim.clone()
+    glim[:wave] = 0.0
+    gated = {}
+    for kind, any_hit in (("nearest", False), ("any_hit", True)):
+        t_k, p_k = kt.cluster_intersect(scene, fo, fd, glim, any_hit=any_hit)
+        t_p, p_p = kt.cluster_intersect_reference(scene, fo, fd, glim, any_hit=any_hit)
+        gated[kind] = dict(nan_left=int(torch.isnan(t_k).sum()), hits=int((p_p >= 0).sum()),
+                           equal=bits_equal(t_k, t_p) and bool(torch.equal(p_k, p_p)))
+        need(gated[kind]["nan_left"] == 0 and gated[kind]["equal"] and gated[kind]["hits"] > 0,
+             f"K4 with gated claims ({kind}): {gated[kind]}")
+    out["gated"] = dict(rays=int(fo.shape[0]), inactive=wave, **gated)
+    p7 = out["phase7_nearest"]
+    out.update(ms=p7["ms"], best_ms=p7["best_ms"], any_hit_ms=out["phase7_any_hit"]["ms"],
+               plain_ms=p7["plain_ms"], bound_ms=p7["bound_ms"], bound_by=p7["bound_by"],
+               max_abs_err=max(out[k]["max_abs_err"] for k in (
+                   "phase7_nearest", "phase7_any_hit", "frame_nearest", "frame_any_hit")))
     return out
+
+
+def frame_limits(t_near, seed=2):
+    """Shadow limits for camera rays from their nearest hit `t_near` (-1 on
+    a miss): half to one and a half times it, so about half the rays that
+    hit are occluded; uniform in [0.05, 6] for the rays that miss (the
+    camera is 2 units in front of the box)."""
+    u = torch.tensor(np.random.default_rng(seed).uniform(0.5, 1.5, t_near.shape[0]),
+                     dtype=torch.float32, device=t_near.device)
+    return torch.where(t_near > 0, t_near * u, 0.05 + 5.95 * (u - 0.5))
+
+
+def _frame_options():
+    """The dragon frame's options (128x128 @ 16 spp, max_depth 40)."""
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+
+    return RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                         max_depth=MAX_DEPTH)
 
 
 def camera_state(sw, camera, opts, spp, seed):
@@ -1255,6 +1355,39 @@ def k7_bound(tt, blocks, n_pairs, counts):
     return dict(tests=tests, **bound(n_pairs * (24 + 8) + read_rows * 64, tests * TEST_FLOPS))
 
 
+def k7_rows(tt, blocks):
+    """Where the padding rows of `blocks` sit: per cluster the filled rows,
+    the rows K7 tests (up to the last filled 8-row group) and the padding
+    rows before that group (tested) and after it (skipped)."""
+    filled = blocks[..., tt.C_PRIM] >= 0
+    tested = tt.last_filled_groups(blocks).long() * tt.GROUP_ROWS
+    n_filled = int(filled.sum())
+    rows = int(tested.sum())
+    return dict(clusters=int(blocks.shape[0]), cluster_rows=int(blocks.shape[1]),
+                filled_rows=n_filled, tested_rows=rows,
+                padding_tested=rows - n_filled,
+                padding_skipped=int(blocks.shape[0] * blocks.shape[1]) - rows,
+                clusters_with_inner_padding=int(((tested > 0) & (
+                    filled.sum(1) < tested)).sum()))
+
+
+def k7_lanes(tt, blocks, offs):
+    """K7's lane use on a run's pairs (`offs` [C+1]): a warp tests one
+    32-lane slot per 32 of its pairs (a cluster's pairs fill ceil(n / 32)
+    slots), over the rows up to its cluster's last filled group; lane-row
+    tests executed against the pairs' filled-row tests (the bound's work),
+    and the same over every row, as the parent tested them."""
+    counts = (offs[1:] - offs[:-1]).long()
+    lanes = torch.div(counts + 31, 32, rounding_mode="floor") * 32
+    tested = tt.last_filled_groups(blocks).long() * tt.GROUP_ROWS
+    work = int((counts * (blocks[..., tt.C_PRIM] >= 0).sum(1).long()).sum())
+    lane_tests = int((lanes * tested).sum())
+    every_row = int(lanes.sum()) * int(blocks.shape[1])
+    return dict(lane_row_tests=lane_tests, every_row_lane_tests=every_row, work_row_tests=work,
+                lane_use=work / lane_tests if lane_tests else None,
+                every_row_lane_use=work / every_row if every_row else None)
+
+
 def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     """K6 and K7 against their plain versions, then the whole pipeline
     against its oracle and against K4."""
@@ -1271,10 +1404,13 @@ def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     id_lo = torch.where(valid[0], ik.gather(0, last[None])[0].float(), float("inf"))
     later = rays.clone()
     later[7], later[8] = t_lo, id_lo
-    out["k6_round2"], _, _ = check_k6(tt, dragon.trv_bounds, later, CAND_M, "round 2")
+    out["k6_round2"], ik2, _ = check_k6(tt, dragon.trv_bounds, later, CAND_M, "round 2")
     need(out["k6_round2"]["kept"] > 0, "K6's later round kept no candidate")
     pair_rays, offs, _ = tt.bin_pairs(rays, ik, c, CAND_M)
     out["k7_round1"] = check_k7(tt, dragon.trv_blocks, pair_rays, offs, "round 1")
+    pair_rays2, offs2, _ = tt.bin_pairs(later, ik2, c, CAND_M)
+    out["k7_round2"] = check_k7(tt, dragon.trv_blocks, pair_rays2, offs2, "round 2")
+    out["k7_rows"] = k7_rows(tt, dragon.trv_blocks)
 
     # The main path's shapes: the largest K6 and K7 inputs of a wavefront
     # frame, the kernels timed beside their plain versions.
@@ -1293,7 +1429,16 @@ def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     k7["best_ms"] = best_ms(lambda: tt.isect(dragon.trv_blocks, fpairs, foffs), 10)
     k7["plain_ms"] = cuda_ms(lambda: tt.isect_reference(dragon.trv_blocks, fpairs, foffs), 1)
     k7.update(k7_bound(tt, dragon.trv_blocks, k7["pairs"], foffs[1:] - foffs[:-1]))
+    k7.update(k7_lanes(tt, dragon.trv_blocks, foffs))
     out["k7_frame"] = k7
+    from cpupathtrace_tpu_torch import _build
+
+    per_sm, threads, item_pairs = tt.isect_occupancy()
+    out["k7_kernel"] = dict(blocks_per_sm=per_sm, threads=threads, item_pairs=item_pairs,
+                            ptxas=_build.ptxas_instances(
+                                _build.ptxas_report.get("binned_isect", "")))
+    need(item_pairs == tt.ITEM_PAIRS, f"K7 built with {item_pairs} pairs an item, the wrapper "
+                                      f"cuts {tt.ITEM_PAIRS}")
 
     # The whole query: against the oracle on a chunk, against K4 on all.
     reads0, rounds0 = tt.binned_intersect.host_reads, tt.binned_intersect.rounds
@@ -1328,6 +1473,8 @@ def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     out["k4_query_ms"] = cuda_ms(lambda: tt.krn_intersect(dragon, o, d), 3)
     out["max_abs_err"] = max(out[k]["max_abs_err"] for k in ("k6_round1_m1", "k6_round2",
                                                              "k6_frame"))
+    out["k7_max_abs_err"] = max(out[k]["max_abs_err"] for k in ("k7_round1", "k7_round2",
+                                                                "k7_frame"))
     return out, (tb, pb)
 
 
@@ -1423,7 +1570,8 @@ def phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon):
             sync()
             frames.append(time.perf_counter() - t0)
         out["profile"] = profile_run(
-            lambda: pt.render(dragon, camera, opts, seed=7, device="cuda"), "binned_")
+            lambda: pt.render(dragon, camera, opts, seed=7, device="cuda"), "binned_",
+            FRAME_KERNELS)
     finally:
         del os.environ["PTX_NO_MEGAKERNEL"]
     c = out["counts"]
@@ -1462,21 +1610,43 @@ def phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon):
     need(c["k6"] > 0 and c["k7"] > 0 and c["k2"] == c["k1"] == 0 and c["k6_plain"] == 0
          and np.isfinite(img).all(), f"no-records dragon did not take the wavefront: {c}")
 
-    # The lean build through the wavefront: krn_intersect, K4 and K5.
+    # The lean build through the wavefront at the frame's full size:
+    # krn_intersect, K4 and K5; timed, then one frame profiled.
     lean = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS, lean=True)
     os.environ["PTX_NO_MEGAKERNEL"] = "1"
     try:
         binned_counts_zero(tt, oi, sw, mk, kt)
-        t0 = time.perf_counter()
-        img = pt.render(lean, camera, low, seed=6, device="cuda")
         sync()
+        t0 = time.perf_counter()
+        img = pt.render(lean, camera, opts, seed=6, device="cuda")
+        sync()
+        lean_frames = [time.perf_counter() - t0]
+        c = binned_counts(tt, oi, sw, mk, kt)
+        for seed in (8, 9):
+            sync()
+            t0 = time.perf_counter()
+            pt.render(lean, camera, opts, seed=seed, device="cuda")
+            sync()
+            lean_frames.append(time.perf_counter() - t0)
+        lean_profile = profile_run(
+            lambda: pt.render(lean, camera, opts, seed=10, device="cuda"), "cluster_query",
+            FRAME_KERNELS)
     finally:
         del os.environ["PTX_NO_MEGAKERNEL"]
-    c = binned_counts(tt, oi, sw, mk, kt)
-    out["lean"] = dict(frame_s=time.perf_counter() - t0, counts=c, mean=float(img[..., :3].mean()))
+    med = float(np.median(lean_frames))
+    # The same frame as the binned wavefront's (another seed): the means
+    # within 4 standard errors.
+    lean_px = img[..., :3].mean(-1).astype(np.float64) - img_w[..., :3].mean(-1)
+    lean_se = float(lean_px.std() / np.sqrt(lean_px.size))
+    out["lean"] = dict(frame_s=lean_frames, frame_median_s=med,
+                       mrays_per_s=n_paths / med / 1e6, counts=c,
+                       mean=float(img[..., :3].mean()), mean_diff=float(lean_px.mean()),
+                       std_err=lean_se, profile=lean_profile)
     need(c["k4"] > 0 and c["k5"] > 0 and c["k6"] == c["k7"] == c["k2"] == 0
          and c["k4_plain"] == 0 and np.isfinite(img).all(),
          f"lean dragon through the wavefront: {c}")
+    need(abs(out["lean"]["mean_diff"]) <= 4 * lean_se,
+         f"lean dragon frame differs from the binned wavefront's: {out['lean']}")
     return out
 
 
@@ -1872,10 +2042,11 @@ def phase_dot_formulations(df, best_ms):
     return out
 
 
-def kernel_occupancy(mk, sw, kt, dense_smem):
+def kernel_occupancy(mk, sw, kt, tt, dense_smem):
     """Resident blocks per SM (and threads per block) of every instance of
-    K1 and K2: the binned ones at the walk's rings alone (the tables of a
-    scene add a few KB), the dense ones at `dense_smem` (the box's tables)."""
+    K1, K2 and K4, and of K7: the walking ones at their rings alone (the
+    tables of a scene add a few KB), the dense ones at `dense_smem` (the
+    box's tables)."""
     layout = kt.walk_layout("megakernel")
     need(kt.walk_layout("bounce") == layout, "K1 and K2 were built with different walk layouts")
     ring = kt.kernel_smem_bytes(0, 0, layout)
@@ -1891,18 +2062,28 @@ def kernel_occupancy(mk, sw, kt, dense_smem):
         for rec in (0, 1):
             out[f"bounce_kernel<{cull}, {rec}>"] = sw.bounce_occupancy(dense_smem, False, cull,
                                                                         rec)
+    q_layout = kt.walk_layout("cluster_query")
+    q_ring = kt.kernel_smem_bytes(0, 0, q_layout)
+    out.update(k4_ring_depth=q_layout.depth, k4_threads=q_layout.threads,
+               k4_ring_smem_bytes=q_ring)
+    for count in (0, 1):
+        out[f"cluster_query_kernel<{count}>"] = kt.query_occupancy(q_ring, count)
+    out["binned_isect_kernel"] = tt.isect_occupancy()
     return out
 
 
 def parent_figures(parent):
-    """The figures of phases 5, 9, 14, 20 and 21 in a parent's
+    """The figures of phases 5, 7, 9, 14, 16, 20 and 21 in a parent's
     chip_smoke.json (its --out), run on the same machine, or None."""
     if parent is None:
         return None
     dm, k1, fr = parent["dragon_main_path"], parent["k1_binned"], parent["dragon_k1_frame"]
     depth1 = dm.get("depth1", dm)  # before the frame's K2 figures: at the top
     mp, gr = parent["main_path"], parent["box_grad"]
+    q, k7 = parent["cluster_query"], parent["binned_kernels"]["k7_frame"]
     return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
+                k4_ms=q["ms"], k4_any_hit_ms=q["any_hit_ms"], k4_best_ms=q.get("best_ms"),
+                k7_ms=k7["ms"], k7_best_ms=k7["best_ms"],
                 k1_dense_ms=mp["kernel_ms"], box_frame_median_s=mp["frame_median_s"],
                 grad_ms_per_pass=gr["replay"]["ms_per_pass"],
                 k2_records_ms=gr["record_kernel"]["ms"],
@@ -1916,8 +2097,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
     ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
-                                     "the same machine: phases 5, 9, 14, 20 and 21 print its "
-                                     "figures")
+                                     "the same machine: phases 5, 7, 9, 14, 16, 20 and 21 "
+                                     "print its figures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -1965,7 +2146,7 @@ def main():
     report["build"] = dict(seconds=time.perf_counter() - t0,
                            compiler_seconds=dict(_build.build_seconds), ptxas=ptxas,
                            occupancy=kernel_occupancy(
-                               mk, sw, kt, mk.block_smem_bytes(box, mk.pack_tables(box))))
+                               mk, sw, kt, tt, mk.block_smem_bytes(box, mk.pack_tables(box))))
     line("2 build", **report["build"])
     parent = None
     if args.parent:
@@ -1986,7 +2167,10 @@ def main():
 
     dragon, report["dragon_build"] = phase_dragon_build(scenes)
     line("7 dragon build", **report["dragon_build"])
-    report["cluster_query"] = phase_cluster_query(kt, dragon)
+    report["cluster_query"] = phase_cluster_query(kt, sw, scenes, dragon, best_ms)
+    if parent:
+        report["cluster_query"]["parent"] = {k: parent[k] for k in (
+            "device", "k4_ms", "k4_any_hit_ms")}
     line("7 cluster query vs plain", **report["cluster_query"])
     report["bounce_vs_twin"] = phase_bounce_vs_twin(sw, mk, scenes, dragon, pt.RenderOptions)
     line("8 bounce vs twin", **report["bounce_vs_twin"])
@@ -2022,6 +2206,9 @@ def main():
     # the scene with lean=False, the builder's default.
     need(dragon.trv_bounds.shape[0] > 1 and not dragon.lean, "the dragon has no K6/K7 tables")
     report["binned_kernels"], nearest = phase_binned_kernels(pt, tt, scenes, dragon, best_ms)
+    if parent:
+        report["binned_kernels"]["parent"] = {k: parent[k] for k in (
+            "device", "k7_ms", "k7_best_ms")}
     line("16 binned wavefront kernels vs plain", **report["binned_kernels"])
     report["cluster_major"] = phase_cluster_major(cm, binned, tt, oi, dragon, nearest)
     line("17 cluster-major entry (K8)", **report["cluster_major"])
@@ -2061,6 +2248,7 @@ def main():
     krec = grad["record_kernel"]
     bk = report["binned_kernels"]
     bw = report["binned_wavefront"]["counts"]
+    lean = report["binned_wavefront"]["lean"]
     k8 = report["cluster_major"]
     k1b = report["k1_binned"]
     xp = report["experiments"]
@@ -2107,9 +2295,11 @@ def main():
         "source": "cpupathtrace_tpu_torch/csrc/cluster_query.cu",
         "replaces": "cpupathtrace_tpu/accel/kernel_traverse.py:1201",
         "inlines": k3,
-        "launches": query["launches"],
+        "launches": lean["counts"]["k4"],
+        "launches_per": "the lean dragon frame through the wavefront (phase 18)",
         "max_abs_err": query["max_abs_err"],
-        **figures(query), "library_ms": None,
+        **figures(query), "best_ms": query["best_ms"], "library_ms": None,
+        "frame_device_ms": lean["profile"]["kernels"]["cluster_query_kernel"]["us"] / 1e3,
     }, {
         "name": "dense_intersect", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/dense_query.cu",
@@ -2129,7 +2319,7 @@ def main():
         "source": "cpupathtrace_tpu_torch/csrc/binned_isect.cu",
         "replaces": "cpupathtrace_tpu/accel/pallas_traverse.py:238",
         "launches": bw["k7"],
-        "max_abs_err": max(bk["k7_round1"]["max_abs_err"], bk["k7_frame"]["max_abs_err"]),
+        "max_abs_err": bk["k7_max_abs_err"],
         **figures(bk["k7_frame"]), "best_ms": bk["k7_frame"]["best_ms"], "library_ms": None,
     }, {
         "name": "cluster_major", "route": "cuda",

@@ -234,11 +234,9 @@ def root_box(hyp):
     valid = hyp[:, B_VALID:B_VALID + 1] > 0.5
     lo = torch.where(valid, hyp[:, B_LO:B_LO + 3], float("inf")).amin(0)
     hi = torch.where(valid, hyp[:, B_HI:B_HI + 3], float("-inf")).amax(0)
-    out = torch.zeros((1, BND_COLS), dtype=torch.float32, device=hyp.device)
-    out[0, B_LO:B_LO + 3] = lo
-    out[0, B_HI:B_HI + 3] = hi
-    out[0, B_VALID] = 1.0
-    return out
+    # Built on the device alone: a Python number stored into a CUDA tensor
+    # is a copy from the host that waits for the stream.
+    return torch.cat([lo, hi, lo.new_ones(1), lo.new_zeros(BND_COLS - B_VALID - 1)])[None]
 
 
 def _root_gate(root, ox, oy, oz, ix, iy, iz, bound):
@@ -568,7 +566,8 @@ def _query_fn():
     if fn.argtypes is None:
         fn.argtypes = ([_P, _P, _P, _P, _P, _I]  # origin direction t_lim t prim n
                        + [_P, _I, _I, _P, _P, _I, _P, _I, _P]  # tables, root box
-                       + [_I, _I, _P, _P])  # cull mode, any_hit, visits, stream
+                       + [_I, _I, _P, _P, _P]  # cull mode, any_hit, visits, steps, next ray
+                       + [_I, ctypes.c_longlong, _P])  # grid, shared bytes, stream
         fn.restype = ctypes.c_int
     return fn
 
@@ -593,22 +592,36 @@ QUERY_COL = 8
 # K1's binned form and K2 beside their counters: the slab-test steps and the
 # filled-row steps the warps execute (once per step, by the lowest active
 # lane), summed over a launch. They depend on how the card schedules lanes,
-# so no plain version reproduces them.
+# so no plain version reproduces them. K4's counting instance
+# (csrc/cluster_query.cu kQueryStepCols) adds, at each filled-row step, the
+# distinct clusters among the warp's active lanes and the active lanes.
 WARP_STEP_COLS = 2
+QUERY_STEP_COLS = 4
 WARP_LANES = 32
 
 
 def warp_utilisation(visits, steps):
     """Lane utilisation of the walks of K1 / K2 counters `visits` [..., 9]
     against their warp steps `steps` [2] (slab-test steps, filled-row
+    steps), or of K4 counters [..., 4] against K4's steps [4] (the same
+    two, then the clusters and the active lanes summed over the filled-row
     steps): work / (32 x steps) for the slab tests and the filled rows
-    tested. Raises ValueError unless steps <= work <= 32 x steps for each,
-    which also makes steps > 0 wherever work > 0."""
-    v = torch.as_tensor(visits).reshape(-1, GEO_VISIT_COLS).long().sum(0).tolist()
+    tested, and for K4 the mean distinct clusters and active lanes per
+    filled-row step. Raises ValueError unless steps <= work <= 32 x steps
+    for each, which also makes steps > 0 wherever work > 0, and for K4
+    unless row steps <= clusters <= active lanes <= 32 x row steps and
+    filled rows <= active lanes."""
+    cols = torch.as_tensor(visits).shape[-1]
+    v = torch.as_tensor(visits).reshape(-1, cols).long().sum(0).tolist()
     st = torch.as_tensor(steps).reshape(-1).long().tolist()
-    if len(st) != WARP_STEP_COLS:
-        raise ValueError(f"warp steps: need {WARP_STEP_COLS} columns, got {len(st)}")
-    work = dict(slab=v[NEAR_COLS[2]] + v[SHADOW_COLS[2]], row=v[NEAR_COLS[3]] + v[SHADOW_COLS[3]])
+    want = QUERY_STEP_COLS if cols == WALK_COLS else WARP_STEP_COLS
+    if len(st) != want:
+        raise ValueError(f"warp steps: need {want} columns, got {len(st)}")
+    if cols == WALK_COLS:
+        work = dict(slab=v[2], row=v[3])
+    else:
+        work = dict(slab=v[NEAR_COLS[2]] + v[SHADOW_COLS[2]],
+                    row=v[NEAR_COLS[3]] + v[SHADOW_COLS[3]])
     out = {}
     for (name, w), n in zip(work.items(), st):
         if not n <= w <= WARP_LANES * n:
@@ -616,6 +629,15 @@ def warp_utilisation(visits, steps):
                              f"{WARP_LANES} x steps")
         out.update({f"{name}_tests": w, f"{name}_steps": n,
                     f"{name}_lane_utilisation": w / (WARP_LANES * n) if n else None})
+    if cols == WALK_COLS:
+        n, clusters, active = st[1], st[2], st[3]
+        if not n <= clusters <= active <= WARP_LANES * n or work["row"] > active:
+            raise ValueError(f"row steps {n}, clusters {clusters}, active lanes {active}, "
+                             f"filled rows {work['row']}: need steps <= clusters <= active "
+                             f"<= {WARP_LANES} x steps and filled rows <= active")
+        out.update(row_clusters=clusters, row_active_lanes=active,
+                   clusters_per_row_step=clusters / n if n else None,
+                   active_lanes_per_row_step=active / n if n else None)
     return out
 
 
@@ -720,7 +742,44 @@ def cluster_intersect_reference(scene, o, d, t_max=None, any_hit=False, debug_vi
 cluster_intersect_reference.calls = 0
 
 
-def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False):
+def resident_grid(n_rays, threads, blocks_per_sm, sms):
+    """The grid of a launch on refilling persistent warps (K1, K4): the
+    resident blocks (`sms` x `blocks_per_sm` of `threads` threads), at most
+    one thread per ray. Raises ValueError when no block of the instance
+    fits an SM (its shared memory or registers)."""
+    if blocks_per_sm < 1:
+        raise ValueError(f"no block of {threads} threads fits an SM")
+    return max(1, min(-(-n_rays // threads), sms * blocks_per_sm))
+
+
+def query_occupancy(smem_bytes, count=False):
+    """(resident blocks per SM, threads per block) of K4's plain or
+    counting instance at `smem_bytes` of dynamic shared memory, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    fn = _build.load("cluster_query").ptx_cluster_query_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.restype = ctypes.c_int
+    blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
+    err = fn(int(bool(count)), int(smem_bytes), ctypes.byref(blocks), ctypes.byref(threads))
+    if err:
+        raise RuntimeError(f"cluster_query occupancy query failed: cudaError_t {err}")
+    return blocks.value, threads.value
+
+
+# (library, card, instance, shared memory) -> (blocks per SM, threads): a
+# launch queries its instance's occupancy once and then keeps it.
+_QUERY_RESIDENT: dict = {}
+
+
+def query_smem_bytes(n_pages):
+    """K4's dynamic shared memory for a scene of `n_pages` supercluster
+    pages: the staged tiers and its rings (its own WalkLayout)."""
+    return kernel_smem_bytes(0, n_pages, walk_layout("cluster_query"))
+
+
+def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False,
+                      warp_steps=None):
     """Standalone query of the cluster set (the dense big-triangle and
     sphere parts are not included), as `cluster_intersect_kernel` of the
     JAX package. o, d: [R,3] f32 tensors. Returns (t [R], prim [R] i64),
@@ -729,9 +788,17 @@ def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False
     counters [ceil(R / 1024), 4] int32: per block of 1024 rays, the summed
     supercluster descends, record visits, slab tests below the root gate
     and filled record rows tested of its rays (per-ray counts, not the
-    TPU's per-block ones). CPU tensors take the plain version;
-    CUDA tensors launch K4 (csrc/cluster_query.cu)."""
+    TPU's per-block ones). `warp_steps` (with `debug_visits`, on the card):
+    a zeroed [4] int64 tensor the warps' steps are added to
+    (`warp_utilisation`). CPU tensors take the plain version; CUDA tensors
+    launch K4 (csrc/cluster_query.cu) on the resident blocks, whose warps
+    claim the rays from a counter."""
     dev = o.device
+    if warp_steps is not None:
+        if not debug_visits or dev.type != "cuda":
+            raise ValueError("cluster_intersect: warp_steps are counted on the card, with "
+                             "debug_visits")
+        check_tensor("warp_steps", warp_steps, dev, torch.int64, (QUERY_STEP_COLS,))
     if dev.type == "cpu":
         return cluster_intersect_reference(scene, o, d, t_max, any_hit, debug_visits)
     if dev.type != "cuda":
@@ -743,16 +810,30 @@ def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False
     check_tensor("direction", d, dev, torch.float32, (r, 3))
     check_tensor("t_max", lim, dev, torch.float32, (r,))
     check_tables(tables, dev)
-    t = torch.empty(r, dtype=torch.float32, device=dev)
+    smem = query_smem_bytes(tables[2].shape[0])
+    # The warps hand rays out from a counter: t starts as NaN, so a ray no
+    # lane ran shows.
+    t = torch.full((r,), float("nan"), device=dev)
     p = torch.empty(r, dtype=torch.int32, device=dev)
     vis = (torch.zeros((-(-r // VISIT_BLOCK), WALK_COLS), dtype=torch.int32, device=dev)
            if debug_visits else None)
+    if debug_visits and warp_steps is None:
+        warp_steps = torch.zeros(QUERY_STEP_COLS, dtype=torch.int64, device=dev)
     if r:
+        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
+            key = (_build.load("cluster_query")._name, torch.cuda.current_device(),
+                   bool(debug_visits), smem)
+            if key not in _QUERY_RESIDENT:
+                _QUERY_RESIDENT[key] = query_occupancy(smem, debug_visits)
+            per_sm, threads = _QUERY_RESIDENT[key]
+            grid = resident_grid(r, threads, per_sm,
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
             err = _query_fn()(
                 o.data_ptr(), d.data_ptr(), lim.data_ptr(), t.data_ptr(), p.data_ptr(), r,
                 *table_args(tables), int(scene.krn_cull_mode), int(bool(any_hit)),
                 None if vis is None else vis.data_ptr(),
+                None if vis is None else warp_steps.data_ptr(), next_ray.data_ptr(), grid, smem,
                 torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:

@@ -44,6 +44,7 @@ rays and bounds enter detached.
 from __future__ import annotations
 
 import ctypes
+import weakref
 
 import numpy as np
 import torch
@@ -59,7 +60,8 @@ C_CULL, C_PRIM = 9, 10
 RAY_ROWS = 9  # K6's ray planes: o (3), d (3), best, t_lo, id_lo
 GROUP_ROWS = 8  # K7's tie group: 8 consecutive rows
 M_ROWS = 8  # at most 7 candidate slots + the overflow row
-PAIRS_PER_BLOCK = 128  # K7's pairs per thread block (csrc/binned_isect.cu)
+# K7's work item (csrc/binned_isect.cu kItemPairs): 128 threads of one pair.
+ITEM_PAIRS = 128
 # The largest cluster count of a binned scene: K6 keeps the bounds table
 # (32 bytes a cluster, 128 KB at 4096) in one block's shared memory.
 MAX_CLUSTERS = 4096
@@ -310,10 +312,66 @@ def _isect_fn():
     lib = _build.load("binned_isect")
     fn = lib.ptx_binned_isect_launch
     if fn.argtypes is None:
-        # blocks C L rays n_pairs offs chunk_start n_items t prim stream
-        fn.argtypes = [_P, _I, _I, _P, _I, _P, _P, _I, _P, _P, _P]
+        # blocks C L rays n_pairs offs chunk_start groups n_items t prim stream
+        fn.argtypes = [_P, _I, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def last_filled_groups(blocks):
+    """[C] int32: the 8-row groups of each cluster of `blocks` [C, L,
+    BLK_COLS] up to and including its last group with a filled row (prim
+    >= 0); 0 for a cluster with none. K7 tests no row past them: a group
+    of padding rows gives t = inf and never wins. Padding groups before the
+    last filled one count. On the blocks' device, with no host read."""
+    c, l = blocks.shape[0], blocks.shape[1]
+    filled = (blocks[:, :, C_PRIM] >= 0).view(c, l // GROUP_ROWS, GROUP_ROWS).any(2)
+    rank = torch.arange(1, l // GROUP_ROWS + 1, dtype=torch.int32, device=blocks.device)
+    return (filled * rank).amax(1).to(torch.int32)
+
+
+# id(blocks) -> (weak reference to them, their version, last_filled_groups):
+# a build's blocks are scanned once, at their first query.
+_GROUPS: dict = {}
+
+
+def filled_groups(blocks):
+    """`last_filled_groups(blocks)`, computed at the first call for a
+    blocks tensor and kept while it lives unchanged."""
+    key = id(blocks)
+    hit = _GROUPS.get(key)
+    if hit is not None and hit[0]() is blocks and hit[1] == blocks._version:
+        return hit[2]
+    groups = last_filled_groups(blocks)
+    _GROUPS[key] = (weakref.ref(blocks, lambda _, k=key: _GROUPS.pop(k, None)),
+                    blocks._version, groups)
+    return groups
+
+
+def work_items(offs, n_pairs):
+    """K7's work list from the bin offsets `offs` [C+1] i32: (chunk_start
+    [C+1] i32, the first item of each cluster, each cluster's range cut in
+    chunks of ITEM_PAIRS pairs; n_items, an upper bound on their number
+    from the shapes alone, so no host read sizes the grid)."""
+    c = offs.shape[0] - 1
+    n_chunks = (offs[1:] - offs[:-1] + ITEM_PAIRS - 1) // ITEM_PAIRS
+    chunk_start = torch.zeros(c + 1, dtype=torch.int32, device=offs.device)
+    chunk_start[1:] = torch.cumsum(n_chunks, 0)
+    return chunk_start, -(-n_pairs // ITEM_PAIRS) + c
+
+
+def isect_occupancy():
+    """(resident blocks per SM, threads per block, pairs per work item) of
+    K7 on the current card."""
+    fn = _build.load("binned_isect").ptx_binned_isect_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [ctypes.POINTER(_I)] * 3
+        fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(3)]
+    err = fn(*(ctypes.byref(v) for v in out))
+    if err:
+        raise RuntimeError(f"binned_isect occupancy query failed: cudaError_t {err}")
+    return tuple(v.value for v in out)
 
 
 def isect(blocks, rays, offs):
@@ -322,8 +380,9 @@ def isect(blocks, rays, offs):
     planes (ox oy oz dx dy dz) ordered by cluster; `offs` [C+1] i32, the
     pairs of cluster c at [offs[c], offs[c+1]). Pairs past offs[C] and
     pairs that hit nothing give (inf, -1). CPU tensors take the plain
-    version; CUDA tensors launch csrc/binned_isect.cu over a work list of
-    (cluster, 128 pairs) items built here on the device."""
+    version; CUDA tensors launch csrc/binned_isect.cu over the work list of
+    (cluster, ITEM_PAIRS pairs) items built here on the device, each
+    cluster's rows cut at its last filled group (`filled_groups`)."""
     dev = rays.device
     if dev.type == "cpu":
         return isect_reference(blocks, rays, offs)
@@ -336,20 +395,17 @@ def isect(blocks, rays, offs):
     check_tensor("offs", offs, dev, torch.int32, (c + 1,))
     if l % GROUP_ROWS:
         raise ValueError(f"cluster height {l}: need a multiple of {GROUP_ROWS}")
+    if blocks.data_ptr() % 16:
+        raise ValueError("blocks: the bulk copies need a 16-byte aligned tensor")
     t = torch.full((n_pairs,), float("inf"), device=dev)
     prim = torch.full((n_pairs,), -1, dtype=torch.int32, device=dev)
     if n_pairs:
-        # Work items: each cluster's range cut in chunks of PAIRS_PER_BLOCK;
-        # the grid is an upper bound on their number (no host read), and
-        # the blocks past the last item return at once.
-        n_chunks = (offs[1:] - offs[:-1] + PAIRS_PER_BLOCK - 1) // PAIRS_PER_BLOCK
-        chunk_start = torch.zeros(c + 1, dtype=torch.int32, device=dev)
-        chunk_start[1:] = torch.cumsum(n_chunks, 0)
-        n_items = -(-n_pairs // PAIRS_PER_BLOCK) + c
+        groups = filled_groups(blocks)
+        chunk_start, n_items = work_items(offs, n_pairs)
         with torch.cuda.device(dev):
             err = _isect_fn()(blocks.data_ptr(), c, l, rays.data_ptr(), n_pairs,
-                              offs.data_ptr(), chunk_start.data_ptr(), n_items,
-                              t.data_ptr(), prim.data_ptr(),
+                              offs.data_ptr(), chunk_start.data_ptr(), groups.data_ptr(),
+                              n_items, t.data_ptr(), prim.data_ptr(),
                               torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"binned_isect launch failed: cudaError_t {err}")

@@ -1,8 +1,9 @@
 // Hopper's asynchronous copies from global into shared memory, completing
 // on one mbarrier (sm_90; PTX ISA "cp.async.bulk", "cp.async",
-// "mbarrier"). Used by the microbenchmark X5 (exp_smem_tables.cu) and, with
-// commit groups in place of the barrier, by the walk's ring of record rows
-// and cluster boxes (cluster_traverse.cuh, K1's binned form and K2).
+// "mbarrier"). Used by the microbenchmark X5 (exp_smem_tables.cu), by K7's
+// double-buffered row tiles (binned_isect.cu) and, with commit groups in
+// place of the barrier, by the walk's ring of record rows and cluster boxes
+// (cluster_traverse.cuh, K1's binned form, K2 and K4).
 //
 // The barrier's phase completes when every expected arrival has come and
 // its transaction count is back to zero:

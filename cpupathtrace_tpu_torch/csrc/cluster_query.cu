@@ -1,26 +1,52 @@
-// K4: the standalone cluster-set query on Hopper (sm_90a): one thread per
-// ray runs the K3 device functions (cluster_traverse.cuh), nearest or
-// any-hit, and writes t [n] f32 and prim [n] i32.
+// K4: the standalone cluster-set query on Hopper (sm_90a): the K3 device
+// functions (cluster_traverse.cuh), nearest or any-hit, one ray per thread at
+// a time on refilling persistent warps; writes t [n] f32 and prim [n] i32.
 //
 // Replaces: cpupathtrace_tpu/accel/kernel_traverse.py `_single_kernel`
 //   (:1158), launched by `_single_call` (:1201) / `cluster_intersect_kernel`
 //   (:1250). Wrapper and plain version: `cluster_intersect` and
 //   `traverse_clusters[_anyhit]` in cpupathtrace_tpu_torch/accel/kernel_traverse.py.
+//   On a render path it is the small partition of `krn_intersect`
+//   (accel/traverse.py): every wavefront query of a lean binned scene, two a
+//   bounce (nearest and shadow).
 //
 // Output convention of cluster_intersect_kernel: nearest -> (t, prim) of the
 // winner or (-1, -1); any-hit -> (1, 0) where something occludes in
-// [0, t_lim), else (-1, -1). t_lim <= 0 makes a ray inactive.
+// [0, t_lim), else (-1, -1). t_lim <= 0 makes a ray inactive. Ray i's result
+// is written to i, whichever lane ran it.
 //
 // Counters (debug_visits): with a `visits` output [ceil(n / 1024), 4] int32,
-// each thread adds its supercluster descends, record visits, slab tests
-// below the root gate and filled record rows tested to its 1024-ray block's
-// row (the Visits policy of cluster_traverse.cuh).
+// each ray adds its supercluster descends, record visits, slab tests below
+// the root gate and filled record rows tested to its 1024-ray block's row
+// (the Visits policy of cluster_traverse.cuh). The counting instance also
+// adds the warps' steps to `steps` [4] int64 (QuerySteps below).
 //
-// What bounds it: the traversal (see cluster_traverse.cuh); the query adds
-// 28 bytes of ray in and 8 bytes out per ray. The block stages the hyper and
-// supercluster boxes in shared memory when they fit; rows and cluster boxes
-// come from global memory as they are tested (the walk's GlobalRows source,
-// not the ring K1's binned form and K2 use).
+// What bounds it on this card: the walk's (see cluster_traverse.cuh), the
+// latency of its dependent loads and the divergence of its lanes; the query
+// adds 28 bytes of ray in and 8 bytes out per ray. Its work is small (on the
+// 200k dragon ~24 slab tests and ~18 filled rows a random ray). Run as the
+// nested loops of walk_clusters, a warp's lanes leave the loops at different
+// iterations and do not meet again before the walk ends: the counting
+// instance read one active lane per filled-row step (PERF.md §6), so the
+// lanes' tests ran one after another.
+//
+// What the design does about it:
+//   - The walk is a state machine (Walk below) that does one test a step,
+//     a record row or a hyper, supercluster or cluster box, whichever loop
+//     the lane is in; every step the warp meets at the claim, so the lanes
+//     that test rows do so together, as do those that test boxes.
+//   - Refilling persistent warps: the grid is the resident blocks (the
+//     wrapper sizes it from the occupancy); a lane whose ray ends writes its
+//     result and, at the next step, the warp's free lanes take the next ray
+//     indices by one atomicAdd, as trace_refilling (megakernel.cu) does. The
+//     ring's invariant (a query begins with no copy in flight) makes the
+//     reuse of a thread's slots across rays safe.
+//   - The block stages the hyper and supercluster boxes in shared memory when
+//     they fit; rows and cluster boxes stream through each thread's cp.async
+//     ring (Ring<kQueryDepth, kQueryThreads>) after them, so kQueryDepth - 1
+//     loads are in flight while one is tested. Ring depth and block size were
+//     chosen by a sweep on the card (experiments/query_sweep.py, PERF.md §6);
+//     they are K4's own and leave WalkRing (K1 binned, K2) as it is.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -32,82 +58,323 @@
 namespace ptx {
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kQueryDepth = 2;
+constexpr int kQueryThreads = 128;
 constexpr int kTierFloats = 16384;  // 64 KB of staged tier boxes at most
+using QueryRing = Ring<kQueryDepth, kQueryThreads>;
+
+// The counting instance's warp steps ([kQueryStepCols] int64, summed over
+// the launch): WarpVisits' slab-test steps and filled-row steps, and at each
+// filled-row step the distinct clusters among the warp's active lanes (each
+// group of __match_any_sync counted once, by its lowest lane) and the active
+// lanes. clusters / row steps is the mean number of clusters whose rows one
+// row step tests; a packet walk would make it 1.
+constexpr int kQueryStepCols = 4;
+
+struct QuerySteps : WarpVisits {
+  int cluster = -1;
+  int row_clusters = 0;
+  int row_active = 0;
+  __device__ __forceinline__ void record(int c) {
+    WarpVisits::record(c);
+    cluster = c;
+  }
+  __device__ __forceinline__ void row(float prim) {
+    const unsigned active = __activemask();
+    WarpVisits::row(prim);
+    if (__ballot_sync(active, prim >= 0.0f)) {
+      const unsigned same = __match_any_sync(active, cluster);
+      if (lowest(same)) ++row_clusters;
+      if (lowest(active)) row_active += __popc(active);
+    }
+  }
+  // Called by every lane of the warp together, after the query loop.
+  __device__ __forceinline__ void add(unsigned long long* out) const {
+    const int v[kQueryStepCols] = {slab_steps, row_steps, row_clusters, row_active};
+#pragma unroll
+    for (int c = 0; c < kQueryStepCols; ++c) {
+      const unsigned s = __reduce_add_sync(0xffffffffu, static_cast<unsigned>(v[c]));
+      if ((threadIdx.x & 31) == 0 && s) atomicAdd(out + c, static_cast<unsigned long long>(s));
+    }
+  }
+};
+
+struct Params {
+  const float* origin;
+  const float* direction;
+  const float* t_lim;
+  float* t_out;
+  int* p_out;
+  int n_rays;
+  ClusterTables cl;
+  int tier_floats;
+  int any_hit;
+  int* visits;               // [ceil(n / 1024), 4] or null
+  unsigned long long* steps; // [kQueryStepCols] with visits
+  int* next_ray;             // the refill counter, zeroed
+};
+
+// The walk of one ray as a state machine, one test a step: the nested loops
+// of walk_clusters (cluster_traverse.cuh) over hypers, superclusters, the 32
+// cluster boxes of a descended page and a visited cluster's record rows,
+// unrolled so that the lanes of a warp run their next tests together,
+// whichever loop each is in. Each ray takes the same tests in the same order
+// against the same running bound, through the same ring streams, as in the
+// nested walk, so its result and counters are those of cluster_nearest /
+// cluster_anyhit.
+enum Phase : int { kHyper, kSuper, kBox, kRow };
+
+template <class Count>
+struct Walk {
+  Ray r;
+  InvDir v;
+  float mx, my, mz;
+  float bound;  // nearest: the running t (from t_lim); any-hit: t_lim
+  float prim;   // nearest: the winner's prim column, -1 before one
+  int phase, h, s, g, k;
+  int64_t i = -1;  // the ray; -1 while the lane is free
+  Count count;
+
+  // Writes ray i's result and counters; the lane is free again.
+  __device__ __forceinline__ void finish(const Params& p, bool occluded) {
+    if (p.any_hit) {
+      p.t_out[i] = occluded ? 1.0f : -1.0f;
+      p.p_out[i] = occluded ? 0 : -1;
+    } else {
+      const int winner = static_cast<int>(prim);
+      p.t_out[i] = winner >= 0 ? bound : -1.0f;
+      p.p_out[i] = winner;
+    }
+    if constexpr (!std::is_same_v<Count, NoVisits>) {
+      add_visits(p.visits, 4, i, 0, count.descends);
+      add_visits(p.visits, 4, i, 1, count.records);
+      add_visits(p.visits, 4, i, 2, count.slabs);
+      add_visits(p.visits, 4, i, 3, count.rows);
+      static_cast<Visits&>(count) = Visits{};
+    }
+    i = -1;
+  }
+
+  // Ray j from the query's inputs; the root gate may end it at once.
+  __device__ __forceinline__ void start(const Params& p, const ClusterTables& T, int64_t j) {
+    i = j;
+    r = Ray{p.origin[3 * j], p.origin[3 * j + 1], p.origin[3 * j + 2],
+            p.direction[3 * j], p.direction[3 * j + 1], p.direction[3 * j + 2]};
+    v = InvDir{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
+    mx = r.oy * r.dz - r.oz * r.dy;
+    my = r.oz * r.dx - r.ox * r.dz;
+    mz = r.ox * r.dy - r.oy * r.dx;
+    bound = p.t_lim[j];
+    prim = -1.0f;
+    phase = kHyper;
+    h = 0;
+    if (!(slab_entry(T.root, r, v) < bound)) finish(p, false);
+  }
+
+  // One test of the walk: a record row, or a hyper, supercluster or cluster
+  // box after stepping past the loops the last test ended.
+  __device__ __forceinline__ void step(const Params& p, const ClusterTables& T, QueryRing& rows) {
+    if (phase == kRow) {
+      const auto q = rows.template at<kRowPieces>(k);
+      count.row(q[kRecPrim]);
+      float sd, su, sv, st;
+      if (pair_quantities_rt(q, r, mx, my, mz, T.cull, sd, su, sv, st)) {
+        if (p.any_hit) {
+          if (st < bound * sd) {
+            rows.drain();  // the rows after it may be in flight
+            finish(p, true);
+            return;
+          }
+        } else {
+          const float tv = st / sd;
+          if (tv < bound) {
+            bound = tv;
+            prim = q[kRecPrim];
+          }
+        }
+      }
+      if (++k == T.rec_rows) {
+        // The page's box stream restarts after the visited box.
+        phase = kBox;
+        ++g;
+        rows.template begin<kBoxPieces>(T.clb + static_cast<size_t>(s) * kGroup * kBndCols,
+                                        kGroup, g);
+      }
+      return;
+    }
+    if (phase == kBox && g == kGroup) {
+      phase = kSuper;
+      ++s;
+    }
+    if (phase == kSuper && s == min(T.n_rec / kGroup, (h + 1) * kGroup2)) {
+      phase = kHyper;
+      ++h;
+    }
+    if (phase == kHyper && h == T.n_pages) {
+      finish(p, false);
+      return;
+    }
+    float b[kBndCols];
+    if (phase == kBox) {
+      const auto box = rows.template at<kBoxPieces>(g);
+#pragma unroll
+      for (int j = 0; j < kBndCols; ++j) b[j] = box[j];
+    } else {
+      const float* box = phase == kHyper ? T.hyp + h * kBndCols : T.sup + s * kBndCols;
+#pragma unroll
+      for (int j = 0; j < kBndCols; ++j) b[j] = box[j];
+    }
+    count.slab();
+    const bool enters = slab_entry(b, r, v) < bound;
+    if (phase == kHyper) {
+      if (enters) {
+        phase = kSuper;
+        s = h * kGroup2;
+      } else {
+        ++h;
+      }
+    } else if (phase == kSuper) {
+      if (enters) {
+        count.descend();
+        phase = kBox;
+        g = 0;
+        rows.template begin<kBoxPieces>(T.clb + static_cast<size_t>(s) * kGroup * kBndCols,
+                                        kGroup, 0);
+      } else {
+        ++s;
+      }
+    } else if (enters) {
+      // The visit's rows reuse the slots of the boxes in flight: wait for
+      // them first.
+      count.record(s * kGroup + g);
+      rows.drain();
+      phase = kRow;
+      k = 0;
+      rows.template begin<kRowPieces>(
+          T.rec + static_cast<size_t>(s * kGroup + g) * T.rec_rows * kKrnCols, T.rec_rows, 0);
+    } else {
+      ++g;
+    }
+  }
+};
 
 template <bool kCount>
-__global__ void __launch_bounds__(kThreads)
-    cluster_query_kernel(const float* origin, const float* direction, const float* t_lim,
-                         float* t_out, int* p_out, int n_rays, ClusterTables cl,
-                         int tier_floats, int any_hit, int* visits) {
+__global__ void __launch_bounds__(kQueryThreads) cluster_query_kernel(const Params p) {
   extern __shared__ float smem[];
-  stage_tiers(cl, smem, tier_floats);
+  ClusterTables cl = p.cl;
+  stage_tiers(cl, smem, p.tier_floats);
   __syncthreads();
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n_rays) return;
-  const Ray r{origin[3 * i], origin[3 * i + 1], origin[3 * i + 2],
-              direction[3 * i], direction[3 * i + 1], direction[3 * i + 2]};
-  const float lim = t_lim[i];
-  std::conditional_t<kCount, Visits, NoVisits> count;
-  GlobalRows rows;
-  if (any_hit) {
-    const bool occ = cluster_anyhit(cl, r, lim, count, rows);
-    t_out[i] = occ ? 1.0f : -1.0f;
-    p_out[i] = occ ? 0 : -1;
-  } else {
-    Hit h = no_hit();
-    h.t = lim;
-    cluster_nearest<false>(cl, r, h, count, rows);
-    t_out[i] = h.prim >= 0 ? h.t : -1.0f;
-    p_out[i] = h.prim;
+  QueryRing rows{reinterpret_cast<float4*>(smem + (p.tier_floats + 3) / 4 * 4) + threadIdx.x};
+  Walk<std::conditional_t<kCount, QuerySteps, NoVisits>> w;
+  const unsigned lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
+  bool more = true;  // warp-uniform: the counter may still hand out rays
+  // Every turn, the free lanes take consecutive ray indices by one
+  // atomicAdd (trace_refilling's claim, megakernel.cu), then every lane
+  // with a ray runs one test of its walk; the warp meets again at the claim.
+  for (;;) {
+    const bool free_lane = w.i < 0;
+    const unsigned want = __ballot_sync(0xffffffffu, free_lane && more);
+    if (want) {
+      const int leader = __ffs(want) - 1;
+      int first = 0;
+      if (static_cast<int>(lane) == leader) first = atomicAdd(p.next_ray, __popc(want));
+      first = __shfl_sync(0xffffffffu, first, leader);
+      more = first + __popc(want) < p.n_rays;
+      if (free_lane) {
+        const int64_t j = first + __popc(want & below);
+        if (j < p.n_rays) w.start(p, cl, j);
+      }
+    }
+    // A claim's rays may all end at the root gate: the warp stops only when
+    // no lane holds a ray and the counter is spent.
+    if (!__any_sync(0xffffffffu, w.i >= 0)) {
+      if (!more) break;
+      continue;
+    }
+    if (w.i >= 0) w.step(p, cl, rows);
   }
-  if constexpr (kCount) {
-    add_visits(visits, 4, i, 0, count.descends);
-    add_visits(visits, 4, i, 1, count.records);
-    add_visits(visits, 4, i, 2, count.slabs);
-    add_visits(visits, 4, i, 3, count.rows);
-  }
+  if constexpr (kCount) w.count.add(p.steps);
+}
+
+// Past the 48 KB default, the instance's shared-memory limit is set to the
+// size of each launch (an occupancy query at another size may have set it
+// since).
+template <bool kCount>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(cluster_query_kernel<kCount>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(smem));
 }
 
 template <bool kCount>
-cudaError_t launch(const float* origin, const float* direction, const float* t_lim,
-                   float* t_out, int* p_out, int n_rays, const ClusterTables& cl,
-                   int tier_floats, int any_hit, int* visits, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(tier_floats) * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        cluster_query_kernel<kCount>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
-  const int blocks = (n_rays + kThreads - 1) / kThreads;
-  cluster_query_kernel<kCount><<<blocks, kThreads, smem, stream>>>(
-      origin, direction, t_lim, t_out, p_out, n_rays, cl, tier_floats, any_hit, visits);
+cudaError_t launch(const Params& p, int grid, size_t smem, cudaStream_t stream) {
+  const cudaError_t err = allow_smem<kCount>(smem);
+  if (err != cudaSuccess) return err;
+  cluster_query_kernel<kCount><<<grid, kQueryThreads, smem, stream>>>(p);
   return cudaGetLastError();
+}
+
+template <bool kCount>
+cudaError_t occupancy(size_t smem, int* blocks) {
+  const cudaError_t err = allow_smem<kCount>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cluster_query_kernel<kCount>,
+                                                       kQueryThreads, smem);
 }
 
 }  // namespace
 }  // namespace ptx
 
-// Plain C entry point for ctypes. Launches on `stream`, does not
-// synchronise, allocates nothing, returns the launch's cudaError_t.
-// visits: the zeroed counters [ceil(n_rays / 1024), 4] int32, or null.
+// Plain C entry point for ctypes. Launches `grid` blocks (the resident
+// blocks, kernel_traverse.resident_grid) on `stream`, does not synchronise,
+// allocates nothing, returns the launch's cudaError_t. visits: the zeroed
+// counters [ceil(n_rays / 1024), 4] int32, or null; steps: the zeroed warp
+// steps [4] int64 with visits, else null. next_ray: the zeroed refill
+// counter [1] int32. smem_bytes: the block's dynamic shared memory, sized by
+// the wrapper (kernel_traverse.kernel_smem_bytes from ptx_walk_layout).
 extern "C" int ptx_cluster_query_launch(const float* origin, const float* direction,
                                         const float* t_lim, float* t_out, int* p_out,
                                         int n_rays, const float* rec, int n_rec, int rec_rows,
                                         const float* clb, const float* sup, int n_pages,
                                         const float* hyp, int hyp_rows, const float* root,
-                                        int cull, int any_hit, int* visits, void* stream) {
+                                        int cull, int any_hit, int* visits,
+                                        unsigned long long* steps, int* next_ray, int grid,
+                                        long long smem_bytes, void* stream) {
   using namespace ptx;
   (void)hyp_rows;
+  if (!next_ray || grid < 1 || (visits != nullptr) != (steps != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
   const ClusterTables cl{rec, n_rec, rec_rows, clb, sup, n_pages, hyp, root, cull};
   const int tiers = n_pages * (kBndCols + kGroup2 * kBndCols);
-  const int tier_floats = tiers <= kTierFloats ? tiers : 0;
+  const Params p{origin, direction, t_lim, t_out, p_out, n_rays, cl,
+                 tiers <= kTierFloats ? tiers : 0, any_hit, visits, steps, next_ray};
+  const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const cudaError_t err =
-      visits ? launch<true>(origin, direction, t_lim, t_out, p_out, n_rays, cl, tier_floats,
-                            any_hit, visits, s)
-             : launch<false>(origin, direction, t_lim, t_out, p_out, n_rays, cl, tier_floats,
-                             any_hit, nullptr, s);
+      visits ? launch<true>(p, grid, smem, s) : launch<false>(p, grid, smem, s);
   return static_cast<int>(err);
+}
+
+// Resident blocks per SM of the plain (count = 0) or counting instance at
+// `smem_bytes`, and its threads per block.
+extern "C" int ptx_cluster_query_occupancy(int count, long long smem_bytes, int* blocks,
+                                           int* threads) {
+  using namespace ptx;
+  *threads = kQueryThreads;
+  const size_t smem = static_cast<size_t>(smem_bytes);
+  return static_cast<int>(count ? occupancy<true>(smem, blocks) : occupancy<false>(smem, blocks));
+}
+
+// K4's shared-memory layout (accel/kernel_traverse.py walk_layout("cluster_query")):
+// threads a block, ring slots a thread, bytes a slot, the most tier floats
+// staged. The block holds the staged tiers (when they fit), then at the next
+// 16-byte boundary the rings.
+extern "C" int ptx_walk_layout(int* threads, int* depth, int* slot_bytes, int* tier_floats) {
+  *threads = ptx::kQueryThreads;
+  *depth = ptx::kQueryDepth;
+  *slot_bytes = ptx::kRingSlotBytes;
+  *tier_floats = ptx::kTierFloats;
+  return 0;
 }

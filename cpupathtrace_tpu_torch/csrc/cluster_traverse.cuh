@@ -31,22 +31,19 @@
 // ray enters; lanes in different clusters test rows at the same time. Hyper
 // and supercluster boxes are staged in shared memory by the launching kernel
 // (broadcast reads). Cluster boxes and record rows reach the test through a
-// row source (`Rows`):
-//   - GlobalRows (K4): each row as five float4 `__ldg` loads (the 17
-//     columns the test reads), each box as two, consumed at once, so a
-//     thread has one row or box in flight;
-//   - Ring<D> (K1's binned form and K2): a per-thread ring of D slots of
-//     80 bytes in dynamic shared memory, filled by 16-byte `cp.async`
-//     through L1, one commit group per slot. Before the thread tests
-//     element k of a stream (the rows of a cluster, or the 32 boxes of a
-//     descended page) it issues element k + D - 1 and waits for element k,
-//     so D - 1 rows or boxes are in flight while one is tested. The slots
-//     are interleaved by thread ([slot][16-byte piece][thread]), so a
-//     warp's 16-byte reads do not conflict, and the test reads its operands
-//     from shared memory: no register array holds a row.
+// row source (`Rows`), the ring `Ring<D, T>` of every walking kernel (K1's
+// binned form and K2 at WalkRing's D and T, K4 at its own): a per-thread
+// ring of D slots of 80 bytes in dynamic shared memory, filled by 16-byte
+// `cp.async` through L1, one commit group per slot. Before the thread tests
+// element k of a stream (the rows of a cluster, or the 32 boxes of a
+// descended page) it issues element k + D - 1 and waits for element k, so
+// D - 1 rows or boxes are in flight while one is tested. The slots are
+// interleaved by thread ([slot][16-byte piece][thread]), so a warp's 16-byte
+// reads do not conflict, and the test reads its operands from shared
+// memory: no register array holds a row.
 // The sorted driver reorders rays between bounces so neighbouring threads
 // take similar paths; K1's binned form does not (it traces whole paths in
-// one launch).
+// one launch), nor does K4 (it takes its caller's order).
 //
 // Copies left in flight (the ring's hazard): a stream that runs to its end
 // has waited for every element it issued (only empty groups stay pending).
@@ -71,7 +68,8 @@
 // WarpVisits (K1's and K2's counting instances) also counts the warp's
 // steps: once per slab test and once per test of filled rows that the warp
 // executes, by the lowest active lane, so lane utilisation is work / (32 x
-// steps).
+// steps). The walk names the cluster it visits (record(c)), for a policy
+// that reads which clusters a warp's lanes test together (K4's).
 #pragma once
 
 #include <float.h>
@@ -138,35 +136,6 @@ constexpr int kBoxPieces = 2;
 template <int P>
 constexpr int kElementStride = P == kRowPieces ? kKrnCols : kBndCols;
 
-// The row source of K4: each element loaded from global memory when the
-// walk tests it. begin and drain do nothing.
-struct GlobalRows {
-  const float* src = nullptr;
-
-  template <int P>
-  __device__ __forceinline__ void begin(const float* s, int, int) {
-    src = s;
-  }
-
-  template <int P>
-  __device__ __forceinline__ Loaded<P> at(int k) {
-    Loaded<P> out;
-    const float4* q =
-        reinterpret_cast<const float4*>(src + static_cast<size_t>(k) * kElementStride<P>);
-#pragma unroll
-    for (int j = 0; j < P; ++j) {
-      const float4 v = __ldg(q + j);
-      out.v[4 * j] = v.x;
-      out.v[4 * j + 1] = v.y;
-      out.v[4 * j + 2] = v.z;
-      out.v[4 * j + 3] = v.w;
-    }
-    return out;
-  }
-
-  __device__ __forceinline__ void drain() {}
-};
-
 // Pieces per ring slot (one record row) and its bytes
 // (accel/kernel_traverse.py RING_SLOT_BYTES).
 constexpr int kRingPieces = kRowPieces;
@@ -183,7 +152,7 @@ struct SlotView {
   }
 };
 
-// The row source of K1's binned form and K2: a ring of D slots in shared
+// The row source of the walk: a ring of D slots in shared
 // memory for each of a block's T threads, `base` this thread's piece 0 of
 // slot 0, piece j of slot s at base[(s * kRingPieces + j) * T]. Every
 // stream begins with no copy in flight (see the header): begin copies its
@@ -260,7 +229,7 @@ struct NoVisits {
   __device__ __forceinline__ void query() {}
   __device__ __forceinline__ void slab() {}
   __device__ __forceinline__ void descend() {}
-  __device__ __forceinline__ void record() {}
+  __device__ __forceinline__ void record(int) {}
   __device__ __forceinline__ void row(float) {}
 };
 
@@ -273,7 +242,7 @@ struct Visits {
   __device__ __forceinline__ void query() { ++queries; }
   __device__ __forceinline__ void slab() { ++slabs; }
   __device__ __forceinline__ void descend() { ++descends; }
-  __device__ __forceinline__ void record() { ++records; }
+  __device__ __forceinline__ void record(int) { ++records; }
   __device__ __forceinline__ void row(float prim) { rows += prim >= 0.0f ? 1 : 0; }
 };
 
@@ -323,7 +292,7 @@ __device__ __forceinline__ void walk_clusters(const ClusterTables& T, const Ray&
         const auto b = rows.template at<kBoxPieces>(g);
         count.slab();
         if (!(slab_entry(b, r, v) < bound())) continue;
-        count.record();
+        count.record(s * kGroup + g);
         // The visit's rows reuse the slots of the boxes in flight: wait for
         // them, visit, then restart the page's stream after this box.
         rows.drain();

@@ -69,6 +69,7 @@ from ..accel.kernel_traverse import (
     kernel_smem_bytes,
     kernel_tables,
     pair_quantities,
+    resident_grid,
     table_args,
     traverse_clusters,
     traverse_clusters_anyhit,
@@ -724,16 +725,6 @@ def _library():
         fn.argtypes = _ARGTYPES
         fn.restype = ctypes.c_int
     return fn
-
-
-def resident_grid(n_rays, threads, blocks_per_sm, sms):
-    """The grid of a K1 launch on refilling persistent warps: the resident
-    blocks (`sms` x `blocks_per_sm` of `threads` threads), at most one
-    thread per ray. Raises ValueError when no block of the instance fits
-    an SM (its shared memory or registers)."""
-    if blocks_per_sm < 1:
-        raise ValueError(f"megakernel: no block of {threads} threads fits an SM")
-    return max(1, min(-(-n_rays // threads), sms * blocks_per_sm))
 
 
 def lane_use(bounce_steps):

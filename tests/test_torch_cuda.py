@@ -127,9 +127,9 @@ def _query_rays(n=8192, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("any_hit", [False, True])
 def test_cluster_query_matches_plain(any_hit):
-    """K4 against the plain traversal on the same rays: chip_smoke.py's
-    bounds (hit mask and prim on >= 99.9% of rays, t within rtol 1e-6
-    where both hit); they do the same float32 pair test per record."""
+    """K4 against the plain traversal on the same rays: t and prim equal on
+    every ray (chip_smoke.py phase 7's bound); they do the same float32
+    pair test per record, in the same order."""
     _require_cuda()
     from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
 
@@ -141,11 +141,72 @@ def test_cluster_query_matches_plain(any_hit):
     torch.cuda.synchronize()
     assert kt.cluster_intersect.launches == launches + 1
     tp, pp = kt.cluster_intersect_reference(scene, o, d, lim, any_hit=any_hit)
-    assert ((p >= 0) == (pp >= 0)).float().mean() >= 0.999
-    assert (p == pp).float().mean() >= 0.999
-    both = (p >= 0) & (pp >= 0)
-    assert int(both.sum()) > 100
-    assert torch.allclose(t[both], tp[both], rtol=1e-6, atol=0.0)
+    assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert int((p >= 0).sum()) > 100
+
+
+def _query_wave(scene, count=False):
+    """The threads of one resident wave of K4 on `scene`."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    per_sm, threads = kt.query_occupancy(kt.query_smem_bytes(scene.krn_sup_bounds.shape[0]),
+                                         count)
+    return per_sm * threads * torch.cuda.get_device_properties(0).multi_processor_count
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", ["1", "31", "half_wave_17", "wave_plus_1", "three_waves",
+                               "three_waves_gated"])
+def test_cluster_query_refill_writes_every_ray(n):
+    """K4 on refilling persistent warps: on counts below, at and past one
+    resident wave (17 past a multiple of 32 below it), and past it with
+    alternate runs of 4,096 rays inactive (t_lim 0: they end at the root
+    gate, whole claims of a warp at once), t starts as NaN and every ray is
+    written, equal to the plain version, nearest and any-hit."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    scene = _dragon()
+    wave = _query_wave(scene)
+    count = {"1": 1, "31": 31, "half_wave_17": (wave // 2) // 32 * 32 + 17,
+             "wave_plus_1": wave + 1, "three_waves": 3 * wave,
+             "three_waves_gated": 3 * wave}[n]
+    o, d = _query_rays(count, seed=9)
+    lim = torch.rand(count, device="cuda") * 1.5 + 0.05
+    if n.endswith("gated"):
+        lim[torch.arange(count, device="cuda") // 4096 % 2 == 0] = 0.0
+    for any_hit in (False, True):
+        t, p = kt.cluster_intersect(scene, o, d, lim, any_hit=any_hit)
+        torch.cuda.synchronize()
+        tp, pp = kt.cluster_intersect_reference(scene, o, d, lim, any_hit=any_hit)
+        assert not bool(torch.isnan(t).any())
+        assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("any_hit", [False, True])
+def test_cluster_query_warp_steps_within_their_bounds(any_hit):
+    """K4's counting instance: the counters equal the plain version's and
+    its warp steps (slab and row steps, clusters and active lanes a row
+    step) lie within their bounds; the plain instance gives the same
+    results."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    scene = _dragon()
+    o, d = _query_rays(20000, seed=6)
+    lim = torch.rand(20000, device="cuda") * 1.5 + 0.05 if any_hit else None
+    steps = torch.zeros(kt.QUERY_STEP_COLS, dtype=torch.int64, device="cuda")
+    t, p, v = kt.cluster_intersect(scene, o, d, lim, any_hit=any_hit, debug_visits=True,
+                                   warp_steps=steps)
+    t0, p0 = kt.cluster_intersect(scene, o, d, lim, any_hit=any_hit)
+    torch.cuda.synchronize()
+    *_, vp = kt.cluster_intersect_reference(scene, o, d, lim, any_hit=any_hit,
+                                            debug_visits=True)
+    assert torch.equal(v, vp)
+    assert torch.equal(p, p0) and torch.equal(t.view(torch.int32), t0.view(torch.int32))
+    u = kt.warp_utilisation(v, steps)
+    assert u["row_steps"] > 0 and u["clusters_per_row_step"] >= 1.0
 
 
 def _camera_state(scene, n=16384, seed=77):
@@ -912,6 +973,116 @@ def test_persistent_megakernel_writes_every_ray_once():
     head = Rays(rays.origin[:2048].contiguous(), rays.direction[:2048].contiguous())
     t, _ = mk.trace_megakernel_reference(scene, head, opts, 9)
     assert torch.equal(a[:2048].view(torch.int32), t.view(torch.int32))
+
+
+def _blocks_with_padding(rng, c, l, pad_rows):
+    """Cluster blocks [c, l, 16] whose rows in `pad_rows` (per cluster, a
+    boolean [c, l]) are padding (prim -1)."""
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    v0 = rng.uniform(-1, 1, (c, l, 3))
+    v1 = v0 + rng.normal(scale=0.1, size=(c, l, 3))
+    v2 = v0 + rng.normal(scale=0.1, size=(c, l, 3))
+    prim = np.arange(c * l).reshape(c, l)
+    prim[pad_rows] = -1
+    return torch.tensor(tt.pack_blocks(v0, v1, v2, rng.random((c, l)) < 0.5, prim),
+                        device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("counts", [[0, 300, 1, 0, 257, 64, 31, 513], [5], [0, 0, 1000]])
+def test_isect_padding_empty_clusters_and_ragged_counts(counts):
+    """K7 bit-equal to its plain version with padding groups in the middle
+    and at the tail, a cluster with no filled row, empty clusters and pair
+    counts 1 past and below a warp's and an item's pairs."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    rng = np.random.default_rng(len(counts))
+    c, l = len(counts), 264
+    pad = np.zeros((c, l), bool)
+    pad[:, 40:64] = True  # three padding groups in the middle
+    pad[:, 200:] = True  # and a tail of eight groups
+    pad[:, 13] = True  # a padding row inside a filled group
+    if c > 1:
+        pad[c // 2] = True  # a cluster with no filled row
+    blocks = _blocks_with_padding(rng, c, l, pad)
+    n = sum(counts)
+    o = rng.uniform(-1, 1, (n, 3))
+    dv = rng.normal(size=(n, 3))
+    dv /= np.linalg.norm(dv, axis=1, keepdims=True)
+    rays = torch.tensor(np.ascontiguousarray(np.concatenate([o.T, dv.T])), dtype=torch.float32,
+                        device="cuda")
+    offs = torch.tensor(np.concatenate([[0], np.cumsum(counts)]), dtype=torch.int32,
+                        device="cuda")
+    t, p = tt.isect(blocks, rays, offs)
+    torch.cuda.synchronize()
+    tp, pp = tt.isect_reference(blocks, rays, offs)
+    assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert int((p >= 0).sum()) > 0
+
+
+@pytest.mark.cuda
+def test_isect_ties_in_and_across_groups():
+    """K7 on rows that meet a ray at the same t: copies of one triangle in
+    one 8-row group (the smallest prim wins) and in a later group (the
+    earlier group keeps it), equal to the plain version."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    blocks, rays, offs = _tie_case()
+    t, p = tt.isect(torch.tensor(blocks, device="cuda"), torch.tensor(rays, device="cuda"),
+                    torch.tensor(offs, device="cuda"))
+    torch.cuda.synchronize()
+    tp, pp = tt.isect_reference(torch.tensor(blocks), torch.tensor(rays), torch.tensor(offs))
+    assert torch.equal(p.cpu(), pp) and torch.equal(t.cpu().view(torch.int32),
+                                                    tp.view(torch.int32))
+    assert bool((pp >= 0).all())
+
+
+def _tie_case():
+    """One cluster of 24 rows: a triangle copied to rows 3, 5 (prims 50,
+    40) and 17 (prim 30), every other row a triangle off the rays' path;
+    40 rays down through it."""
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    l = 24
+    v0 = np.tile([[5.0, 5.0, 5.0]], (1, l, 1))
+    v1 = v0 + [0.1, 0.0, 0.0]
+    v2 = v0 + [0.0, 0.1, 0.0]
+    prim = np.arange(100, 100 + l)[None].copy()
+    for row, pr in ((3, 50), (5, 40), (17, 30)):
+        v0[0, row], v1[0, row], v2[0, row] = [-1, -1, 0], [3, -1, 0], [-1, 3, 0]
+        prim[0, row] = pr
+    blocks = tt.pack_blocks(v0, v1, v2, np.zeros((1, l), bool), prim)
+    rng = np.random.default_rng(4)
+    n = 40
+    o = np.concatenate([rng.uniform(-0.5, 0.5, (n, 2)), np.ones((n, 1))], 1)
+    d = np.tile([[0.0, 0.0, -1.0]], (n, 1))
+    rays = np.ascontiguousarray(np.concatenate([o.T, d.T]), dtype=np.float32)
+    return blocks, rays, np.array([0, n], dtype=np.int32)
+
+
+@pytest.mark.cuda
+def test_isect_work_item_is_the_one_the_cpu_tests_cut():
+    """K7's library reports the pairs a work item it was built with: the
+    wrapper's ITEM_PAIRS, which the CPU tests cut work lists with."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    per_sm, threads, item_pairs = tt.isect_occupancy()
+    assert item_pairs == tt.ITEM_PAIRS == 128 and threads == 128 and per_sm >= 1
+
+
+@pytest.mark.cuda
+def test_cluster_query_layout_is_the_one_the_cpu_tests_size():
+    """K4's library reports its own walk layout (ring depth and block
+    size), the one tests/test_torch_query.py sizes K4's blocks at."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    from_lib = kt.walk_layout("cluster_query")
+    assert from_lib == kt.WalkLayout(threads=128, depth=2, slot_bytes=80, tier_floats=16384)
 
 
 @pytest.mark.cuda
