@@ -7,8 +7,9 @@ Phases, one line each; any failure exits non-zero:
   2. build the CUDA kernels from cpupathtrace_tpu_torch/csrc with nvcc,
      with ptxas's registers, shared memory and spills per kernel instance,
      and the resident blocks per SM of every instance of K1, K2 and K4 and
-     of K7 (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the walking ones
-     at their rings alone, dense ones at the box's tables)
+     of K7, K6 and K5 (cudaOccupancyMaxActiveBlocksPerMultiprocessor; the
+     walking ones at their rings alone, dense ones at the box's tables, K6
+     on 512 clusters)
   3. kernel vs its plain-torch twin on the card, same rays and seed
   4. golden parity: the port's render_chunk at 32x32 against the C++
      reference images in tests/golden, with tests/test_parity.py's checks
@@ -52,7 +53,12 @@ Phases, one line each; any failure exits non-zero:
  10. the demo scene with its 20k-triangle dragon (binned), as phase 6
  11. the dense query K5 against its plain version on 262,144 rays (the box
      frame's camera rays and one bounce's worth of random rays in the box):
-     prim, hit and t equal on every ray; K5's and the plain version's ms
+     prim (int64), hit and t equal on every ray; K5's whole-call mean and
+     its launch alone (`best_ms`), the plain version's ms, its instance
+     (blocks per SM, threads, stage limit, ptxas); the same check and
+     `best_ms` on the lean dragon frame's largest K5 input (one frame
+     rendered with PTX_NO_MEGAKERNEL=1) and on random tables of 1,000
+     triangles (staged) and past the stage limit (read through L1)
  12. the wavefront forward on the card (PTX_NO_MEGAKERNEL=1): golden parity
      at 32x32 with phase 4's checks, and the box at 128x128 @ 16 spp,
      max_depth 12 against K1's frame (mean within 4 standard errors), with
@@ -75,9 +81,14 @@ Phases, one line each; any failure exits non-zero:
  16. the binned wavefront's kernels against their plain versions on the
      200k dragon built with lean=False: the candidate scan K6 and the
      cluster-major intersect K7 on phase 7's 65,536 rays (round 1 and a
-     round with a nonzero lower bound) and on the first round of the
-     dragon frame's 262,144 camera rays (the main path's shape, timed as
-     the mean of 10 whole calls and as the best of 10 on the card alone);
+     round with a nonzero lower bound); K6 on every launch of one wavefront
+     frame of the dragon (one line each: query, round, rays, pending rays,
+     lanes a ray, `best_ms`, bound; ids equal and entries bit-equal) and the sums over
+     the frame, on its largest input (the main path's shape, timed as the
+     mean of 10 whole calls and as the best of 10 on the card alone) and
+     on a synthetic table of 2,048 clusters at m = 1 and 4, with its lanes
+     a ray, block, registers, spills and blocks per SM; K7 on the frame's
+     largest input, timed the same way;
      K7 also on round 2's pairs, with where the dragon's padding rows sit
      (the rows up to each cluster's last filled group are tested), its
      lane use, registers and blocks per SM;
@@ -86,7 +97,8 @@ Phases, one line each; any failure exits non-zero:
      the cluster query K4 on every ray; rounds per query and host reads
  17. K8's entry point (`binned_intersect_cluster_major`, K7's kernel on
      its binned pairs) on the same rays: its compute stage against its
-     plain version, its result against `binned_intersect`'s
+     plain version (whole calls) and K7's launch on its pairs alone
+     (`best_ms`), its result against `binned_intersect`'s
  18. the binned wavefront at full width: render() of renderSceneDragonBox
      (128x128 @ 16 spp, max_depth 40) on the lean=False build with
      PTX_NO_MEGAKERNEL=1: frame time, K6 / K7 / K5 launches with no plain
@@ -96,7 +108,8 @@ Phases, one line each; any failure exits non-zero:
      the dispatch alone; the lean build through the wavefront (K4 + K5) at
      the same 128x128 @ 16 spp: frame time, launches, one profiled frame,
      its mean within 4 standard errors of the binned wavefront frame's;
-     both profiles give the device time and launches of K4, K5, K6, K7
+     both profiles give the device time and launches of K4, K5, K6, K7 and
+     the frame's kernel count
  19. gradients on the 200k dragon: loss_and_grad at 32x32 @ 8 spp,
      max_depth 4, through the wavefront (PTX_DIFF_MEGAKERNEL=0) and the
      record route, each against central differences
@@ -142,9 +155,10 @@ tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there
 (chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
-the same machine, phases 5, 7, 9, 14, 16, 20 and 21 also print its K1
-dense ms and box frame, its K4 ms, its K2 per-bounce times and sum, its
-gradient pass and K2 record-form ms, its K7 ms and its K1 binned ms.
+the same machine, phases 5, 7, 9, 11, 14, 16, 18, 20 and 21 also print
+its K1 dense ms and box frame, its K4 ms, its K2 per-bounce times and sum,
+its K5 ms, its gradient pass and K2 record-form ms, its K6 and K7 ms, its
+frames' kernel counts and K5 / K6 device time, and its K1 binned ms.
 """
 from __future__ import annotations
 
@@ -201,6 +215,10 @@ GRAD_W = GRAD_H = 128
 GRAD_SPP = 16
 GRAD_DEPTH = 12
 K5_RAYS = 262144
+# K5 reads a ray's origin and direction (24 bytes) and writes t and the
+# int64 prim (12 bytes); its random table within the stage limit (96 KB).
+K5_RAY_BYTES = 36
+K5_BIG_ROWS = 1000
 # The kernels whose device time and launches the profiled wavefront frames
 # of phase 18 report: K4, K5, K6, K7.
 FRAME_KERNELS = ("cluster_query_kernel", "dense_query", "binned_cand_kernel",
@@ -957,11 +975,37 @@ def twin_ray_bounces(sw, scene, camera, opts, n_rays):
     return sum(counts) * n_rays / st.shape[1], counts
 
 
-def phase_dense_query(oi, sw, scenes, RenderOptions):
+def k5_check(oi, scene, o, d, tables, n_tri, what):
+    """K5 on one input against its plain version: prim, hit and t equal
+    on every ray, prim int64; with its instance (staged or read through
+    L1) and the bound of this input's tests."""
+    t_k, p_k = oi.dense_intersect(scene, o, d, tables, n_tri_rows=n_tri)
+    sync()
+    t_p, p_p = oi.dense_intersect_reference(scene, o, d, tables, n_tri_rows=n_tri)
+    n, n_sph = o.shape[0], tables[1].shape[0]
+    # The bound counts the tests of valid rows (padding rows are no work).
+    tests = int((tables[0][:n_tri, 10] > 0.5).sum()) + int((tables[1][:, 4] > 0.5).sum())
+    res = dict(rays=n, tri_rows=n_tri, sph_rows=n_sph, hits=int((p_p >= 0).sum()),
+               prim_dtype=str(p_k.dtype).replace("torch.", ""),
+               staged=oi.dense_occupancy(n_tri, n_sph)[2] > 0,
+               prim_equal=float((p_k == p_p).float().mean()),
+               hit_equal=float(((p_k >= 0) == (p_p >= 0)).float().mean()),
+               t_equal=float((t_k == t_p).float().mean()),
+               max_abs_err=float((t_k - t_p).abs().max()) if n else 0.0)
+    need(res["prim_equal"] == res["hit_equal"] == res["t_equal"] == 1.0
+         and p_k.dtype == torch.int64, f"K5 disagrees with its plain version ({what}): {res}")
+    res.update(bound(n * K5_RAY_BYTES, n * tests * TEST_FLOPS))
+    return res
+
+
+def phase_dense_query(pt, oi, sw, tt, isw, scenes, lean, best_ms):
     """K5 through `dense_intersect` (counts zeroed just before, read just
-    after), then against its plain version on the same 262,144 rays."""
+    after), then against its plain version on the same 262,144 rays, timed
+    as whole calls and as the launch alone; on the lean dragon frame's
+    largest K5 input, and on random tables staged and past the stage
+    limit."""
     scene = scenes.bench_box_scene()
-    opts = RenderOptions(GRAD_W, GRAD_H, 8, 8)
+    opts = pt.RenderOptions(GRAD_W, GRAD_H, 8, 8)
     rays, _ = camera_state(sw, scenes.bench_camera(), opts, 8, 11)
     n_cam = rays.origin.shape[0]
     rng = np.random.default_rng(2)
@@ -972,23 +1016,42 @@ def phase_dense_query(oi, sw, scenes, RenderOptions):
     d = torch.cat([rays.direction, torch.tensor(d2, dtype=torch.float32, device="cuda")])
     oi.dense_intersect.launches = 0
     oi.dense_intersect_reference.calls = 0
-    t_k, p_k = oi.dense_intersect(scene, o, d)
+    oi.dense_intersect(scene, o, d)
     sync()
     launches, plain_calls = oi.dense_intersect.launches, oi.dense_intersect_reference.calls
     need(launches == 1 and plain_calls == 0,
          f"dense query path: {launches} launches, {plain_calls} plain calls")
-    t_p, p_p = oi.dense_intersect_reference(scene, o, d)
-    res = dict(rays=K5_RAYS, camera_rays=n_cam, launches=launches, hits=int((p_p >= 0).sum()),
-               prim_equal=float((p_k == p_p).float().mean()),
-               hit_equal=float(((p_k >= 0) == (p_p >= 0)).float().mean()),
-               t_equal=float((t_k == t_p).float().mean()),
-               max_abs_err=float((t_k - t_p).abs().max()))
-    need(res["prim_equal"] == res["hit_equal"] == res["t_equal"] == 1.0,
-         f"K5 disagrees with its plain version: {res}")
     tables = oi.dense_tables(scene)
+    res = k5_check(oi, scene, o, d, tables, scene.n_tri, "the box")
+    res.update(camera_rays=n_cam, launches=launches)
+    # `ms`: the mean of 20 whole calls by events (the wrapper's host time
+    # in); `best_ms`: the launch alone (experiments.best_ms).
     res["ms"] = cuda_ms(lambda: oi.dense_intersect(scene, o, d, tables), 20)
+    res["best_ms"] = best_ms(lambda: oi.dense_intersect(scene, o, d, tables), 10)
     res["plain_ms"] = cuda_ms(lambda: oi.dense_intersect_reference(scene, o, d, tables), 5)
-    res.update(bound(K5_RAYS * (24 + 8), K5_RAYS * (scene.n_tri + scene.n_sph) * TEST_FLOPS))
+    from cpupathtrace_tpu_torch import _build
+
+    per_sm, threads, smem, max_stage = oi.dense_occupancy(scene.n_tri, scene.n_sph)
+    res["kernel"] = dict(blocks_per_sm=per_sm, threads=threads, smem_bytes=smem,
+                         max_stage_bytes=max_stage,
+                         ptxas=_build.ptxas_instances(_build.ptxas_report.get("dense_query", "")))
+    # The lean dragon frame's largest K5 input (phase 18's frame).
+    _, _, (lo, ld, ltables, lrows) = isw.frame_inputs(pt, tt, oi, lean, scenes.bench_camera())
+    res["lean_frame"] = k5_check(oi, scene, lo, ld, ltables, lrows, "the lean frame's input")
+    res["lean_frame"]["best_ms"] = best_ms(
+        lambda: oi.dense_intersect(scene, lo, ld, ltables, n_tri_rows=lrows), 10)
+    # Random tables: within the stage limit (staged) and past it (read
+    # through L1).
+    past = max_stage // (4 * oi.TRI_COLS) + 67
+    for key, rows in (("staged_table", K5_BIG_ROWS), ("past_stage", past)):
+        go, gd, gtables = isw.big_table(rows=rows)
+        res[key] = k5_check(oi, scene, go, gd, gtables, rows, f"{rows} triangle rows")
+        res[key]["best_ms"] = best_ms(
+            lambda: oi.dense_intersect(scene, go, gd, gtables, n_tri_rows=rows), 5)
+    need(res["staged_table"]["staged"] and not res["past_stage"]["staged"],
+         "K5's big tables did not take both instances")
+    res["max_abs_err"] = max([res["max_abs_err"]] + [
+        res[k]["max_abs_err"] for k in ("lean_frame", "staged_table", "past_stage")])
     return res
 
 
@@ -1265,40 +1328,6 @@ def max_err(a, b):
     return float(e.max()) if e.numel() else 0.0
 
 
-def capture_main_path_inputs(pt, tt, scenes, dragon):
-    """The largest K6 and K7 inputs of one wavefront frame of the dragon
-    (phase 18's main path, rendered here once more): the shapes the main
-    path gives the kernels. The frame's camera rays end on the box's
-    two-sided front wall, so the dragon is reached from bounce 2 on."""
-    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
-                            max_depth=MAX_DEPTH)
-    k6, k7 = tt.candidates, tt.isect
-    seen = {}
-
-    def cand(bounds, rays, m):
-        if rays.shape[1] > seen.get("k6", (torch.empty(0, 0),))[0].shape[1]:
-            seen["k6"] = (rays.clone(), m)
-        return k6(bounds, rays, m)
-
-    def isect(blocks, rays, offs):
-        if rays.shape[1] > seen.get("k7", (torch.empty(0, 0),))[0].shape[1]:
-            seen["k7"] = (rays.clone(), offs.clone())
-        return k7(blocks, rays, offs)
-
-    # The wrappers count their launches through their module's names,
-    # which name these stand-ins while they are in place.
-    cand.launches = isect.launches = 0
-    tt.candidates, tt.isect = cand, isect
-    os.environ["PTX_NO_MEGAKERNEL"] = "1"
-    try:
-        pt.render(dragon, scenes.bench_camera(), opts, seed=11, device="cuda")
-        sync()
-    finally:
-        tt.candidates, tt.isect = k6, k7
-        del os.environ["PTX_NO_MEGAKERNEL"]
-    return seen["k6"], seen["k7"]
-
-
 def check_k6(tt, bounds, rays, m, what):
     ik, ek = tt.candidates(bounds, rays, m)
     sync()
@@ -1388,9 +1417,48 @@ def k7_lanes(tt, blocks, offs):
                 every_row_lane_use=work / every_row if every_row else None)
 
 
-def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
-    """K6 and K7 against their plain versions, then the whole pipeline
-    against its oracle and against K4."""
+def k6_launches(tt, isw, bounds, k6_inputs, best_ms):
+    """Every K6 launch of a frame (`isw.frame_inputs`) on its own input,
+    held against the plain version and timed alone, one line each, with
+    the lanes a ray the wrapper gives the launch."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = []
+    for x in k6_inputs:
+        rays, m = x["rays"], x["m"]
+        what = f"query {x['query']} round {x['round']}"
+        res, _, _ = check_k6(tt, bounds, rays, m, what)
+        occ = tt.cand_occupancy(m, bounds.shape[0])
+        res.update(query=x["query"], round=x["round"], pending=isw.pending(rays),
+                   lanes=1 << tt.cand_grid(rays.shape[1], occ, sms)[1],
+                   best_ms=best_ms(lambda: tt.candidates(bounds, rays, m), 10),
+                   **k6_bound(tt, bounds, rays, m))
+        line("16 K6 launch", **{k: res[k] for k in (
+            "query", "round", "rays", "pending", "lanes", "best_ms", "bound_ms", "bound_by",
+            "ids_equal", "entries_equal")})
+        out.append(res)
+    return out
+
+
+def k6_kernel(tt, clusters, n):
+    """K6's instance: block, dynamic shared memory (the staged bounds),
+    blocks per SM and the lanes a ray of a launch of n rays at m = 1 and
+    CAND_M for each cluster count, and its ptxas registers and spills."""
+    from cpupathtrace_tpu_torch import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = dict(ptxas=_build.ptxas_instances(_build.ptxas_report.get("binned_cand", "")))
+    for c in clusters:
+        for m in (1, CAND_M):
+            occ = tt.cand_occupancy(m, c)
+            out[f"m{m} C{c}"] = dict(blocks_per_sm=occ[0], threads=occ[1], smem_bytes=occ[2],
+                                     rays=n, lanes=1 << tt.cand_grid(n, occ, sms)[1])
+    return out
+
+
+def phase_binned_kernels(pt, tt, oi, isw, scenes, dragon, best_ms):
+    """K6 and K7 against their plain versions (K6 on every launch of a
+    wavefront frame), then the whole pipeline against its oracle and
+    against K4."""
     o, d, lim = query_rays_phase7()
     c, l = dragon.trv_blocks.shape[0], dragon.trv_blocks.shape[1]
     out = dict(clusters=c, cluster_size=l)
@@ -1412,9 +1480,22 @@ def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     out["k7_round2"] = check_k7(tt, dragon.trv_blocks, pair_rays2, offs2, "round 2")
     out["k7_rows"] = k7_rows(tt, dragon.trv_blocks)
 
-    # The main path's shapes: the largest K6 and K7 inputs of a wavefront
-    # frame, the kernels timed beside their plain versions.
-    (frays, fm), (fpairs, foffs) = capture_main_path_inputs(pt, tt, scenes, dragon)
+    # The main path's shapes: every K6 input of a wavefront frame of the
+    # dragon (phase 18's main path, rendered here once more) and the
+    # largest K7 input; the largest K6 and K7 inputs timed beside their
+    # plain versions. The frame's camera rays end on the box's two-sided
+    # front wall, so the dragon is reached from bounce 2 on.
+    k6_inputs, (fpairs, foffs), _ = isw.frame_inputs(pt, tt, oi, dragon, scenes.bench_camera())
+    out["k6_launches"] = k6_launches(tt, isw, dragon.trv_bounds, k6_inputs, best_ms)
+    runs = out["k6_launches"]
+    out["k6_frame_launches"] = dict(
+        launches=len(runs), rounds_1=sum(r["round"] == 1 for r in runs),
+        best_ms_sum=sum(r["best_ms"] for r in runs),
+        round1_best_ms_sum=sum(r["best_ms"] for r in runs if r["round"] == 1),
+        later_best_ms_sum=sum(r["best_ms"] for r in runs if r["round"] > 1),
+        bound_ms_sum=sum(r["bound_ms"] for r in runs))
+    largest = max(k6_inputs, key=lambda x: x["rays"].shape[1])
+    frays, fm = largest["rays"], largest["m"]
     # `ms`: the mean of 10 whole calls by events, the wrapper's host time
     # in; `best_ms`: the least of 10 calls timed on the card alone
     # (experiments.best_ms), as the microbenchmarks are.
@@ -1424,6 +1505,16 @@ def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
     k6["plain_ms"] = cuda_ms(lambda: tt.candidates_reference(dragon.trv_bounds, frays, fm), 1)
     k6.update(k6_bound(tt, dragon.trv_bounds, frays, fm))
     out["k6_frame"] = k6
+    # A synthetic table of 2,048 clusters in the dragon's box, on the same
+    # rays, at m = 1 and CAND_M.
+    synth = isw.synthetic_bounds(dragon)
+    for m in (1, CAND_M):
+        res, _, _ = check_k6(tt, synth, frays, m, f"2048 clusters, m = {m}")
+        res["best_ms"] = best_ms(lambda: tt.candidates(synth, frays, m), 10)
+        res.update(k6_bound(tt, synth, frays, m))
+        out[f"k6_synthetic_m{m}"] = res
+    out["k6_kernel"] = k6_kernel(tt, (dragon.trv_bounds.shape[0], synth.shape[0]),
+                                 frays.shape[1])
     k7 = check_k7(tt, dragon.trv_blocks, fpairs, foffs, "at the main path's shape")
     k7["ms"] = cuda_ms(lambda: tt.isect(dragon.trv_blocks, fpairs, foffs), 10)
     k7["best_ms"] = best_ms(lambda: tt.isect(dragon.trv_blocks, fpairs, foffs), 10)
@@ -1471,17 +1562,19 @@ def phase_binned_kernels(pt, tt, scenes, dragon, best_ms):
          f"binned_intersect (any-hit) disagrees: {out['any_hit']}")
     out["query_ms"] = cuda_ms(lambda: tt.binned_intersect(dragon, o, d, m=CAND_M), 3)
     out["k4_query_ms"] = cuda_ms(lambda: tt.krn_intersect(dragon, o, d), 3)
-    out["max_abs_err"] = max(out[k]["max_abs_err"] for k in ("k6_round1_m1", "k6_round2",
-                                                             "k6_frame"))
+    out["max_abs_err"] = max([out[k]["max_abs_err"] for k in (
+        "k6_round1_m1", "k6_round2", "k6_frame", "k6_synthetic_m1", f"k6_synthetic_m{CAND_M}")]
+        + [r["max_abs_err"] for r in runs])
     out["k7_max_abs_err"] = max(out[k]["max_abs_err"] for k in ("k7_round1", "k7_round2",
                                                                 "k7_frame"))
     return out, (tb, pb)
 
 
-def phase_cluster_major(cm, binned, tt, oi, dragon, nearest):
+def phase_cluster_major(cm, binned, tt, oi, dragon, nearest, best_ms):
     """K8's entry point: its compute stage (K7's kernel on the binned
     pairs, counted by K7's wrapper where it launches) against its plain
-    version, its result against binned_intersect's."""
+    version, K7's launch on those pairs timed alone, its result against
+    binned_intersect's."""
     o, d, _ = query_rays_phase7()
     blocks = cm.cluster_blocks(dragon)
     ids, _ = binned.generate_candidates(dragon, o, d, CAND_M)
@@ -1498,6 +1591,22 @@ def phase_cluster_major(cm, binned, tt, oi, dragon, nearest):
     need(res["t_equal"] and res["prim_equal"], f"K8 disagrees with its plain version: {res}")
     res["ms"] = cuda_ms(lambda: cm.test_candidates(blocks, o, d, ids), 5)
     res["plain_ms"] = cuda_ms(lambda: cm._test_candidates(blocks, o, d, ids), 1)
+    # K7's launch alone on the stage's binned pairs (`best_ms`), beside the
+    # stage's whole calls (`ms`, its glue and host time in).
+    k7, seen = tt.isect, {}
+
+    def isect(blocks, rays, offs):
+        seen["args"] = (blocks, rays.clone(), offs.clone())
+        return k7(blocks, rays, offs)
+
+    isect.launches = 0
+    tt.isect = isect
+    try:
+        cm.test_candidates(blocks, o, d, ids)
+        sync()
+    finally:
+        tt.isect = k7
+    res["best_ms"] = best_ms(lambda: tt.isect(*seen["args"]), 10)
     res.update(k7_bound(tt, blocks, pairs, torch.bincount(ids[ids >= 0].long(), minlength=c)))
     tt.isect.launches = 0
     t8, p8 = cm.binned_intersect_cluster_major(dragon, o, d, CAND_M, blocks)
@@ -1543,7 +1652,7 @@ def binned_counts_zero(tt, oi, sw, mk, kt):
     sw.bounce.launches = mk.trace_megakernel.launches = 0
 
 
-def phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon):
+def phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon, lean):
     """renderSceneDragonBox through the binned wavefront (render(), the
     main path of this phase), then the dispatch to it without kernel
     records, then the lean build through K4."""
@@ -1610,9 +1719,9 @@ def phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon):
     need(c["k6"] > 0 and c["k7"] > 0 and c["k2"] == c["k1"] == 0 and c["k6_plain"] == 0
          and np.isfinite(img).all(), f"no-records dragon did not take the wavefront: {c}")
 
-    # The lean build through the wavefront at the frame's full size:
-    # krn_intersect, K4 and K5; timed, then one frame profiled.
-    lean = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS, lean=True)
+    # The lean build (main() built it after phase 7) through the wavefront
+    # at the frame's full size: krn_intersect, K4 and K5; timed, then one
+    # frame profiled.
     os.environ["PTX_NO_MEGAKERNEL"] = "1"
     try:
         binned_counts_zero(tt, oi, sw, mk, kt)
@@ -2042,11 +2151,13 @@ def phase_dot_formulations(df, best_ms):
     return out
 
 
-def kernel_occupancy(mk, sw, kt, tt, dense_smem):
+def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
     """Resident blocks per SM (and threads per block) of every instance of
     K1, K2 and K4, and of K7: the walking ones at their rings alone (the
     tables of a scene add a few KB), the dense ones at `dense_smem` (the
-    box's tables)."""
+    box's tables); K6 at m = 1 and CAND_M on `cand_clusters` clusters
+    (blocks, threads, shared memory) and K5 on the box's tables (blocks,
+    threads, shared memory, stage limit)."""
     layout = kt.walk_layout("megakernel")
     need(kt.walk_layout("bounce") == layout, "K1 and K2 were built with different walk layouts")
     ring = kt.kernel_smem_bytes(0, 0, layout)
@@ -2069,19 +2180,37 @@ def kernel_occupancy(mk, sw, kt, tt, dense_smem):
     for count in (0, 1):
         out[f"cluster_query_kernel<{count}>"] = kt.query_occupancy(q_ring, count)
     out["binned_isect_kernel"] = tt.isect_occupancy()
+    for m in (1, CAND_M):
+        out[f"binned_cand_kernel<{m}>"] = tt.cand_occupancy(m, cand_clusters)
+    out["dense_query_kernel"] = oi.dense_occupancy(box.n_tri, box.n_sph)
     return out
 
 
 def parent_figures(parent):
-    """The figures of phases 5, 7, 9, 14, 16, 20 and 21 in a parent's
-    chip_smoke.json (its --out), run on the same machine, or None."""
+    """The figures of phases 5, 7, 9, 11, 14, 16, 18, 20 and 21 in a
+    parent's chip_smoke.json (its --out), run on the same machine, or
+    None."""
     if parent is None:
         return None
     dm, k1, fr = parent["dragon_main_path"], parent["k1_binned"], parent["dragon_k1_frame"]
     depth1 = dm.get("depth1", dm)  # before the frame's K2 figures: at the top
     mp, gr = parent["main_path"], parent["box_grad"]
     q, k7 = parent["cluster_query"], parent["binned_kernels"]["k7_frame"]
+    k6, k5, bw = parent["binned_kernels"]["k6_frame"], parent["dense_query"], \
+        parent["binned_wavefront"]
+
+    def frame_kernels(profile):
+        ks = profile["kernels"]
+        return dict(n_kernels=profile["n_kernels"],
+                    k6_device_ms=ks["binned_cand_kernel"]["us"] / 1e3,
+                    k6_launches=ks["binned_cand_kernel"]["launches"],
+                    k5_device_ms=ks["dense_query"]["us"] / 1e3,
+                    k5_launches=ks["dense_query"]["launches"])
+
     return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
+                k6_ms=k6["ms"], k6_best_ms=k6["best_ms"], k5_ms=k5["ms"],
+                k5_best_ms=k5.get("best_ms"), binned_frame=frame_kernels(bw["profile"]),
+                lean_frame=frame_kernels(bw["lean"]["profile"]),
                 k4_ms=q["ms"], k4_any_hit_ms=q["any_hit_ms"], k4_best_ms=q.get("best_ms"),
                 k7_ms=k7["ms"], k7_best_ms=k7["best_ms"],
                 k1_dense_ms=mp["kernel_ms"], box_frame_median_s=mp["frame_median_s"],
@@ -2097,8 +2226,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
     ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
-                                     "the same machine: phases 5, 7, 9, 14, 16, 20 and 21 "
-                                     "print its figures")
+                                     "the same machine: phases 5, 7, 9, 11, 14, 16, 18, 20 "
+                                     "and 21 print its figures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2118,6 +2247,7 @@ def main():
     from cpupathtrace_tpu_torch.ops import intersect as oi
     from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
     from cpupathtrace_tpu_torch.experiments import best_ms
+    from cpupathtrace_tpu_torch.experiments import intersect_sweep as isw
     from cpupathtrace_tpu_torch.experiments import cond_fat as cf
     from cpupathtrace_tpu_torch.experiments import dot_formulations as df
     from cpupathtrace_tpu_torch.experiments import record_variants as rv
@@ -2146,7 +2276,8 @@ def main():
     report["build"] = dict(seconds=time.perf_counter() - t0,
                            compiler_seconds=dict(_build.build_seconds), ptxas=ptxas,
                            occupancy=kernel_occupancy(
-                               mk, sw, kt, tt, mk.block_smem_bytes(box, mk.pack_tables(box))))
+                               mk, sw, kt, tt, oi, box,
+                               mk.block_smem_bytes(box, mk.pack_tables(box))))
     line("2 build", **report["build"])
     parent = None
     if args.parent:
@@ -2167,6 +2298,11 @@ def main():
 
     dragon, report["dragon_build"] = phase_dragon_build(scenes)
     line("7 dragon build", **report["dragon_build"])
+    # The lean build of the same dragon (K4's tables only): phase 11 holds
+    # K5 to its frame's input, phase 18 renders it.
+    t0 = time.perf_counter()
+    lean = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS, lean=True)
+    report["dragon_build"]["lean_seconds"] = time.perf_counter() - t0
     report["cluster_query"] = phase_cluster_query(kt, sw, scenes, dragon, best_ms)
     if parent:
         report["cluster_query"]["parent"] = {k: parent[k] for k in (
@@ -2188,7 +2324,10 @@ def main():
          f"demo with dragon did not run the bounce kernel alone: {report['demo_dragon']}")
     line("10 demo with dragon", **report["demo_dragon"])
 
-    report["dense_query"] = phase_dense_query(oi, sw, scenes, pt.RenderOptions)
+    report["dense_query"] = phase_dense_query(pt, oi, sw, tt, isw, scenes, lean, best_ms)
+    if parent:
+        report["dense_query"]["parent"] = {k: parent[k] for k in (
+            "device", "k5_ms", "k5_best_ms")}
     line("11 dense query vs plain", **report["dense_query"])
     report["wavefront"] = phase_wavefront(pt, film, oi, mk, scenes, pt.RenderOptions)
     line("12 wavefront forward", **report["wavefront"])
@@ -2205,14 +2344,19 @@ def main():
     # The binned wavefront needs the dragon's K6/K7 tables: phase 7 built
     # the scene with lean=False, the builder's default.
     need(dragon.trv_bounds.shape[0] > 1 and not dragon.lean, "the dragon has no K6/K7 tables")
-    report["binned_kernels"], nearest = phase_binned_kernels(pt, tt, scenes, dragon, best_ms)
+    report["binned_kernels"], nearest = phase_binned_kernels(pt, tt, oi, isw, scenes, dragon,
+                                                             best_ms)
     if parent:
         report["binned_kernels"]["parent"] = {k: parent[k] for k in (
-            "device", "k7_ms", "k7_best_ms")}
+            "device", "k7_ms", "k7_best_ms", "k6_ms", "k6_best_ms")}
     line("16 binned wavefront kernels vs plain", **report["binned_kernels"])
-    report["cluster_major"] = phase_cluster_major(cm, binned, tt, oi, dragon, nearest)
+    report["cluster_major"] = phase_cluster_major(cm, binned, tt, oi, dragon, nearest, best_ms)
     line("17 cluster-major entry (K8)", **report["cluster_major"])
-    report["binned_wavefront"] = phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon)
+    report["binned_wavefront"] = phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon,
+                                                        lean)
+    if parent:
+        report["binned_wavefront"]["parent"] = {k: parent[k] for k in (
+            "device", "binned_frame", "lean_frame")}
     line("18 binned wavefront frame", **report["binned_wavefront"])
     report["dragon_grad"] = phase_dragon_grad(diff, golden, sw, tt, scenes, dragon,
                                               pt.RenderOptions)
@@ -2306,7 +2450,7 @@ def main():
         "replaces": "cpupathtrace_tpu/ops/pallas_intersect.py:31",
         "launches": grad["wavefront"]["counts"]["k5"],
         "max_abs_err": k5["max_abs_err"],
-        **figures(k5), "library_ms": None,
+        **figures(k5), "best_ms": k5["best_ms"], "library_ms": None,
     }, {
         "name": "binned_cand", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/binned_cand.cu",
@@ -2327,7 +2471,7 @@ def main():
         "replaces": "cpupathtrace_tpu/accel/pallas_binned.py:62",
         "launches": k8["launches"],
         "max_abs_err": k8["max_abs_err"],
-        **figures(k8), "library_ms": None,
+        **figures(k8), "best_ms": k8["best_ms"], "library_ms": None,
     }, {
         "name": "megakernel_binned", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/megakernel.cu",

@@ -50,7 +50,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from .kernel_traverse import _inv_dir, check_tensor
+from .kernel_traverse import _inv_dir, check_tensor, resident_grid
 
 FLT_MAX = 3.4028234663852886e38
 TRI_EPS = 1e-6
@@ -149,6 +149,42 @@ def _slab_entries(bounds, ox, oy, oz, ix, iy, iz):
     return entry, (b[6] > 0.5) & (tmax >= 0.0) & (tmin <= tmax)
 
 
+def _insert(e, cid, ce, ci, m: int):
+    """`_cand_kernel`'s insertion of (ce, ci) [n] into the sorted slots
+    (e, cid), lists of m + 1 [n] tensors, in place: the m kept slots by
+    compare-and-swap, then the overflow slot by replacement."""
+    for j in range(m):
+        less = (ce < e[j]) | ((ce == e[j]) & (ci < cid[j]))
+        e[j], ce = torch.where(less, ce, e[j]), torch.where(less, e[j], ce)
+        cid[j], ci = torch.where(less, ci, cid[j]), torch.where(less, cid[j], ci)
+    less = (ce < e[m]) | ((ce == e[m]) & (ci < cid[m]))
+    e[m] = torch.where(less, ce, e[m])
+    cid[m] = torch.where(less, ci, cid[m])
+
+
+def _scan(bounds, rays, m: int, clusters):
+    """The slots (e, cid) of one serial scan of `clusters` (ascending ids)
+    for rays [RAY_ROWS, n]: the slab test, the bound and the insertion of
+    `_cand_kernel`."""
+    ox, oy, oz, dx, dy, dz, best, t_lo, id_lo = rays
+    entry, box_ok = _slab_entries(bounds, ox, oy, oz, _inv_dir(dx), _inv_dir(dy), _inv_dir(dz))
+    inf = torch.full_like(ox, float("inf"))
+    e = [inf] * (m + 1)
+    cid = [inf] * (m + 1)
+    for k in clusters:
+        ek = entry[k]
+        cf = float(k)
+        after = (ek > t_lo) | ((ek == t_lo) & (cf > id_lo))
+        ok = box_ok[k] & (ek < best) & after
+        _insert(e, cid, torch.where(ok, ek, inf), torch.where(ok, cf, inf), m)
+    return e, cid
+
+
+def _slots_out(e, cid):
+    es = torch.stack(e)
+    return torch.where(es < float("inf"), torch.stack(cid), -1.0).to(torch.int32), es
+
+
 def candidates_reference(bounds, rays, m: int):
     """The plain version of K6: (ids [m+1, n] i32, entries [m+1, n] f32)
     of rays [RAY_ROWS, n], -1 / inf in empty slots. The slab tests of all
@@ -162,41 +198,102 @@ def candidates_reference(bounds, rays, m: int):
     ent = torch.full((m + 1, n), float("inf"), device=dev)
     step = max(1, _CAND_CHUNK // max(c, 1))
     for a in range(0, n, step):
-        ox, oy, oz, dx, dy, dz, best, t_lo, id_lo = rays[:, a:a + step]
-        entry, box_ok = _slab_entries(bounds, ox, oy, oz, _inv_dir(dx), _inv_dir(dy), _inv_dir(dz))
-        inf = torch.full_like(ox, float("inf"))
-        e = [inf] * (m + 1)
-        cid = [inf] * (m + 1)
-        for k in range(c):
-            ek = entry[k]
-            cf = float(k)
-            after = (ek > t_lo) | ((ek == t_lo) & (cf > id_lo))
-            ok = box_ok[k] & (ek < best) & after
-            ce = torch.where(ok, ek, inf)
-            ci = torch.where(ok, cf, inf)
-            for j in range(m):
-                less = (ce < e[j]) | ((ce == e[j]) & (ci < cid[j]))
-                e[j], ce = torch.where(less, ce, e[j]), torch.where(less, e[j], ce)
-                cid[j], ci = torch.where(less, ci, cid[j]), torch.where(less, cid[j], ci)
-            less = (ce < e[m]) | ((ce == e[m]) & (ci < cid[m]))
-            e[m] = torch.where(less, ce, e[m])
-            cid[m] = torch.where(less, ci, cid[m])
-        es = torch.stack(e)
-        ent[:, a:a + step] = es
-        ids[:, a:a + step] = torch.where(es < float("inf"), torch.stack(cid), -1.0).to(torch.int32)
+        ids[:, a:a + step], ent[:, a:a + step] = _slots_out(
+            *_scan(bounds, rays[:, a:a + step], m, range(c)))
     return ids, ent
 
 
 candidates_reference.calls = 0
 
 
+def merge_select(e, cid, pe, pc, m: int):
+    """K6's merge of two lanes' sorted slots (csrc/binned_cand.cu `merge`):
+    slot k of the merged list is the least of B[k], A[k] and max(A[i-1],
+    B[k-i]) for 0 < i <= k, A = (e, cid) and B = (pe, pc): the k-th least
+    of the union under the (entry, id) order, for k <= m."""
+    def less(ae, ac, be, bc):
+        return (ae < be) | ((ae == be) & (ac < bc))
+
+    oe, oc = [], []
+    for k in range(m + 1):
+        a = less(e[k], cid[k], pe[k], pc[k])
+        me, mc = torch.where(a, e[k], pe[k]), torch.where(a, cid[k], pc[k])
+        for i in range(1, k + 1):
+            b = less(e[i - 1], cid[i - 1], pe[k - i], pc[k - i])
+            xe = torch.where(b, pe[k - i], e[i - 1])
+            xc = torch.where(b, pc[k - i], cid[i - 1])
+            x = less(xe, xc, me, mc)
+            me, mc = torch.where(x, xe, me), torch.where(x, xc, mc)
+        oe.append(me)
+        oc.append(mc)
+    return oe, oc
+
+
+def split_scan_model(bounds, rays, m: int, group: int, merge=merge_select):
+    """A plain model of csrc/binned_cand.cu's split scan, (ids, entries)
+    as `candidates_reference` gives them: lane j of a group of `group`
+    lanes (a power of two) scans the clusters c = j (mod group) in
+    ascending order into its own slots, then log2(group) rounds merge the
+    lists of lanes j and j ^ s (s = 1, 2, 4, ...) by `merge` (the kernel's
+    `merge_select` by default), each lane merging its own list with its
+    partner's. Raises if the lanes end with different lists, which the
+    kernel's butterfly never leaves."""
+    if group < 1 or group & (group - 1):
+        raise ValueError(f"group = {group}: a power of two")
+    c = bounds.shape[0]
+    lanes = [_scan(bounds, rays, m, range(j, c, group)) for j in range(group)]
+    s = 1
+    while s < group:
+        lanes = [merge(*lanes[j], *lanes[j ^ s], m) for j in range(group)]
+        s <<= 1
+    out = [_slots_out(*lane) for lane in lanes]
+    for ids, ent in out[1:]:
+        if not (torch.equal(ids, out[0][0]) and torch.equal(ent, out[0][1])):
+            raise RuntimeError("split_scan_model: the group's lanes disagree after the merge")
+    return out[0]
+
+
 def _cand_fn():
     lib = _build.load("binned_cand")
     fn = lib.ptx_binned_cand_launch
     if fn.argtypes is None:
-        fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _P]  # bounds C rays n m ids ent stream
+        # bounds C rays n m ids ent grid lanes_log2 stream
+        fn.argtypes = [_P, _I, _P, _I, _I, _P, _P, _I, _I, _P]
         fn.restype = ctypes.c_int
     return fn
+
+
+def cand_occupancy(m: int, n_clusters: int):
+    """(resident blocks per SM, threads per block, dynamic shared memory)
+    of K6's instance of m at `n_clusters` on the current card, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor."""
+    fn = _build.load("binned_cand").ptx_binned_cand_occupancy
+    if fn.argtypes is None:
+        fn.argtypes = [_I, _I] + [ctypes.POINTER(_I)] * 2 + [ctypes.POINTER(ctypes.c_longlong)]
+        fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0) for _ in range(2)] + [ctypes.c_longlong(0)]
+    err = fn(m, n_clusters, *(ctypes.byref(v) for v in out))
+    if err:
+        raise RuntimeError(f"binned_cand occupancy query failed: cudaError_t {err}")
+    return tuple(v.value for v in out)
+
+
+def cand_grid(n: int, occupancy, sms: int):
+    """K6's launch for n rays on `sms` SMs from its `occupancy`
+    (cand_occupancy): (grid, log2 of the lanes a ray). The lanes are one,
+    doubled up to a warp while the resident threads still hold every ray;
+    the grid is the resident blocks, at most one a window of threads /
+    lanes rays. Raises ValueError where no block fits an SM."""
+    per_sm, threads = occupancy[:2]
+    lg = 0
+    while lg < 5 and n << (lg + 1) <= sms * per_sm * threads:
+        lg += 1
+    return resident_grid(n << lg, threads, per_sm, sms), lg
+
+
+# (library, card, m, clusters) -> cand_occupancy: each instance and table
+# size is queried once.
+_CAND_RESIDENT: dict = {}
 
 
 def candidates(bounds, rays, m: int):
@@ -205,26 +302,34 @@ def candidates(bounds, rays, m: int):
     [C, BND_COLS] above the lexicographic bound (t_lo, id_lo) and below
     best, plus the overflow row: (ids [m+1, n] i32, entries [m+1, n]
     f32), -1 / inf in empty slots. CPU tensors take the plain version;
-    CUDA tensors launch csrc/binned_cand.cu."""
+    CUDA tensors launch csrc/binned_cand.cu on the resident blocks
+    (ValueError where none fits an SM)."""
     dev = rays.device
     if not 1 <= m <= M_ROWS - 1:
         raise ValueError(f"m = {m}: need 1 <= m <= {M_ROWS - 1}")
+    if not 1 <= bounds.shape[0] <= MAX_CLUSTERS:
+        raise ValueError(f"{bounds.shape[0]} clusters: K6 takes 1..{MAX_CLUSTERS}")
     if dev.type == "cpu":
         return candidates_reference(bounds, rays, m)
     if dev.type != "cuda":
         raise ValueError(f"candidates: no kernel for device {dev}")
     n = rays.shape[1]
+    c = bounds.shape[0]
     check_tensor("rays", rays, dev, torch.float32, (RAY_ROWS, n))
     check_tensor("bounds", bounds, dev, torch.float32, (None, BND_COLS))
-    if not 1 <= bounds.shape[0] <= MAX_CLUSTERS:
-        raise ValueError(f"{bounds.shape[0]} clusters: K6 takes 1..{MAX_CLUSTERS}")
+    if bounds.data_ptr() % 16:
+        raise ValueError("bounds: K6's 16-byte loads need a 16-byte aligned tensor")
     ids = torch.empty((m + 1, n), dtype=torch.int32, device=dev)
     ent = torch.empty((m + 1, n), dtype=torch.float32, device=dev)
     if n:
         with torch.cuda.device(dev):
-            err = _cand_fn()(bounds.data_ptr(), bounds.shape[0], rays.data_ptr(), n, m,
-                             ids.data_ptr(), ent.data_ptr(),
-                             torch.cuda.current_stream(dev).cuda_stream)
+            key = (_build.load("binned_cand")._name, torch.cuda.current_device(), m, c)
+            if key not in _CAND_RESIDENT:
+                _CAND_RESIDENT[key] = cand_occupancy(m, c)
+            grid, lg = cand_grid(n, _CAND_RESIDENT[key],
+                                 torch.cuda.get_device_properties(dev).multi_processor_count)
+            err = _cand_fn()(bounds.data_ptr(), c, rays.data_ptr(), n, m, ids.data_ptr(),
+                             ent.data_ptr(), grid, lg, torch.cuda.current_stream(dev).cuda_stream)
         if err:
             raise RuntimeError(f"binned_cand launch failed: cudaError_t {err}")
         candidates.launches += 1

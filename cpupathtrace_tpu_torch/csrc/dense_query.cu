@@ -8,7 +8,7 @@
 //   the plain version is its `dense_intersect_reference`.
 //
 // What bounds it on this card: the tests, not memory. A ray reads 24 bytes
-// and writes 8, and costs ~64 flops per triangle and ~20 per sphere, so a
+// and writes 12, and costs ~64 flops per triangle and ~20 per sphere, so a
 // scene of more than a handful of primitives is compute-bound; each test is
 // a dependent chain (cross, dot, divide) whose latency the warp scheduler
 // hides only with enough warps in flight.
@@ -17,7 +17,8 @@
 // tables staged once per block in shared memory when they fit (kMaxStage
 // bytes; larger tables stay in global memory and are read through L1, still
 // one row for all lanes at a time), so every lane reads the same row at once
-// (a broadcast). The per-row arithmetic is tri_scan / sph_scan of
+// (a broadcast). prim is written as int64, the dtype the callers take, so a
+// call is one launch. The per-row arithmetic is tri_scan / sph_scan of
 // dense_intersect.cuh, the same device functions K1 and K2 run, which do
 // `_dense_kernel`'s float32 operations in its order (built with
 // --fmad=false). A row wins only by improving strictly, so an exact tie goes
@@ -30,15 +31,17 @@
 namespace ptx {
 namespace {
 
+// The block and the stage limit, swept by experiments/intersect_sweep.py
+// (PERF.md §6). Tables up to kMaxStage bytes (96 KB, ~1000 triangles) are
+// staged in shared memory.
 constexpr int kThreads = 256;
-// Tables up to this size are staged in shared memory (~1000 triangles).
-constexpr size_t kMaxStage = 96 * 1024;
+constexpr int kMaxStage = 98304;
 
 struct Params {
   const float* origin;     // [n, 3]
   const float* direction;  // [n, 3]
   float* t_out;            // [n]; -1 on a miss
-  int* prim_out;           // [n]; -1 on a miss
+  int64_t* prim_out;       // [n]; -1 on a miss
   int n_rays;
   const float* tri;  // [n_tri, kTriCols]
   int n_tri;
@@ -72,18 +75,38 @@ __global__ void __launch_bounds__(kThreads) dense_query_kernel(const Params p) {
   p.prim_out[i] = prim;
 }
 
+// The instance's shared-memory limit is set past the 48 KB default.
+template <bool kStaged>
+cudaError_t allow_smem(size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(dense_query_kernel<kStaged>,
+                              cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
+}
+
 template <bool kStaged>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        dense_query_kernel<kStaged>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem<kStaged>(smem);
+  if (err != cudaSuccess) return err;
   const int blocks = (p.n_rays + kThreads - 1) / kThreads;
   dense_query_kernel<kStaged><<<blocks, kThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
+
+template <bool kStaged>
+cudaError_t occupancy(size_t smem, int* blocks) {
+  const cudaError_t err = allow_smem<kStaged>(smem);
+  if (err != cudaSuccess) return err;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, dense_query_kernel<kStaged>,
+                                                       kThreads, smem);
+}
+
+// The tables' bytes; they are staged where they fit kMaxStage.
+size_t table_bytes(int n_tri, int n_sph) {
+  return (static_cast<size_t>(n_tri) * kTriCols + static_cast<size_t>(n_sph) * kSphCols) *
+         sizeof(float);
+}
+
+bool staged(size_t bytes) { return bytes <= static_cast<size_t>(kMaxStage); }
 
 }  // namespace
 }  // namespace ptx
@@ -91,13 +114,26 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 // Plain C entry point for ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing, returns the launch's cudaError_t.
 extern "C" int ptx_dense_query_launch(const float* origin, const float* direction, float* t_out,
-                                      int* prim_out, int n_rays, const float* tri, int n_tri,
+                                      int64_t* prim_out, int n_rays, const float* tri, int n_tri,
                                       const float* sph, int n_sph, void* stream) {
   using namespace ptx;
   const Params p{origin, direction, t_out, prim_out, n_rays, tri, n_tri, sph, n_sph};
-  const size_t bytes = (static_cast<size_t>(n_tri) * kTriCols +
-                        static_cast<size_t>(n_sph) * kSphCols) * sizeof(float);
+  const size_t bytes = table_bytes(n_tri, n_sph);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bytes <= kMaxStage) return static_cast<int>(launch<true>(p, bytes, s));
+  if (staged(bytes)) return static_cast<int>(launch<true>(p, bytes, s));
   return static_cast<int>(launch<false>(p, 0, s));
+}
+
+// The instance a launch over n_tri triangle and n_sph sphere rows takes:
+// its resident blocks per SM, threads per block, dynamic shared memory (0
+// where the tables are read through L1) and the stage limit in bytes.
+extern "C" int ptx_dense_query_occupancy(int n_tri, int n_sph, int* blocks, int* threads,
+                                         long long* smem, long long* max_stage) {
+  using namespace ptx;
+  const size_t bytes = table_bytes(n_tri, n_sph);
+  const bool in_smem = staged(bytes);
+  *threads = kThreads;
+  *smem = in_smem ? static_cast<long long>(bytes) : 0;
+  *max_stage = kMaxStage;
+  return static_cast<int>(in_smem ? occupancy<true>(bytes, blocks) : occupancy<false>(0, blocks));
 }

@@ -234,12 +234,31 @@ def _dense_fn():
     return fn
 
 
+def dense_occupancy(n_tri: int, n_sph: int):
+    """(resident blocks per SM, threads per block, dynamic shared memory,
+    stage limit) of the K5 instance a launch over tables of `n_tri`
+    triangle and `n_sph` sphere rows takes on the current card: the tables
+    are staged in each block's shared memory up to the stage limit (in
+    bytes), else read through L1 (shared memory 0)."""
+    fn = _build.load("dense_query").ptx_dense_query_occupancy
+    if fn.argtypes is None:
+        ll = ctypes.POINTER(ctypes.c_longlong)
+        fn.argtypes = [_I, _I, ctypes.POINTER(_I), ctypes.POINTER(_I), ll, ll]
+        fn.restype = ctypes.c_int
+    out = [ctypes.c_int(0), ctypes.c_int(0), ctypes.c_longlong(0), ctypes.c_longlong(0)]
+    err = fn(n_tri, n_sph, *(ctypes.byref(v) for v in out))
+    if err:
+        raise RuntimeError(f"dense_query occupancy query failed: cudaError_t {err}")
+    return tuple(v.value for v in out)
+
+
 def dense_intersect(scene: SceneData, o, d, tables=None, n_tri_rows=None):
     """Nearest (t [R] f32, prim [R] i64) over all primitives of a dense
     scene; -1 / -1 on a miss. `tables` / `n_tri_rows`: other tables (the
     big partition of a binned scene), as dense_intersect_reference. CPU
     rays take the plain version; CUDA rays launch K5 (csrc/dense_query.cu)
-    whatever the scene's size."""
+    whatever the scene's size, one launch a call (the kernel writes the
+    int64 prim)."""
     dev = o.device
     if dev.type == "cpu":
         return dense_intersect_reference(scene, o, d, tables, n_tri_rows)
@@ -257,7 +276,7 @@ def dense_intersect(scene: SceneData, o, d, tables=None, n_tri_rows=None):
     if n_tri > tri.shape[0]:
         raise ValueError(f"dense_intersect: {n_tri} triangles, table has {tri.shape[0]}")
     t = torch.empty(r, dtype=torch.float32, device=dev)
-    p = torch.empty(r, dtype=torch.int32, device=dev)
+    p = torch.empty(r, dtype=torch.int64, device=dev)
     if r:
         with torch.cuda.device(dev):
             err = _dense_fn()(
@@ -268,7 +287,7 @@ def dense_intersect(scene: SceneData, o, d, tables=None, n_tri_rows=None):
         if err:
             raise RuntimeError(f"dense_query launch failed: cudaError_t {err}")
         dense_intersect.launches += 1
-    return t, p.long()
+    return t, p
 
 
 dense_intersect.launches = 0

@@ -1201,3 +1201,190 @@ def test_record_form_writes_every_dead_column_without_a_fill(name):
         assert torch.equal(rk.view(torch.int32), rt.view(torch.int32)), depth
         assert torch.equal(k.view(torch.int32), t.view(torch.int32)), depth
         assert torch.equal(k[:, dead].view(torch.int32), st[:, dead].view(torch.int32)), depth
+
+
+# ---------------------------------------------------------------------------
+# K6 and K5 as redesigned: the candidate scan on later rounds, larger tables
+# and ragged windows (the groups widen where few rays are pending); the
+# dense query's staged and L1 instances, ragged and unaligned rays, int64
+# prim.
+# ---------------------------------------------------------------------------
+
+
+def _k6_matches_plain(bounds, rays, m):
+    """K6 bit-equal to its plain version on one input; the plain ids."""
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    ik, ek = tt.candidates(bounds, rays, m)
+    torch.cuda.synchronize()
+    ip, ep = tt.candidates_reference(bounds, rays, m)
+    assert torch.equal(ik, ip) and torch.equal(ek.view(torch.int32), ep.view(torch.int32))
+    return ip
+
+
+def _later_round(rays, ids, ent, m):
+    """K6's rays of the next round: the bound past the last valid slot,
+    +inf (nothing pending) where no slot was valid."""
+    valid = ids[:m] >= 0
+    last = valid.sum(0).clamp_min(1) - 1
+    later = rays.clone()
+    later[7] = torch.where(valid[0], ent.gather(0, last[None])[0], float("inf"))
+    later[8] = torch.where(valid[0], ids.gather(0, last[None])[0].float(), float("inf"))
+    return later
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4])
+def test_candidate_scan_round_two_matches_plain(m):
+    """K6 on round 2 of the dragon: the lower bound past round 1's last
+    valid slot, rays with nothing pending written empty, windows of few
+    pending rays on wider groups; ids equal, entries bit-equal."""
+    _require_cuda()
+    scene = _dragon()
+    o, d = _query_rays(20000, seed=4)
+    rays, (ids, ent) = _first_round(scene, o, d, m)
+    later = _later_round(rays, ids, ent, m)
+    pending = int((later[7] < float("inf")).sum())
+    assert 0 < pending < later.shape[1]
+    ip = _k6_matches_plain(scene.trv_bounds, later, m)
+    assert int((ip[:m] >= 0).sum()) > 0
+    third = _later_round(later, ip, _plain_entries(scene.trv_bounds, later, m), m)
+    _k6_matches_plain(scene.trv_bounds, third, m)
+
+
+def _plain_entries(bounds, rays, m):
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    return tt.candidates_reference(bounds, rays, m)[1]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [1, 4, 7])
+def test_candidate_scan_on_2048_clusters(m):
+    """K6 on a synthetic table of 2,048 clusters in the dragon's box (64 KB
+    of staged bounds, past the 48 KB default), the dragon's first-round
+    rays: bit-equal, overflow rows filled."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import intersect_sweep as isw
+
+    scene = _dragon()
+    o, d = _query_rays(12000, seed=5)
+    rays, _ = _first_round(scene, o, d, m)
+    ip = _k6_matches_plain(isw.synthetic_bounds(scene), rays, m)
+    assert int((ip[m] >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("c", [37, 4096])
+def test_candidate_scan_table_sizes(c):
+    """K6 at 37 clusters (not a multiple of the lanes a ray) and at the
+    4,096-cluster limit (128 KB of staged bounds), both rounds."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import intersect_sweep as isw
+
+    scene = _dragon()
+    o, d = _query_rays(3000, seed=6)
+    rays, _ = _first_round(scene, o, d, 4)
+    bounds = isw.synthetic_bounds(scene, c=c)
+    ip = _k6_matches_plain(bounds, rays, 4)
+    _k6_matches_plain(bounds, _later_round(rays, ip, _plain_entries(bounds, rays, 4), 4), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 63, 65, 4097, 150001])
+@pytest.mark.parametrize("pending", ["all", "none", "every_17th"])
+def test_candidate_scan_ragged_windows(n, pending):
+    """Ray counts around K6's windows (256 rays over the lanes a ray: 8 at
+    a warp a ray, up to 4,097 rays here; 256 at one lane a ray, 150,001
+    rays) with every, no or every 17th ray pending: each ray's slots
+    written, bit-equal to the plain version."""
+    _require_cuda()
+    scene = _dragon()
+    o, d = _query_rays(n, seed=7)
+    rays, _ = _first_round(scene, o, d, 4)
+    rays = rays.clone()
+    if pending == "none":
+        rays[7] = float("inf")
+    elif pending == "every_17th":
+        keep = torch.zeros(n, dtype=torch.bool, device="cuda")
+        keep[::17] = True
+        rays[7] = torch.where(keep, rays[7], float("inf"))
+    ip = _k6_matches_plain(scene.trv_bounds, rays, 4)
+    if pending == "none":
+        assert bool((ip == -1).all())
+
+
+@pytest.mark.cuda
+def test_candidate_scan_refuses_unaligned_bounds():
+    """K6 reads the bounds as 16-byte words: a table off a 16-byte
+    boundary raises."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import traverse as tt
+
+    flat = torch.zeros(8 * 40 + 1, device="cuda")
+    with pytest.raises(ValueError, match="16-byte"):
+        tt.candidates(flat[1:].view(40, 8), torch.zeros((tt.RAY_ROWS, 4), device="cuda"), 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["staged", "past_the_stage_limit"])
+def test_dense_query_big_tables_match_plain(kind):
+    """K5 on 1,000 random triangles (94 KB, staged in shared memory) and
+    past its stage limit (read through L1): prim (int64), hit and t equal
+    on every ray."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import intersect_sweep as isw
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    max_stage = oi.dense_occupancy(14, 1)[3]
+    rows = 1000 if kind == "staged" else max_stage // (4 * oi.TRI_COLS) + 67
+    o, d, tables = isw.big_table(rows=rows, rays=8192)
+    assert (oi.dense_occupancy(rows, 3)[2] > 0) == (kind == "staged")
+    scene = _scene("box")
+    t, p = oi.dense_intersect(scene, o, d, tables, n_tri_rows=rows)
+    torch.cuda.synchronize()
+    tp, pp = oi.dense_intersect_reference(scene, o, d, tables, n_tri_rows=rows)
+    assert p.dtype == torch.int64 and torch.equal(p, pp)
+    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+    assert int((p >= 0).sum()) > 100
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 31, 255, 257, 262145])
+def test_dense_query_ragged_and_unaligned_rays(n):
+    """K5 at counts around its 256-ray blocks and past one wave of blocks,
+    and on ray views off a 16-byte boundary: bit-equal, int64 prim, one
+    launch a call."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    scene = _scene("box")
+    o, d = _query_rays(n + 1, seed=9)
+    for oo, dd in ((o[:n], d[:n]), (o[1:], d[1:])):
+        launches = oi.dense_intersect.launches
+        t, p = oi.dense_intersect(scene, oo, dd)
+        torch.cuda.synchronize()
+        assert oi.dense_intersect.launches == launches + 1
+        tp, pp = oi.dense_intersect_reference(scene, oo, dd)
+        assert p.dtype == torch.int64 and torch.equal(p, pp)
+        assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_dense_query_takes_unaligned_tables():
+    """K5 reads table rows as scalars: tables off a 16-byte boundary give
+    the same prim, hit and t as the plain version."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+
+    scene = _scene("box")
+    tri, sph = oi.dense_tables(scene)
+    flat = torch.zeros(tri.numel() + 1, device="cuda")
+    flat[1:] = tri.reshape(-1)
+    tables = (flat[1:].view(tri.shape), sph)
+    o, d = _query_rays(4096, seed=10)
+    t, p = oi.dense_intersect(scene, o, d, tables)
+    torch.cuda.synchronize()
+    tp, pp = oi.dense_intersect_reference(scene, o, d, (tri, sph))
+    assert p.dtype == torch.int64 and torch.equal(p, pp)
+    assert torch.equal(t.view(torch.int32), tp.view(torch.int32))

@@ -48,6 +48,9 @@ def test_sources_found():
     assert {"experiments/__init__.py", "experiments/supscan.py",
             "experiments/record_variants.py", "experiments/smem_tables.py",
             "experiments/cond_fat.py", "experiments/dot_formulations.py"} <= rel, rel
+    # ... and the sweeps that chose the kernels' shapes.
+    assert {"experiments/dense_sweep.py", "experiments/query_sweep.py",
+            "experiments/intersect_sweep.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
