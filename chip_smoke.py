@@ -95,10 +95,15 @@ Phases, one line each; any failure exits non-zero:
      the whole `binned_intersect` (nearest; any-hit with t_max and a live
      mask) against `binned_intersect_ref` on a chunk of rays and against
      the cluster query K4 on every ray; rounds per query and host reads
- 17. K8's entry point (`binned_intersect_cluster_major`, K7's kernel on
-     its binned pairs) on the same rays: its compute stage against its
-     plain version (whole calls) and K7's launch on its pairs alone
-     (`best_ms`), its result against `binned_intersect`'s
+ 17. K8's entry point (`binned_intersect_cluster_major`, its own kernel
+     csrc/cluster_major.cu on the binned pairs) on the same rays: the
+     compute stage against its plain version (t bit-equal, prim equal) on
+     the stage's pairs and on planted ties at S = 1, 2, 4; one K8 launch a
+     stage call and no K7; timed as whole calls, as the stage's card time
+     and as the work list and launch on the binned pairs (`best_ms`, the
+     span of the parent's K7-based figure); its host reads (torch's sync
+     debug mode); S, grid, warps with work, lane use, blocks per SM and
+     ptxas; its result against `binned_intersect`'s
  18. the binned wavefront at full width: render() of renderSceneDragonBox
      (128x128 @ 16 spp, max_depth 40) on the lean=False build with
      PTX_NO_MEGAKERNEL=1: frame time, K6 / K7 / K5 launches with no plain
@@ -134,7 +139,9 @@ Phases, one line each; any failure exits non-zero:
  23. the microbenchmarks X1-X5 (cpupathtrace_tpu_torch/experiments):
      each kernel against its plain version on check inputs whose output
      depends on the work (X1: flags that differ by block and every ray's
-     least slab entry, equal; X5: seeded x and tables and every launched
+     least slab entry, equal, also where only one of a block's two CTAs
+     has a ray that reaches a box, each block a cluster of 2 CTAs with all
+     64 resident; X5: seeded x and tables and every launched
      block's staged copy, equal, in both staging instances at K1's
      launch shape and on the persistent grid; X3 within rtol 1e-6 serial
      / outer, 1e-5 matmul; X2: tiles that take and skip the conditional
@@ -155,10 +162,11 @@ tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there
 (chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
-the same machine, phases 5, 7, 9, 11, 14, 16, 18, 20 and 21 also print
-its K1 dense ms and box frame, its K4 ms, its K2 per-bounce times and sum,
-its K5 ms, its gradient pass and K2 record-form ms, its K6 and K7 ms, its
-frames' kernel counts and K5 / K6 device time, and its K1 binned ms.
+the same machine, phases 5, 7, 9, 11, 14, 16, 17, 18, 20, 21 and 23 also
+print its K1 dense ms and box frame, its K4 ms, its K2 per-bounce times
+and sum, its K5 ms, its gradient pass and K2 record-form ms, its K6 and K7
+ms, its K8 stage and launch ms, its frames' kernel counts and K5 / K6
+device time, its K1 binned ms and its X1 sweep.
 """
 from __future__ import annotations
 
@@ -197,8 +205,8 @@ PATH_RAYS = 16384
 # every ray.
 PLANE_FRAC = 0.999
 KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
-           "binned_isect", "bvh_build", "exp_supscan", "exp_record_variants", "exp_smem_tables",
-           "exp_cond_fat", "exp_dot_formulations")
+           "binned_isect", "cluster_major", "bvh_build", "exp_supscan", "exp_record_variants",
+           "exp_smem_tables", "exp_cond_fat", "exp_dot_formulations")
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over HBM's rate
 # and its float32 operations over the FP32 peak (NVIDIA H100 SXM data
@@ -1570,49 +1578,82 @@ def phase_binned_kernels(pt, tt, oi, isw, scenes, dragon, best_ms):
     return out, (tb, pb)
 
 
-def phase_cluster_major(cm, binned, tt, oi, dragon, nearest, best_ms):
-    """K8's entry point: its compute stage (K7's kernel on the binned
-    pairs, counted by K7's wrapper where it launches) against its plain
-    version, K7's launch on those pairs timed alone, its result against
+def k8_bound(tt, blocks, o, ids):
+    """K8's bound on a query: its rays (24 bytes each) and candidate ids (8
+    a slot) read once, (t, prim) written (12 bytes a slot), each cluster
+    with pairs read once; 64 operations a pair and filled row of its
+    cluster (the padding rows are no triangles)."""
+    c = blocks.shape[0]
+    flat = ids.reshape(-1)
+    counts = torch.bincount(flat[flat >= 0], minlength=c).long()
+    rows = (blocks[..., tt.C_PRIM] >= 0).sum(1).long()
+    tests = int((counts * rows).sum())
+    read_rows = int(rows[counts > 0].sum())
+    return dict(tests=tests, **bound(o.shape[0] * 24 + flat.numel() * 20 + read_rows * 64,
+                                     tests * TEST_FLOPS))
+
+
+def phase_cluster_major(cm, cms, binned, tt, oi, dragon, nearest, best_ms):
+    """K8's entry point: its compute stage (csrc/cluster_major.cu, one
+    launch, no K7) against its plain version on the stage's pairs and on
+    planted ties, timed three ways (whole calls, the stage's card time, the
+    work list and launch on the binned pairs), with its host reads, S,
+    grid, warps with work, lane use and instance; its result against
     binned_intersect's."""
+    from cpupathtrace_tpu_torch import _build
+
     o, d, _ = query_rays_phase7()
     blocks = cm.cluster_blocks(dragon)
+    need(cm.cluster_blocks(dragon) is blocks, "the stage's blocks were packed again")
     ids, _ = binned.generate_candidates(dragon, o, d, CAND_M)
-    tt.isect.launches = tt.isect_reference.calls = cm._test_candidates.calls = 0
+    cm.test_candidates.launches = cm._test_candidates.calls = 0
+    tt.isect.launches = tt.isect_reference.calls = 0
     tk, pk = cm.test_candidates(blocks, o, d, ids)
     sync()
-    need(tt.isect.launches == 1 and tt.isect_reference.calls == cm._test_candidates.calls == 0,
-         "K8's compute stage did not launch its kernel alone")
+    need(cm.test_candidates.launches == 1 and cm._test_candidates.calls == 0
+         and tt.isect.launches == tt.isect_reference.calls == 0,
+         "K8's compute stage did not launch its own kernel alone")
     tp, pp = cm._test_candidates(blocks, o, d, ids)
     pairs = int((ids >= 0).sum())
-    c = blocks.shape[0]
-    res = dict(pairs=pairs, t_equal=bits_equal(tk, tp), prim_equal=bool(torch.equal(pk, pp)),
-               max_abs_err=max_err(tk, tp), hits=int((pk >= 0).sum()))
+    res = dict(pairs=pairs, slots=int(ids.numel()), t_equal=bits_equal(tk, tp),
+               prim_equal=bool(torch.equal(pk, pp)), max_abs_err=max_err(tk, tp),
+               hits=int((pk >= 0).sum()))
     need(res["t_equal"] and res["prim_equal"], f"K8 disagrees with its plain version: {res}")
+    tb_, to_, td_, ti_, prims = cms.planted_ties("cuda")
+    tie_order, _, tie_offs = binned.bin_offsets(ti_, tb_.shape[0])
+    ties = {}
+    for splits in (1, 2, 4):
+        t, p = cm.stage_run(tb_, to_, td_, tie_order, tie_offs, ti_.shape[1], splits)
+        tpl, ppl = cm._test_candidates(tb_, to_, td_, ti_)
+        ties[f"S{splits}"] = dict(prims=p.tolist(), t_equal=bits_equal(t, tpl),
+                                  prim_equal=bool(torch.equal(p, ppl)))
+        need(p.tolist() == prims and ties[f"S{splits}"]["t_equal"],
+             f"K8 on the planted ties at S = {splits}: {ties}")
+    res["ties"] = ties
+    shape = cm.stage_shape(blocks, ids.numel())
+    res.update(shape)
+    res.update(cms.stage_figures(tt, blocks, ids, shape["splits"]))
+    res["ptxas"] = _build.ptxas_instances(_build.ptxas_report.get("cluster_major", ""))
+    # `ms`: whole calls (binning, work list and launch, host time in);
+    # `stage_best_ms`: the same on the card alone; `best_ms`: the work list
+    # and the launch on the binned pairs (`stage_run`), the span the
+    # parent's K8 `best_ms` timed (K7's wrapper on the binned pairs: its
+    # output fills, work list and launch).
+    order, _, offs = binned.bin_offsets(ids, blocks.shape[0])
     res["ms"] = cuda_ms(lambda: cm.test_candidates(blocks, o, d, ids), 5)
+    res["stage_best_ms"] = best_ms(lambda: cm.test_candidates(blocks, o, d, ids), 10)
+    res["best_ms"] = best_ms(lambda: cm.stage_run(blocks, o, d, order, offs, CAND_M), 10)
     res["plain_ms"] = cuda_ms(lambda: cm._test_candidates(blocks, o, d, ids), 1)
-    # K7's launch alone on the stage's binned pairs (`best_ms`), beside the
-    # stage's whole calls (`ms`, its glue and host time in).
-    k7, seen = tt.isect, {}
-
-    def isect(blocks, rays, offs):
-        seen["args"] = (blocks, rays.clone(), offs.clone())
-        return k7(blocks, rays, offs)
-
-    isect.launches = 0
-    tt.isect = isect
-    try:
-        cm.test_candidates(blocks, o, d, ids)
-        sync()
-    finally:
-        tt.isect = k7
-    res["best_ms"] = best_ms(lambda: tt.isect(*seen["args"]), 10)
-    res.update(k7_bound(tt, blocks, pairs, torch.bincount(ids[ids >= 0].long(), minlength=c)))
-    tt.isect.launches = 0
+    res["host_reads"] = cms.host_syncs(lambda: cm.test_candidates(blocks, o, d, ids))
+    need(res["host_reads"] == 0, f"K8's stage reads the card from the host: {res['host_reads']}")
+    res.update(k8_bound(tt, blocks, o, ids))
+    cm.test_candidates.launches = tt.isect.launches = 0
     t8, p8 = cm.binned_intersect_cluster_major(dragon, o, d, CAND_M, blocks)
     sync()
-    res["launches"] = tt.isect.launches
-    need(res["launches"] > 0, "K8's entry point launched no kernel")
+    res["launches"] = cm.test_candidates.launches
+    res["k7_launches"] = tt.isect.launches
+    need(res["launches"] == 1 and res["k7_launches"] == 0,
+         f"K8's entry point: {res['launches']} K8 launches, {res['k7_launches']} K7")
     # K8's entry point intersects the cluster blocks (the small partition)
     # and the spheres, not the big triangles: where binned_intersect's
     # nearest is not a big triangle the two give the same prim, and where
@@ -1967,22 +2008,26 @@ def phase_experiments(ss, rv, smt, cf, df, best_ms):
     out = {}
     big = dict(sp=max(ss.SWEEP_SP), rows=max(ss.SWEEP_ROWS), n_iter=max(ss.SWEEP_ITERS))
     checked = {}
-    for sp in ss.SWEEP_SP:
-        xc_np, bc_np = ss.check_inputs(sp)
-        xc, bc = torch.from_numpy(xc_np).cuda(), torch.from_numpy(bc_np).cuda()
-        for rows in ss.SWEEP_ROWS:
-            n_iter = big["n_iter"] if (sp, rows) == (big["sp"], big["rows"]) else 3
-            ko, ke = ss.supscan(bc, xc, n_iter, rows, entries=True)
-            po, pe = ss.supscan_reference(bc, xc, n_iter, rows, entries=True)
-            acc = (ko.reshape(ss.BLOCKS, 8, 128)
-                   - xc.reshape(ss.BLOCKS, ss.X_ROWS, 128)[:, :8])[:, 0, 0]
-            res = dict(n_iter=n_iter, blocks_counting=int((acc > 0.5).sum()),
-                       finite_entries=int(torch.isfinite(ke).sum()),
-                       max_abs_err=max_err(ko, po))
-            need(torch.equal(ko, po) and torch.equal(ke, pe)
-                 and 0 < res["blocks_counting"] < ss.BLOCKS and res["finite_entries"] > 0,
-                 f"X1 differs from its plain version at sp={sp} rows={rows}: {res}")
-            checked[f"sp{sp}_rows{rows}"] = res
+    for half_cta in (False, True):
+        for sp in ss.SWEEP_SP:
+            xc_np, bc_np = ss.check_inputs(sp, half_cta)
+            xc, bc = torch.from_numpy(xc_np).cuda(), torch.from_numpy(bc_np).cuda()
+            for rows in ss.SWEEP_ROWS:
+                n_iter = big["n_iter"] if (sp, rows) == (big["sp"], big["rows"]) else 3
+                ko, ke = ss.supscan(bc, xc, n_iter, rows, entries=True)
+                po, pe = ss.supscan_reference(bc, xc, n_iter, rows, entries=True)
+                acc = (ko.reshape(ss.BLOCKS, 8, 128)
+                       - xc.reshape(ss.BLOCKS, ss.X_ROWS, 128)[:, :8])[:, 0, 0]
+                res = dict(n_iter=n_iter, blocks_counting=int((acc > 0.5).sum()),
+                           finite_entries=int(torch.isfinite(ke).sum()),
+                           max_abs_err=max_err(ko, po),
+                           **ss.layout(rows, sp))
+                name = f"{'half_cta ' if half_cta else ''}sp{sp}_rows{rows}"
+                need(torch.equal(ko, po) and torch.equal(ke, pe)
+                     and 0 < res["blocks_counting"] < ss.BLOCKS and res["finite_entries"] > 0
+                     and res["ctas"] == ss.CTAS and res["resident_clusters"] >= ss.BLOCKS,
+                     f"X1 differs from its plain version on {name}: {res}")
+                checked[name] = res
     xb_np, bb_np = ss.check_inputs(big["sp"])
     xb, bb = torch.from_numpy(xb_np).cuda(), torch.from_numpy(bb_np).cuda()
     ss.supscan.launches = 0
@@ -2187,7 +2232,7 @@ def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
 
 
 def parent_figures(parent):
-    """The figures of phases 5, 7, 9, 11, 14, 16, 18, 20 and 21 in a
+    """The figures of phases 5, 7, 9, 11, 14, 16, 17, 18, 20, 21 and 23 in a
     parent's chip_smoke.json (its --out), run on the same machine, or
     None."""
     if parent is None:
@@ -2207,7 +2252,10 @@ def parent_figures(parent):
                     k5_device_ms=ks["dense_query"]["us"] / 1e3,
                     k5_launches=ks["dense_query"]["launches"])
 
+    k8, x1 = parent["cluster_major"], parent["experiments"]["supscan"]
     return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
+                k8_ms=k8["ms"], k8_best_ms=k8["best_ms"], x1_sweep=x1["sweep"],
+                x1_ms=x1["ms"],
                 k6_ms=k6["ms"], k6_best_ms=k6["best_ms"], k5_ms=k5["ms"],
                 k5_best_ms=k5.get("best_ms"), binned_frame=frame_kernels(bw["profile"]),
                 lean_frame=frame_kernels(bw["lean"]["profile"]),
@@ -2226,8 +2274,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
     ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
-                                     "the same machine: phases 5, 7, 9, 11, 14, 16, 18, 20 "
-                                     "and 21 print its figures")
+                                     "the same machine: phases 5, 7, 9, 11, 14, 16, 17, 18, "
+                                     "20, 21 and 23 print its figures")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2247,6 +2295,7 @@ def main():
     from cpupathtrace_tpu_torch.ops import intersect as oi
     from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
     from cpupathtrace_tpu_torch.experiments import best_ms
+    from cpupathtrace_tpu_torch.experiments import cluster_major_sweep as cms
     from cpupathtrace_tpu_torch.experiments import intersect_sweep as isw
     from cpupathtrace_tpu_torch.experiments import cond_fat as cf
     from cpupathtrace_tpu_torch.experiments import dot_formulations as df
@@ -2350,7 +2399,11 @@ def main():
         report["binned_kernels"]["parent"] = {k: parent[k] for k in (
             "device", "k7_ms", "k7_best_ms", "k6_ms", "k6_best_ms")}
     line("16 binned wavefront kernels vs plain", **report["binned_kernels"])
-    report["cluster_major"] = phase_cluster_major(cm, binned, tt, oi, dragon, nearest, best_ms)
+    report["cluster_major"] = phase_cluster_major(cm, cms, binned, tt, oi, dragon, nearest,
+                                                  best_ms)
+    if parent:
+        report["cluster_major"]["parent"] = {k: parent[k] for k in (
+            "device", "k8_ms", "k8_best_ms")}
     line("17 cluster-major entry (K8)", **report["cluster_major"])
     report["binned_wavefront"] = phase_binned_wavefront(pt, tt, oi, sw, mk, kt, scenes, dragon,
                                                         lean)
@@ -2381,6 +2434,9 @@ def main():
     report["box_sorted"] = phase_box_sorted(pt, sw, mk, scenes)
     line("22 box through the sorted driver", **report["box_sorted"])
     report["experiments"] = phase_experiments(ss, rv, smt, cf, df, best_ms)
+    if parent:
+        report["experiments"]["supscan"]["parent"] = {k: parent[k] for k in (
+            "device", "x1_ms", "x1_sweep")}
     line("23 microbenchmarks X1 X2 X3 X4 X5", **report["experiments"])
 
     main_path = report["main_path"]
@@ -2467,7 +2523,7 @@ def main():
         **figures(bk["k7_frame"]), "best_ms": bk["k7_frame"]["best_ms"], "library_ms": None,
     }, {
         "name": "cluster_major", "route": "cuda",
-        "source": "cpupathtrace_tpu_torch/csrc/binned_isect.cu",
+        "source": "cpupathtrace_tpu_torch/csrc/cluster_major.cu",
         "replaces": "cpupathtrace_tpu/accel/pallas_binned.py:62",
         "launches": k8["launches"],
         "max_abs_err": k8["max_abs_err"],

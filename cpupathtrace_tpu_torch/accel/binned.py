@@ -3,7 +3,7 @@ and the exact resolve, with a dense compute stage.
 
 Port of `cpupathtrace_tpu/accel/binned.py`. `binned_intersect` is the
 oracle of the cluster-major entry point of accel/cluster_major.py, which
-replaces `test_candidates` with the K7 kernel; the wavefront's own binned
+replaces `test_candidates` with the K8 kernel; the wavefront's own binned
 intersector is accel/traverse.py.
 """
 from __future__ import annotations
@@ -31,15 +31,25 @@ def generate_candidates(scene, o, d, max_candidates: int):
     return torch.where(has, idx, -1), torch.where(has, vals, float("inf"))
 
 
+def bin_offsets(cluster_ids, n_clusters: int):
+    """The binning of `bin_candidates` with no host read and no atomics:
+    (order [R*M] i64, sorted keys [R*M] i32, offs [C+1] i32, the first
+    sorted slot of each cluster and, last, of the empty slots). One stable
+    sort of the i32 keys; the offsets by binary search of the sorted keys
+    (`torch.bincount` reads its input's maximum back to the host on a CUDA
+    tensor, and an atomic count puts every empty slot on one address)."""
+    key = torch.remainder(cluster_ids.reshape(-1).to(torch.int32), n_clusters + 1)  # -1 -> C
+    sorted_key, order = torch.sort(key, stable=True)
+    bins = torch.arange(n_clusters + 1, dtype=torch.int32, device=key.device)
+    return order, sorted_key, torch.searchsorted(sorted_key, bins, out_int32=True)
+
+
 def bin_candidates(cluster_ids, n_clusters: int):
     """Flattened (ray, slot) candidates ordered by cluster (binned.py:45-61):
     (order [R*M] into the flat list, sorted cluster keys [R*M], counts [C]);
     empty slots key n_clusters and sort last. The sort is stable."""
-    flat = cluster_ids.reshape(-1)
-    key = torch.where(flat >= 0, flat, n_clusters)
-    order = torch.argsort(key, stable=True)
-    counts = torch.bincount(key, minlength=n_clusters + 1)[:n_clusters]
-    return order, key[order], counts
+    order, sorted_key, offs = bin_offsets(cluster_ids, n_clusters)
+    return order, sorted_key.long(), (offs[1:] - offs[:-1]).long()
 
 
 def test_candidates(scene, o, d, cluster_ids):

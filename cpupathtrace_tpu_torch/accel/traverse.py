@@ -344,13 +344,11 @@ candidates.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def nearest_in_rows(rows, o, d):
-    """Nearest (t [P], prim [P] i64) of rays o, d [P, 3] over their own
-    triangle rows [P, L, BLK_COLS] by `_isect_kernel`'s rule: Möller-Trumbore
-    in its operations and order; rows tested in groups of 8 consecutive
-    rows, inside a group the smallest prim among the rows at the group's
-    minimum t, across groups a later group only by strict improvement.
-    (inf, -1) where nothing hits."""
+def group_minima(rows, o, d):
+    """Per 8-row group of each ray's own triangle rows [P, L, BLK_COLS]
+    (o, d [P, 3]): (the group's least t [P, L/8], inf where no row hits;
+    the smallest prim among its rows at that t [P, L/8] f32), by
+    `_isect_kernel`'s Möller-Trumbore in its operations and order."""
     p, l, _ = rows.shape
     c = [rows[:, :, j] for j in range(11)]
     v0x, v0y, v0z, e1x, e1y, e1z, e2x, e2y, e2z, cull, prim = c
@@ -376,7 +374,17 @@ def nearest_in_rows(rows, o, d):
           & (u + v <= 1.0) & (t >= 0.0))
     th = torch.where(ok, t, float("inf")).view(p, l // GROUP_ROWS, GROUP_ROWS)
     gmin = th.amin(-1)
-    gprim = torch.where(th <= gmin[..., None], prim.view(th.shape), 3e38).amin(-1)
+    return gmin, torch.where(th <= gmin[..., None], prim.view(th.shape), 3e38).amin(-1)
+
+
+def nearest_in_rows(rows, o, d):
+    """Nearest (t [P], prim [P] i64) of rays o, d [P, 3] over their own
+    triangle rows [P, L, BLK_COLS] by `_isect_kernel`'s rule: Möller-Trumbore
+    in its operations and order; rows tested in groups of 8 consecutive
+    rows, inside a group the smallest prim among the rows at the group's
+    minimum t, across groups a later group only by strict improvement.
+    (inf, -1) where nothing hits."""
+    gmin, gprim = group_minima(rows, o, d)
     g = gmin.argmin(-1, keepdim=True)  # the first group at the minimum
     tmin = gmin.gather(-1, g)[:, 0]
     hit = tmin < float("inf")
@@ -453,16 +461,16 @@ def filled_groups(blocks):
     return groups
 
 
-def work_items(offs, n_pairs):
-    """K7's work list from the bin offsets `offs` [C+1] i32: (chunk_start
-    [C+1] i32, the first item of each cluster, each cluster's range cut in
-    chunks of ITEM_PAIRS pairs; n_items, an upper bound on their number
-    from the shapes alone, so no host read sizes the grid)."""
+def work_items(offs, n_pairs, item_pairs=ITEM_PAIRS):
+    """K7's (and K8's) work list from the bin offsets `offs` [C+1] i32:
+    (chunk_start [C+1] i32, the first item of each cluster, each cluster's
+    range cut in chunks of `item_pairs` pairs; n_items, an upper bound on
+    their number from the shapes alone, so no host read sizes the grid)."""
     c = offs.shape[0] - 1
-    n_chunks = (offs[1:] - offs[:-1] + ITEM_PAIRS - 1) // ITEM_PAIRS
+    n_chunks = (offs[1:] - offs[:-1] + item_pairs - 1) // item_pairs
     chunk_start = torch.zeros(c + 1, dtype=torch.int32, device=offs.device)
     chunk_start[1:] = torch.cumsum(n_chunks, 0)
-    return chunk_start, -(-n_pairs // ITEM_PAIRS) + c
+    return chunk_start, -(-n_pairs // item_pairs) + c
 
 
 def isect_occupancy():

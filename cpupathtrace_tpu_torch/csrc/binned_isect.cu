@@ -1,11 +1,11 @@
 // K7: the cluster-major intersect of the binned wavefront for Hopper
-// (sm_90a). It also serves K8's entry point (accel/cluster_major.py), whose
-// TPU kernel computes the same per-pair function on another layout.
+// (sm_90a). K8's entry point (accel/cluster_major.py), whose TPU kernel
+// computes the same per-pair function on another layout, has its own kernel
+// (csrc/cluster_major.cu).
 //
 // Replaces: cpupathtrace_tpu/accel/pallas_traverse.py `_isect_kernel` (:238),
-//   launched by `_isect_call` (:370, pallas_call :382), and
-//   cpupathtrace_tpu/accel/pallas_binned.py `_cluster_kernel` (:62, pallas_call
-//   :170): for every binned (ray, cluster) pair, the nearest (t, prim) over the
+//   launched by `_isect_call` (:370, pallas_call :382): for every binned
+//   (ray, cluster) pair, the nearest (t, prim) over the
 //   cluster's triangles (Moller-Trumbore, eps 1e-6, the cull rule). The
 //   wrapper is cpupathtrace_tpu_torch/accel/traverse.py `isect`; the plain
 //   version is its `isect_reference` (`nearest_in_rows`).

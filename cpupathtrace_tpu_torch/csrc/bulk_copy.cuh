@@ -1,7 +1,8 @@
 // Hopper's asynchronous copies from global into shared memory, completing
 // on one mbarrier (sm_90; PTX ISA "cp.async.bulk", "cp.async",
 // "mbarrier"). Used by the microbenchmark X5 (exp_smem_tables.cu), by K7's
-// double-buffered row tiles (binned_isect.cu) and, with commit groups in
+// double-buffered row tiles (binned_isect.cu), K8's staged cluster rows
+// (cluster_major.cu) and, with commit groups in
 // place of the barrier, by the walk's ring of record rows and cluster boxes
 // (cluster_traverse.cuh, K1's binned form, K2 and K4).
 //

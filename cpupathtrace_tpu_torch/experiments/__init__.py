@@ -13,10 +13,12 @@ configuration beside the card's name and power limit:
 The sweeps have no TPU script: `dense_sweep` sweeps the block shape of the
 dense forms of K1 and K2 (csrc/megakernel.cu, csrc/bounce.cu),
 `query_sweep` K4's ring and block and K7's pairs a thread
-(csrc/cluster_query.cu, csrc/binned_isect.cu), and `intersect_sweep` K6's
+(csrc/cluster_query.cu, csrc/binned_isect.cu), `intersect_sweep` K6's
 lanes a ray and block and K5's block and stage limit (csrc/binned_cand.cu,
-csrc/dense_query.cu), each on the card with
-`--parent` for a parent commit's kernels in the same call.
+csrc/dense_query.cu), and `cluster_major_sweep` K8's row splits, block,
+row source and register cap (csrc/cluster_major.cu), each on the card
+with `--parent` for a parent commit's kernels in the same call; `supscan`
+also sweeps X1's lanes a ray, with `--parent`.
 
 Each keeps its TPU script's method: the difference between two in-kernel
 iteration counts (X1, X2, X3) or the best of several launches (X4, X5),

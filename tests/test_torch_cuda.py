@@ -448,8 +448,8 @@ def test_binned_intersect_matches_its_oracle_on_the_card():
 
 @pytest.mark.cuda
 def test_cluster_major_stage_matches_plain():
-    """K8's compute stage (K7's kernel on the binned pairs) against its
-    plain version, slot for slot."""
+    """K8's compute stage (its own kernel, csrc/cluster_major.cu, on the
+    binned pairs; no K7 launch) against its plain version, slot for slot."""
     _require_cuda()
     from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm, traverse as tt
 
@@ -457,12 +457,60 @@ def test_cluster_major_stage_matches_plain():
     o, d = _query_rays(seed=4)
     blocks = cm.cluster_blocks(scene)
     ids, _ = binned.generate_candidates(scene, o, d, 4)
-    launches = tt.isect.launches
+    launches, k7 = cm.test_candidates.launches, tt.isect.launches
     t, p = cm.test_candidates(blocks, o, d, ids)
     torch.cuda.synchronize()
-    assert tt.isect.launches == launches + 1
+    assert cm.test_candidates.launches == launches + 1 and tt.isect.launches == k7
     tp, pp = cm._test_candidates(blocks, o, d, ids)
     assert torch.equal(p, pp) and torch.equal(t.view(torch.int32), tp.view(torch.int32))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("staged", [False, True])
+def test_cluster_major_every_shape_matches_plain(staged):
+    """K8's kernel at every S its block takes and both row sources, on M = 1
+    and 4 (most slots empty at M = 4) and on a query whose slots are all
+    empty: bit-equal t, equal prim, every slot written (the outputs start
+    uninitialised)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm
+
+    scene = _dragon()
+    blocks = cm.cluster_blocks(scene)
+    o, d = _query_rays(n=3001, seed=6)
+    threads = cm.stage_shape(blocks, 1)["threads"]
+    for m in (1, 4):
+        ids, _ = binned.generate_candidates(scene, o, d, m)
+        order, _, offs = binned.bin_offsets(ids, blocks.shape[0])
+        tp, pp = cm._test_candidates(blocks, o, d, ids)
+        for splits in (1, 2, 4, 8):
+            if splits > threads // 32:
+                continue
+            t, p = cm.stage_run(blocks, o, d, order, offs, m, splits, staged)
+            torch.cuda.synchronize()
+            assert torch.equal(p, pp), (m, splits)
+            assert torch.equal(t.view(torch.int32), tp.view(torch.int32)), (m, splits)
+    empty = torch.full((77, 3), -1, dtype=torch.int64, device="cuda")
+    order, _, offs = binned.bin_offsets(empty, blocks.shape[0])
+    t, p = cm.stage_run(blocks, o[:77].contiguous(), d[:77].contiguous(), order, offs, 3, 1,
+                        staged)
+    assert bool(torch.isinf(t).all()) and bool((p == -1).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("splits", [1, 2, 4])
+def test_cluster_major_planted_ties_on_the_card(splits):
+    """tests/test_torch_cluster_major.py's planted ties on the card: equal
+    t across a range boundary (the earlier group's prim wins) and inside a
+    group (the smallest prim), equal to the plain version."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import binned, cluster_major as cm
+    from cpupathtrace_tpu_torch.experiments import cluster_major_sweep as cms
+
+    blocks, o, d, ids, prims = cms.planted_ties("cuda")
+    order, _, offs = binned.bin_offsets(ids, blocks.shape[0])
+    t, p = cm.stage_run(blocks, o, d, order, offs, ids.shape[1], splits)
+    assert p.tolist() == prims and t[0].tolist() == [1.0, 1.0]
 
 
 @pytest.mark.cuda
@@ -639,14 +687,16 @@ def test_experiment_kernels_match_plain():
     from cpupathtrace_tpu_torch.experiments import smem_tables as smt
     from cpupathtrace_tpu_torch.experiments import supscan as ss
 
-    for sp in ss.SWEEP_SP:
-        x, sup = (torch.from_numpy(a).cuda() for a in ss.check_inputs(sp))
-        for rows in ss.SWEEP_ROWS:
-            ko, ke = ss.supscan(sup, x, 3, rows, entries=True)
-            po, pe = ss.supscan_reference(sup, x, 3, rows, entries=True)
-            assert torch.equal(ko, po) and torch.equal(ke, pe)
-            acc = (ko.reshape(ss.BLOCKS, 8, 128) - x.reshape(ss.BLOCKS, 16, 128)[:, :8])[:, 0, 0]
-            assert bool(torch.isfinite(ke).any()) and 0 < int((acc > 0.5).sum()) < ss.BLOCKS
+    for half_cta in (False, True):
+        for sp in ss.SWEEP_SP:
+            x, sup = (torch.from_numpy(a).cuda() for a in ss.check_inputs(sp, half_cta))
+            for rows in ss.SWEEP_ROWS:
+                ko, ke = ss.supscan(sup, x, 3, rows, entries=True)
+                po, pe = ss.supscan_reference(sup, x, 3, rows, entries=True)
+                assert torch.equal(ko, po) and torch.equal(ke, pe)
+                acc = (ko.reshape(ss.BLOCKS, 8, 128)
+                       - x.reshape(ss.BLOCKS, 16, 128)[:, :8])[:, 0, 0]
+                assert bool(torch.isfinite(ke).any()) and 0 < int((acc > 0.5).sum()) < ss.BLOCKS
     tables, rays = rv.inputs()
     rays = torch.from_numpy(rays).cuda()
     for v in rv.VARIANTS:
@@ -660,6 +710,22 @@ def test_experiment_kernels_match_plain():
         ko, kst = smt.smem_tables(x5, tbl, threads, staged=True)
         po, pst = smt.smem_tables_reference(x5, tbl, threads, staged=True)
         assert torch.equal(ko, po) and torch.equal(kst, pst)
+
+
+@pytest.mark.cuda
+def test_supscan_cluster_launch():
+    """X1 on every check input (the half-CTA ones too), as clusters of 2
+    CTAs of one ray a thread, of which all 64 are resident at once."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import supscan as ss
+
+    counting = ss.check_all(ss.supscan)
+    assert all(0 < n < ss.BLOCKS for n in counting.values())
+    for rows in ss.SWEEP_ROWS:
+        for sp in ss.SWEEP_SP:
+            lay = ss.layout(rows, sp)
+            assert lay["ctas"] == 2 and lay["threads"] == ss.cta_threads(rows)
+            assert lay["resident_clusters"] >= ss.BLOCKS
 
 
 @pytest.mark.cuda

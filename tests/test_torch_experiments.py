@@ -97,6 +97,71 @@ def test_supscan_check_inputs_make_the_output_depend_on_the_slab_tests(x1, sp):
     assert not bool(torch.isfinite(ent0).any())
 
 
+@pytest.mark.parametrize("sp", ss.SWEEP_SP)
+def test_supscan_half_cta_inputs_match_tpu_kernel(x1, sp):
+    """The half-CTA check inputs: the TPU kernel and the plain version agree
+    bit for bit, and the blocks that count are those with near rays (1 mod
+    4 at rows 8; 1 and 3 mod 4 at rows 16)."""
+    import jax.numpy as jnp
+
+    x, bnd = ss.check_inputs(sp, half_cta=True)
+    sup128 = np.zeros((sp, 128), np.float32)
+    sup128[:, :7] = bnd[:, :7]
+    xt, bt = torch.from_numpy(x), torch.from_numpy(bnd)
+    for rows, counting in ((8, [1]), (16, [1, 3])):
+        with pallas_interpret():
+            ref = np.asarray(x1["run"](jnp.asarray(sup128), jnp.asarray(x), n_iter=2, sp=sp,
+                                       rows=rows))
+        ours = ss.supscan(bt, xt, 2, rows)
+        np.testing.assert_array_equal(ours.numpy(), ref)
+        acc = (ours.reshape(ss.BLOCKS, 8, 128) - xt.reshape(ss.BLOCKS, 16, 128)[:, :8])[:, 0, 0]
+        want = np.isin(np.arange(ss.BLOCKS) % 4, counting) * 2.0
+        np.testing.assert_allclose(acc.numpy(), want, atol=1e-6)
+
+
+@pytest.mark.parametrize("rows", ss.SWEEP_ROWS)
+def test_supscan_ray_map_covers_every_ray_once(rows):
+    """The kernel's map: every ray of a block is one (CTA, thread) once; CTA
+    r holds the rays [r H, (r + 1) H), H = rows * 64, one a thread (1024
+    threads at rows 16, 512 at 8)."""
+    cta, thread = ss.ray_map(rows)
+    threads = ss.cta_threads(rows)
+    assert len(set(zip(cta.tolist(), thread.tolist()))) == rows * 128
+    half = rows * 64
+    np.testing.assert_array_equal(cta, np.arange(rows * 128) // half)
+    assert threads == half <= 1024 and threads % 32 == 0
+    assert thread.max() == threads - 1
+
+
+@pytest.mark.parametrize("half_cta", [False, True])
+@pytest.mark.parametrize("sp", ss.SWEEP_SP)
+@pytest.mark.parametrize("rows", ss.SWEEP_ROWS)
+def test_supscan_model_matches_plain(half_cta, sp, rows):
+    """The plain model of the kernel (rays split between two CTAs, the flag
+    ORed across the cluster) equals the plain version, o and every ray's
+    least entry."""
+    x, bnd = (torch.from_numpy(a) for a in ss.check_inputs(sp, half_cta))
+    po, pe = ss.supscan_reference(bnd, x, 2, rows, entries=True)
+    mo, me = ss.supscan_model(bnd, x, 2, rows, entries=True)
+    assert torch.equal(mo, po) and torch.equal(me, pe)
+
+
+@pytest.mark.parametrize("sp", ss.SWEEP_SP)
+@pytest.mark.parametrize("rows", ss.SWEEP_ROWS)
+def test_supscan_flag_not_ored_across_the_cluster_fails(sp, rows):
+    """A kernel whose CTAs each counted their own flag would fail the plain
+    comparison on the half-CTA inputs (the CTA without a near ray counts
+    nothing), though it passes on the first check inputs, where a block's
+    rays all reach boxes or none do."""
+    x, bnd = (torch.from_numpy(a) for a in ss.check_inputs(sp, half_cta=True))
+    po = ss.supscan_reference(bnd, x, 3, rows)
+    broken = ss.supscan_model(bnd, x, 3, rows, cluster_or=False)
+    assert not torch.equal(broken, po)
+    x0, bnd0 = (torch.from_numpy(a) for a in ss.check_inputs(sp))
+    assert torch.equal(ss.supscan_model(bnd0, x0, 3, rows, cluster_or=False),
+                       ss.supscan_reference(bnd0, x0, 3, rows))
+
+
 def test_supscan_bounds_layout():
     _, sups = ss.script_inputs()
     port = ss.to_port_bounds(sups[32])

@@ -50,7 +50,9 @@ def test_sources_found():
             "experiments/cond_fat.py", "experiments/dot_formulations.py"} <= rel, rel
     # ... and the sweeps that chose the kernels' shapes.
     assert {"experiments/dense_sweep.py", "experiments/query_sweep.py",
-            "experiments/intersect_sweep.py"} <= rel, rel
+            "experiments/intersect_sweep.py", "experiments/cluster_major_sweep.py"} <= rel, rel
+    # ... and K8's stage.
+    assert "accel/cluster_major.py" in rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -76,5 +78,5 @@ def test_kernel_sources_ship_without_binaries():
             "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu", "binned_geo.cuh",
             "exp_supscan.cu", "exp_record_variants.cu", "exp_smem_tables.cu",
             "exp_cond_fat.cu", "exp_dot_formulations.cu", "mma_tf32.cuh",
-            "bulk_copy.cuh"} <= set(names)
+            "bulk_copy.cuh", "binned_isect.cu", "cluster_major.cu"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]
