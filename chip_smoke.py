@@ -143,10 +143,17 @@ Phases, one line each; any failure exits non-zero:
      has a ray that reaches a box, each block a cluster of 2 CTAs with all
      64 resident; X5: seeded x and tables and every launched
      block's staged copy, equal, in both staging instances at K1's
-     launch shape and on the persistent grid; X3 within rtol 1e-6 serial
-     / outer, 1e-5 matmul; X2: tiles that take and skip the conditional
-     updates, outputs and per-tile update counts equal in all four
-     instances; X4 on seeds 0 and 1 and on tie inputs (the first of two
+     launch shape and on the persistent grid; X3 on the script's inputs
+     and on inputs whose row 0 starts 1e-5 in front of its triangles,
+     each variant at its grid (blocks, chunks) within rtol 1e-6 serial /
+     outer, 1e-5 matmul (the near row 0 of the matmul variants within a
+     forward-error bound of the float64 plain version), its ray-record
+     counts equal to the formula, also with more chunks than record
+     tests, and the extraction moving at least 96 near row-0 rays and no
+     other, by the plain versions' sum of corrections within 2 ulps;
+     X2: tiles that take and skip the conditional updates, outputs
+     and per-tile update counts equal in all four instances, each at its
+     layout with all 64 tiles resident; X4 on seeds 0 and 1 and on tie inputs (the first of two
      rows holding a column's minimum): fma equal in C, R and X, the TF32
      forms within 1e-5 of sum |B A| of their emulation, R and X the min
      and first argmin of the kernel's own C), then each TPU script's
@@ -166,7 +173,7 @@ the same machine, phases 5, 7, 9, 11, 14, 16, 17, 18, 20, 21 and 23 also
 print its K1 dense ms and box frame, its K4 ms, its K2 per-bounce times
 and sum, its K5 ms, its gradient pass and K2 record-form ms, its K6 and K7
 ms, its K8 stage and launch ms, its frames' kernel counts and K5 / K6
-device time, its K1 binned ms and its X1 sweep.
+device time, its K1 binned ms, its X1 sweep and its X2 and X3 times.
 """
 from __future__ import annotations
 
@@ -245,6 +252,9 @@ K4_AGREE = 0.999
 # X3's check and the record tests of its line in the kernels' JSON (the
 # plain versions loop over records in Python).
 X3_CHECK_RECORDS = 256
+# X3 with more chunks than record tests (blocks with none).
+X3_FEW_RECORDS = 5
+X3_FEW_CHUNKS = 40
 REF_RAYS = 8192
 SLAB_FLOPS = 31
 RAY_ROWS_BYTES = 36  # K6 reads 9 float planes per ray
@@ -2043,34 +2053,7 @@ def phase_experiments(ss, rv, smt, cf, df, best_ms):
                                   ss.slab_ops(big["sp"], big["rows"], big["n_iter"])))
     out["supscan"] = x1
 
-    tables, rays_np = rv.inputs()
-    rays = torch.from_numpy(rays_np).cuda()
-    x3 = {}
-    for v in rv.VARIANTS:
-        table = torch.from_numpy(tables[v]).cuda()
-        k = rv.record_variant(v, table, rays, X3_CHECK_RECORDS)
-        sync()
-        t0 = time.perf_counter()
-        p = rv.variant_reference(v, table, rays, X3_CHECK_RECORDS)
-        sync()
-        plain_ms = (time.perf_counter() - t0) * 1e3
-        rtol = 1e-6 if v in ("serial", "outer") else 1e-5
-        res = dict(records=X3_CHECK_RECORDS, hits=int((k < 100.0).sum()),
-                   max_abs_err=max_err(k, p), plain_ms=plain_ms,
-                   ms=cuda_ms(lambda: rv.record_variant(v, table, rays, X3_CHECK_RECORDS), 3))
-        need(bool(torch.allclose(k, p, rtol=rtol, atol=0.0)) and res["hits"] > 0,
-             f"X3 {v} differs from its plain version: {res}")
-        ops, kind = rv.record_ops(v, X3_CHECK_RECORDS)
-        res.update(bound(table.numel() * 4 + rays.numel() * 4 + 1024 * 4,
-                         (ops if kind == "fp32" else 0) + rv.epilogue_ops(v, X3_CHECK_RECORDS),
-                         ops if kind == "tf32" else 0))
-        x3[v] = res
-    for v in rv.VARIANTS:
-        rv.record_variant.launches[v] = 0
-    sweep = rv.sweep()
-    for v in rv.VARIANTS:
-        x3[v].update(sweep=sweep[v], launches=rv.record_variant.launches[v])
-    out["record_variants"] = dict(variants=x3)
+    out["record_variants"] = phase_record_variants(rv)
 
     # X5 in every check configuration, every staging instance, both launch
     # shapes (K1's, one block per tile, and the persistent grid).
@@ -2110,11 +2093,65 @@ def phase_experiments(ss, rv, smt, cf, df, best_ms):
     return out
 
 
+def phase_record_variants(rv):
+    """X3 on the script's inputs and on the near inputs (row 0 1e-5 in front
+    of its triangles), every variant at the wrapper's grid: held to its
+    plain version (`rv.check`: rtol 1e-6 / 1e-5, the matmul variants' near
+    row 0 within `rv.near_bound` of the float64 plain version) with the
+    ray-record counts equal to the formula; the extraction moving row 0 of
+    the near inputs by the plain versions' corrections (`rv.extraction`)
+    and nothing else; each variant again with more chunks
+    than record tests (empty blocks); then the 256-test timing and the
+    sweep (counts zeroed just before, read just after)."""
+    x3 = {}
+    inputs = {"script": rv.inputs(), "near": rv.check_inputs()}
+    for inp, (tables, rays_np) in inputs.items():
+        rays = torch.from_numpy(rays_np).cuda()
+        for v in rv.VARIANTS:
+            table = torch.from_numpy(tables[v]).cuda()
+            blocks, chunks = rv.record_grid(v, X3_CHECK_RECORDS)
+            _, res = rv.check(v, table, rays, X3_CHECK_RECORDS, near=inp == "near")
+            _, few = rv.check(v, table, rays, X3_FEW_RECORDS, near=inp == "near",
+                              chunks=X3_FEW_CHUNKS)
+            res.update(blocks=blocks, chunks=chunks, few_records=few)
+            x3.setdefault(v, {})[inp] = res
+        # On the script's inputs the corrections are below an ulp: row 0 then
+        # has matmul's bits (its products and test are matmul's code).
+        x3["matmul_extract"][inp]["extraction"] = rv.extraction(
+            torch.from_numpy(tables["matmul"]).cuda(), rays, X3_CHECK_RECORDS, near=inp == "near")
+    tables, rays_np = inputs["script"]
+    rays = torch.from_numpy(rays_np).cuda()
+    for v in rv.VARIANTS:
+        table = torch.from_numpy(tables[v]).cuda()
+        k = rv.record_variant(v, table, rays, X3_CHECK_RECORDS)
+        sync()
+        t0 = time.perf_counter()
+        p = rv.variant_reference(v, table, rays, X3_CHECK_RECORDS)
+        sync()
+        ops, kind = rv.record_ops(v, X3_CHECK_RECORDS)
+        x3[v].update(records=X3_CHECK_RECORDS, max_abs_err=max_err(k, p),
+                     plain_ms=(time.perf_counter() - t0) * 1e3,
+                     ms=cuda_ms(lambda: rv.record_variant(v, table, rays, X3_CHECK_RECORDS), 3),
+                     occupancy=rv.occupancy(v),
+                     **bound(table.numel() * 4 + rays.numel() * 4 + 1024 * 4,
+                             (ops if kind == "fp32" else 0) +
+                             rv.epilogue_ops(v, X3_CHECK_RECORDS),
+                             ops if kind == "tf32" else 0))
+    for v in rv.VARIANTS:
+        rv.record_variant.launches[v] = 0
+    sweep = rv.sweep()
+    for v in rv.VARIANTS:
+        x3[v].update(sweep=sweep[v], launches=rv.record_variant.launches[v],
+                     best_ms=sweep[v]["check_ms"])
+    return dict(variants=x3)
+
+
 def phase_cond_fat(cf, best_ms):
     """X2 bit-equal to its plain version on the check inputs at X2_ITERS
     iterations, outputs and per-tile update counts, in all four instances
-    (tiles that take and tiles that skip the updates); then the script's
-    sweep."""
+    (tiles that take and tiles that skip the updates), each at its layout
+    (threads a CTA, CTAs a tile, all 64 tiles resident at once); then the
+    script's sweep."""
     x = torch.from_numpy(cf.check_inputs()).cuda()
     checked = {}
     for n_live in cf.SWEEP_LIVE:
@@ -2128,10 +2165,12 @@ def phase_cond_fat(cf, best_ms):
             want = cf.expected_taken(x.cpu(), X2_ITERS, use_cond)
             res = dict(plain_ms=(time.perf_counter() - t0) * 1e3, max_abs_err=max_err(ko, po),
                        tiles_taking=int((kc > 0).sum()),
-                       zero_tile_out=float(ko.reshape(cf.BLOCKS, -1)[0, 0]))
+                       zero_tile_out=float(ko.reshape(cf.BLOCKS, -1)[0, 0]),
+                       **cf.layout(n_live, use_cond))
             need(torch.equal(ko.view(torch.int32), po.view(torch.int32)) and torch.equal(kc, pc)
                  and bool((kc.cpu().numpy() == want).all())
-                 and (0 < res["tiles_taking"] < cf.BLOCKS or not use_cond),
+                 and (0 < res["tiles_taking"] < cf.BLOCKS or not use_cond)
+                 and res["resident_tiles"] >= cf.BLOCKS,
                  f"X2 {name} differs from its plain version: {res}")
             checked[name] = res
     for name in cf.INSTANCES:
@@ -2253,7 +2292,13 @@ def parent_figures(parent):
                     k5_launches=ks["dense_query"]["launches"])
 
     k8, x1 = parent["cluster_major"], parent["experiments"]["supscan"]
+    x3, x2 = parent["experiments"]["record_variants"]["variants"], \
+        parent["experiments"]["cond_fat"]
     return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
+                x3_ms={v: r["ms"] for v, r in x3.items()},
+                x3_us_per_record={v: r["sweep"]["us_per_record"] for v, r in x3.items()},
+                x2_ms={n: r["ms"] for n, r in x2.items()},
+                x2_iter_us={n: r["sweep"]["iter_us"] for n, r in x2.items()},
                 k8_ms=k8["ms"], k8_best_ms=k8["best_ms"], x1_sweep=x1["sweep"],
                 x1_ms=x1["ms"],
                 k6_ms=k6["ms"], k6_best_ms=k6["best_ms"], k5_ms=k5["ms"],
@@ -2437,6 +2482,10 @@ def main():
     if parent:
         report["experiments"]["supscan"]["parent"] = {k: parent[k] for k in (
             "device", "x1_ms", "x1_sweep")}
+        report["experiments"]["record_variants"]["parent"] = {k: parent[k] for k in (
+            "device", "x3_ms", "x3_us_per_record")}
+        report["experiments"]["cond_fat_parent"] = {k: parent[k] for k in (
+            "device", "x2_ms", "x2_iter_us")}
     line("23 microbenchmarks X1 X2 X3 X4 X5", **report["experiments"])
 
     main_path = report["main_path"]
@@ -2549,7 +2598,7 @@ def main():
         "replaces": "benchmarks/experiments/exp_record_variants.py:229",
         "launches": r["launches"],
         "max_abs_err": r["max_abs_err"],
-        **figures(r), "library_ms": None,
+        **figures(r), "best_ms": r["best_ms"], "library_ms": None,
     } for v, r in xp["record_variants"]["variants"].items()] + [{
         "name": "smem_tables", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/exp_smem_tables.cu",

@@ -748,6 +748,67 @@ def test_cond_fat_matches_plain(n_live, use_cond):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("inputs", ["script", "near"])
+@pytest.mark.parametrize("variant", ["serial", "outer", "matmul", "matmul_extract"])
+def test_record_variant_split_matches_plain_with_counts(variant, inputs):
+    """X3 split over the card (`rv.check`: within rtol 1e-6 / 1e-5 of its
+    plain version, the near row 0 of the matmul variants within
+    `near_bound` of the float64 one, the ray-record counts equal to the
+    formula) at the wrapper's grid, with one chunk, and with more chunks
+    than record tests (blocks with none)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import record_variants as rv
+
+    tables, rays = rv.inputs() if inputs == "script" else rv.check_inputs()
+    rays = torch.from_numpy(rays).cuda()
+    table = torch.from_numpy(tables[variant]).cuda()
+    launches = rv.record_variant.launches[variant]
+    for k_iters, chunks in ((40, None), (33, 1), (3, 40), (0, 5)):
+        rv.check(variant, table, rays, k_iters, near=inputs == "near", chunks=chunks)
+    assert rv.record_variant.launches[variant] == launches + 4
+    blocks, chunks = rv.record_grid(variant, 256)
+    assert blocks == rv.grid_blocks(chunks) and blocks > 8 and chunks > 1
+
+
+@pytest.mark.cuda
+def test_record_extraction_moves_only_near_row0():
+    """matmul_extract - matmul on the card: nothing on the script's inputs;
+    on the near inputs at least 96 row-0 rays, each by the plain versions'
+    sum of corrections within `rv.EXTRACT_ULPS`, and none of rows 1-7."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import record_variants as rv
+
+    for near in (False, True):
+        tables, rays = rv.check_inputs() if near else rv.inputs()
+        ext = rv.extraction(torch.from_numpy(tables["matmul"]).cuda(),
+                            torch.from_numpy(rays).cuda(), 256, near=near)
+        assert ext["rest_moved"] == 0
+        assert ext["row0_moved"] >= rv.MIN_MOVED if near else ext["row0_moved"] == 0
+        assert ext["row0_err_ulps"] <= rv.EXTRACT_ULPS or not near
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_live", [2, 19])
+@pytest.mark.parametrize("use_cond", [True, False])
+def test_cond_fat_layout(n_live, use_cond):
+    """Each X2 instance at its layout: the threads and CTAs a tile of
+    `tile_map`'s cover, all 64 tiles resident at once, bit-equal to its
+    plain version with the taken counts."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.experiments import cond_fat as cf
+
+    lay = cf.layout(n_live, use_cond)
+    assert (lay["threads"], lay["ctas"]) in (cf.COND_LAYOUTS if use_cond else cf.SWEEP_LAYOUTS)
+    assert lay["resident_tiles"] >= cf.BLOCKS
+    cta, thread, _ = cf.tile_map(lay["threads"], lay["ctas"])
+    assert cta.max() + 1 == lay["ctas"] and thread.max() + 1 == lay["threads"]
+    x = torch.from_numpy(cf.check_inputs()).cuda()
+    ko, kc = cf.cond_fat(x, 7, n_live, use_cond, taken=True)
+    po, pc = cf.cond_fat_reference(x, 7, n_live, use_cond, taken=True)
+    assert torch.equal(ko.view(torch.int32), po.view(torch.int32)) and torch.equal(kc, pc)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("form", ["fma", "tf32", "3xtf32"])
 def test_dot_formulations_match_plain(form):
     """X4: fma bit-equal to its plain version in C, R and X; the TF32 forms

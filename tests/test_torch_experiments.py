@@ -221,6 +221,32 @@ def test_record_variant_plain_matches_tpu_kernel(x3, variant):
     assert (ours < 100.0).sum() >= 8  # rays that hit a triangle within k records
 
 
+def test_record_extraction_plain_matches_tpu_kernel_on_near_inputs(x3):
+    """The TPU script's kernel_matmul with and without the extraction on
+    the near inputs (row 0 1e-5 in front of its triangles, where the
+    extraction moves bt) at 40 record tests: the plain versions within
+    rtol 1e-5 of it, and its matmul_extract - matmul within
+    `rv.EXTRACT_ULPS` of the plain versions' on each row-0 ray
+    (`rv.extraction`, with the TPU kernel as the run held to them)."""
+    tables, rays = rv.check_inputs()
+    comps = [rays[j].reshape(8, 128) for j in range(6)]
+    tpu = {}
+
+    def run(variant, table, r, k_iters):
+        if variant not in tpu:
+            tpu[variant] = torch.from_numpy(_jax_variant(
+                x3, x3["kernel_matmul"], tables["matmul"], comps, False, k_iters,
+                extract=variant == "matmul_extract"))
+        return tpu[variant]
+
+    pf, r = torch.from_numpy(tables["matmul"]), torch.from_numpy(rays)
+    ext = rv.extraction(pf, r, 40, near=True, run=run)
+    assert ext["row0_moved"] >= rv.MIN_MOVED and ext["row0_err_ulps"] <= rv.EXTRACT_ULPS
+    for v in ("matmul", "matmul_extract"):
+        np.testing.assert_allclose(rv.record_variant(v, pf, r, 40).numpy(), tpu[v].numpy(),
+                                   rtol=1e-5, atol=0)
+
+
 @pytest.mark.parametrize("n_tbl,vmem", [(0, False), (6, False), (6, True)])
 def test_smem_tables_plain_matches_tpu_kernel(x5, n_tbl, vmem):
     import jax.numpy as jnp
