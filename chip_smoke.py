@@ -162,8 +162,32 @@ Phases, one line each; any failure exits non-zero:
      on the persistent grid (its blocks per SM),
      K1's shape without tables and torch.add; X4 each form beside
      torch.matmul; both beside the card's name and power limit
-Then the script's seconds, one JSON line with the kernels' figures and,
-last, the result line. Bounds of the traversal kernels (K1's binned form,
+ 24. renderSceneDragonBoxFull's scene (the 7.2M-triangle stand-in dragon,
+     lean, PTX_KRN_MAX_TRIS 9e6 and PTX_KRN_CLUSTER 128 around the build:
+     models/scenes.py:dragon_full_scene) through the scene cache in a fresh
+     directory under build/: the cold miss (seconds by build stage, save
+     seconds, file GB), the hit with the file's pages dropped from the
+     page cache and again cached (seconds, GB/s), every field of the
+     loaded scene equal to the built one on the card (bits); the directory
+     is removed at the end of phase 26
+ 25. its frames (128x128 @ 16 spp, max_depth 40) through render(): the
+     default dispatch (the sorted driver, K2) and PTX_SORTED_WAVEFRONT=0
+     (K1's binned form), each alone by its launch counts on a first
+     frame, then three timed frames each in turns (frame seconds, Mrays/s,
+     the ratio to the CPU reference's 0.217), the means within 4 standard
+     errors, one profiled frame each; whether the tiers are staged or read
+     from global memory; K2 and K1 against their twins on 16,384 of the
+     frame's camera rays (spectrum bit-equal, counters equal), their card
+     time on the frame's 262,144 rays by CUDA events (K2's launches, K1's
+     launch), bounds from the counters, registers, occupancy and lane use
+ 26. render_resumable on that scene through the default tracer, 128x128 @
+     16 spp in chunks of 4, a checkpoint after every chunk: stopped by its
+     progress callback after chunk 2 and resumed (chunks 3 and 4 only, K2
+     alone), bit-equal to the uninterrupted render; a camera moved by one
+     ulp refused by the fingerprint; the fingerprint's seconds
+Then the script's seconds, one JSON line with the kernels' figures (the
+K2 and K1 binned rows also carry phase 25's 7.2M readings under
+"dragon_full") and, last, the result line. Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
 tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
@@ -178,8 +202,10 @@ device time, its K1 binned ms, its X1 sweep and its X2 and X3 times.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -263,6 +289,11 @@ RAY_ROWS_BYTES = 36  # K6 reads 9 float planes per ray
 # of the second build it runs on (bench.py's PTX_KRN_CLUSTER for 7.2M).
 K1B_CHECK_RAYS = 16384
 K1B_WIDE_CLUSTER = "128"
+# renderSceneDragonBoxFull (phases 24-26): the CPU reference's rate on the
+# 7.2M dragon (bench.py:39-41), and where the cold cache goes (build/ is
+# git-ignored; the directory is removed at the end).
+DRAGON_FULL_REF_MRAYS = 0.217
+ROOT = os.path.dirname(os.path.abspath(__file__))
 # X2's check and the iterations of its line in the kernels' JSON (the
 # sweep's longer run).
 X2_ITERS = 1024
@@ -1858,19 +1889,23 @@ def phase_k1_binned(mk, sw, scenes, dragon, RenderOptions):
     return out
 
 
-def k1_binned_run(mk, dragon, rays, opts):
-    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
-
+def k1_binned_run(mk, dragon, rays, opts, whole_chunk_plain=True):
     """K1's binned form against its twin on `rays`: the first
     K1B_CHECK_RAYS bit-equal with equal counters; the whole chunk timed,
-    counted and held against the twin at the K1 bounds."""
+    counted and (with `whole_chunk_plain`; else the plain version's time
+    is the subset's) held against the twin at the K1 bounds."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
     n = int(rays.origin.shape[0])
     tables = mk.pack_tables(dragon)
     sub = type(rays)(rays.origin[:K1B_CHECK_RAYS].contiguous(),
                      rays.direction[:K1B_CHECK_RAYS].contiguous())
     k, kc, kv = mk.trace_megakernel(dragon, sub, opts, 21, tables, debug_visits=True)
     sync()
+    t0 = time.perf_counter()
     t, tc, tv = mk.trace_megakernel_reference(dragon, sub, opts, 21, tables, debug_visits=True)
+    sync()
+    subset_plain_ms = (time.perf_counter() - t0) * 1e3
     out = dict(check_rays=K1B_CHECK_RAYS, rays=n,
                spectrum_bit_equal=float((k.view(torch.int32) == t.view(torch.int32))
                                         .all(1).float().mean()),
@@ -1889,17 +1924,19 @@ def k1_binned_run(mk, dragon, rays, opts):
                                     warp_steps=steps)
     sync()
     out["walk"] = walk_figures(kt, dragon, tables, vis, steps, "megakernel_binned")
-    t0 = time.perf_counter()
-    tspec, _ = mk.trace_megakernel_reference(dragon, rays, opts, 21, tables)
-    sync()
-    out["plain_ms"] = (time.perf_counter() - t0) * 1e3
-    out["chunk"] = compare(spec, tspec)
-    check_agreement("K1's binned form on the whole chunk", out["chunk"])
     flops, counts = traversal_flops(vis)
     rb = ray_bounces(vis)
     out.update(ray_bounces=rb, counts=counts,
                **bound(n * (24 + 16), flops + rb * vertex_flops(dragon)))
-    out["max_abs_err"] = max(out["max_abs_err"], out["chunk"]["max_abs_err"])
+    out.update(plain_ms=subset_plain_ms, plain_rays=K1B_CHECK_RAYS)
+    if whole_chunk_plain:
+        t0 = time.perf_counter()
+        tspec, _ = mk.trace_megakernel_reference(dragon, rays, opts, 21, tables)
+        sync()
+        out.update(plain_ms=(time.perf_counter() - t0) * 1e3, plain_rays=n)
+        out["chunk"] = compare(spec, tspec)
+        check_agreement("K1's binned form on the whole chunk", out["chunk"])
+        out["max_abs_err"] = max(out["max_abs_err"], out["chunk"]["max_abs_err"])
     return out
 
 
@@ -2235,6 +2272,249 @@ def phase_dot_formulations(df, best_ms):
     return out
 
 
+def phase_dragon_full_cache(scenes, cache_mod, cache_dir):
+    """renderSceneDragonBoxFull's scene (7.2M triangles, lean) through the
+    scene cache in a fresh directory: the cold miss (build stages, save,
+    file size), then the hit (load_scene through the pinned buffers), every
+    field of the loaded scene equal to the built one on the card."""
+    from cpupathtrace_tpu_torch.accel.build import build_bvh
+    from cpupathtrace_tpu_torch.integrator.megakernel import megakernel_supported
+    from cpupathtrace_tpu_torch.scene.scene import BUILD_SECONDS
+
+    need(not os.path.exists(cache_dir), f"{cache_dir} exists: the miss would not be cold")
+    runs0 = dict(build_bvh.runs)
+    BUILD_SECONDS.clear()
+    t0 = time.perf_counter()
+    built, hit = scenes.dragon_full_scene(cache_dir, device="cuda")
+    miss_s = time.perf_counter() - t0
+    need(not hit, "the 7.2M build hit a cache in a fresh directory")
+    steps = dict(cache_mod.cached_build.seconds)
+    files = os.listdir(cache_dir)
+    need(len(files) == 1 and files[0].endswith(cache_mod.SUFFIX), f"cache files {files}")
+    nbytes = os.path.getsize(os.path.join(cache_dir, files[0]))
+    need(built.n_tri >= scenes.DRAGON_FULL_TRIS * 0.99 and built.lean
+         and built.krn_cluster_size == 128 and built.accel == "binned",
+         f"not the lean 7.2M build: {built.n_tri} triangles, lean {built.lean}, "
+         f"{built.krn_cluster_size} rows, {built.accel}")
+    need(megakernel_supported(built), "megakernel_supported refuses the 7.2M scene")
+    out = dict(n_tri=built.n_tri, n_big=built.n_big, miss_s=miss_s, stages_s=dict(BUILD_SECONDS),
+               cache_steps_s=steps, file_gb=nbytes / 1e9,
+               bvh_builder_runs={k: build_bvh.runs[k] - runs0[k] for k in runs0},
+               records=list(built.krn_records.shape), cl_bounds=list(built.krn_cl_bounds.shape),
+               sup_bounds=list(built.krn_sup_bounds.shape),
+               hyp_bounds=list(built.krn_hyp_bounds.shape),
+               record_gb=built.krn_records.numel() * 4 / 1e9,
+               cull_modes=[built.krn_cull_mode, built.krn_big_cull_mode])
+    # The hit, first with the file's pages dropped from the page cache
+    # (written back, then POSIX_FADV_DONTNEED: the disk's read), then again
+    # with them cached.
+    path = os.path.join(cache_dir, files[0])
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    for reading in ("hit", "hit_page_cached"):
+        sync()
+        t0 = time.perf_counter()
+        loaded, hit = scenes.dragon_full_scene(cache_dir, device="cuda")
+        sync()
+        load_s = time.perf_counter() - t0
+        need(hit, "a second 7.2M call missed the cache")
+        out.update({f"{reading}_s": load_s, f"{reading}_gb_per_s": nbytes / 1e9 / load_s})
+    unequal = []
+    for f in dataclasses.fields(built):
+        a, b = getattr(built, f.name), getattr(loaded, f.name)
+        if isinstance(a, torch.Tensor):
+            if not (b.device.type == "cuda" and a.dtype == b.dtype and a.shape == b.shape
+                    and torch.equal(a.reshape(-1).view(torch.uint8),
+                                    b.reshape(-1).view(torch.uint8))):
+                unequal.append(f.name)
+        elif a != b:
+            unequal.append(f.name)
+    need(not unequal, f"the loaded 7.2M scene differs from the built one in {unequal}")
+    out["fields_equal"] = len(dataclasses.fields(built))
+    return loaded, out
+
+
+def tiers_where(kt, scene):
+    """'staged' when K1's and K2's blocks stage the scene's hyper and
+    supercluster boxes in shared memory, 'global' when the tiers exceed
+    the layouts' tier_floats and are read from global memory."""
+    n_pages = scene.krn_sup_bounds.shape[0]
+    where = {lib: "staged" if kt.tier_floats(n_pages, kt.walk_layout(lib)) else "global"
+             for lib in ("megakernel", "bounce")}
+    need(len(set(where.values())) == 1, f"K1 and K2 stage the tiers differently: {where}")
+    floats = n_pages * (kt.BND_COLS + kt.GROUP2 * kt.BND_COLS)
+    return dict(tiers=where["bounce"], tier_floats=floats,
+                tier_floats_staged_max=kt.walk_layout("bounce").tier_floats)
+
+
+def k2_sorted_run(sw, mk, kt, scene, rays, opts, n_paths):
+    """K2 through the sorted driver against the twin's driver on the first
+    K1B_CHECK_RAYS rays (spectrum bit-equal, per-bounce counters equal);
+    then on the frame's rays K2's launches timed by CUDA events, the frame's
+    bound from its counters and the walk's figures."""
+    tables = mk.pack_tables(scene)
+    sub = type(rays)(rays.origin[:K1B_CHECK_RAYS].contiguous(),
+                     rays.direction[:K1B_CHECK_RAYS].contiguous())
+    k, kc, kv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables, debug_visits=True)
+    sync()
+    t0 = time.perf_counter()
+    t, tc, tv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables, reference=True,
+                                           debug_visits=True)
+    sync()
+    out = dict(check_rays=K1B_CHECK_RAYS, plain_ms=(time.perf_counter() - t0) * 1e3,
+               plain_rays=K1B_CHECK_RAYS,
+               spectrum_bit_equal=float((k.view(torch.int32) == t.view(torch.int32))
+                                        .all(1).float().mean()),
+               collected_equal=bool(torch.equal(kc, tc)), counters_equal=bool(torch.equal(kv, tv)),
+               max_abs_err=max_err(k, t))
+    need(out["spectrum_bit_equal"] == 1.0 and out["collected_equal"] and out["counters_equal"],
+         f"K2 disagrees with its twin on the 7.2M scene: {out}")
+    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables)
+    timing: dict = {}
+    spec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, timing=timing)
+    sync()
+    need(bool(torch.isfinite(spec).all()), "K2's 7.2M chunk has non-finite values")
+    steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
+    _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, debug_visits=True,
+                                           warp_steps=steps)
+    sync()
+    frame = frame_bound(vis, n_paths, scene)
+    frame.update(walk_figures(kt, scene, tables, vis, steps, "bounce_binned_kernel"))
+    out.update(bounces=len(timing["bounce_ms"]), bounce_ms=timing["bounce_ms"],
+               sort_gather_ms=timing["sort_ms"], ms=sum(timing["bounce_ms"]), frame=frame,
+               bound_ms=frame["bound_ms"], bound_by=frame["bound_by"])
+    return out
+
+
+def phase_dragon_full_frames(pt, sw, mk, kt, scenes, full):
+    """renderSceneDragonBoxFull (128x128 @ 16 spp, max_depth 40) through
+    render(): the default dispatch (the sorted driver, K2) and
+    PTX_SORTED_WAVEFRONT=0 (K1's binned form), launches counted on a first
+    frame each, then three timed frames each in turns; both kernels against
+    their twins on 16,384 of the frame's camera rays, their card time on
+    the frame's rays by CUDA events, bounds from the counters, one profiled
+    frame each, the two routes' means within 4 standard errors."""
+    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+    camera = scenes.bench_camera()
+    n_paths = DRAGON_W * DRAGON_H * DRAGON_SPP
+    routes = {"sorted": None, "k1": "0"}
+    out = {name: {} for name in routes}
+    out.update(tiers_where(kt, full))
+    first = {}
+    for name, flag in routes.items():
+        mk.trace_megakernel.launches = sw.bounce.launches = 0
+        mk.trace_megakernel_reference.calls = sw.bounce_reference.calls = 0
+        images, secs = render_frames(pt, full, camera, opts, flag, [50])
+        sync()
+        out[name].update(first_frame_s=secs[0], launches=dict(
+            k1=mk.trace_megakernel.launches, k2=sw.bounce.launches,
+            k1_twin=mk.trace_megakernel_reference.calls, k2_twin=sw.bounce_reference.calls))
+        first[name] = images[0]
+    c1, c2 = out["k1"]["launches"], out["sorted"]["launches"]
+    need(c1["k1"] > 0 and c1["k2"] == c1["k1_twin"] == c1["k2_twin"] == 0,
+         f"PTX_SORTED_WAVEFRONT=0: the 7.2M frame did not run K1's binned form alone: {c1}")
+    need(c2["k2"] > 0 and c2["k1"] == c2["k1_twin"] == c2["k2_twin"] == 0,
+         f"the default 7.2M frame did not run the sorted driver alone: {c2}")
+    for order, seed in zip(("k1", "sorted", "sorted", "k1", "k1", "sorted"), range(51, 57)):
+        _, secs = render_frames(pt, full, camera, opts, routes[order], [seed])
+        out[order].setdefault("frame_s", []).extend(secs)
+    for name, img in first.items():
+        need(img.shape == (DRAGON_H, DRAGON_W, 4) and np.isfinite(img).all()
+             and bool((img[..., 3] == 1.0).all()), f"{name} 7.2M frame")
+        med = float(np.median(out[name]["frame_s"]))
+        mrays = n_paths / med / 1e6
+        out[name].update(frame_median_s=med, mrays_per_s=mrays,
+                         vs_cpu_reference=mrays / DRAGON_FULL_REF_MRAYS,
+                         mean=float(img[..., :3].mean()))
+    out["mean_diff"], out["std_err"] = mean_gap(first["k1"], first["sorted"])
+    need(abs(out["mean_diff"]) <= 4 * out["std_err"],
+         f"K1's binned 7.2M frame differs from the sorted driver's: {out}")
+    out["sorted"]["profile"] = profile_frame(pt, full, camera, opts, kernel="bounce_binned_kernel")
+    os.environ["PTX_SORTED_WAVEFRONT"] = "0"
+    try:
+        out["k1"]["profile"] = profile_frame(pt, full, camera, opts, kernel="megakernel")
+    finally:
+        del os.environ["PTX_SORTED_WAVEFRONT"]
+    rays, _ = camera_state(sw, scenes.bench_camera(device="cuda"), opts, DRAGON_SPP, 21)
+    out["sorted"]["k2"] = k2_sorted_run(sw, mk, kt, full, rays, opts, n_paths)
+    # The twin takes ~46 s on the whole 7.2M chunk on an H100: K1 is held
+    # to it on the subset only.
+    out["k1"]["k1"] = k1_binned_run(mk, full, rays, opts, whole_chunk_plain=False)
+    return out
+
+
+def phase_dragon_full_resume(pt, ck, sw, mk, scenes, full, cache_dir):
+    """render_resumable on the 7.2M scene through the default tracer,
+    128x128 @ 16 spp in chunks of 4, a checkpoint after every chunk:
+    stopped by its progress callback after chunk 2 and resumed from the
+    file (the resume renders chunks 3 and 4), equal bit for bit to the
+    uninterrupted render; a camera moved by one ulp is refused by its
+    fingerprint."""
+    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+    camera = scenes.bench_camera()
+    kw = dict(spp=DRAGON_SPP, spp_chunk=4, seed=60, checkpoint_every=1)
+    path = os.path.join(cache_dir, "film.npz")
+    os.environ.pop("PTX_SORTED_WAVEFRONT", None)
+
+    class Stop(Exception):
+        pass
+
+    def stop_after_2(done, total):
+        if done == 2:
+            raise Stop
+
+    sync()
+    t0 = time.perf_counter()
+    fp = ck.render_fingerprint(full, camera)
+    fingerprint_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    whole = ck.render_resumable(full, camera, opts, **kw)
+    whole_s = time.perf_counter() - t0
+    try:
+        ck.render_resumable(full, camera, opts, checkpoint_path=path,
+                            progress_callback=stop_after_2, **kw)
+        need(False, "the progress callback did not stop the render")
+    except Stop:
+        pass
+    saved = ck.load_checkpoint(path)
+    need(saved.chunks_done == 2 and saved.fingerprint == fp,
+         f"checkpoint after the stop: {saved.chunks_done} chunks, fingerprint {saved.fingerprint}")
+    done = []
+    mk.trace_megakernel.launches = sw.bounce.launches = 0
+    t0 = time.perf_counter()
+    resumed = ck.render_resumable(full, camera, opts, checkpoint_path=path,
+                                  progress_callback=lambda c, n: done.append(c), **kw)
+    resume_s = time.perf_counter() - t0
+    launches = dict(k2=sw.bounce.launches, k1=mk.trace_megakernel.launches)
+    need(done == [3, 4], f"the resume rendered chunks {done}, not [3, 4]")
+    need(launches["k2"] > 0 and launches["k1"] == 0,
+         f"the resume did not run through the sorted driver alone: {launches}")
+    equal = (np.array_equal(resumed.pixel_sum, whole.pixel_sum)
+             and np.array_equal(resumed.sample_count, whole.sample_count))
+    need(equal, "the resumed 7.2M render differs from the uninterrupted one")
+    need(bool((whole.sample_count == DRAGON_SPP).all()) and np.isfinite(whole.pixel_sum).all(),
+         "the resumable 7.2M render is not complete and finite")
+    moved = dataclasses.replace(camera, origin=camera.origin.clone())
+    moved.origin[0] = torch.nextafter(moved.origin[0], torch.ones_like(moved.origin[0]))
+    try:
+        ck.render_resumable(full, moved, opts, checkpoint_path=path, **kw)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    need(refused is not None and "different scene/camera" in refused,
+         f"a camera moved by one ulp was not refused: {refused}")
+    return dict(scene="7.2M", fingerprint_s=fingerprint_s, uninterrupted_s=whole_s,
+                resume_s=resume_s, resumed_chunks=done, resume_launches=launches,
+                bit_equal=equal,
+                mean=float(whole.image()[..., :3].mean()), moved_camera_refused=refused)
+
+
 def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
     """Resident blocks per SM (and threads per block) of every instance of
     K1, K2 and K4, and of K7: the walking ones at their rings alone (the
@@ -2488,6 +2768,23 @@ def main():
             "device", "x2_ms", "x2_iter_us")}
     line("23 microbenchmarks X1 X2 X3 X4 X5", **report["experiments"])
 
+    from cpupathtrace_tpu_torch.integrator import checkpoint as ck
+    from cpupathtrace_tpu_torch.scene import cache as cache_mod
+
+    cache_dir = os.path.join(ROOT, "build", f"chip_smoke_cache_{os.getpid()}")
+    try:
+        full, report["dragon_full_cache"] = phase_dragon_full_cache(scenes, cache_mod, cache_dir)
+        line("24 renderSceneDragonBoxFull: cold build, cache, load", **report["dragon_full_cache"])
+        report["dragon_full_frames"] = phase_dragon_full_frames(pt, sw, mk, kt, scenes, full)
+        line("25 renderSceneDragonBoxFull frames: sorted driver (K2) and K1 binned",
+             **report["dragon_full_frames"])
+        report["dragon_full_resume"] = phase_dragon_full_resume(pt, ck, sw, mk, scenes, full,
+                                                                cache_dir)
+        line("26 resume on the card", **report["dragon_full_resume"])
+    finally:
+        shutil.rmtree(cache_dir, ignore_errors=True)
+    del full
+
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
     depth1 = dragon_path["depth1"]
@@ -2501,6 +2798,17 @@ def main():
     k8 = report["cluster_major"]
     k1b = report["k1_binned"]
     xp = report["experiments"]
+    ff = report["dragon_full_frames"]
+
+    def full_figures(route, run, kernel):
+        """A kernel's 7.2M readings (phase 25) for its row."""
+        r = ff[route]
+        return dict(scene="renderSceneDragonBoxFull, 7.2M triangles (lean, 128-row records)",
+                    tiers=ff["tiers"], launches=r["launches"][kernel], ms=run["ms"],
+                    plain_ms=run["plain_ms"], plain_rays=run["plain_rays"],
+                    bound_ms=run["bound_ms"], bound_by=run["bound_by"],
+                    max_abs_err=run["max_abs_err"], frame_median_s=r["frame_median_s"],
+                    mrays_per_s=r["mrays_per_s"])
 
     def figures(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
@@ -2524,13 +2832,14 @@ def main():
         "replaces": "cpupathtrace_tpu/integrator/sorted_wavefront.py:252",
         "inlines": k3,
         "launches": dragon_path["launches"],
-        "max_abs_err": dragon_path["max_abs_err"],
+        "max_abs_err": max(dragon_path["max_abs_err"], ff["sorted"]["k2"]["max_abs_err"]),
         "ms": depth1["kernel_ms"], "plain_ms": depth1["twin_ms"],
         "bound_ms": depth1["bound_ms"], "bound_by": depth1["bound_by"],
         "per": "one launch: depth 1 of the frame's camera rays, unsorted",
         "library_ms": None,
         "frame_ms": dragon_path["k2_frame_ms"], "frame_bounce_ms": dragon_path["bounce_ms"],
         "frame_bound_ms": dragon_path["frame"]["bound_ms"],
+        "dragon_full": full_figures("sorted", ff["sorted"]["k2"], "k2"),
     }, {
         "name": "bounce_records", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -2583,8 +2892,9 @@ def main():
         "replaces": "cpupathtrace_tpu/integrator/pallas_megakernel.py:1189",
         "inlines": k3,
         "launches": report["dragon_k1_frame"]["k1"]["launches"]["k1"],
-        "max_abs_err": k1b["max_abs_err"],
+        "max_abs_err": max(k1b["max_abs_err"], ff["k1"]["k1"]["max_abs_err"]),
         **figures(k1b), "library_ms": None,
+        "dragon_full": full_figures("k1", ff["k1"]["k1"], "k1"),
     }, {
         "name": "supscan", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/exp_supscan.cu",
@@ -2622,7 +2932,7 @@ def main():
         **figures(r), "library_ms": r["library_ms"],
     } for form, r in xp["dot_formulations"].items()]}
     report["seconds"] = time.perf_counter() - t_start
-    line("24 total", seconds=report["seconds"])
+    line("27 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

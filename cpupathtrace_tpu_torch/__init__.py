@@ -5,8 +5,10 @@ Ported so far: the scene build (dense and binned scenes), camera, the
 render path through the megakernel (K1), the sorted driver with its bounce
 kernel (K2) and cluster traversal (K3, K4), the wavefront fallback with its
 dense query kernel (K5), differentiable rendering (`diff`: K2's record form
-and a torch replay for the backward), the adaptive film, tone mapping and
-PNG output. Every kernel has a plain-torch version that CPU tensors take.
+and a torch replay for the backward), the adaptive film, checkpoint /
+resume (`render_resumable`), the scene cache (`scene/cache.py`), tone
+mapping and PNG output. Every kernel has a plain-torch version that CPU
+tensors take.
 Entry points that build tensors run on the CUDA card unless the caller
 passes device="cpu". Names are spelled as in the JAX package's `__all__`.
 The package imports torch and numpy, never jax.
@@ -38,6 +40,7 @@ from .scene.geometry import (
     transform_triangles,
 )
 from .integrator.film import render, render_chunk, render_tile
+from .integrator.checkpoint import render_resumable
 from .integrator.wavefront import trace
 from .diff.render import material_params_from_numpy
 from .post import gamma_correct, post_process, tone_map
@@ -56,4 +59,5 @@ __all__ = [
     "render", "render_chunk", "render_tile", "trace",
     "tone_map", "gamma_correct", "post_process",
     "read_rgb_image", "write_rgb_image",
+    "render_resumable",
 ]

@@ -31,14 +31,33 @@ def mul32(a: torch.Tensor, b: int) -> torch.Tensor:
     return (lo + (hi << 16)) & MASK32
 
 
-def fmix32(s: torch.Tensor) -> torch.Tensor:
-    """murmur3 finaliser, then force the state non-zero."""
+def finalise32(s: torch.Tensor) -> torch.Tensor:
+    """The murmur3 finaliser: a bijection of [0, 2^32)."""
     s = s ^ (s >> 16)
     s = mul32(s, 0x85EBCA6B)
     s = s ^ (s >> 13)
     s = mul32(s, 0xC2B2AE35)
-    s = s ^ (s >> 16)
-    return s | 1
+    return s ^ (s >> 16)
+
+
+def fmix32(s: torch.Tensor) -> torch.Tensor:
+    """murmur3 finaliser, then force the state non-zero."""
+    return finalise32(s) | 1
+
+
+def chunk_seed(seed: int, chunk: int) -> int:
+    """The torch.Generator seed of chunk `chunk` of a resumable render with
+    `seed` (integrator/checkpoint.py), the port's counterpart of JAX's
+    fold_in(PRNGKey(seed), chunk): the high word mixes the seed's 64 bits,
+    the low word finalises the chunk index xor that word (each word
+    offset by a constant, as seed_rng offsets its terms). It depends
+    on (seed, chunk) alone, and, the finaliser being a bijection, chunks
+    below 2^32 of one seed get distinct seeds."""
+    words = torch.tensor([seed & MASK32, (seed >> 32) & MASK32, chunk & MASK32],
+                         dtype=torch.int64)
+    hi = finalise32(words[0] ^ finalise32(words[1] ^ 0x9E3779B9))
+    lo = finalise32(words[2] ^ hi ^ 0x85EBCA6B)
+    return (int(hi) << 32) | int(lo)
 
 
 def seed_rng(seed, ray_index: torch.Tensor, block_rows: int = BLOCK_ROWS) -> torch.Tensor:

@@ -1515,3 +1515,79 @@ def test_dense_query_takes_unaligned_tables():
     tp, pp = oi.dense_intersect_reference(scene, o, d, (tri, sph))
     assert p.dtype == torch.int64 and torch.equal(p, pp)
     assert torch.equal(t.view(torch.int32), tp.view(torch.int32))
+
+
+@pytest.mark.cuda
+def test_scene_cache_pinned_loader_is_bit_equal(tmp_path):
+    """load_scene onto the card through its two pinned buffers, with slices
+    of 64 KB (the records and most tables span more than two): every field
+    bit-equal to the saved scene, on the card; cached_build's hit the
+    same."""
+    _require_cuda()
+    import dataclasses
+
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.scene import cache
+
+    scene = scenes.bench_dragon_scene(dragon_tris=20000, accel="binned", device="cpu")
+    slice_bytes = 65536
+    assert scene.krn_records.numel() * 4 > 2 * slice_bytes
+    cache.save_scene(scene, tmp_path / f"k{cache.SUFFIX}")
+    back = cache.load_scene(tmp_path / f"k{cache.SUFFIX}", device="cuda", slice_bytes=slice_bytes)
+    hit, was_hit = cache.cached_build("k", lambda device: None, tmp_path, device="cuda")
+    assert was_hit
+    for loaded in (back, hit):
+        for f in dataclasses.fields(scene):
+            a, b = getattr(scene, f.name), getattr(loaded, f.name)
+            if isinstance(a, torch.Tensor):
+                assert b.device.type == "cuda" and b.dtype == a.dtype and b.shape == a.shape
+                assert torch.equal(b.reshape(-1).view(torch.uint8).cpu(),
+                                   a.reshape(-1).view(torch.uint8)), f.name
+            else:
+                assert a == b, f.name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("flag", [None, "0"])
+def test_resume_bit_identical_on_the_dragon(flag, tmp_path, monkeypatch):
+    """render_resumable on the 200k dragon through the sorted driver's K2
+    (the default) and K1's binned form (PTX_SORTED_WAVEFRONT=0): stopped
+    after chunk 2 of 4 and resumed from its file, it equals the
+    uninterrupted render bit for bit, and the resume renders 2 chunks."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import checkpoint
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+    from cpupathtrace_tpu_torch.models import scenes
+
+    monkeypatch.delenv("PTX_SORTED_WAVEFRONT", raising=False)
+    if flag is not None:
+        monkeypatch.setenv("PTX_SORTED_WAVEFRONT", flag)
+    scene = scenes.bench_dragon_scene(device="cuda")
+    cam = scenes.bench_camera(device="cuda")
+    opts = RenderOptions(64, 64, 16, 16, epsilon=1e-3, max_depth=40)
+    kw = dict(spp=16, spp_chunk=4, seed=3)
+    mk.trace_megakernel.launches = sw.bounce.launches = 0
+    full = checkpoint.render_resumable(scene, cam, opts, **kw)
+    k1, k2 = mk.trace_megakernel.launches, sw.bounce.launches
+    assert (k1 == 4 and k2 == 0) if flag == "0" else (k1 == 0 and k2 > 0)
+
+    class Stop(Exception):
+        pass
+
+    def stop(done, total):
+        if done == 2:
+            raise Stop
+
+    ckpt = str(tmp_path / "film.npz")
+    with pytest.raises(Stop):
+        checkpoint.render_resumable(scene, cam, opts, checkpoint_path=ckpt,
+                                    progress_callback=stop, **kw)
+    done = []
+    resumed = checkpoint.render_resumable(scene, cam, opts, checkpoint_path=ckpt,
+                                          progress_callback=lambda c, n: done.append(c), **kw)
+    assert done == [3, 4]
+    assert np.array_equal(resumed.pixel_sum, full.pixel_sum)
+    assert np.array_equal(resumed.sample_count, full.sample_count)
+    assert (full.sample_count > 0).all() and np.isfinite(full.pixel_sum).all()

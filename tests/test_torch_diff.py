@@ -361,7 +361,37 @@ def test_gradients_flow_through_a_binned_scene():
 # ---------------------------------------------------------------------------
 
 
-def _entry_points():
+def _resumable_chunk_tensors():
+    """render_resumable of the CPU box with no device: the x_cam tensor its
+    first chunk got (the tensors it rendered on)."""
+    from unittest import mock
+
+    from cpupathtrace_tpu_torch.integrator import checkpoint
+    from cpupathtrace_tpu_torch.models import golden
+
+    with mock.patch.object(checkpoint, "render_chunk", wraps=checkpoint.render_chunk) as spy:
+        checkpoint.render_resumable(golden.inward_box_scene(device="cpu"),
+                                    golden.box_camera(device="cpu"),
+                                    RenderOptions(4, 4, 1, 1, max_depth=2), spp=1)
+    return {"x_cam": spy.call_args.args[3]}
+
+
+def _cache_calls(tmp):
+    """load_scene and cached_build of a CPU box scene saved under `tmp`,
+    each called with no device."""
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.scene import cache
+
+    path = os.path.join(tmp, "box.ptxt")
+    cache.save_scene(scenes.bench_box_scene(device="cpu"), path)
+    return {
+        "load_scene": lambda: cache.load_scene(path),
+        "cached_build": lambda: cache.cached_build(
+            "box", lambda device: scenes.bench_box_scene(device=device), tmp)[0],
+    }
+
+
+def _entry_points(tmp=None):
     from cpupathtrace_tpu_torch.models import golden, scenes
 
     return {
@@ -372,14 +402,16 @@ def _entry_points():
         "box_camera": golden.box_camera,
         "material_params_from_numpy": lambda: diff.material_params_from_numpy(
             {"mat_diffuse": np.ones((2, 4), np.float32)}),
+        "render_resumable": _resumable_chunk_tensors,
+        **(_cache_calls(tmp) if tmp else {"load_scene": None, "cached_build": None}),
     }
 
 
 @pytest.mark.parametrize("name", sorted(_entry_points()))
-def test_entry_points_default_to_the_card(name):
+def test_entry_points_default_to_the_card(name, tmp_path):
     """Called without `device`, an entry point puts its tensors on CUDA; on
     a machine without CUDA it raises (decided inside the test)."""
-    fn = _entry_points()[name]
+    fn = _entry_points(str(tmp_path))[name]
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA"):
             fn()

@@ -53,6 +53,8 @@ def test_sources_found():
             "experiments/intersect_sweep.py", "experiments/cluster_major_sweep.py"} <= rel, rel
     # ... and K8's stage.
     assert "accel/cluster_major.py" in rel, rel
+    # ... and checkpoint / resume and the scene cache.
+    assert {"integrator/checkpoint.py", "scene/cache.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
