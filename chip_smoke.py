@@ -165,8 +165,9 @@ Phases, one line each; any failure exits non-zero:
  24. renderSceneDragonBoxFull's scene (the 7.2M-triangle stand-in dragon,
      lean, PTX_KRN_MAX_TRIS 9e6 and PTX_KRN_CLUSTER 128 around the build:
      models/scenes.py:dragon_full_scene) through the scene cache in a fresh
-     directory under build/: the cold miss (seconds by build stage, save
-     seconds, file GB), the hit with the file's pages dropped from the
+     directory under build/: the cold miss (seconds by build stage, with
+     the mesh pipeline and the pack in C++, csrc/mesh_native.cpp, beside
+     the numpy route's stage seconds before it; save seconds, file GB), the hit with the file's pages dropped from the
      page cache and again cached (seconds, GB/s), every field of the
      loaded scene equal to the built one on the card (bits); the directory
      is removed at the end of phase 26
@@ -185,9 +186,30 @@ Phases, one line each; any failure exits non-zero:
      progress callback after chunk 2 and resumed (chunks 3 and 4 only, K2
      alone), bit-equal to the uninterrupted render; a camera moved by one
      ulp refused by the fingerprint; the fingerprint's seconds
+ 27. the C++ host pipeline against numpy at 7.2M: the mesh pipeline on the
+     stand-in's arrays (six outputs bit-equal) and the packer on phase
+     24's cluster arrays (the build's records bit-equal), each timed both
+     ways
+ 28. the 200k dragon from OBJ text (written under build/, parsed by the
+     C++ parser, `bench_dragon_scene(dragon_obj=path)`): text MB, seconds
+     to write, parse and load; against phase 7's arrays-route build the
+     same triangles, positions within 4 float32 ulps and normals within
+     5e-4 (the parse reads float32); frames at 128x128 @ 16 spp through
+     the default dispatch (K2) and PTX_SORTED_WAVEFRONT=0 (K1 binned),
+     each alone by its launch counts, three timed frames each in turns
+     (ms, Mrays/s, the ratio to the CPU reference's 0.308), each within 4
+     standard errors of its tracer's arrays-route frame; K2 and K1 against
+     their twins on 16,384 of the frame's rays as phase 25
+ 29. the demo app, `python -m cpupathtrace_tpu_torch.demo` at its defaults
+     (256x256, 16-64 spp, the 20k dragon): rc 0, the PNG (256, 256, 4) and
+     lit, its Mrays/s line; `--sharded` refused
+ 30. the example, `python -m cpupathtrace_tpu_torch.examples.inverse_render`
+     at its defaults: rc 0 (albedo error < 0.2), seconds, first and last
+     loss, the recovered albedo
 Then the script's seconds, one JSON line with the kernels' figures (the
 K2 and K1 binned rows also carry phase 25's 7.2M readings under
-"dragon_full") and, last, the result line. Bounds of the traversal kernels (K1's binned form,
+"dragon_full" and phase 28's under "obj_dragon") and, last, the result
+line. Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
 tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
@@ -238,7 +260,8 @@ PATH_RAYS = 16384
 # every ray.
 PLANE_FRAC = 0.999
 KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
-           "binned_isect", "cluster_major", "bvh_build", "exp_supscan", "exp_record_variants",
+           "binned_isect", "cluster_major", "bvh_build", "mesh_native", "exp_supscan",
+           "exp_record_variants",
            "exp_smem_tables", "exp_cond_fat", "exp_dot_formulations")
 # The least time the card could take for a kernel's work: the larger of
 # its bytes over HBM's rate
@@ -293,6 +316,15 @@ K1B_WIDE_CLUSTER = "128"
 # 7.2M dragon (bench.py:39-41), and where the cold cache goes (build/ is
 # git-ignored; the directory is removed at the end).
 DRAGON_FULL_REF_MRAYS = 0.217
+# The 7.2M cold build's numpy mesh and pack stages before they moved to
+# C++ (two runs of phase 24 on an H100 host, PERF.md §5).
+NUMPY_STAGES_S = {"mesh": [7.03, 8.85], "pack": [4.98, 5.94], "total": [17.1, 21.1]}
+# The CPU reference's rate on the 200k dragon (bench.py:40), and the OBJ
+# route's agreement with the arrays route (float32 parse, scene/mesh.py):
+# positions in float32 ulps, normals absolute.
+DRAGON_REF_MRAYS = 0.308
+OBJ_POS_ULPS = 4
+OBJ_NORMAL_ERR = 5e-4
 ROOT = os.path.dirname(os.path.abspath(__file__))
 # X2's check and the iterations of its line in the kernels' JSON (the
 # sweep's longer run).
@@ -2272,22 +2304,40 @@ def phase_dot_formulations(df, best_ms):
     return out
 
 
-def phase_dragon_full_cache(scenes, cache_mod, cache_dir):
+def phase_dragon_full_cache(scenes, cache_mod, cache_dir, packed):
     """renderSceneDragonBoxFull's scene (7.2M triangles, lean) through the
     scene cache in a fresh directory: the cold miss (build stages, save,
-    file size), then the hit (load_scene through the pinned buffers), every
-    field of the loaded scene equal to the built one on the card."""
+    file size, the C++ host pipeline's runs beside the numpy route's stage
+    seconds), then the hit (load_scene through the pinned buffers), every
+    field of the loaded scene equal to the built one on the card. The cold
+    build's C++ pack (its cluster arrays and records) goes to `packed`."""
+    from cpupathtrace_tpu_torch import native
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
     from cpupathtrace_tpu_torch.accel.build import build_bvh
     from cpupathtrace_tpu_torch.integrator.megakernel import megakernel_supported
     from cpupathtrace_tpu_torch.scene.scene import BUILD_SECONDS
 
     need(not os.path.exists(cache_dir), f"{cache_dir} exists: the miss would not be cold")
     runs0 = dict(build_bvh.runs)
+    native0 = dict(native.runs)
+    pack = kt.pack_pair_records_native
+
+    def capture(*args, out):
+        packed.update(args=args, out=out)
+        return pack(*args, out=out)
+
     BUILD_SECONDS.clear()
-    t0 = time.perf_counter()
-    built, hit = scenes.dragon_full_scene(cache_dir, device="cuda")
-    miss_s = time.perf_counter() - t0
+    kt.pack_pair_records_native = capture
+    try:
+        t0 = time.perf_counter()
+        built, hit = scenes.dragon_full_scene(cache_dir, device="cuda")
+        miss_s = time.perf_counter() - t0
+    finally:
+        kt.pack_pair_records_native = pack
     need(not hit, "the 7.2M build hit a cache in a fresh directory")
+    routes = {k: native.runs[k] - native0[k] for k in native0}
+    need(routes["mesh_pipeline"] >= 1 and routes["pack_pair_records"] == 1 and "out" in packed,
+         f"the 7.2M cold build did not run the C++ mesh pipeline and packer: {routes}")
     steps = dict(cache_mod.cached_build.seconds)
     files = os.listdir(cache_dir)
     need(len(files) == 1 and files[0].endswith(cache_mod.SUFFIX), f"cache files {files}")
@@ -2298,6 +2348,8 @@ def phase_dragon_full_cache(scenes, cache_mod, cache_dir):
          f"{built.krn_cluster_size} rows, {built.accel}")
     need(megakernel_supported(built), "megakernel_supported refuses the 7.2M scene")
     out = dict(n_tri=built.n_tri, n_big=built.n_big, miss_s=miss_s, stages_s=dict(BUILD_SECONDS),
+               host_routes=dict(mesh="native", pack="native", native_runs=routes),
+               numpy_stages_s=NUMPY_STAGES_S,
                cache_steps_s=steps, file_gb=nbytes / 1e9,
                bvh_builder_runs={k: build_bvh.runs[k] - runs0[k] for k in runs0},
                records=list(built.krn_records.shape), cl_bounds=list(built.krn_cl_bounds.shape),
@@ -2515,6 +2567,196 @@ def phase_dragon_full_resume(pt, ck, sw, mk, scenes, full, cache_dir):
                 mean=float(whole.image()[..., :3].mean()), moved_camera_refused=refused)
 
 
+def phase_native_pipeline(scenes, packed):
+    """The C++ host pipeline against its numpy versions at 7.2M: the mesh
+    pipeline on the stand-in's arrays (all six outputs bit-equal, both
+    timed), and the packer on the cluster arrays phase 24's cold build
+    packed (the build's records and a second C++ pack bit-equal to the
+    numpy packer's, both timed)."""
+    from cpupathtrace_tpu_torch import native
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.scene import mesh
+
+    t0 = time.perf_counter()
+    verts, faces = scenes.standin_dragon_arrays(scenes.DRAGON_FULL_TRIS)
+    out = dict(faces=int(faces.shape[0]), arrays_s=time.perf_counter() - t0)
+    t0 = time.perf_counter()
+    got = native.mesh_pipeline_native(verts, faces, True)
+    out["mesh_native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = mesh._mesh_pipeline_numpy(verts, faces, True)
+    out["mesh_numpy_s"] = time.perf_counter() - t0
+    out["mesh_kept"] = int(got[0].shape[0])
+    out["mesh_bit_equal"] = [g.dtype == w.dtype and bits_equal(torch.from_numpy(g),
+                                                               torch.from_numpy(w))
+                             for g, w in zip(got, want)]
+    need(all(out["mesh_bit_equal"]), f"the C++ mesh pipeline differs from numpy at 7.2M: {out}")
+    del got, want, verts, faces
+
+    v0, v1, v2, cull, prim, mat, n0, n1, n2 = (np.asarray(a, np.float32)
+                                               for a in packed["args"])
+    built = packed["out"]
+    fresh = np.zeros_like(built)
+    t0 = time.perf_counter()
+    native.pack_pair_records_native(v0, v1, v2, cull, prim, mat, n0, n1, n2, out=fresh)
+    out["pack_native_s"] = time.perf_counter() - t0
+    plain = np.zeros_like(built)
+    t0 = time.perf_counter()
+    kt._pack_pair_records_batch(v0, v1, v2, cull, prim, n0, n1, n2, mat, out=plain)
+    out["pack_numpy_s"] = time.perf_counter() - t0
+    out.update(pack_arrays="the 7.2M cold build's (phase 24)", records=list(built.shape),
+               pack_bit_equal=bits_equal(torch.from_numpy(built), torch.from_numpy(plain))
+               and bits_equal(torch.from_numpy(fresh), torch.from_numpy(plain)))
+    need(out["pack_bit_equal"], "the C++ packer differs from numpy on the 7.2M clusters")
+    return out
+
+
+def phase_obj_dragon(pt, sw, mk, kt, scenes, dragon):
+    """renderSceneDragonBox from an OBJ file: the 200k stand-in written as
+    OBJ text under build/ and built on the card through load_mesh (the C++
+    parser), held to phase 7's arrays-route build (triangles, positions,
+    normals); three frames each through the default dispatch (the sorted
+    driver, K2) and PTX_SORTED_WAVEFRONT=0 (K1 binned) in turns, each
+    tracer's frame within 4 standard errors of its arrays-route frame; K2
+    and K1 against their twins on 16,384 of the frame's camera rays."""
+    from cpupathtrace_tpu_torch import native
+    from cpupathtrace_tpu_torch.scene import mesh
+    from cpupathtrace_tpu_torch.scene.scene import BUILD_SECONDS
+
+    build_dir = os.path.join(ROOT, "build")
+    os.makedirs(build_dir, exist_ok=True)
+    t0 = time.perf_counter()
+    text = scenes.standin_dragon_obj(DRAGON_TRIS)
+    out = dict(text_mb=len(text) / 1e6, text_s=time.perf_counter() - t0)
+    need(len(text) > mesh.NATIVE_PARSE_MIN_BYTES, "the OBJ text is below the C++ parser's size")
+    with tempfile.TemporaryDirectory(dir=build_dir) as tmp:
+        path = os.path.join(tmp, "dragon.obj")
+        t0 = time.perf_counter()
+        with open(path, "w") as f:
+            f.write(text)
+        out["write_s"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        native.parse_obj_native(text)
+        out["parse_s"] = time.perf_counter() - t0
+        runs = native.runs["parse_obj"]
+        BUILD_SECONDS.clear()
+        t0 = time.perf_counter()
+        scene = scenes.bench_dragon_scene(dragon_obj=path, device="cuda")
+        out.update(build_s=time.perf_counter() - t0, stages_s=dict(BUILD_SECONDS),
+                   load_mesh_s=BUILD_SECONDS["mesh"])
+        need(native.runs["parse_obj"] == runs + 1, "the OBJ dragon did not take the C++ parser")
+    need(scene.accel == "binned" and scene.has_kernel_records, "the OBJ dragon is not binned")
+
+    # Against the arrays route (phase 7): the same triangles, positions
+    # within OBJ_POS_ULPS float32 ulps, normals within OBJ_NORMAL_ERR.
+    need(scene.n_tri == dragon.n_tri, f"OBJ route {scene.n_tri} triangles, arrays route "
+                                      f"{dragon.n_tri}")
+    ulps, moved, nerr = 0.0, 0, 0.0
+    for k in range(3):
+        a = getattr(scene, f"tri_v{k}").cpu().numpy()
+        b = getattr(dragon, f"tri_v{k}").cpu().numpy()
+        ulps = max(ulps, float((np.abs(a.astype(np.float64) - b) / np.spacing(np.abs(b))).max()))
+        moved += int((a != b).sum())
+        nerr = max(nerr, float((getattr(scene, f"tri_n{k}") - getattr(dragon, f"tri_n{k}"))
+                               .abs().max()))
+    out["vs_arrays_route"] = dict(n_tri=scene.n_tri, position_ulps=ulps,
+                                  positions_moved=moved, normal_err=nerr)
+    need(ulps <= OBJ_POS_ULPS and nerr <= OBJ_NORMAL_ERR,
+         f"the OBJ route strays from the arrays route: {out['vs_arrays_route']}")
+
+    opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+    camera = scenes.bench_camera()
+    n_paths = DRAGON_W * DRAGON_H * DRAGON_SPP
+    routes = {"sorted": None, "k1": "0"}
+    first = {}
+    for name, flag in routes.items():
+        mk.trace_megakernel.launches = sw.bounce.launches = 0
+        mk.trace_megakernel_reference.calls = sw.bounce_reference.calls = 0
+        images, secs = render_frames(pt, scene, camera, opts, flag, [60])
+        sync()
+        out[name] = dict(first_frame_s=secs[0], launches=dict(
+            k1=mk.trace_megakernel.launches, k2=sw.bounce.launches,
+            k1_twin=mk.trace_megakernel_reference.calls, k2_twin=sw.bounce_reference.calls))
+        first[name] = images[0]
+    c1, c2 = out["k1"]["launches"], out["sorted"]["launches"]
+    need(c1["k1"] > 0 and c1["k2"] == c1["k1_twin"] == c1["k2_twin"] == 0,
+         f"PTX_SORTED_WAVEFRONT=0: the OBJ frame did not run K1's binned form alone: {c1}")
+    need(c2["k2"] > 0 and c2["k1"] == c2["k1_twin"] == c2["k2_twin"] == 0,
+         f"the default OBJ frame did not run the sorted driver alone: {c2}")
+    for order, seed in zip(("k1", "sorted", "sorted", "k1", "k1", "sorted"), range(61, 67)):
+        _, secs = render_frames(pt, scene, camera, opts, routes[order], [seed])
+        out[order].setdefault("frame_s", []).extend(secs)
+    for name, img in first.items():
+        need(img.shape == (DRAGON_H, DRAGON_W, 4) and np.isfinite(img).all()
+             and bool((img[..., 3] == 1.0).all()), f"{name} OBJ frame")
+        med = float(np.median(out[name]["frame_s"]))
+        mrays = n_paths / med / 1e6
+        # An independent frame (another seed) of the arrays-route scene.
+        arrays_img = render_frames(pt, dragon, camera, opts, routes[name], [70])[0][0]
+        gap, err = mean_gap(img, arrays_img)
+        out[name].update(frame_median_ms=med * 1e3, mrays_per_s=mrays,
+                         vs_cpu_reference=mrays / DRAGON_REF_MRAYS,
+                         mean=float(img[..., :3].mean()), vs_arrays_route=dict(
+                             mean_diff=gap, std_err=err,
+                             arrays_mean=float(arrays_img[..., :3].mean())))
+        need(abs(gap) <= 4 * err, f"the {name} OBJ frame differs from the arrays route's: "
+                                  f"{out[name]['vs_arrays_route']}")
+    rays, _ = camera_state(sw, scenes.bench_camera(device="cuda"), opts, DRAGON_SPP, 21)
+    out["sorted"]["k2"] = k2_sorted_run(sw, mk, kt, scene, rays, opts, n_paths)
+    out["k1"]["k1"] = k1_binned_run(mk, scene, rays, opts, whole_chunk_plain=False)
+    return out
+
+
+def run_module(args, timeout):
+    """`python -m <args>` from the checkout's root: (completed process,
+    seconds)."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
+                         text=True, timeout=timeout)
+    return res, time.perf_counter() - t0
+
+
+def phase_demo_cli(pt, out_dir):
+    """`python -m cpupathtrace_tpu_torch.demo <png>` at its defaults (256x256,
+    16-64 spp, the 20k stand-in dragon) on the card: rc 0, the PNG read back
+    (256, 256, 4) and lit; `--sharded` refused."""
+    import re
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        png = os.path.join(out_dir or tmp, "demo_cli_torch.png")
+        res, secs = run_module(["cpupathtrace_tpu_torch.demo", png], 600)
+        need(res.returncode == 0, f"the demo exited {res.returncode}: {res.stderr[-2000:]}")
+        img = pt.read_rgb_image(png)
+    need(img.shape == (256, 256, 4) and float(img[..., :3].mean()) > 0.01,
+         f"the demo's PNG: {img.shape}, mean {float(img[..., :3].mean())}")
+    rate = re.search(r"rendered in .*Mrays/s\)", res.stderr)
+    scene = re.search(r"scene: .*", res.stderr)
+    sharded, _ = run_module(["cpupathtrace_tpu_torch.demo", "--sharded"], 120)
+    need(sharded.returncode != 0, "the demo accepted --sharded")
+    return dict(seconds=secs, rc=res.returncode, scene=scene.group(0) if scene else None,
+                rendered=rate.group(0) if rate else None,
+                image_mean=float(img[..., :3].mean()), sharded_rc=sharded.returncode)
+
+
+def phase_example():
+    """`python -m cpupathtrace_tpu_torch.examples.inverse_render <dir>` at its
+    defaults (60 Adam steps, 32x32 @ 16 spp) on the card: rc 0, so the
+    recovered albedo is within 0.2 of the truth."""
+    import re
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        res, secs = run_module(["cpupathtrace_tpu_torch.examples.inverse_render", tmp], 600)
+    need(res.returncode == 0, f"inverse_render exited {res.returncode}: "
+                              f"{res.stdout[-2000:]} {res.stderr[-2000:]}")
+    loss = re.search(r"loss: (\S+) -> (\S+)", res.stdout)
+    albedo = re.search(r"red wall albedo: .*", res.stdout)
+    err = re.search(r"max albedo error: (\S+)", res.stdout)
+    return dict(seconds=secs, rc=res.returncode,
+                first_loss=float(loss.group(1)), last_loss=float(loss.group(2)),
+                albedo=albedo.group(0), max_albedo_error=float(err.group(1)))
+
+
 def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
     """Resident blocks per SM (and threads per block) of every instance of
     K1, K2 and K4, and of K7: the walking ones at their rings alone (the
@@ -2645,7 +2887,7 @@ def main():
     for name in KERNELS:
         _build.load(name)
     ptxas = {name: _build.ptxas_summary(_build.ptxas_report.get(name, ""))
-             for name in KERNELS if name != "bvh_build"}
+             for name in KERNELS if name not in ("bvh_build", "mesh_native")}
     box = scenes.bench_box_scene()
     report["build"] = dict(seconds=time.perf_counter() - t0,
                            compiler_seconds=dict(_build.build_seconds), ptxas=ptxas,
@@ -2772,8 +3014,10 @@ def main():
     from cpupathtrace_tpu_torch.scene import cache as cache_mod
 
     cache_dir = os.path.join(ROOT, "build", f"chip_smoke_cache_{os.getpid()}")
+    packed: dict = {}
     try:
-        full, report["dragon_full_cache"] = phase_dragon_full_cache(scenes, cache_mod, cache_dir)
+        full, report["dragon_full_cache"] = phase_dragon_full_cache(scenes, cache_mod, cache_dir,
+                                                                    packed)
         line("24 renderSceneDragonBoxFull: cold build, cache, load", **report["dragon_full_cache"])
         report["dragon_full_frames"] = phase_dragon_full_frames(pt, sw, mk, kt, scenes, full)
         line("25 renderSceneDragonBoxFull frames: sorted driver (K2) and K1 binned",
@@ -2784,6 +3028,15 @@ def main():
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     del full
+    report["native_pipeline"] = phase_native_pipeline(scenes, packed)
+    del packed
+    line("27 the C++ host pipeline against numpy at 7.2M", **report["native_pipeline"])
+    report["obj_dragon"] = phase_obj_dragon(pt, sw, mk, kt, scenes, dragon)
+    line("28 the OBJ dragon: C++ parse, sorted driver (K2) and K1 binned", **report["obj_dragon"])
+    report["demo_cli"] = phase_demo_cli(pt, args.out)
+    line("29 the demo app", **report["demo_cli"])
+    report["example"] = phase_example()
+    line("30 the inverse-rendering example", **report["example"])
 
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
@@ -2813,6 +3066,16 @@ def main():
     def figures(d):
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
+    obj = report["obj_dragon"]
+
+    def obj_figures(route, kernel):
+        """A kernel's readings on the OBJ-loaded 200k dragon (phase 28)."""
+        r = obj[route]
+        return dict(launches=r["launches"][kernel], frame_median_ms=r["frame_median_ms"],
+                    mrays_per_s=r["mrays_per_s"],
+                    **{k: r[kernel][k] for k in ("ms", "plain_ms", "plain_rays", "bound_ms",
+                                                 "bound_by", "max_abs_err")})
+
     k3 = ("K3, cpupathtrace_tpu_torch/csrc/cluster_traverse.cuh "
           "(cpupathtrace_tpu/accel/kernel_traverse.py:1041,1106)")
     kernels = {"kernels": [{
@@ -2832,7 +3095,8 @@ def main():
         "replaces": "cpupathtrace_tpu/integrator/sorted_wavefront.py:252",
         "inlines": k3,
         "launches": dragon_path["launches"],
-        "max_abs_err": max(dragon_path["max_abs_err"], ff["sorted"]["k2"]["max_abs_err"]),
+        "max_abs_err": max(dragon_path["max_abs_err"], ff["sorted"]["k2"]["max_abs_err"],
+                           obj["sorted"]["k2"]["max_abs_err"]),
         "ms": depth1["kernel_ms"], "plain_ms": depth1["twin_ms"],
         "bound_ms": depth1["bound_ms"], "bound_by": depth1["bound_by"],
         "per": "one launch: depth 1 of the frame's camera rays, unsorted",
@@ -2840,6 +3104,7 @@ def main():
         "frame_ms": dragon_path["k2_frame_ms"], "frame_bounce_ms": dragon_path["bounce_ms"],
         "frame_bound_ms": dragon_path["frame"]["bound_ms"],
         "dragon_full": full_figures("sorted", ff["sorted"]["k2"], "k2"),
+        "obj_dragon": obj_figures("sorted", "k2"),
     }, {
         "name": "bounce_records", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -2892,9 +3157,11 @@ def main():
         "replaces": "cpupathtrace_tpu/integrator/pallas_megakernel.py:1189",
         "inlines": k3,
         "launches": report["dragon_k1_frame"]["k1"]["launches"]["k1"],
-        "max_abs_err": max(k1b["max_abs_err"], ff["k1"]["k1"]["max_abs_err"]),
+        "max_abs_err": max(k1b["max_abs_err"], ff["k1"]["k1"]["max_abs_err"],
+                           obj["k1"]["k1"]["max_abs_err"]),
         **figures(k1b), "library_ms": None,
         "dragon_full": full_figures("k1", ff["k1"]["k1"], "k1"),
+        "obj_dragon": obj_figures("k1", "k1"),
     }, {
         "name": "supscan", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/exp_supscan.cu",
@@ -2932,7 +3199,7 @@ def main():
         **figures(r), "library_ms": r["library_ms"],
     } for form, r in xp["dot_formulations"].items()]}
     report["seconds"] = time.perf_counter() - t_start
-    line("27 total", seconds=report["seconds"])
+    line("31 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

@@ -6,8 +6,11 @@ render path through the megakernel (K1), the sorted driver with its bounce
 kernel (K2) and cluster traversal (K3, K4), the wavefront fallback with its
 dense query kernel (K5), differentiable rendering (`diff`: K2's record form
 and a torch replay for the backward), the adaptive film, checkpoint /
-resume (`render_resumable`), the scene cache (`scene/cache.py`), tone
-mapping and PNG output. Every kernel has a plain-torch version that CPU
+resume (`render_resumable`), the scene cache (`scene/cache.py`), the OBJ
+loader (`load_mesh`) with the host pipeline in C++ (`native`), tone
+mapping and PNG output. `python -m cpupathtrace_tpu_torch.demo` is the
+demo app, `python -m cpupathtrace_tpu_torch.examples.inverse_render` the
+inverse-rendering example. Every kernel has a plain-torch version that CPU
 tensors take.
 Entry points that build tensors run on the CUDA card unless the caller
 passes device="cpu". Names are spelled as in the JAX package's `__all__`.
@@ -39,6 +42,7 @@ from .scene.geometry import (
     make_plane,
     transform_triangles,
 )
+from .scene.mesh import load_mesh
 from .integrator.film import render, render_chunk, render_tile
 from .integrator.checkpoint import render_resumable
 from .integrator.wavefront import trace
@@ -54,7 +58,7 @@ __all__ = [
     "Material", "SceneBuilder", "SceneData", "scene_from_numpy",
     "material_params_from_numpy",
     "BSDF_LAMBERTIAN", "BSDF_GLASS", "BSDF_MIRROR",
-    "HostTriangle", "TriangleBatch", "make_plane", "make_box",
+    "HostTriangle", "TriangleBatch", "load_mesh", "make_plane", "make_box",
     "transform_triangles",
     "render", "render_chunk", "render_tile", "trace",
     "tone_map", "gamma_correct", "post_process",

@@ -58,7 +58,7 @@ def _nvcc() -> str:
 def _gxx() -> str:
     path = shutil.which("g++")
     if path is None:
-        raise RuntimeError("g++ not found: the host BVH builder needs a C++ compiler")
+        raise RuntimeError("g++ not found: the host libraries (csrc/*.cpp) need a C++ compiler")
     return path
 
 

@@ -51,6 +51,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..native import pack_pair_records_native
 from .pair_record import C_CULL, C_MAT, C_N0, C_PRIM, REC_USED_COLS
 
 GROUP = 32  # clusters per supercluster
@@ -74,11 +75,12 @@ _CHUNK_ELEMS = 1 << 24
 
 def _pack_pair_records_batch(v0, v1, v2, cull, prim, n0, n1, n2, mat, out):
     """Pack [C, L, ...] cluster arrays into the records `out` [C, L, >=28]
-    (kernel_traverse.py:_pack_pair_records_batch). The arithmetic is that
-    of the JAX package's native packer (ptx_native.cpp
-    ptx_pack_pair_records), which its builder runs: v0 . N is summed in
-    axis order from the first product, so a padding slot's zero keeps the
-    sign the C++ gives it."""
+    (kernel_traverse.py:_pack_pair_records_batch): the plain version of
+    the C++ packer the build runs (native.pack_pair_records_native), kept
+    as the tests' reference. The arithmetic is that of the JAX package's
+    native packer (ptx_native.cpp ptx_pack_pair_records): v0 . N is summed
+    in axis order from the first product, so a padding slot's zero keeps
+    the sign the C++ gives it."""
     e1 = v1 - v0
     e2 = v2 - v0
     n = np.cross(e1, e2)
@@ -155,13 +157,10 @@ def pack_kernel_tables_np(cl_v0, cl_v1, cl_v2, cl_cull, cl_prim,
     cp = s * GROUP
     rec = np.zeros((cp, l, REC_COLS), np.float32)
     rec[c:, :, C_PRIM] = -1.0
-    _pack_pair_records_batch(
-        v0, np.asarray(cl_v1, np.float32), np.asarray(cl_v2, np.float32),
-        np.asarray(cl_cull, np.float32), prim,
-        np.asarray(cl_n0, np.float32), np.asarray(cl_n1, np.float32),
-        np.asarray(cl_n2, np.float32), np.asarray(cl_mat, np.float32),
-        out=rec[:c],
-    )
+    # The C++ packer, bit-equal to _pack_pair_records_batch (as the JAX
+    # builder runs its native packer); rec[:c] is zeroed and C-contiguous.
+    pack_pair_records_native(v0, cl_v1, cl_v2, cl_cull, prim, cl_mat,
+                             cl_n0, cl_n1, cl_n2, out=rec[:c])
     lo_p = np.full((cp, 3), np.inf, np.float32)
     hi_p = np.full((cp, 3), -np.inf, np.float32)
     lo_p[:c] = np.asarray(c_lo, np.float32)

@@ -12,10 +12,13 @@
   * dragon_full_scene: its 7.2M-triangle lean form, renderSceneDragonBoxFull,
     through the scene cache (bench.py:442-512)
 
-The reference's xyzrgb_dragon.obj is not in the repository; the dragon is
-the JAX package's procedural stand-in (a displaced UV sphere,
-`standin_dragon_arrays`), the same vertices bit for bit. Loading a real
-OBJ (`dragon_obj`) waits for the port of the OBJ parser.
+The reference's xyzrgb_dragon.obj is not in the repository. A path to it
+(`dragon_obj`) loads it through `load_mesh`, as the JAX package does;
+without one the dragon is the JAX package's procedural stand-in (a
+displaced UV sphere, `standin_dragon_arrays`), the same vertices bit for
+bit. `standin_dragon_obj` writes the stand-in as OBJ text, byte-equal to
+the JAX package's. The OBJ route is not bit-equal to the arrays route:
+above 1 MB of text the C++ parser reads float32 (scene/mesh.py).
 """
 from __future__ import annotations
 
@@ -28,10 +31,8 @@ import numpy as np
 from ..camera.camera import APERTURE_CIRCULAR, Camera, make_camera
 from ..core.config import RenderOptions
 from ..scene.geometry import make_box, make_plane, transform_triangles
-from ..scene.mesh import mesh_from_arrays
+from ..scene.mesh import load_mesh, mesh_from_arrays
 from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, BUILD_SECONDS, SceneBuilder, SceneData
-
-_NO_OBJ = "loading an OBJ mesh (load_mesh) is not ported yet; leave dragon_obj None"
 
 
 def cornell_demo_camera(width: int = 256, height: int = 256, device=None) -> Camera:
@@ -58,10 +59,9 @@ def cornell_demo_scene(
     include_dragon: bool = True,
     device=None,
 ) -> SceneData:
-    """The demo scene (ref: demo/main.cpp:50-205), with a `dragon_tris`
-    stand-in dragon unless `include_dragon` is False."""
-    if dragon_obj is not None:
-        raise NotImplementedError(_NO_OBJ)
+    """The demo scene (ref: demo/main.cpp:50-205), with the dragon of
+    `dragon_obj` (an OBJ path, file object or text) or else a `dragon_tris`
+    stand-in, unless `include_dragon` is False."""
     b = SceneBuilder()
     epsilon = 1e-3
     light_intensity = 1.0
@@ -100,7 +100,7 @@ def cornell_demo_scene(
                 [0, 0, 0, 1.0],
             ]
         )
-        b.add_triangles(_standin_dragon(dragon_tris, transform), glass)
+        b.add_triangles(_dragon(dragon_obj, dragon_tris, transform), glass)
 
     # Blue mirror sphere (ref: demo/main.cpp:168-177).
     mirror_blue = b.add_material(diffuse=(0, 0, 1, 1), bsdf=BSDF_MIRROR)
@@ -150,13 +150,18 @@ def bench_camera(device=None) -> Camera:
     )
 
 
-def _standin_dragon(dragon_tris, transform):
-    """The stand-in dragon as a TriangleBatch; its seconds go to
-    BUILD_SECONDS["mesh"]."""
+def _dragon(dragon_obj, dragon_tris, transform):
+    """The dragon as a TriangleBatch: loaded from `dragon_obj` when given,
+    else the `dragon_tris` stand-in from arrays. Its seconds (the OBJ load
+    included) go to BUILD_SECONDS["mesh"]."""
     t0 = time.perf_counter()
-    verts, faces = standin_dragon_arrays(dragon_tris)
-    tris = mesh_from_arrays(verts, faces, transform, cull_backface=False,
-                            smooth=True, as_batch=True)
+    if dragon_obj is not None:
+        tris = load_mesh(dragon_obj, transform, cull_backface=False, smooth=True,
+                         as_batch=True)
+    else:
+        verts, faces = standin_dragon_arrays(dragon_tris)
+        tris = mesh_from_arrays(verts, faces, transform, cull_backface=False,
+                                smooth=True, as_batch=True)
     BUILD_SECONDS["mesh"] = time.perf_counter() - t0
     return tris
 
@@ -170,9 +175,8 @@ def bench_dragon_scene(
     device=None,
 ) -> SceneData:
     """Box + glass dragon at scale 0.01, offset (0,-0.5,0)
-    (ref: benchmark/main.cpp:59-105)."""
-    if dragon_obj is not None:
-        raise NotImplementedError(_NO_OBJ)
+    (ref: benchmark/main.cpp:59-105); the dragon from `dragon_obj` when
+    given, else the `dragon_tris` stand-in."""
     b = SceneBuilder()
     white = b.add_material(diffuse=(1, 1, 1, 1))
     light = b.add_material(diffuse=(1, 1, 1, 1), emission=(1, 1, 1, 1))
@@ -184,7 +188,7 @@ def bench_dragon_scene(
     transform = np.array(
         [[0.01, 0, 0, 0], [0, 0.01, 0, -0.5], [0, 0, 0.01, 0], [0, 0, 0, 1.0]]
     )
-    b.add_triangles(_standin_dragon(dragon_tris, transform), glass)
+    b.add_triangles(_dragon(dragon_obj, dragon_tris, transform), glass)
     return b.build(accel=accel, cluster_size=cluster_size, lean=lean, device=device)
 
 
@@ -232,6 +236,16 @@ def standin_dragon_arrays(
     OBJ text route."""
     verts, faces = _standin_dragon_geometry(target_tris, seed)
     return np.round(verts.reshape(-1, 3), 6), faces - 1
+
+
+def standin_dragon_obj(target_tris: int = 200000, seed: int = 7) -> str:
+    """The stand-in dragon as OBJ text (vertices "%.6f", 1-based faces),
+    byte-equal to the JAX package's `standin_dragon_obj`."""
+    verts, faces = _standin_dragon_geometry(target_tris, seed)
+    out = ["# procedural stand-in for xyzrgb_dragon.obj"]
+    out.extend(f"v {v[0]:.6f} {v[1]:.6f} {v[2]:.6f}" for v in verts.reshape(-1, 3))
+    out.extend(f"f {f[0]} {f[1]} {f[2]}" for f in faces)
+    return "\n".join(out) + "\n"
 
 
 def _standin_dragon_geometry(

@@ -1591,3 +1591,34 @@ def test_resume_bit_identical_on_the_dragon(flag, tmp_path, monkeypatch):
     assert np.array_equal(resumed.pixel_sum, full.pixel_sum)
     assert np.array_equal(resumed.sample_count, full.sample_count)
     assert (full.sample_count > 0).all() and np.isfinite(full.pixel_sum).all()
+
+
+@pytest.mark.cuda
+def test_obj_dragon_through_the_bounce_kernel_equals_its_twin(tmp_path, monkeypatch):
+    """A dragon loaded from an OBJ file by the C++ parser (forced below its
+    1 MB threshold) through the sorted driver's K2: spectrum bit-equal to
+    the twin's driver, the collected flags and per-bounce counters equal."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch import native
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.core.rays import Rays
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.scene import mesh
+
+    path = tmp_path / "dragon.obj"
+    path.write_text(scenes.standin_dragon_obj(6000))
+    monkeypatch.setattr(mesh, "NATIVE_PARSE_MIN_BYTES", 0)
+    runs = native.runs["parse_obj"]
+    scene = scenes.bench_dragon_scene(dragon_obj=str(path), device="cuda")
+    assert native.runs["parse_obj"] == runs + 1 and scene.accel == "binned"
+    st = _camera_state(scene, n=4096)
+    rays = Rays(st[1:4].t().contiguous(), st[4:7].t().contiguous())
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    launches = sw.bounce.launches
+    k, kc, kv = sw.trace_megakernel_sorted(scene, rays, opts, 9, debug_visits=True)
+    assert sw.bounce.launches > launches
+    t, tc, tv = sw.trace_megakernel_sorted(scene, rays, opts, 9, reference=True,
+                                           debug_visits=True)
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32))
+    assert torch.equal(kc, tc) and torch.equal(kv, tv)

@@ -396,6 +396,8 @@ def _entry_points(tmp=None):
 
     return {
         "bench_box_scene": scenes.bench_box_scene,
+        "bench_dragon_scene_obj": lambda: scenes.bench_dragon_scene(
+            dragon_obj="v 0 0 0\nv 1 0 0\nv 0 1 0\nf 1 2 3\n"),
         "bench_camera": scenes.bench_camera,
         "cornell_demo_camera": scenes.cornell_demo_camera,
         "inward_box_scene": golden.inward_box_scene,

@@ -55,6 +55,8 @@ def test_sources_found():
     assert "accel/cluster_major.py" in rel, rel
     # ... and checkpoint / resume and the scene cache.
     assert {"integrator/checkpoint.py", "scene/cache.py"} <= rel, rel
+    # ... and the host pipeline, the demo app and the example.
+    assert {"native/__init__.py", "demo.py", "examples/inverse_render.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
@@ -80,5 +82,5 @@ def test_kernel_sources_ship_without_binaries():
             "cluster_traverse.cuh", "bvh_build.cpp", "dense_query.cu", "binned_geo.cuh",
             "exp_supscan.cu", "exp_record_variants.cu", "exp_smem_tables.cu",
             "exp_cond_fat.cu", "exp_dot_formulations.cu", "mma_tf32.cuh",
-            "bulk_copy.cuh", "binned_isect.cu", "cluster_major.cu"} <= set(names)
+            "bulk_copy.cuh", "binned_isect.cu", "cluster_major.cu", "mesh_native.cpp"} <= set(names)
     assert not [n for n in names if n.endswith((".so", ".o", ".cubin"))]

@@ -69,8 +69,9 @@ def test_non_dense_scenes_raise():
     129-sphere scene is a bvh scene (no triangles to cluster), an explicit
     sweep / bvh / cluster box builds, the 2000-triangle demo dragon is a
     sweep scene, and scene_from_numpy carries a JAX sweep scene. What still
-    raises: an unknown accelerator, a lean build that is not binned, and
-    the OBJ loader (not ported)."""
+    raises: an unknown accelerator and a lean build that is not binned. An
+    OBJ dragon path that cannot be read warns and is parsed as (empty) OBJ
+    text, as in the JAX package."""
     from cpupathtrace_tpu_torch.models.scenes import cornell_demo_scene
     from cpupathtrace_tpu_torch.scene.geometry import make_box
 
@@ -87,8 +88,9 @@ def test_non_dense_scenes_raise():
         SceneBuilder().add_triangles(make_box((-1, -1, -1), (1, 1, 1))).build(
             accel="sweep", lean=True, device=CPU)
     assert cornell_demo_scene(dragon_tris=2000, device=CPU).accel == "sweep"
-    with pytest.raises(NotImplementedError, match="load_mesh"):
-        cornell_demo_scene(dragon_obj="dragon.obj", device=CPU)
+    with pytest.warns(UserWarning, match="not a readable path"):
+        no_dragon = cornell_demo_scene(dragon_obj="dragon.obj", device=CPU)
+    assert no_dragon.n_tri == cornell_demo_scene(include_dragon=False, device=CPU).n_tri
     arrays, meta = jax_scene_numpy(build_scene("bench_box", "jax"))
     assert scene_from_numpy(arrays, dict(meta, accel="sweep"), CPU).accel == "sweep"
     with pytest.raises(ValueError, match="unknown accel"):
