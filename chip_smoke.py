@@ -206,16 +206,44 @@ Phases, one line each; any failure exits non-zero:
  30. the example, `python -m cpupathtrace_tpu_torch.examples.inverse_render`
      at its defaults: rc 0 (albedo error < 0.2), seconds, first and last
      loss, the recovered albedo
-Then the script's seconds, one JSON line with the kernels' figures (the
-K2 and K1 binned rows also carry phase 25's 7.2M readings under
-"dragon_full" and phase 28's under "obj_dragon") and, last, the result
-line. Bounds of the traversal kernels (K1's binned form,
+ 31. the frame budget: each setting of the JAX package's ablation switches
+     (base, PTX_ABLATE=nee, bigpair, prop, mat, and on binned scenes
+     PTX_SKIP_TRAVERSE=1 alone and with nee; integrator/megakernel.py's
+     attributes, set for the setting and restored after it, each setting
+     inside trace_annotation("budget/<scene>/<tracer>/<setting>")) on the
+     box through K1 dense (128x128 @ 256 spp), the 200k dragon and the
+     7.2M dragon (read back from phase 24's cache) through K1 binned and the
+     sorted driver (128x128 @ 16 spp): one line each with the kernel's time
+     (K1's `best_ms` on the frame's rays, K2's launches of one frame by CUDA
+     events), the median of TIMED_FRAMES frames through render(), the
+     ray-bounces (counters, or the dense bounce steps), ns per ray-bounce
+     and the frame mean (of its 1 + TIMED_FRAMES frames) with its standard
+     error, which must move by more than 4 standard errors from base's
+     (skip's is shown by its counters: the walks' columns zero, the
+     nearest queries counted; nee's shadow columns zero); the ablation
+     instances bit-equal to their twins (spectrum, collected, counters) on the box's first
+     8,192 rays and 16,384 of the 200k dragon's; then each tracer's budget
+     as shares of base's kernel time, raw and per ray-bounce (NEE = 1 -
+     t(nee) / t(base), the nearest walk = (t(nee) - t(nee+skip)) /
+     t(base), the floor = t(nee+skip) / t(base), the box's dense tests =
+     1 - t(bigpair) / t(base)); diff_supported False and K2's record form
+     refused under nee; the base 7.2M sorted frame through profile_to
+     (with --out into DIR/trace_k2_7p2m): the file's size, the annotation
+     and K2's kernel events in it. With --parent, then every bound of
+     phases 5-30 against the parent's
+Then the script's seconds (32), one JSON line with the kernels' figures
+(the K2 and K1 binned rows also carry phase 25's 7.2M readings under
+"dragon_full" and phase 28's under "obj_dragon"; the K1 and K2 rows the
+budgets of phase 31 under "budget") and, last, the result line. No
+main-path profile may show an ablation kernel (`*_ablate`). Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
 tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there
 (chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
-the same machine, phases 5, 7, 9, 11, 14, 16, 17, 18, 20, 21 and 23 also
+the same machine, phase 2 holds every kernel instance's registers and
+spill stores to the parent's, the end every bound of phases 5-30 to the
+parent's, and phases 5, 7, 9, 11, 14, 16, 17, 18, 20, 21 and 23 also
 print its K1 dense ms and box frame, its K4 ms, its K2 per-bounce times
 and sum, its K5 ms, its gradient pass and K2 record-form ms, its K6 and K7
 ms, its K8 stage and launch ms, its frames' kernel counts and K5 / K6
@@ -224,6 +252,7 @@ device time, its K1 binned ms, its X1 sweep and its X2 and X3 times.
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -235,6 +264,21 @@ import time
 
 import numpy as np
 import torch
+
+# The least time the card could take for a kernel's work (the larger of its
+# bytes over HBM's rate and its operations over their peak) and the work
+# model behind it: cpupathtrace_tpu_torch/utils/roofline.py.
+from cpupathtrace_tpu_torch.utils.roofline import (
+    SLAB_FLOPS,
+    TEST_FLOPS,
+    VERTEX_FLOPS,
+    bound,
+    frame_bound,
+    ray_bounces,
+    tests_per_vertex,
+    traversal_flops,
+    vertex_flops,
+)
 
 BOX_W = BOX_H = 128
 BOX_SPP = 256
@@ -263,16 +307,6 @@ KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand"
            "binned_isect", "cluster_major", "bvh_build", "mesh_native", "exp_supscan",
            "exp_record_variants",
            "exp_smem_tables", "exp_cond_fat", "exp_dot_formulations")
-# The least time the card could take for a kernel's work: the larger of
-# its bytes over HBM's rate
-# and its float32 operations over the FP32 peak (NVIDIA H100 SXM data
-# sheet), with the JAX package's work model (utils/roofline.py:84-116):
-# 64 flops per ray-primitive test, ~300 estimator flops per ray-bounce.
-H100_BYTES_S = 3.35e12
-H100_FP32_S = 67e12
-H100_TF32_S = 495e12
-TEST_FLOPS = 64
-VERTEX_FLOPS = 300
 # renderSceneBoxGrad (bench.py:253-260) and the FD / inverse-rendering
 # checks on the card.
 GRAD_W = GRAD_H = 128
@@ -305,7 +339,6 @@ X3_CHECK_RECORDS = 256
 X3_FEW_RECORDS = 5
 X3_FEW_CHUNKS = 40
 REF_RAYS = 8192
-SLAB_FLOPS = 31
 RAY_ROWS_BYTES = 36  # K6 reads 9 float planes per ray
 # K1's binned form against its twin: the rays of the bit-equality and
 # counter check (the twin's traversal is the slow part), and the record rows
@@ -329,6 +362,25 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # X2's check and the iterations of its line in the kernels' JSON (the
 # sweep's longer run).
 X2_ITERS = 1024
+# Phase 31, the frame budget: the JAX package's ablation switches as the
+# port reads them (integrator/megakernel.py `_ABLATE`, `_SKIP_TRAVERSE`),
+# setting -> (the set, skip); the walk's settings run on binned scenes only.
+# A setting takes a part of the bounce out, so 1 - t(setting) / t(base) is
+# the share of the kernel's time that part took.
+BUDGET_SETTINGS = {
+    "base": (frozenset(), False),
+    "nee": (frozenset({"nee"}), False),
+    "bigpair": (frozenset({"bigpair"}), False),
+    "prop": (frozenset({"prop"}), False),
+    "mat": (frozenset({"mat"}), False),
+    "skip": (frozenset(), True),
+    "nee_skip": (frozenset({"nee"}), True),
+}
+WALK_SETTINGS = ("skip", "nee_skip")
+# The rays each ablation instance is held bit for bit to its twin on: the
+# box's first 8,192 (K1 dense), 16,384 of the 200k dragon's (K1 binned,
+# K2); the 7.2M rows are timings only (the twins take ~10 s there).
+BUDGET_BOX_CHECK_RAYS = 8192
 
 
 def insert_flops(m):
@@ -544,56 +596,6 @@ def phase_main_path(pt, mk, sw, scenes, best_ms):
                 refill=refill, **k1_bound)
 
 
-def bound(nbytes, flops, tf32_flops=0):
-    """bound_ms / bound_by of a kernel call that must move `nbytes` and do
-    `flops` float32 operations (and `tf32_flops` on the tensor cores, which
-    run beside the float32 units)."""
-    t_b = nbytes / H100_BYTES_S
-    t_f = max(flops / H100_FP32_S, tf32_flops / H100_TF32_S)
-    return dict(bound_ms=max(t_b, t_f) * 1e3, bound_by="bytes" if t_b >= t_f else "operations",
-                bound_bytes=nbytes, bound_flops=flops, bound_tf32_flops=tf32_flops)
-
-
-def traversal_flops(visits):
-    """Operations of the cluster traversal from its counters (a [..., 9]
-    K1 / K2 array or a [..., 4] K4 one): 64 per filled record row tested
-    and 31 per slab test below the root gate (hypers, the superclusters of
-    entered hypers, the clusters of descends; any-hit walks stop at the
-    occluding row and box)."""
-    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
-
-    v = visits.reshape(-1, visits.shape[-1]).sum(0).long().tolist()
-    if len(v) == kt.GEO_VISIT_COLS:
-        descends, records, slabs, rows = (v[n] + v[s] for n, s in zip(kt.NEAR_COLS, kt.SHADOW_COLS))
-    else:
-        descends, records, slabs, rows = v
-    return rows * TEST_FLOPS + slabs * SLAB_FLOPS, dict(
-        descends=descends, record_visits=records, slab_tests=slabs, rows_tested=rows,
-        counters=v)
-
-
-def ray_bounces(visits):
-    """The nearest queries of a K1 / K2 count: one per ray-bounce."""
-    from cpupathtrace_tpu_torch.accel.kernel_traverse import QUERY_COL
-
-    return int(visits[..., QUERY_COL].sum())
-
-
-def vertex_flops(scene):
-    """The estimator's work per ray-bounce outside the cluster walks: ~300
-    operations, and for the nearest and each shadow query the dense part's
-    tests (big partition and spheres) and the cluster set's root test."""
-    queries = tests_per_vertex(scene, 1)
-    return (VERTEX_FLOPS + tests_per_vertex(scene, scene.n_big + scene.n_sph) * TEST_FLOPS
-            + queries * SLAB_FLOPS)
-
-
-def tests_per_vertex(scene, n_prims):
-    """Primitive tests of one ray-bounce of the estimator: the nearest query
-    and one shadow query per point light and per emitter draw."""
-    return (1 + scene.n_point_lights + scene.emissive_sample_count) * n_prims
-
-
 def profile_frame(pt, scene, camera, opts, kernel="megakernel"):
     """One main-path frame under torch.profiler (see profile_run)."""
     return profile_run(lambda: pt.render(scene, camera, opts, seed=7, device="cuda"), kernel)
@@ -614,6 +616,8 @@ def profile_run(fn, kernel, names=()):
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     need(kernels, "profiler recorded no device activity")
+    ablated = sorted({e.name[:90] for e in kernels if "_ablate" in e.name})
+    need(not ablated, f"the main path ran an ablation instance: {ablated}")
     by_name: dict = {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     for e in kernels:
@@ -991,17 +995,6 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
                 driver_events_ms=events_ms, unsorted=unsorted, depth1=depth1,
                 max_abs_err=max(agree["max_abs_err"], frame_agree["max_abs_err"]),
                 busy_share=profile["busy_share"])
-
-
-def frame_bound(vis, n_paths, scene):
-    """The bound of a sorted frame's K2 launches from its counters
-    [max_depth, n_blocks, 9]: per bounce the state traffic of its live rays
-    (144 bytes; 4 for a dead one) and the walk's and estimator's work."""
-    entering = [a for a in (ray_bounces(v) for v in vis) if a > 0]
-    flops, counts = traversal_flops(vis)
-    return dict(bounces=len(entering), ray_bounces=sum(entering), counts=counts,
-                **bound(sum(a * 144 + (n_paths - a) * 4 for a in entering),
-                        flops + sum(entering) * vertex_flops(scene)))
 
 
 def walk_figures(kt, scene, tables, vis, steps, kernel):
@@ -2757,6 +2750,295 @@ def phase_example():
                 albedo=albedo.group(0), max_albedo_error=float(err.group(1)))
 
 
+@contextlib.contextmanager
+def ablation(mk, setting):
+    """The switches of a BUDGET_SETTINGS setting on the port's module
+    attributes for a `with` block, restored after it."""
+    old = mk._ABLATE, mk._SKIP_TRAVERSE
+    mk._ABLATE, mk._SKIP_TRAVERSE = BUDGET_SETTINGS[setting]
+    try:
+        yield
+    finally:
+        mk._ABLATE, mk._SKIP_TRAVERSE = old
+
+
+def budget_run(pt, sw, mk, kt, scene, camera, opts, tracer, setting, rays, check_rays, seed,
+               best_ms):
+    """One scene, tracer ("k1": K1, dense or binned; "k2": the sorted
+    driver) and setting (set by the caller): 1 + TIMED_FRAMES frames
+    through render() (launches counted; the median time of all but the
+    first; their pixels' mean radiance, [frames, pixels], returned, and its
+    mean and standard error: `frame_stats`), the kernel's card time on the frame's rays (K1's `best_ms`; K2's launches
+    of one frame by CUDA events), the ray-bounces (the counters, binned;
+    the bounce steps, dense; on a binned scene the walks' columns must be
+    zero under skip, the shadow walks' under nee) and, on `check_rays` of
+    the rays, the kernel against its twin bit for bit (spectrum,
+    collected, counters)."""
+    binned = scene.has_kernel_records
+    flag = "0" if tracer == "k1" and binned else None
+    mk.trace_megakernel.launches = sw.bounce.launches = 0
+    mk.trace_megakernel_reference.calls = sw.bounce_reference.calls = 0
+    images, secs = render_frames(pt, scene, camera, opts, flag,
+                                 range(seed, seed + 1 + TIMED_FRAMES))
+    sync()
+    launches = dict(k1=mk.trace_megakernel.launches, k2=sw.bounce.launches,
+                    twins=mk.trace_megakernel_reference.calls + sw.bounce_reference.calls)
+    other = "k2" if tracer == "k1" else "k1"
+    need(launches[tracer] > 0 and launches[other] == 0 and launches["twins"] == 0,
+         f"budget {tracer}: the frames did not run {tracer} alone: {launches}")
+    frames = np.stack(images)
+    need(frames.shape[1:] == (opts.image_height, opts.image_width, 4)
+         and np.isfinite(frames).all(), f"budget {tracer}: non-finite frame")
+    lum = frames[..., :3].mean(-1).reshape(len(images), -1).astype(np.float64)
+    mean, std_err = frame_stats(lum)
+    tables = mk.pack_tables(scene)
+    if tracer == "k1":
+        seed_t = torch.tensor([seed], dtype=torch.int32, device="cuda")
+        if binned:
+            _, _, vis = mk.trace_megakernel(scene, rays, opts, seed_t, tables, debug_visits=True)
+            rb = ray_bounces(vis)
+        else:
+            steps = torch.zeros(mk.BOUNCE_STEP_COLS, dtype=torch.int64, device="cuda")
+            mk.trace_megakernel(scene, rays, opts, seed_t, tables, bounce_steps=steps)
+            rb = int(steps[1])
+        kernel_ms = best_ms(lambda: mk.trace_megakernel(scene, rays, opts, seed_t, tables), 3)
+    else:
+        sw.trace_megakernel_sorted(scene, rays, opts, seed, tables)
+        timing: dict = {}
+        sw.trace_megakernel_sorted(scene, rays, opts, seed, tables, timing=timing)
+        kernel_ms = sum(timing["bounce_ms"])
+        _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, seed, tables, debug_visits=True)
+        rb = ray_bounces(vis)
+    need(rb > 0, f"budget {tracer}: no ray-bounce counted")
+    if binned:
+        cols = vis.reshape(-1, kt.GEO_VISIT_COLS).sum(0)
+        ablate, skip = BUDGET_SETTINGS[setting]
+        walked = cols[:kt.QUERY_COL] if skip else cols[kt.SHADOW_COLS] if "nee" in ablate else None
+        need(walked is None or not bool(walked.any()),
+             f"budget {tracer} {setting}: the walks it takes out were counted: {cols.tolist()}")
+    out = dict(kernel_ms=kernel_ms, frame_median_ms=float(np.median(secs[1:])) * 1e3,
+               ray_bounces=rb, ns_per_ray_bounce=kernel_ms * 1e6 / rb,
+               frame_mean=mean, frame_std_err=std_err, frames=len(images), launches=launches)
+    if check_rays:
+        sub = type(rays)(rays.origin[:check_rays].contiguous(),
+                         rays.direction[:check_rays].contiguous())
+        if tracer == "k1":
+            k, kc, kv = mk.trace_megakernel(scene, sub, opts, 21, tables, debug_visits=True)
+            t, tc, tv = mk.trace_megakernel_reference(scene, sub, opts, 21, tables,
+                                                      debug_visits=True)
+        else:
+            k, kc, kv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables,
+                                                   debug_visits=True)
+            t, tc, tv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables, reference=True,
+                                                   debug_visits=True)
+        sync()
+        out["twin"] = dict(rays=check_rays, spectrum_bit_equal=bits_equal(k, t),
+                           collected_equal=bool(torch.equal(kc, tc)),
+                           counters_equal=bool(torch.equal(kv, tv)), max_abs_err=max_err(k, t))
+        need(out["twin"]["spectrum_bit_equal"] and out["twin"]["collected_equal"]
+             and out["twin"]["counters_equal"],
+             f"budget {tracer}: the ablation instance disagrees with its twin: {out['twin']}")
+    return out, lum
+
+
+def frame_stats(lum):
+    """The mean radiance of frames [frames, pixels] (independent seeds) and
+    its Monte Carlo standard error: each pixel's variance across the
+    frames, averaged over the pixels, over frames x pixels. (The spread
+    over the pixels of one image is its content, not its noise.)"""
+    f, p = lum.shape
+    return float(lum.mean()), float(np.sqrt(lum.var(axis=0, ddof=1).mean() / (f * p)))
+
+
+def budget_shares(rows, dense):
+    """A tracer's budget from its settings' rows: per setting the share of
+    base's kernel time it took out (1 - t(setting) / t(base)), and NEE =
+    1 - t(nee) / t(base), the nearest walk = (t(nee) - t(nee+skip)) /
+    t(base), the floor = t(nee+skip) / t(base) (binned) or the dense tests
+    = 1 - t(bigpair) / t(base) (dense): once from the kernel's ms and once
+    from its ns per ray-bounce."""
+    out = {}
+    for unit, key in (("frame", "kernel_ms"), ("per_ray_bounce", "ns_per_ray_bounce")):
+        t = {name: r[key] for name, r in rows.items()}
+        b = t["base"]
+        shares = {f"removed_by_{name}": 1.0 - v / b for name, v in t.items() if name != "base"}
+        shares["nee"] = 1.0 - t["nee"] / b
+        if dense:
+            shares["dense_tests"] = 1.0 - t["bigpair"] / b
+        else:
+            shares["nearest_walk"] = (t["nee"] - t["nee_skip"]) / b
+            shares["floor"] = t["nee_skip"] / b
+        out[unit] = shares
+    return out
+
+
+def phase_frame_budget(pt, sw, mk, kt, scenes, dragon, cache_dir, out_dir, best_ms):
+    """The frame budget on the card: every BUDGET_SETTINGS setting on the
+    box (K1 dense, 128x128 @ 256 spp), the 200k dragon and the 7.2M dragon
+    (K1 binned and the sorted driver, 128x128 @ 16 spp; the 7.2M scene from
+    phase 24's cache, no rebuild), each inside trace_annotation("budget/
+    <scene>/<tracer>/<setting>"); per tracer the budget, raw and per
+    ray-bounce; every setting's frame mean (over its 1 + TIMED_FRAMES
+    frames) more than 4 standard errors from base's, but skip's (it takes
+    out the dragon alone, whose pixels at 7.2M are few and about as bright
+    as the wall behind them: its counters show it instead); the ablation instances bit-equal to their twins (box, 200k);
+    under "nee" diff_supported False and K2's record form refused; the base
+    7.2M sorted frame through profile_to."""
+    from cpupathtrace_tpu_torch.integrator.diff_megakernel import diff_supported
+    from cpupathtrace_tpu_torch.utils.profiling import profile_to, trace_annotation
+
+    full, hit = scenes.dragon_full_scene(cache_dir, device="cuda")
+    need(hit, "the 7.2M scene was rebuilt, not read from phase 24's cache")
+    box_opts = pt.RenderOptions(BOX_W, BOX_H, BOX_SPP, BOX_SPP, epsilon=1e-3, max_depth=MAX_DEPTH)
+    dragon_opts = pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                                   max_depth=MAX_DEPTH)
+    camera = scenes.bench_camera(device="cuda")
+    cells = [("box", scenes.bench_box_scene(), box_opts, BOX_SPP, ("k1",),
+              BUDGET_BOX_CHECK_RAYS),
+             ("dragon_200k", dragon, dragon_opts, DRAGON_SPP, ("k1", "k2"), K1B_CHECK_RAYS),
+             ("dragon_7p2m", full, dragon_opts, DRAGON_SPP, ("k1", "k2"), 0)]
+    out: dict = {}
+    seed = 70
+    for name, scene, opts, spp, tracers, check in cells:
+        rays, _ = camera_state(sw, camera, opts, spp, seed)
+        dense = not scene.has_kernel_records
+        settings = [s for s in BUDGET_SETTINGS if not (dense and s in WALK_SETTINGS)]
+        for tracer in tracers:
+            rows = {}
+            for setting in settings:
+                label = f"budget/{name}/{tracer}/{setting}"
+                with trace_annotation(label), ablation(mk, setting):
+                    rows[setting], _ = budget_run(pt, sw, mk, kt, scene, camera, opts, tracer,
+                                                  setting, rays, check, seed, best_ms)
+                    if setting != "base":
+                        r, b = rows[setting], rows["base"]
+                        gap = r["frame_mean"] - b["frame_mean"]
+                        se = float(np.hypot(r["frame_std_err"], b["frame_std_err"]))
+                        rows[setting].update(mean_gap=gap, mean_gap_std_err=se)
+                        need(abs(gap) > 4 * se or setting == "skip",
+                             f"{label}: the frame mean moved only {gap} ({se} standard error): "
+                             f"was the switch applied?")
+                    if name == "dragon_7p2m" and tracer == "k2" and setting == "base":
+                        rows[setting]["profile"] = profile_trace(
+                            pt, scene, camera, opts, seed, label, out_dir, profile_to,
+                            trace_annotation)
+                line(f"31 {label}", **rows[setting])
+            budget = budget_shares(rows, dense)
+            line(f"31 budget/{name}/{tracer}", **budget,
+                 note="each setting changes the paths' lengths: read the per-ray-bounce shares")
+            out[f"{name}/{tracer}"] = dict(rows=rows, budget=budget)
+    del full
+    # The gradient path refuses the switches: diff_supported reads
+    # PTX_ABLATE at the call, K2's record form raises.
+    old = os.environ.get("PTX_ABLATE")
+    os.environ["PTX_ABLATE"] = "nee"
+    try:
+        refused = not diff_supported(dragon)
+    finally:
+        os.environ.pop("PTX_ABLATE")
+        if old is not None:
+            os.environ["PTX_ABLATE"] = old
+    need(refused and diff_supported(dragon), "diff_supported did not refuse PTX_ABLATE=nee")
+    st = sw.initial_state(rays.origin[:1024].contiguous(), rays.direction[:1024].contiguous(), 3)
+    records = torch.empty((sw.n_diff_records(dragon.n_point_lights,
+                                             dragon.emissive_sample_count), 1024), device="cuda")
+    with ablation(mk, "nee"):
+        try:
+            sw.bounce(dragon, st, torch.tensor([3, 0], dtype=torch.int32, device="cuda"),
+                      dragon_opts, records=records)
+            raised = False
+        except ValueError:
+            raised = True
+    need(raised, "K2's record form ran under PTX_ABLATE=nee")
+    out["refusals"] = dict(diff_supported_under_nee=False, record_form_raises=True)
+    return out
+
+
+def profile_trace(pt, scene, camera, opts, seed, label, out_dir, profile_to, trace_annotation):
+    """One frame through profile_to (out_dir/trace_k2_7p2m, or a directory
+    under build/ removed after) inside trace_annotation(label + "/frame"):
+    the trace file's size, the annotation's presence, its kernel events."""
+    logdir = (os.path.join(out_dir, "trace_k2_7p2m") if out_dir
+              else tempfile.mkdtemp(prefix="chip_smoke_trace_", dir=os.path.join(ROOT, "build")))
+    try:
+        with profile_to(logdir), trace_annotation(label + "/frame"):
+            pt.render(scene, camera, opts, seed=seed, device="cuda")
+        files = [os.path.join(logdir, f) for f in os.listdir(logdir)]
+        need(len(files) == 1, f"profile_to wrote {files}")
+        with open(files[0]) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names = {e.get("name") for e in events}
+        out = dict(file=files[0] if out_dir else None, mb=os.path.getsize(files[0]) / 1e6,
+                   annotation_present=label + "/frame" in names, kernel_events=len(kernels),
+                   k2_events=sum(1 for e in kernels if "bounce_binned_kernel" in e["name"]))
+        need(out["annotation_present"] and out["k2_events"] > 0,
+             f"the profile lacks the annotation or K2: {out}")
+        return out
+    finally:
+        if not out_dir:
+            shutil.rmtree(logdir, ignore_errors=True)
+
+
+def ptxas_registers(summary):
+    """{instance: (registers, spill stores)} from a library's ptxas summary
+    (_build.ptxas_summary: each instance's name, then its ptxas lines)."""
+    import re
+
+    out, cur = {}, None
+    for part in summary.split(" | "):
+        regs = re.search(r"Used (\d+) registers", part)
+        spill = re.search(r"(\d+) bytes spill stores", part)
+        if regs or spill:
+            if cur is not None:
+                reg, sp = out[cur]
+                out[cur] = (int(regs.group(1)) if regs else reg,
+                            int(spill.group(1)) if spill else sp)
+        elif "bytes" not in part and "Function properties" not in part:
+            cur = part.strip()
+            out[cur] = (None, 0)
+    return out
+
+
+def ptxas_against_parent(ptxas, parent_ptxas):
+    """Every kernel instance of the parent's ptxas report against this
+    build's: registers and spill stores equal, instance by instance."""
+    compared, differ = 0, {}
+    for lib, summary in parent_ptxas.items():
+        ours = ptxas_registers(ptxas.get(lib, ""))
+        for inst, regs in ptxas_registers(summary).items():
+            compared += 1
+            if ours.get(inst) != regs:
+                differ[f"{lib}:{inst}"] = dict(parent=regs, ours=ours.get(inst))
+    return dict(instances_compared=compared, differ=differ)
+
+
+def bounds_of(d, path=()):
+    """Every bound_ms in a report, by its path of keys."""
+    if isinstance(d, dict):
+        for k, v in d.items():
+            if k == "bound_ms":
+                yield path, v
+            else:
+                yield from bounds_of(v, path + (k,))
+    elif isinstance(d, list):
+        for i, v in enumerate(d):
+            yield from bounds_of(v, path + (i,))
+
+
+def bounds_against_parent(report, parent_report, phases):
+    """The bound_ms of every phase in `phases` against the parent's report
+    at the same path: equal, since both come from the same inputs and
+    counters."""
+    ours = dict(bounds_of({k: report[k] for k in phases if k in report}))
+    theirs = dict(bounds_of({k: parent_report[k] for k in phases if k in parent_report}))
+    common = sorted(set(ours) & set(theirs), key=str)
+    differ = {"/".join(map(str, p)): dict(ours=ours[p], parent=theirs[p])
+              for p in common if ours[p] != theirs[p]}
+    return dict(compared=len(common), only_ours=len(set(ours) - set(theirs)),
+                only_parent=len(set(theirs) - set(ours)), differ=differ)
+
+
 def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
     """Resident blocks per SM (and threads per block) of every instance of
     K1, K2 and K4, and of K7: the walking ones at their rings alone (the
@@ -2773,12 +3055,20 @@ def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
         for count in (0, 1):
             out[f"megakernel_binned<{cull}, {count}>"] = mk.occupancy(ring, True, count, cull)
             out[f"megakernel<{cull}, {count}>"] = mk.occupancy(dense_smem, False, count, cull)
+            out[f"megakernel_binned_ablate<{cull}, {count}>"] = mk.occupancy(
+                ring, True, count, cull, ablate=True)
+            out[f"megakernel_ablate<{cull}, {count}>"] = mk.occupancy(
+                dense_smem, False, count, cull, ablate=True)
+            out[f"bounce_binned_kernel_ablate<{cull}, {count}>"] = sw.bounce_occupancy(
+                ring, True, cull, False, count, ablate=True)
         for rec, count in ((0, 0), (1, 0), (0, 1)):
             out[f"bounce_binned_kernel<{cull}, {rec}, {count}>"] = sw.bounce_occupancy(
                 ring, True, cull, rec, count)
         for rec in (0, 1):
             out[f"bounce_kernel<{cull}, {rec}>"] = sw.bounce_occupancy(dense_smem, False, cull,
                                                                         rec)
+        out[f"bounce_kernel_ablate<{cull}>"] = sw.bounce_occupancy(dense_smem, False, cull,
+                                                                   ablate=True)
     q_layout = kt.walk_layout("cluster_query")
     q_ring = kt.kernel_smem_bytes(0, 0, q_layout)
     out.update(k4_ring_depth=q_layout.depth, k4_threads=q_layout.threads,
@@ -2842,7 +3132,9 @@ def main():
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
     ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
                                      "the same machine: phases 5, 7, 9, 11, 14, 16, 17, 18, "
-                                     "20, 21 and 23 print its figures")
+                                     "20, 21 and 23 print its figures; phase 2 holds the "
+                                     "kernels' registers and the end every bound of phases "
+                                     "5-30 to it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -2894,11 +3186,18 @@ def main():
                            occupancy=kernel_occupancy(
                                mk, sw, kt, tt, oi, box,
                                mk.block_smem_bytes(box, mk.pack_tables(box))))
-    line("2 build", **report["build"])
-    parent = None
+    parent_report = parent = None
     if args.parent:
         with open(args.parent) as f:
-            parent = parent_figures(json.load(f))
+            parent_report = json.load(f)
+        parent = parent_figures(parent_report)
+        # The default instances stay as they were: every instance of the
+        # parent's build, register for register.
+        vs = ptxas_against_parent(ptxas, parent_report["build"]["ptxas"])
+        report["build"]["ptxas_vs_parent"] = vs
+        need(not vs["differ"] and vs["instances_compared"] > 0,
+             f"kernel instances differ from the parent's ptxas: {vs}")
+    line("2 build", **report["build"])
 
     report["kernel_vs_twin"] = phase_kernel_vs_twin(mk, scenes, Rays, pt.RenderOptions)
     line("3 kernel vs twin", **report["kernel_vs_twin"])
@@ -3013,6 +3312,7 @@ def main():
     from cpupathtrace_tpu_torch.integrator import checkpoint as ck
     from cpupathtrace_tpu_torch.scene import cache as cache_mod
 
+    # The 7.2M scene's cache stays until phase 31 reads the scene back.
     cache_dir = os.path.join(ROOT, "build", f"chip_smoke_cache_{os.getpid()}")
     packed: dict = {}
     try:
@@ -3025,18 +3325,30 @@ def main():
         report["dragon_full_resume"] = phase_dragon_full_resume(pt, ck, sw, mk, scenes, full,
                                                                 cache_dir)
         line("26 resume on the card", **report["dragon_full_resume"])
+        del full
+        report["native_pipeline"] = phase_native_pipeline(scenes, packed)
+        del packed
+        line("27 the C++ host pipeline against numpy at 7.2M", **report["native_pipeline"])
+        report["obj_dragon"] = phase_obj_dragon(pt, sw, mk, kt, scenes, dragon)
+        line("28 the OBJ dragon: C++ parse, sorted driver (K2) and K1 binned",
+             **report["obj_dragon"])
+        report["demo_cli"] = phase_demo_cli(pt, args.out)
+        line("29 the demo app", **report["demo_cli"])
+        report["example"] = phase_example()
+        line("30 the inverse-rendering example", **report["example"])
+        report["frame_budget"] = phase_frame_budget(pt, sw, mk, kt, scenes, dragon, cache_dir,
+                                                    args.out, best_ms)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
-    del full
-    report["native_pipeline"] = phase_native_pipeline(scenes, packed)
-    del packed
-    line("27 the C++ host pipeline against numpy at 7.2M", **report["native_pipeline"])
-    report["obj_dragon"] = phase_obj_dragon(pt, sw, mk, kt, scenes, dragon)
-    line("28 the OBJ dragon: C++ parse, sorted driver (K2) and K1 binned", **report["obj_dragon"])
-    report["demo_cli"] = phase_demo_cli(pt, args.out)
-    line("29 the demo app", **report["demo_cli"])
-    report["example"] = phase_example()
-    line("30 the inverse-rendering example", **report["example"])
+    if parent_report:
+        # Phases 5-30 run the parent's work on the parent's inputs: every
+        # bound they print is the parent's number.
+        phases = [k for k in report if k not in ("device", "nvidia_smi", "torch", "cuda", "build",
+                                                  "kernel_vs_twin", "golden", "frame_budget")]
+        report["bounds_vs_parent"] = bounds_against_parent(report, parent_report, phases)
+        line("31 bounds of phases 5-30 against the parent's", **report["bounds_vs_parent"])
+        need(not report["bounds_vs_parent"]["differ"] and report["bounds_vs_parent"]["compared"],
+             f"bounds differ from the parent's: {report['bounds_vs_parent']}")
 
     main_path = report["main_path"]
     dragon_path = report["dragon_main_path"]
@@ -3052,6 +3364,7 @@ def main():
     k1b = report["k1_binned"]
     xp = report["experiments"]
     ff = report["dragon_full_frames"]
+    fb = report["frame_budget"]
 
     def full_figures(route, run, kernel):
         """A kernel's 7.2M readings (phase 25) for its row."""
@@ -3089,6 +3402,7 @@ def main():
         "library_ms": None,
         "lane_use": main_path["refill"]["lane_use"],
         "occupancy": main_path["refill"]["blocks_per_sm"],
+        "budget": {"box": fb["box/k1"]["budget"]},
     }, {
         "name": "bounce", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -3105,6 +3419,7 @@ def main():
         "frame_bound_ms": dragon_path["frame"]["bound_ms"],
         "dragon_full": full_figures("sorted", ff["sorted"]["k2"], "k2"),
         "obj_dragon": obj_figures("sorted", "k2"),
+        "budget": {k: fb[f"{k}/k2"]["budget"] for k in ("dragon_200k", "dragon_7p2m")},
     }, {
         "name": "bounce_records", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -3162,6 +3477,7 @@ def main():
         **figures(k1b), "library_ms": None,
         "dragon_full": full_figures("k1", ff["k1"]["k1"], "k1"),
         "obj_dragon": obj_figures("k1", "k1"),
+        "budget": {k: fb[f"{k}/k1"]["budget"] for k in ("dragon_200k", "dragon_7p2m")},
     }, {
         "name": "supscan", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/exp_supscan.cu",
@@ -3199,7 +3515,7 @@ def main():
         **figures(r), "library_ms": r["library_ms"],
     } for form, r in xp["dot_formulations"].items()]}
     report["seconds"] = time.perf_counter() - t_start
-    line("31 total", seconds=report["seconds"])
+    line("32 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

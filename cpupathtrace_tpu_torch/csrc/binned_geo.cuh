@@ -12,6 +12,8 @@
 // queries of one path; add_geo_visits writes them as the counters' row,
 // add_warp_steps the warp steps. The cluster walks stream their boxes and
 // rows through the thread's ring in shared memory (cluster_traverse.cuh).
+// kAblate (the ablation instances, bounce_body.cuh): `walks` false skips
+// both walks (PTX_SKIP_TRAVERSE); the nearest query still counts.
 #pragma once
 
 #include "cluster_traverse.cuh"
@@ -19,7 +21,7 @@
 
 namespace ptx {
 
-template <int BIG_CULL, class Count = NoVisits>
+template <int BIG_CULL, class Count = NoVisits, bool kAblate = false>
 struct BinnedGeo {
   const float* rec;
   int rec_rows;
@@ -29,11 +31,13 @@ struct BinnedGeo {
   float4* ring;  // this thread's ring of kRingDepth slots (ring_base)
   mutable Count near{};
   mutable Count shadow{};
+  bool walks = true;  // read by the kAblate instances only
 
   __device__ __forceinline__ void nearest(const Ray& r, Hit& h) const {
     sph_nearest(sph, n_sph, 0, r, h);
     pair_nearest<BIG_CULL>(rec, rec_rows, r, h);
     near.query();
+    if (kAblate && !walks) return;
     WalkRing rows{ring};
     cluster_nearest<true>(cl, r, h, near, rows);
   }
@@ -41,6 +45,7 @@ struct BinnedGeo {
   __device__ __forceinline__ bool occluded(const Ray& r, float t_max) const {
     if (table_occluded(nullptr, 0, sph, n_sph, r, t_max)) return true;
     if (pair_anyhit<BIG_CULL>(rec, rec_rows, r, jmax(t_max, 0.0f))) return true;
+    if (kAblate && !walks) return false;
     WalkRing rows{ring};
     return cluster_anyhit(cl, r, t_max, shadow, rows);
   }

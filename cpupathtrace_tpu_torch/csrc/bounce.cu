@@ -55,6 +55,13 @@
 // kDenseMinBlocks an SM at least: 24 warps at 80 registers, where the
 // record form spills 64 bytes; uncapped (96 registers, no spills) it held
 // 16 or 20 warps and ran 4-10% slower in the sweep (PERF.md §6).
+//
+// Ablation instances (bounce_kernel_ablate, bounce_binned_kernel_ablate;
+// template flag kAblate): the plain and counting forms with the parts of
+// the bounce that the mask `ablate` names taken out (bounce_body.cuh), for
+// the JAX package's PTX_ABLATE / PTX_SKIP_TRAVERSE (profiling only). The
+// record form has none: the entry point refuses a mask with records, as
+// the JAX kernel asserts (pallas_megakernel.py:885).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -99,6 +106,7 @@ struct Params {
   int* visits;      // [ceil(n_rays / 1024), 9] traversal counters, or null
   unsigned long long* steps;  // [kWarpStepCols] warp steps (with visits), or null
   float eps;
+  int ablate;  // the ablation mask (bounce_body.cuh kAblate*); 0 in the default instances
 };
 
 __device__ __forceinline__ size_t smem_floats(const Params& p) {
@@ -108,7 +116,7 @@ __device__ __forceinline__ size_t smem_floats(const Params& p) {
          static_cast<size_t>(p.n_em) * kEmCols + static_cast<size_t>(p.tier_floats);
 }
 
-template <bool kBinned, int CULL, bool kCount, class Rec>
+template <bool kBinned, int CULL, bool kCount, bool kAblate, class Rec>
 __device__ __forceinline__ bool run_body(const Params& p, float* smem, const float* s_rec,
                                          const float* s_tri,
                                          const float* s_sph, const ClusterTables& cl,
@@ -116,24 +124,27 @@ __device__ __forceinline__ bool run_body(const Params& p, float* smem, const flo
                                          int64_t i) {
   if constexpr (kBinned) {
     using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
-    const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl,
-                                     ring_base(smem, smem_floats(p))};
-    const bool alive = bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
+    const BinnedGeo<CULL, Count, kAblate> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
+                                              s_sph, p.n_sph, cl,
+                                              ring_base(smem, smem_floats(p)), {}, {},
+                                              !(kAblate && (p.ablate & kSkipTraverse))};
+    const bool alive = bounce_body<true, kAblate>(geo, sh, p.seed_depth[1], s, rec);
     if constexpr (kCount) {
       add_geo_visits(p.visits, i, geo);
       add_warp_steps(p.steps, geo);
     }
     return alive;
   } else {
-    const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
-    return bounce_body<true>(geo, sh, p.seed_depth[1], s, rec);
+    const DenseGeo<CULL> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate), s_tri, p.n_tri,
+                             s_sph, p.n_sph};
+    return bounce_body<true, kAblate>(geo, sh, p.seed_depth[1], s, rec);
   }
 }
 
 // One thread's bounce. kBinned: the geometry; CULL: the cull class of the
 // pair record; kRec: the record form; kCount: the traversal counters
-// (binned, plain form only).
-template <bool kBinned, int CULL, bool kRec, bool kCount>
+// (binned, plain form only); kAblate: the ablation instance (not with kRec).
+template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate = false>
 __device__ __forceinline__ void bounce_thread(const Params& p) {
   extern __shared__ float smem[];
   float* s_rec = smem;
@@ -162,7 +173,8 @@ __device__ __forceinline__ void bounce_thread(const Params& p) {
     return;
   }
 
-  const Shading sh{s_mat, p.n_mat, s_lgt, p.n_lights, s_em, p.n_em, p.em_k, p.eps};
+  Shading sh{s_mat, p.n_mat, s_lgt, p.n_lights, s_em, p.n_em, p.em_k, p.eps};
+  if constexpr (kAblate) sh = ablated_shading(sh, p.ablate);
   PathState s;
   s.rng = __float_as_uint(st[0]);
   s.ray = Ray{st[n], st[2 * n], st[3 * n], st[4 * n], st[5 * n], st[6 * n]};
@@ -179,11 +191,12 @@ __device__ __forceinline__ void bounce_thread(const Params& p) {
 
   bool alive;
   if constexpr (kRec) {
-    alive = run_body<kBinned, CULL, kCount>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
-                                            Records{p.drec + i, n, p.n_lights}, i);
+    static_assert(!kAblate, "the record form has no ablation instance");
+    alive = run_body<kBinned, CULL, kCount, false>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
+                                                   Records{p.drec + i, n, p.n_lights}, i);
   } else {
-    alive = run_body<kBinned, CULL, kCount>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
-                                            NoRecords{}, i);
+    alive = run_body<kBinned, CULL, kCount, kAblate>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
+                                                     NoRecords{}, i);
   }
 
   st[0] = __uint_as_float(s.rng);
@@ -218,17 +231,34 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks) bounce_binned_ke
   bounce_thread<true, CULL, kRec, kCount>(p);
 }
 
-template <bool kBinned, int CULL, bool kRec, bool kCount>
+// The ablation instances of the dense and binned plain and counting forms.
+template <int CULL>
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
+    bounce_kernel_ablate(const Params p) {
+  bounce_thread<false, CULL, false, false, true>(p);
+}
+
+template <int CULL, bool kCount>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
+    bounce_binned_kernel_ablate(const Params p) {
+  bounce_thread<true, CULL, false, kCount, true>(p);
+}
+
+template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate>
 constexpr auto kernel_of() {
-  if constexpr (kBinned)
+  if constexpr (kBinned && kAblate)
+    return bounce_binned_kernel_ablate<CULL, kCount>;
+  else if constexpr (kBinned)
     return bounce_binned_kernel<CULL, kRec, kCount>;
+  else if constexpr (kAblate)
+    return bounce_kernel_ablate<CULL>;
   else
     return bounce_kernel<CULL, kRec>;
 }
 
-template <bool kBinned, int CULL, bool kRec, bool kCount>
+template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
-  const auto kernel = kernel_of<kBinned, CULL, kRec, kCount>();
+  const auto kernel = kernel_of<kBinned, CULL, kRec, kCount, kAblate>();
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -242,9 +272,9 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 
 // Resident blocks per SM of an instance at `smem` bytes of dynamic shared
 // memory (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-template <bool kBinned, int CULL, bool kRec, bool kCount>
+template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate>
 cudaError_t occupancy(size_t smem, int* blocks) {
-  const auto kernel = kernel_of<kBinned, CULL, kRec, kCount>();
+  const auto kernel = kernel_of<kBinned, CULL, kRec, kCount, kAblate>();
   // Only ever raised past the 48 KB default, as launch does: a query must
   // not lower the limit a later launch relies on.
   if (smem > 48 * 1024) {
@@ -256,18 +286,18 @@ cudaError_t occupancy(size_t smem, int* blocks) {
       blocks, kernel, kBinned ? kWalkThreads : kDenseThreads, smem);
 }
 
-template <bool kBinned, bool kRec, bool kCount = false>
+template <bool kBinned, bool kRec, bool kCount = false, bool kAblate = false>
 cudaError_t launch_cull(const Params& p, int cull, size_t smem, cudaStream_t stream) {
-  if (cull == 0) return launch<kBinned, 0, kRec, kCount>(p, smem, stream);
-  if (cull == 1) return launch<kBinned, 1, kRec, kCount>(p, smem, stream);
-  return launch<kBinned, -1, kRec, kCount>(p, smem, stream);
+  if (cull == 0) return launch<kBinned, 0, kRec, kCount, kAblate>(p, smem, stream);
+  if (cull == 1) return launch<kBinned, 1, kRec, kCount, kAblate>(p, smem, stream);
+  return launch<kBinned, -1, kRec, kCount, kAblate>(p, smem, stream);
 }
 
-template <bool kBinned, bool kRec, bool kCount = false>
+template <bool kBinned, bool kRec, bool kCount = false, bool kAblate = false>
 cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
-  if (cull == 0) return occupancy<kBinned, 0, kRec, kCount>(smem, blocks);
-  if (cull == 1) return occupancy<kBinned, 1, kRec, kCount>(smem, blocks);
-  return occupancy<kBinned, -1, kRec, kCount>(smem, blocks);
+  if (cull == 0) return occupancy<kBinned, 0, kRec, kCount, kAblate>(smem, blocks);
+  if (cull == 1) return occupancy<kBinned, 1, kRec, kCount, kAblate>(smem, blocks);
+  return occupancy<kBinned, -1, kRec, kCount, kAblate>(smem, blocks);
 }
 
 }  // namespace
@@ -282,7 +312,9 @@ cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
 // caller, or null (binned scenes without records only); steps: the warp
 // steps [2] int64, zeroed by the caller, with visits. smem_bytes: the
 // block's dynamic shared memory, sized by the wrapper (kernel_traverse.py
-// kernel_smem_bytes, from ptx_walk_layout).
+// kernel_smem_bytes, from ptx_walk_layout). ablate: the ablation mask
+// (bounce_body.cuh kAblate*); nonzero launches the form's ablation instance,
+// and is refused with drec.
 extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth, float* drec,
                                  const float* tri, int n_tri, const float* sph, int n_sph,
                                  const float* mat, int n_mat, const float* lgt, int n_lights,
@@ -292,19 +324,24 @@ extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth
                                  const float* sup, int n_pages, const float* hyp, int hyp_rows,
                                  const float* root, int cl_cull, int* visits,
                                  unsigned long long* steps, float epsilon, long long smem_bytes,
-                                 void* stream) {
+                                 int ablate, void* stream) {
   using namespace ptx;
   (void)hyp_rows;
   const ClusterTables cl{krec, n_rec, krec_rows, clb, sup, n_pages, hyp, root, cl_cull};
   const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
   const Params p{state, n_rays, seed_depth, drec, tri, n_tri, sph, n_sph, mat, n_mat, lgt,
                  n_lights, em, n_em, em_k, rec, rec_rows, rec_stride, cl,
-                 tiers <= kTierFloats ? tiers : 0, visits, steps, epsilon};
+                 tiers <= kTierFloats ? tiers : 0, visits, steps, epsilon, ablate};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (visits && (!binned || drec || !steps)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ablate && drec) return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  if (visits)
+  if (ablate)
+    err = visits   ? launch_cull<true, false, true, true>(p, big_cull, smem, s)
+          : binned ? launch_cull<true, false, false, true>(p, big_cull, smem, s)
+                   : launch_cull<false, false, false, true>(p, big_cull, smem, s);
+  else if (visits)
     err = launch_cull<true, false, true>(p, big_cull, smem, s);
   else if (binned)
     err = drec ? launch_cull<true, true>(p, big_cull, smem, s)
@@ -315,16 +352,21 @@ extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth
   return static_cast<int>(err);
 }
 
-// Resident blocks per SM of the instance (binned, cull, rec, count) at
-// `smem_bytes`, and its threads per block.
-extern "C" int ptx_bounce_occupancy(int binned, int cull, int rec, int count,
+// Resident blocks per SM of the instance (binned, cull, rec, count,
+// ablation instance) at `smem_bytes`, and its threads per block.
+extern "C" int ptx_bounce_occupancy(int binned, int cull, int rec, int count, int ablate,
                                     long long smem_bytes, int* blocks, int* threads) {
   using namespace ptx;
   const size_t smem = static_cast<size_t>(smem_bytes);
   if (count && (!binned || rec)) return static_cast<int>(cudaErrorInvalidValue);
+  if (ablate && rec) return static_cast<int>(cudaErrorInvalidValue);
   *threads = binned ? kWalkThreads : kDenseThreads;
   cudaError_t err;
-  if (count)
+  if (ablate)
+    err = count    ? occupancy_cull<true, false, true, true>(cull, smem, blocks)
+          : binned ? occupancy_cull<true, false, false, true>(cull, smem, blocks)
+                   : occupancy_cull<false, false, false, true>(cull, smem, blocks);
+  else if (count)
     err = occupancy_cull<true, false, true>(cull, smem, blocks);
   else if (binned)
     err = rec ? occupancy_cull<true, true>(cull, smem, blocks)

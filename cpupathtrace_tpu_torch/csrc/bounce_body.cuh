@@ -23,6 +23,21 @@
 // writes each plane of a live ray exactly once, the no-contribution
 // encoding (mid -1, all else 0) where the bounce leaves it, so no fill
 // precedes the kernel.
+//
+// Ablations (template flag kAblate; the JAX package's PTX_ABLATE /
+// PTX_SKIP_TRAVERSE, pallas_megakernel.py:434-839; profiling only): the
+// ablation instances of K1 and K2 read a mask (Shading::ablate, the
+// kAblate* bits) and take parts of the bounce out, as the twin
+// (integrator/megakernel.py `_bounce`) does under the same switches:
+//   nee      no point lights and no emitter draws (ablated_shading: the
+//            stream then advances by 1 + 3 draws where a path ends);
+//   bigpair  no big-partition pair tests, nearest or shadow (the kernels
+//            give the geometry 0 record rows);
+//   prop     the straight-through ray in place of the sampled bounce;
+//   mat      JAX's constant material in place of the gather;
+//   skip     no cluster walks (BinnedGeo::walks; a nearest query still
+//            counts).
+// With kAblate false (every default instance) none of it is compiled in.
 #pragma once
 
 #include <stdint.h>
@@ -39,6 +54,9 @@ constexpr int kMatCols = 12;  // diffuse specular ior emission bsdf one_way
 constexpr int kLgtCols = 8;   // pos spectrum
 constexpr int kEmCols = 24;   // cdf sel_p is_sph v0 e1 e2 normal pd_area cull emission
 constexpr float kBsdfGlass = 1.0f, kBsdfMirror = 2.0f;
+// The ablation mask's bits (integrator/megakernel.py ABLATE_BITS).
+constexpr int kAblateNee = 1, kAblateBigpair = 2, kAblateProp = 4, kAblateMat = 8;
+constexpr int kSkipTraverse = 16;
 
 // Material, light and emitter tables (shared memory) and the ray offset.
 struct Shading {
@@ -50,7 +68,29 @@ struct Shading {
   int n_em;
   int em_k;
   float eps;
+  int ablate = 0;  // the ablation mask, read by the kAblate instances only
 };
+
+// The tables an ablation instance shades with: under "nee" no point light
+// and no emitter draw (pallas_megakernel.py:585, :599).
+__device__ __forceinline__ Shading ablated_shading(Shading sh, int mask) {
+  sh.ablate = mask;
+  if (mask & kAblateNee) {
+    sh.n_lights = 0;
+    sh.em_k = 0;
+  }
+  return sh;
+}
+
+// The pair record's rows an instance tests: none in an ablation instance
+// under "bigpair" (pallas_megakernel.py:434, :523).
+template <bool kAblate>
+__device__ __forceinline__ int pair_rows(int rows, int mask) {
+  if constexpr (kAblate)
+    return mask & kAblateBigpair ? 0 : rows;
+  else
+    return rows;
+}
 
 // A path's state between bounces (pallas_megakernel.py STATE_FIELDS).
 struct PathState {
@@ -119,7 +159,7 @@ struct Records {
 // goes on. kSingle (K2): where the path ends, the random stream still
 // advances by the draws the TPU's single-bounce body makes for every live
 // ray, so a kernel's rng plane equals the TPU's and the twin's.
-template <bool kSingle, class Geo, class Rec = NoRecords>
+template <bool kSingle, bool kAblate = false, class Geo, class Rec = NoRecords>
 __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, int depth,
                                             PathState& s, const Rec& rec = Rec{}) {
   const float eps = sh.eps;
@@ -156,6 +196,17 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   const bool mat_ok = h.mat >= 0 && h.mat < sh.n_mat;
 #pragma unroll
   for (int c = 0; c < kMatCols; ++c) m[c] = mat_ok ? sh.mat[h.mat * kMatCols + c] : 0.0f;
+  if constexpr (kAblate) {
+    if (sh.ablate & kAblateMat) {
+      // pallas_megakernel.py:465-471: diffuse 0.5, specular 0, ior 1.5,
+      // emission 0.05, bsdf 0 (diffuse), one_way 0.
+      m[0] = m[1] = m[2] = 0.5f;
+      m[3] = m[4] = m[5] = 0.0f;
+      m[6] = 1.5f;
+      m[7] = m[8] = m[9] = 0.05f;
+      m[10] = m[11] = 0.0f;
+    }
+  }
   const float md_r = m[0], md_g = m[1], md_b = m[2];
   const float ms_r = m[3], ms_g = m[4], ms_b = m[5];
   const float ior = m[6];
@@ -277,7 +328,15 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   const float ub = next_u01(s.rng);
   const float dx = s.ray.dx, dy = s.ray.dy, dz = s.ray.dz;
   float ndx, ndy, ndz, ray_factor = 1.0f, ray_pd = 1.0f;
-  if (is_glass) {
+  bool straight = false;
+  if constexpr (kAblate) straight = (sh.ablate & kAblateProp) != 0;
+  if (straight) {
+    // "prop" (pallas_megakernel.py:831-839): the straight-through ray, with
+    // unit factor, pdf and shading and the diffuse colour (below).
+    ndx = u1 > 0.5f ? dx : -dx;
+    ndy = dy;
+    ndz = dz;
+  } else if (is_glass) {
     // Fresnel, unpolarised (ref: propagation.cpp:64-160).
     const float ray_dot = -(dx * nx + dy * ny + dz * nz);
     const bool entering = ray_dot >= 0.0f;
@@ -364,7 +423,9 @@ __device__ __forceinline__ bool bounce_body(const Geo& geo, const Shading& sh, i
   // ---- Bounce eval (non-synthetic getSpectrum) ----
   const bool same_side = (dx * ndx + dy * ndy + dz * ndz) <= 0.0f;
   float mult_r = md_r, mult_g = md_g, mult_b = md_b, shading = 1.0f;
-  if (is_glass) {
+  if (straight) {
+    // "prop": the diffuse colour and unit shading set above.
+  } else if (is_glass) {
     rec.chain(same_side ? 2.0f : 1.0f);
     if (same_side) {
       mult_r = ms_r;

@@ -62,6 +62,13 @@
 // (kWarpStepCols). Dense form: `steps` [2] int64 gets the bounce steps the
 // warps execute (once per step, by the lowest active lane) and the
 // ray-bounces, so lane use = ray-bounces / (32 x steps).
+//
+// Ablation instances (megakernel_ablate, megakernel_binned_ablate; template
+// flag kAblate of the shared bodies): the same kernels with the parts of
+// the bounce that the mask `ablate` names taken out (bounce_body.cuh), for
+// the JAX package's PTX_ABLATE / PTX_SKIP_TRAVERSE (profiling only). The
+// wrapper launches them only while a switch is set; the default instances
+// compile none of it.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -109,6 +116,7 @@ struct Params {
   unsigned long long* steps;  // [2] warp steps (counting instances), or null
   int* next_ray;     // the refill counter, zeroed by the wrapper
   float eps;
+  int ablate;        // the ablation mask (bounce_body.cuh kAblate*); 0 in the default instances
 };
 
 __device__ __forceinline__ size_t smem_floats(const Params& p) {
@@ -197,7 +205,7 @@ struct BounceSteps {
 // calls end(i) and is free again. step() runs before each bounce. Every
 // lane of the warp must call it; it returns when the counter is spent and
 // no lane of the warp holds a path.
-template <int kRows, class Geo, class Step, class End>
+template <int kRows, bool kAblate, class Geo, class Step, class End>
 __device__ __forceinline__ void trace_refilling(const Params& p, const Geo& geo,
                                                 const Shading& sh, Step step, End end) {
   const unsigned lane = threadIdx.x & 31;
@@ -231,7 +239,7 @@ __device__ __forceinline__ void trace_refilling(const Params& p, const Geo& geo,
     // results and becomes free.
     if (depth < p.max_depth) {
       step();
-      if (bounce_body<false>(geo, sh, depth, s) && ++depth < p.max_depth) continue;
+      if (bounce_body<false, kAblate>(geo, sh, depth, s) && ++depth < p.max_depth) continue;
     }
     write_spectrum(p, i, s);
     end(i);
@@ -239,40 +247,64 @@ __device__ __forceinline__ void trace_refilling(const Params& p, const Geo& geo,
   }
 }
 
+// The shading tables of a block: an ablation instance's under its mask
+// (bounce_body.cuh), else the scene's.
+template <bool kAblate>
+__device__ __forceinline__ Shading block_shading(const Params& p, const float* smem) {
+  if constexpr (kAblate)
+    return ablated_shading(shading(p, smem), p.ablate);
+  else
+    return shading(p, smem);
+}
+
+
 // The dense form. CULL: the cull class of the pair record; kCount: the
-// bounce steps.
-template <int CULL, bool kCount>
-__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks) megakernel(const Params p) {
+// bounce steps; kAblate: the ablation instance.
+template <int CULL, bool kCount, bool kAblate>
+__device__ __forceinline__ void dense_form(const Params& p) {
   extern __shared__ float smem[];
   stage_tables<false>(p, smem);
   __syncthreads();
 
-  const Shading sh = shading(p, smem);
+  const Shading sh = block_shading<kAblate>(p, smem);
   const float* s_rec = smem;
   const float* s_tri = s_rec + p.rec_rows * kRecCols;
   const float* s_sph = s_tri + p.n_tri * kTriCols;
-  const DenseGeo<CULL> geo{s_rec, p.rec_rows, s_tri, p.n_tri, s_sph, p.n_sph};
+  const DenseGeo<CULL> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate), s_tri, p.n_tri,
+                           s_sph, p.n_sph};
   std::conditional_t<kCount, BounceSteps, NoSteps> steps;
-  trace_refilling<kBlockRows>(p, geo, sh, [&] { steps.step(); }, [](int64_t) {});
+  trace_refilling<kBlockRows, kAblate>(p, geo, sh, [&] { steps.step(); }, [](int64_t) {});
   steps.add(p.steps);
 }
 
-// The binned form. CULL: the cull class of the big partition's pair record;
-// kCount: the traversal counters.
 template <int CULL, bool kCount>
-__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
-    megakernel_binned(const Params p) {
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks) megakernel(const Params p) {
+  dense_form<CULL, kCount, false>(p);
+}
+
+template <int CULL, bool kCount>
+__global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
+    megakernel_ablate(const Params p) {
+  dense_form<CULL, kCount, true>(p);
+}
+
+// The binned form. CULL: the cull class of the big partition's pair record;
+// kCount: the traversal counters; kAblate: the ablation instance.
+template <int CULL, bool kCount, bool kAblate>
+__device__ __forceinline__ void binned_form(const Params& p) {
   extern __shared__ float smem[];
   const ClusterTables cl = stage_tables<true>(p, smem);
   __syncthreads();
 
-  const Shading sh = shading(p, smem);
+  const Shading sh = block_shading<kAblate>(p, smem);
   const float* s_rec = smem;
   const float* s_sph = s_rec + p.rec_rows * kRecCols + p.n_tri * kTriCols;
   using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
-  const BinnedGeo<CULL, Count> geo{s_rec, p.rec_rows, s_sph, p.n_sph, cl,
-                                   ring_base(smem, smem_floats(p))};
-  trace_refilling<kBinnedBlockRows>(p, geo, sh, [] {}, [&](int64_t i) {
+  const BinnedGeo<CULL, Count, kAblate> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
+                                            s_sph, p.n_sph, cl,
+                                            ring_base(smem, smem_floats(p)), {}, {},
+                                            !(kAblate && (p.ablate & kSkipTraverse))};
+  trace_refilling<kBinnedBlockRows, kAblate>(p, geo, sh, [] {}, [&](int64_t i) {
     if constexpr (kCount) {
       add_geo_visits(p.visits, i, geo);
       static_cast<Visits&>(geo.near) = Visits{};
@@ -282,10 +314,26 @@ __global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
   if constexpr (kCount) add_warp_steps(p.steps, geo);
 }
 
-template <bool kBinned, int CULL, bool kCount>
+template <int CULL, bool kCount>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
+    megakernel_binned(const Params p) {
+  binned_form<CULL, kCount, false>(p);
+}
+
+template <int CULL, bool kCount>
+__global__ void __launch_bounds__(kWalkThreads, kWalkMinBlocks)
+    megakernel_binned_ablate(const Params p) {
+  binned_form<CULL, kCount, true>(p);
+}
+
+template <bool kBinned, int CULL, bool kCount, bool kAblate>
 constexpr auto kernel_of() {
-  if constexpr (kBinned)
+  if constexpr (kBinned && kAblate)
+    return megakernel_binned_ablate<CULL, kCount>;
+  else if constexpr (kBinned)
     return megakernel_binned<CULL, kCount>;
+  else if constexpr (kAblate)
+    return megakernel_ablate<CULL, kCount>;
   else
     return megakernel<CULL, kCount>;
 }
@@ -304,9 +352,9 @@ cudaError_t allow_smem(K kernel, size_t smem) {
 }
 
 // Resident blocks per SM of an instance at `smem` bytes.
-template <bool kBinned, int CULL, bool kCount>
+template <bool kBinned, int CULL, bool kCount, bool kAblate>
 cudaError_t occupancy(size_t smem, int* blocks) {
-  const auto kernel = kernel_of<kBinned, CULL, kCount>();
+  const auto kernel = kernel_of<kBinned, CULL, kCount, kAblate>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, kernel, kThreadsOf<kBinned>,
@@ -316,27 +364,39 @@ cudaError_t occupancy(size_t smem, int* blocks) {
 // A launch on `grid` blocks, which the wrapper sizes to the resident blocks
 // (megakernel.py resident_grid). Any grid is correct, since the warps claim
 // the rays; only the speed depends on it.
-template <bool kBinned, int CULL, bool kCount>
+template <bool kBinned, int CULL, bool kCount, bool kAblate>
 cudaError_t launch(const Params& p, int grid, size_t smem, cudaStream_t stream) {
-  const auto kernel = kernel_of<kBinned, CULL, kCount>();
+  const auto kernel = kernel_of<kBinned, CULL, kCount, kAblate>();
   const cudaError_t err = allow_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<grid, kThreadsOf<kBinned>, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kBinned, bool kCount>
+template <bool kBinned, bool kCount, bool kAblate>
 cudaError_t launch_cull(const Params& p, int cull, int grid, size_t smem, cudaStream_t stream) {
-  if (cull == 0) return launch<kBinned, 0, kCount>(p, grid, smem, stream);
-  if (cull == 1) return launch<kBinned, 1, kCount>(p, grid, smem, stream);
-  return launch<kBinned, -1, kCount>(p, grid, smem, stream);
+  if (cull == 0) return launch<kBinned, 0, kCount, kAblate>(p, grid, smem, stream);
+  if (cull == 1) return launch<kBinned, 1, kCount, kAblate>(p, grid, smem, stream);
+  return launch<kBinned, -1, kCount, kAblate>(p, grid, smem, stream);
 }
 
-template <bool kBinned, bool kCount>
+template <bool kBinned, bool kAblate>
+cudaError_t launch_form(const Params& p, int cull, int grid, size_t smem, cudaStream_t stream) {
+  return p.steps ? launch_cull<kBinned, true, kAblate>(p, cull, grid, smem, stream)
+                 : launch_cull<kBinned, false, kAblate>(p, cull, grid, smem, stream);
+}
+
+template <bool kBinned, bool kCount, bool kAblate>
 cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
-  if (cull == 0) return occupancy<kBinned, 0, kCount>(smem, blocks);
-  if (cull == 1) return occupancy<kBinned, 1, kCount>(smem, blocks);
-  return occupancy<kBinned, -1, kCount>(smem, blocks);
+  if (cull == 0) return occupancy<kBinned, 0, kCount, kAblate>(smem, blocks);
+  if (cull == 1) return occupancy<kBinned, 1, kCount, kAblate>(smem, blocks);
+  return occupancy<kBinned, -1, kCount, kAblate>(smem, blocks);
+}
+
+template <bool kBinned, bool kAblate>
+cudaError_t occupancy_form(int cull, bool count, size_t smem, int* blocks) {
+  return count ? occupancy_cull<kBinned, true, kAblate>(cull, smem, blocks)
+               : occupancy_cull<kBinned, false, kAblate>(cull, smem, blocks);
 }
 
 }  // namespace
@@ -354,6 +414,8 @@ cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
 // int32. grid: the blocks of the launch (the resident blocks, at most one
 // thread per ray). smem_bytes: the block's dynamic shared memory, sized by
 // the wrapper (kernel_traverse.py kernel_smem_bytes, from ptx_walk_layout).
+// ablate: the ablation mask (bounce_body.cuh kAblate*); nonzero launches
+// the form's ablation instance.
 extern "C" int ptx_megakernel_launch(const float* origin, const float* direction,
                                      float* spectrum, int n_rays, const float* tri, int n_tri,
                                      const float* sph, int n_sph, const float* mat, int n_mat,
@@ -365,7 +427,7 @@ extern "C" int ptx_megakernel_launch(const float* origin, const float* direction
                                      const float* root, int cl_cull, int* visits,
                                      unsigned long long* steps, int* next_ray, const int* seed,
                                      int max_depth, float epsilon, int grid,
-                                     long long smem_bytes, void* stream) {
+                                     long long smem_bytes, int ablate, void* stream) {
   using namespace ptx;
   (void)hyp_rows;
   if (!next_ray || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -376,36 +438,36 @@ extern "C" int ptx_megakernel_launch(const float* origin, const float* direction
   const Params p{origin, direction, spectrum, n_rays, tri, n_tri, sph, n_sph,
                  mat, n_mat, lgt, n_lights, em, n_em, em_k, rec, rec_rows, rec_stride,
                  seed, max_depth, cl, tiers <= kTierFloats ? tiers : 0, visits, steps,
-                 next_ray, epsilon};
+                 next_ray, epsilon, ablate};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   // A dense table form has no record: its instances are the per-row class.
   const int cull = binned || rec_rows ? cull_mode : -1;
   cudaError_t err;
   if (binned)
-    err = steps ? launch_cull<true, true>(p, cull, grid, smem, s)
-                : launch_cull<true, false>(p, cull, grid, smem, s);
+    err = ablate ? launch_form<true, true>(p, cull, grid, smem, s)
+                 : launch_form<true, false>(p, cull, grid, smem, s);
   else
-    err = steps ? launch_cull<false, true>(p, cull, grid, smem, s)
-                : launch_cull<false, false>(p, cull, grid, smem, s);
+    err = ablate ? launch_form<false, true>(p, cull, grid, smem, s)
+                 : launch_form<false, false>(p, cull, grid, smem, s);
   return static_cast<int>(err);
 }
 
-// Resident blocks per SM of the instance (binned, cull, count) at
-// `smem_bytes`, and its threads per block.
-extern "C" int ptx_megakernel_occupancy(int binned, int cull, int count, long long smem_bytes,
-                                        int* blocks, int* threads) {
+// Resident blocks per SM of the instance (binned, cull, count, ablation
+// instance) at `smem_bytes`, and its threads per block.
+extern "C" int ptx_megakernel_occupancy(int binned, int cull, int count, int ablate,
+                                        long long smem_bytes, int* blocks, int* threads) {
   using namespace ptx;
   const size_t smem = static_cast<size_t>(smem_bytes);
   cudaError_t err;
   if (binned) {
     *threads = kThreadsOf<true>;
-    err = count ? occupancy_cull<true, true>(cull, smem, blocks)
-                : occupancy_cull<true, false>(cull, smem, blocks);
+    err = ablate ? occupancy_form<true, true>(cull, count, smem, blocks)
+                 : occupancy_form<true, false>(cull, count, smem, blocks);
   } else {
     *threads = kThreadsOf<false>;
-    err = count ? occupancy_cull<false, true>(cull, smem, blocks)
-                : occupancy_cull<false, false>(cull, smem, blocks);
+    err = ablate ? occupancy_form<false, true>(cull, count, smem, blocks)
+                 : occupancy_form<false, false>(cull, count, smem, blocks);
   }
   return static_cast<int>(err);
 }

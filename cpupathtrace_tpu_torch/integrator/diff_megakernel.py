@@ -28,6 +28,7 @@ contract; its roulette caveat past depth 4 applies unchanged).
 from __future__ import annotations
 
 import dataclasses
+import os
 
 import torch
 
@@ -48,8 +49,9 @@ DIFF_FIELDS = ("mat_diffuse", "mat_specular", "mat_emission")
 
 def diff_supported(scene: SceneData) -> bool:
     """The record-and-replay path rides K2: the scene must fit the
-    megakernels' limits."""
-    return megakernel_supported(scene)
+    megakernels' limits, and PTX_ABLATE must be unset (read at the call,
+    as diff_megakernel.py:62): K2's record form has no ablation."""
+    return megakernel_supported(scene) and not os.environ.get("PTX_ABLATE")
 
 
 def em_material_ids(scene: SceneData) -> torch.Tensor:

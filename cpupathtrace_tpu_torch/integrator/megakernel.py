@@ -49,6 +49,7 @@ steps and ray-bounces into `bounce_steps` (`lane_use`).
 from __future__ import annotations
 
 import ctypes
+import os
 
 import torch
 
@@ -107,6 +108,38 @@ MAX_SPH = 64
 MAX_MAT = 256
 MAX_LIGHTS = 64
 MAX_EM = 256
+
+# The JAX package's ablation switches, read at import as
+# pallas_megakernel.py:275 and :321-323 read them (profiling only: each
+# takes a part of the bounce out, so a frame's time can be split among
+# them). PTX_SKIP_TRAVERSE=1 skips the cluster walks (binned scenes);
+# PTX_ABLATE is a comma-separated set of "nee" (no point lights and no
+# emitter draws), "bigpair" (no big-partition pair tests), "prop" (the
+# straight-through ray in place of the sampled bounce) and "mat" (JAX's
+# constant material in place of the gather); unknown tokens are ignored.
+# The wrappers and the twin read these attributes at each call, so tests
+# can set them on both packages.
+_SKIP_TRAVERSE = os.environ.get("PTX_SKIP_TRAVERSE", "") == "1"
+_ABLATE = frozenset(x for x in os.environ.get("PTX_ABLATE", "").split(",") if x)
+# Bits of the kernels' ablation mask (csrc/bounce_body.cuh kAblate*).
+ABLATE_BITS = {"nee": 1, "bigpair": 2, "prop": 4, "mat": 8}
+SKIP_TRAVERSE_BIT = 16
+# "mat": pallas_megakernel.py:465-471's material row (diffuse 0.5,
+# specular 0, ior 1.5, emission 0.05, bsdf 0, one_way 0), in MAT_COLS order.
+ABLATED_MATERIAL = (0.5, 0.5, 0.5, 0.0, 0.0, 0.0, 1.5, 0.05, 0.05, 0.05, 0.0, 0.0)
+
+
+def ablation_mask(binned: bool) -> int:
+    """The kernels' ablation bits from the switches as they stand at the
+    call (0: the default instances run). PTX_SKIP_TRAVERSE counts for a
+    binned scene only: a dense scene has no walk to skip."""
+    mask = 0
+    for name, bit in ABLATE_BITS.items():
+        if name in _ABLATE:
+            mask |= bit
+    if _SKIP_TRAVERSE and binned:
+        mask |= SKIP_TRAVERSE_BIT
+    return mask
 
 
 def megakernel_supported(scene: SceneData) -> bool:
@@ -289,6 +322,17 @@ class _Ctx:
         self.em_k = scene.emissive_sample_count
         self.cull_mode = scene.krn_big_cull_mode
         self.eps = float(options.epsilon)
+        # The ablation switches as they stand at the call: which parts of
+        # the bounce run.
+        mask = ablation_mask(self.clusters is not None)
+        self.pair = self.dense_pair and not mask & ABLATE_BITS["bigpair"]
+        self.walks = self.clusters is not None and not mask & SKIP_TRAVERSE_BIT
+        nee = not mask & ABLATE_BITS["nee"]
+        self.nee_lights = self.n_lights if nee else 0
+        self.nee_draws = self.em_k if nee else 0
+        self.straight = bool(mask & ABLATE_BITS["prop"])
+        self.const_mat = (torch.tensor(ABLATED_MATERIAL, dtype=torch.float32, device=device)
+                          if mask & ABLATE_BITS["mat"] else None)
 
         def c(v):
             return torch.full((1,), v, dtype=torch.float32, device=device)
@@ -359,8 +403,9 @@ def _nearest(ctx, ox, oy, oz, dx, dy, dz, visits=None):
     `visits` (int64 [n, 4] or None) receives the traversal counts."""
     if ctx.dense_pair:
         hit = table_nearest(ctx.tri, ctx.sph, ox, oy, oz, dx, dy, dz, 0)
-        hit = _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
-        if ctx.clusters is not None:
+        if ctx.pair:
+            hit = _pair_nearest(ctx, ox, oy, oz, dx, dy, dz, hit)
+        if ctx.walks:
             hit = traverse_clusters(ctx.clusters, ox, oy, oz, dx, dy, dz, hit,
                                     ctx.krn_cull_mode, visits=visits)
         return hit
@@ -416,7 +461,7 @@ def _bounce(ctx, depth, s, rec=None):
     pyp = oy + dy * t_hit
     pzp = oz + dz * t_hit
 
-    m = ctx.mat[mid]
+    m = ctx.mat[mid] if ctx.const_mat is None else ctx.const_mat.expand(mid.shape[0], MAT_COLS)
     md_r, md_g, md_b = m[:, 0], m[:, 1], m[:, 2]
     ms_r, ms_g, ms_b = m[:, 3], m[:, 4], m[:, 5]
     ior = m[:, 6]
@@ -455,11 +500,11 @@ def _bounce(ctx, depth, s, rec=None):
         occ = _table_occluded(
             ctx, sox, soy, soz, ldx, ldy, ldz, ctx.n_tri, dist - eps
         )
-        if ctx.dense_pair:
+        if ctx.pair:
             occ = occ | _pair_occluded(
                 ctx, sox, soy, soz, ldx, ldy, ldz, (dist - eps).clamp_min(0.0)
             )
-        if ctx.clusters is not None:
+        if ctx.walks:
             # Only rays the dense parts left visible, on a vertex that
             # takes the light, query the clusters (t_lim 0 = no query).
             want = hit & lvalid & ~occ & ~is_spec & (lpd > 0.0)
@@ -482,12 +527,12 @@ def _bounce(ctx, depth, s, rec=None):
     acc = (out_r, out_g, out_b)
     all_valid = torch.ones_like(hit)
     one = torch.ones_like(sr)
-    for li in range(ctx.n_lights):
+    for li in range(ctx.nee_lights):
         lg = ctx.lgt[li]
         acc = nee(lg[0], lg[1], lg[2], lg[3], lg[4], lg[5], one, all_valid, acc)
 
     n_em = ctx.n_em
-    for _ in range(ctx.em_k):
+    for _ in range(ctx.nee_draws):
         rng, rsel = next_u01(rng)
         rng, u1 = next_u01(rng)
         rng, u2 = next_u01(rng)
@@ -611,6 +656,16 @@ def _bounce(ctx, depth, s, rec=None):
         return torch.where(is_glass, gl, torch.where(is_mirror, mi, md))
 
     shading = torch.where(is_spec, 1.0, shade_l)
+    if ctx.straight:
+        # "prop" (pallas_megakernel.py:831-839): the straight-through ray
+        # in place of the sampled one, with unit factor, pdf and shading
+        # and the diffuse colour.
+        ndx, ndy, ndz = torch.where(u1 > 0.5, dx, -dx), dy, dz
+        ray_factor = ray_pd = shading = torch.ones_like(dx)
+
+        def mult(ms, md):
+            return md
+
     divisor_new = (
         divisor * (ray_pd / ray_factor.clamp_min(1e-30))
         * torch.reciprocal(shading.clamp_min(1e-30))
@@ -711,7 +766,7 @@ _ARGTYPES = (
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P]  # traversal tables, cull mode; visits
     + [_P, _P]  # warp steps, refill counter
     + [_P, _I, ctypes.c_float]  # seed, max_depth, epsilon
-    + [_I, ctypes.c_longlong, _P]  # grid, smem, stream
+    + [_I, ctypes.c_longlong, _I, _P]  # grid, smem, ablation mask, stream
 )
 # The dense counting instance's output (csrc/megakernel.cu BounceSteps):
 # the bounce steps the warps execute, then the ray-bounces.
@@ -763,7 +818,8 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
     to. `bounce_steps` (dense, on the card): a zeroed [2] int64 tensor the
     warps' bounce steps and the ray-bounces are added to (`lane_use`).
     CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its
-    binned form for a scene with kernel records."""
+    binned form for a scene with kernel records, and its ablation instances
+    while a switch is set (`ablation_mask`, read at the call)."""
     origin, direction = rays.origin, rays.direction
     dev = origin.device
     binned = scene.has_kernel_records
@@ -837,12 +893,14 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
     next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
     # A dense table form has no record: its instances are the per-row class.
     cull = int(scene.krn_big_cull_mode) if binned or rec_rows else -1
+    ablate = ablation_mask(binned)
     # Temporaries made here (seed_t, tables) may be freed before the
     # kernel runs: the caching allocator reuses memory in the order of
     # the current stream, which the launch is on.
     if n:
         with torch.cuda.device(dev):
-            per_sm, threads = resident_blocks(smem, binned, steps is not None, cull)
+            per_sm, threads = resident_blocks(smem, binned, steps is not None, cull,
+                                              bool(ablate))
             grid = resident_grid(n, threads, per_sm,
                                  torch.cuda.get_device_properties(dev).multi_processor_count)
             err = _library()(
@@ -854,7 +912,7 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
                 *tier_args, visits.data_ptr() if count else None,
                 None if steps is None else steps.data_ptr(), next_ray.data_ptr(),
                 seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), grid, smem,
-                torch.cuda.current_stream(dev).cuda_stream,
+                ablate, torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
@@ -866,16 +924,18 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
 trace_megakernel.launches = 0
 
 
-def occupancy(smem_bytes, binned, count=False, cull=-1):
+def occupancy(smem_bytes, binned, count=False, cull=-1, ablate=False):
     """(resident blocks per SM, threads per block) of K1's instance (form,
-    counting or not, cull class) at `smem_bytes` of dynamic shared memory,
-    by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    counting or not, cull class, ablation instance or not) at `smem_bytes`
+    of dynamic shared memory, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
     fn = _build.load("megakernel").ptx_megakernel_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, _I, _I, ctypes.c_longlong, ctypes.POINTER(_I),
+                       ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(int(bool(binned)), int(cull), int(bool(count)), int(smem_bytes),
+    err = fn(int(bool(binned)), int(cull), int(bool(count)), int(bool(ablate)), int(smem_bytes),
              ctypes.byref(blocks), ctypes.byref(threads))
     if err:
         raise RuntimeError(f"megakernel occupancy query failed: cudaError_t {err}")
@@ -887,11 +947,11 @@ def occupancy(smem_bytes, binned, count=False, cull=-1):
 _RESIDENT: dict = {}
 
 
-def resident_blocks(smem_bytes, binned, count=False, cull=-1):
+def resident_blocks(smem_bytes, binned, count=False, cull=-1, ablate=False):
     """`occupancy` on the current card, queried at an instance's first
     launch at a given shared-memory size and then kept."""
     key = (_build.load("megakernel")._name, torch.cuda.current_device(), bool(binned),
-           bool(count), int(cull), int(smem_bytes))
+           bool(count), int(cull), bool(ablate), int(smem_bytes))
     if key not in _RESIDENT:
-        _RESIDENT[key] = occupancy(smem_bytes, binned, count, cull)
+        _RESIDENT[key] = occupancy(smem_bytes, binned, count, cull, ablate)
     return _RESIDENT[key]

@@ -64,6 +64,7 @@ from .megakernel import (
     TRI_COLS,
     _bounce,
     _Ctx,
+    ablation_mask,
     block_smem_bytes,
     check_warp_steps,
     megakernel_supported,
@@ -254,7 +255,8 @@ _ARGTYPES = (
     + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
     + [_P, _I, _I, _I, _I]  # pair record, rows, stride, cull mode; binned
     + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I]  # traversal tables, cull mode
-    + [_P, _P, ctypes.c_float, ctypes.c_longlong, _P]  # visits, steps, epsilon, smem, stream
+    + [_P, _P, ctypes.c_float, ctypes.c_longlong]  # visits, steps, epsilon, smem
+    + [_I, _P]  # ablation mask, stream
 )
 
 
@@ -281,8 +283,15 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
     walks' warp steps (kernel_traverse.warp_utilisation).
     CPU state runs `bounce_reference`; CUDA state launches csrc/bounce.cu,
     with the cluster traversal for a binned scene and K1's dense geometry
-    otherwise."""
+    otherwise, and its ablation instances while a switch is set
+    (megakernel.ablation_mask, read at the call). The record form has none
+    and raises ValueError then (the JAX kernel asserts, pallas_megakernel.py
+    :885; under PTX_SKIP_TRAVERSE alone JAX records without the walks)."""
     dev = state.device
+    ablate = ablation_mask(scene.has_kernel_records)
+    if records is not None and ablate:
+        raise ValueError("bounce: the record form runs no ablation (PTX_ABLATE / "
+                         "PTX_SKIP_TRAVERSE are set)")
     if warp_steps is not None:
         if visits is None:
             raise ValueError("bounce: warp_steps count with visits")
@@ -343,7 +352,7 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
                 em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
                 *rec_args, int(scene.krn_big_cull_mode), int(binned),
                 *tier_args, vis_ptr, None if vis_ptr is None else warp_steps.data_ptr(),
-                float(options.epsilon), smem, torch.cuda.current_stream(dev).cuda_stream,
+                float(options.epsilon), smem, ablate, torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
             raise RuntimeError(f"bounce launch failed: cudaError_t {err}")
@@ -356,18 +365,19 @@ bounce.launches = 0
 bounce.record_launches = 0
 
 
-def bounce_occupancy(smem_bytes, binned=True, cull=-1, rec=False, count=False):
+def bounce_occupancy(smem_bytes, binned=True, cull=-1, rec=False, count=False, ablate=False):
     """(resident blocks per SM, threads per block) of K2's instance
-    (geometry, cull class, record form, counting form) at `smem_bytes` of
-    dynamic shared memory, by cudaOccupancyMaxActiveBlocksPerMultiprocessor
-    on the current card."""
+    (geometry, cull class, record form, counting form, ablation instance)
+    at `smem_bytes` of dynamic shared memory, by
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
     fn = _build.load("bounce").ptx_bounce_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, _I, _I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, _I, _I, _I, ctypes.c_longlong, ctypes.POINTER(_I),
+                       ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(int(bool(binned)), int(cull), int(bool(rec)), int(bool(count)), int(smem_bytes),
-             ctypes.byref(blocks), ctypes.byref(threads))
+    err = fn(int(bool(binned)), int(cull), int(bool(rec)), int(bool(count)), int(bool(ablate)),
+             int(smem_bytes), ctypes.byref(blocks), ctypes.byref(threads))
     if err:
         raise RuntimeError(f"bounce occupancy query failed: cudaError_t {err}")
     return blocks.value, threads.value

@@ -1622,3 +1622,198 @@ def test_obj_dragon_through_the_bounce_kernel_equals_its_twin(tmp_path, monkeypa
                                            debug_visits=True)
     assert torch.equal(k.view(torch.int32), t.view(torch.int32))
     assert torch.equal(kc, tc) and torch.equal(kv, tv)
+
+
+# ---------------------------------------------------------------------------
+# The ablation instances of K1 and K2 (PTX_ABLATE / PTX_SKIP_TRAVERSE, read
+# at each call from integrator/megakernel.py's attributes) and the
+# profiling utilities on the card.
+# ---------------------------------------------------------------------------
+
+# Setting -> (_ABLATE, _SKIP_TRAVERSE), as tests/torch_util.py's
+# ABLATE_SETTINGS (this file imports no test helper).
+_ABLATIONS = {
+    "nee": (frozenset({"nee"}), False),
+    "bigpair": (frozenset({"bigpair"}), False),
+    "prop": (frozenset({"prop"}), False),
+    "mat": (frozenset({"mat"}), False),
+    "skip": (frozenset(), True),
+    "nee_skip": (frozenset({"nee"}), True),
+}
+
+
+def _ablate(monkeypatch, setting):
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    ablate, skip = _ABLATIONS[setting]
+    monkeypatch.setattr(mk, "_ABLATE", ablate)
+    monkeypatch.setattr(mk, "_SKIP_TRAVERSE", skip)
+
+
+def _kernel_names(fn):
+    """The names of the kernels fn() launches, from torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.name for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["nee", "bigpair", "prop", "mat"])
+def test_k1_dense_ablation_instances_bit_equal_to_twin(setting, monkeypatch):
+    """K1 dense's ablation instance (plain and counting) on the box's first
+    8,192 rays, max_depth 40: bit-equal to the twin under the same setting,
+    and different from the default frame (the switch was applied)."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    scene, rays = _scene("box"), _rays(forward=False)
+    opts = RenderOptions(8, 8, 1, 1, max_depth=40)
+    base, _ = mk.trace_megakernel(scene, rays, opts, 1234)
+    _ablate(monkeypatch, setting)
+    steps = torch.zeros(mk.BOUNCE_STEP_COLS, dtype=torch.int64, device="cuda")
+    k, kc = mk.trace_megakernel(scene, rays, opts, 1234)
+    c, _ = mk.trace_megakernel(scene, rays, opts, 1234, bounce_steps=steps)
+    t, tc = mk.trace_megakernel_reference(scene, rays, opts, 1234)
+    assert not bool(torch.isnan(k).any())
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32)) and torch.equal(kc, tc)
+    assert torch.equal(c.view(torch.int32), k.view(torch.int32))
+    mk.lane_use(steps.cpu())  # raises unless 0 < steps <= ray-bounces <= 32 x steps
+    assert not torch.equal(k, base)
+    names = _kernel_names(lambda: mk.trace_megakernel(scene, rays, opts, 1234))
+    assert any("megakernel_ablate" in n for n in names), names
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(_ABLATIONS))
+def test_k1_binned_ablation_instances_bit_equal_to_twin(setting, monkeypatch):
+    """K1 binned's ablation instance (plain and counting) on 4,096 + 77
+    camera rays of the 200k dragon: spectrum and counters equal to the twin
+    under the same setting; under PTX_SKIP_TRAVERSE only the nearest
+    queries count."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.core.rays import Rays
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+
+    scene = _dragon_200k(56)
+    st = _camera_state(scene, n=4096 + 77)
+    rays = Rays(st[1:4].t().contiguous(), st[4:7].t().contiguous())
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    base, _ = mk.trace_megakernel(scene, rays, opts, 321)
+    _ablate(monkeypatch, setting)
+    k, kc, kv = mk.trace_megakernel(scene, rays, opts, 321, debug_visits=True,
+                                    warp_steps=_warp_steps())
+    plain, _ = mk.trace_megakernel(scene, rays, opts, 321)
+    t, tc, tv = mk.trace_megakernel_reference(scene, rays, opts, 321, debug_visits=True)
+    assert not bool(torch.isnan(k).any())
+    assert torch.equal(k.view(torch.int32), t.view(torch.int32)) and torch.equal(kc, tc)
+    assert torch.equal(plain.view(torch.int32), k.view(torch.int32)) and torch.equal(kv, tv)
+    v = kv.sum(0)
+    if _ABLATIONS[setting][1]:
+        assert v[kt.QUERY_COL] > 0 and not bool(v[:kt.QUERY_COL].any())
+    assert not torch.equal(k, base)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", sorted(_ABLATIONS))
+def test_k2_ablation_instances_bit_equal_to_twin(setting, monkeypatch):
+    """K2's binned ablation instance (plain and counting) bounce after
+    bounce on 4,096 + 77 camera rays of the 200k dragon, and its dense one
+    on the box: the 18 planes (the rng plane included) and the counters
+    equal to the twin's under the same setting."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    _ablate(monkeypatch, setting)
+    opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
+    for scene in (_dragon_200k(56), _scene("box")):
+        binned = scene.has_kernel_records
+        tables = mk.pack_tables(scene)
+        n = 4096 + 77
+        st = _camera_state(scene, n=n)
+        rows = -(-n // kt.VISIT_BLOCK)
+        for depth in (0, 1, 5):
+            sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
+            k, c, t = st.clone(), st.clone(), st.clone()
+            kv = torch.zeros((rows, kt.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
+            tv = torch.zeros_like(kv)
+            sw.bounce(scene, k, sd, opts, tables)
+            if binned:
+                sw.bounce(scene, c, sd, opts, tables, visits=kv, warp_steps=_warp_steps())
+                sw.bounce_reference(scene, t, depth, opts, tables, visits=tv)
+                assert torch.equal(c.view(torch.int32), k.view(torch.int32)), depth
+                assert torch.equal(kv, tv), depth
+            else:
+                sw.bounce_reference(scene, t, depth, opts, tables)
+            assert torch.equal(k.view(torch.int32), t.view(torch.int32)), (depth, binned)
+            st = k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("setting", ["nee", "skip"])
+def test_k2_record_form_refuses_an_ablation_on_the_card(setting, monkeypatch):
+    """K2's record form has no ablation instance: under a switch its wrapper
+    raises before any launch."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    scene = _dragon_200k(56)
+    st = _camera_state(scene, n=1024)
+    records = torch.empty((sw.n_diff_records(scene.n_point_lights,
+                                             scene.emissive_sample_count), 1024), device="cuda")
+    sd = torch.tensor([77, 0], dtype=torch.int32, device="cuda")
+    _ablate(monkeypatch, setting)
+    launches = sw.bounce.launches
+    with pytest.raises(ValueError, match="record form"):
+        sw.bounce(scene, st, sd, RenderOptions(8, 8, 1, 1), records=records)
+    assert sw.bounce.launches == launches
+
+
+@pytest.mark.cuda
+def test_default_path_runs_no_ablation_instance():
+    """With no switch set the box frame and the sorted dragon frame launch
+    the default instances only (the kernels' names in the profile)."""
+    _require_cuda()
+    import cpupathtrace_tpu_torch as pt
+    from cpupathtrace_tpu_torch.models import scenes
+
+    opts = pt.RenderOptions(16, 16, 4, 4, max_depth=8)
+    cam = scenes.bench_camera(device="cuda")
+    for scene, kernel in ((_scene("box"), "megakernel"),
+                          (_dragon_200k(56), "bounce_binned_kernel")):
+        names = _kernel_names(lambda: pt.render(scene, cam, opts, seed=1, device="cuda"))
+        assert any(kernel in n for n in names) and not any("ablate" in n for n in names), names
+
+
+@pytest.mark.cuda
+def test_trace_annotation_under_nvtx_on_the_card(tmp_path):
+    """On the card trace_annotation opens an NVTX range beside the profiler
+    range, and profile_to writes one trace with the card's kernels and the
+    annotation."""
+    _require_cuda()
+    import json
+    import os
+
+    from cpupathtrace_tpu_torch.utils.profiling import RayCounter, profile_to, trace_annotation
+
+    counter = RayCounter(device="cuda").start()
+    with profile_to(str(tmp_path)):
+        with trace_annotation("budget/test/k1/base"):
+            x = torch.ones(1 << 20, device="cuda").cumsum(0)
+    counter.stop(1 << 20)
+    assert float(x[-1]) == float(1 << 20) and counter.seconds > 0
+    files = os.listdir(tmp_path)
+    assert len(files) == 1
+    with open(tmp_path / files[0]) as f:
+        events = json.load(f)["traceEvents"]
+    assert any(e.get("name") == "budget/test/k1/base" for e in events)
+    assert any(e.get("cat") == "kernel" for e in events)

@@ -5,7 +5,10 @@ them, each against the JAX package under the same setting, on the CPU:
     SceneBuilder.build;
   * at import: PTX_SORT_MORTON_BITS and PTX_SORT_MIN_ALIVE
     (integrator/sorted_wavefront.py);
-  * per call: PTX_ADAPTIVE_FUSE (integrator/film.py:render_tile).
+  * per call: PTX_ADAPTIVE_FUSE (integrator/film.py:render_tile);
+  * at import: the ablation switches PTX_ABLATE and PTX_SKIP_TRAVERSE
+    (integrator/megakernel.py, as pallas_megakernel.py; their effect is
+    tests/test_torch_ablate.py's).
 
 The import-time knobs are set with monkeypatch.setattr on the module
 attributes of both packages; how each is read and clamped at import is
@@ -294,3 +297,21 @@ def test_render_tile_early_break_matches_jax(fuse, monkeypatch):
     assert len(full) < math.ceil(63 / int(fuse)) and feed.calls[-1] == ("single", 2)
     np.testing.assert_allclose(ours.numpy(), np.asarray(ref), rtol=1e-6, atol=0)
     np.testing.assert_allclose(ours.numpy(), feed.colour, rtol=1e-6, atol=0)
+
+
+@pytest.mark.parametrize("ablate", [None, "", "nee", "nee,prop", "bigpair,,mat", "foo,nee",
+                                    "nee,bigpair,prop,mat"])
+@pytest.mark.parametrize("skip", [None, "1", "0", "true"])
+def test_ablation_switches_read_at_import(ablate, skip, monkeypatch):
+    """PTX_ABLATE (a comma-separated set, empty tokens dropped, unknown ones
+    kept and ignored) and PTX_SKIP_TRAVERSE ("1" only) are read at import
+    alike by both packages."""
+    for name, value in (("PTX_ABLATE", ablate), ("PTX_SKIP_TRAVERSE", skip)):
+        if value is None:
+            monkeypatch.delenv(name, raising=False)
+        else:
+            monkeypatch.setenv(name, value)
+    ours = _fresh_module("cpupathtrace_tpu_torch.integrator.megakernel", monkeypatch)
+    ref = _fresh_module("cpupathtrace_tpu.integrator.pallas_megakernel", monkeypatch)
+    assert ours._ABLATE == ref._ABLATE
+    assert ours._SKIP_TRAVERSE == ref._SKIP_TRAVERSE == (skip == "1")

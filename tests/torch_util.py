@@ -286,11 +286,12 @@ def sorted_rays(n: int = SORTED_RAYS, seed: int = 0):
     return o, d.astype(np.float32)
 
 
-def jax_bounce_states(depth: int = SORTED_DEPTH):
+def jax_bounce_states(depth: int = SORTED_DEPTH, depths=None):
     """The JAX single-bounce kernel `_bounce_call` (interpret mode) run
-    `depth` times from the fresh state of `sorted_rays` on the 1200-triangle
-    dragon, no sorting: [depth + 1, 18, n] f32 states in the port's layout
-    (plane 0 = the rng bits)."""
+    `depth` times (at depths 0, 1, ...; or once at each of `depths` in
+    turn) from the fresh state of `sorted_rays` on the 1200-triangle
+    dragon, no sorting: [bounces + 1, 18, n] f32 states in the port's
+    layout (plane 0 = the rng bits)."""
     import jax
     import jax.numpy as jnp
 
@@ -324,7 +325,7 @@ def jax_bounce_states(depth: int = SORTED_DEPTH):
 
     states = [port_layout(st)]
     with pallas_interpret():
-        for k in range(depth):
+        for k in range(depth) if depths is None else depths:
             st2d = tuple(a.reshape(n // 128, 128) for a in st)
             out = _bounce_call(tables, jnp.stack([jnp.int32(SORTED_SEED), jnp.int32(k)]),
                                st2d, **statics)
@@ -365,10 +366,10 @@ def mega_binned_rays():
     return sorted_rays(MEGA_BINNED_RAYS, seed=5)
 
 
-def jax_megakernel_binned():
+def jax_megakernel_binned(tris: int = 1200):
     """JAX trace_megakernel (interpret mode) in its binned while-loop form
     (n_super > 0, 8-row blocks) on `mega_binned_rays` and the
-    1200-triangle dragon: spectrum [n, 4]."""
+    `tris`-triangle dragon: spectrum [n, 4]."""
     import jax.numpy as jnp
 
     from cpupathtrace_tpu.core.config import RenderOptions
@@ -378,7 +379,7 @@ def jax_megakernel_binned():
     o, d = mega_binned_rays()
     with pallas_interpret():
         spec, _ = trace_megakernel(
-            dragon_scene("jax"), Rays(jnp.asarray(o), jnp.asarray(d)),
+            dragon_scene("jax", tris), Rays(jnp.asarray(o), jnp.asarray(d)),
             RenderOptions(8, 8, 1, 1, max_depth=MEGA_BINNED_DEPTH), MEGA_BINNED_SEED,
         )
     return np.asarray(spec)
@@ -712,3 +713,37 @@ def load_experiment(name: str) -> dict:
     ns = {"__name__": f"experiment_{name}"}
     exec(compile(ast.Module(body=keep, type_ignores=[]), path, "exec"), ns)  # noqa: S102
     return ns
+
+
+# ---------------------------------------------------------------------------
+# The ablation switches (PTX_ABLATE, PTX_SKIP_TRAVERSE).
+# ---------------------------------------------------------------------------
+
+# Setting -> (PTX_ABLATE, PTX_SKIP_TRAVERSE): the JAX package reads both at
+# import, so each setting's JAX outputs come from a process of its own
+# (tests/fixtures/make_torch_ablate_fixtures.py).
+ABLATE_SETTINGS = {
+    "nee": ("nee", ""),
+    "bigpair": ("bigpair", ""),
+    "prop": ("prop", ""),
+    "mat": ("mat", ""),
+    "skip": ("", "1"),
+    "nee_skip": ("nee", "1"),
+}
+# Which outputs each setting is held on: the box through K1 dense, the
+# ABLATE_TRIS-triangle dragon through K1's binned form, single bounces of
+# K2 on the 1200-triangle dragon at ABLATE_BOUNCE_DEPTHS.
+ABLATE_CASES = {
+    "box": ("nee", "bigpair", "prop", "mat"),
+    "dragon": ("nee", "skip", "nee_skip"),
+    "bounce": ("nee", "prop"),
+}
+ABLATE_TRIS = 3000
+ABLATE_BOUNCE_DEPTHS = (0, 5)
+
+
+def ablation_values(setting):
+    """(_ABLATE, _SKIP_TRAVERSE) of `setting` as the modules read them at
+    import; None: no switch."""
+    ablate, skip = ABLATE_SETTINGS[setting] if setting else ("", "")
+    return frozenset(x for x in ablate.split(",") if x), skip == "1"
