@@ -202,7 +202,7 @@ Phases, one line each; any failure exits non-zero:
      their twins on 16,384 of the frame's rays as phase 25
  29. the demo app, `python -m cpupathtrace_tpu_torch.demo` at its defaults
      (256x256, 16-64 spp, the 20k dragon): rc 0, the PNG (256, 256, 4) and
-     lit, its Mrays/s line; `--sharded` refused
+     lit, its Mrays/s line
  30. the example, `python -m cpupathtrace_tpu_torch.examples.inverse_render`
      at its defaults: rc 0 (albedo error < 0.2), seconds, first and last
      loss, the recovered albedo
@@ -229,12 +229,44 @@ Phases, one line each; any failure exits non-zero:
      1 - t(bigpair) / t(base)); diff_supported False and K2's record form
      refused under nee; the base 7.2M sorted frame through profile_to
      (with --out into DIR/trace_k2_7p2m): the file's size, the annotation
-     and K2's kernel events in it. With --parent, then every bound of
-     phases 5-30 against the parent's
-Then the script's seconds (32), one JSON line with the kernels' figures
+     and K2's kernel events in it
+ 32. the sharded paths (cpupathtrace_tpu_torch/parallel/), one rank: NCCL,
+     a world of one on the card; render_sharded of the box (128x128 @ 256
+     spp, max_depth 40) through K1, bit-equal to render_chunk with
+     shard_seed(seed, 0, 0)'s generator, its frame ms and Mrays/s beside
+     phase 5's render() frame, and beside render() in one interleaved
+     loop with one frame of each profiled (wall, device busy, K1, the
+     sharded frame's host pieces); render_resumable(mesh=) stopped after
+     chunk 2 and resumed, bit-equal; the demo with --sharded by
+     subprocess, its PNG read back
+ 33. two ranks sharing the card (spawned; gloo on CUDA tensors; labelled
+     sharing, not scaling): the box at (dp, sp) = (2, 1) and (1, 2) and the
+     200k dragon at (2, 1) through the sorted driver (K2), each bit-equal
+     to the serial oracle (the same shards one after another in this
+     process) and its mean within 4 standard errors of a render() frame,
+     with each rank's frame wall ms and ms in collectives;
+     train_step_sharded's loss and gradient on the box at (1, 2) (128x128
+     @ 16 spp, max_depth 12, K2's record form) against the serial oracle's;
+     the elastic failover (rank 1 loses its device after chunk 2, rank 0
+     resumes alone: 5 chunk renders, 16 spp everywhere); with two or more
+     cards, one NCCL rank a card on the box, and the failover's refusal of
+     that NCCL mesh (else it says it did not run)
+ 34. geometry parallel, in the same two ranks: the lean 200k dragon split
+     in two supercluster slices with their own tiers, 128x128 @ 16 spp
+     through the wavefront (K4 + K5 on each shard, gp_combine between),
+     bit-equal to the 1-rank gp render in this process; each shard's K4 on
+     16,384 of the frame's camera rays equal to its plain version (t,
+     prim, counters); the 7.2M dragon from phase 24's cache: each rank
+     moves its half of the records and cluster bounds alone to the card
+     (bytes, peak memory), and the combined query on 65,536 random rays is
+     the unsharded K4 query bit for bit.
+With --parent, then every bound of phases 5-30 against the parent's.
+Then the script's seconds (35), one JSON line with the kernels' figures
 (the K2 and K1 binned rows also carry phase 25's 7.2M readings under
 "dragon_full" and phase 28's under "obj_dragon"; the K1 and K2 rows the
-budgets of phase 31 under "budget") and, last, the result line. No
+budgets of phase 31 under "budget"; the K1, K2 and K2 record rows phases
+32-33's under "sharded", the K4 and K5 rows phase 34's under "gp") and,
+last, the result line. No
 main-path profile may show an ablation kernel (`*_ablate`). Bounds of the traversal kernels (K1's binned form,
 K2, K4) come from their counters: filled record rows tested x 64 + slab
 tests below the root gate x 31 + per query the root test (31) + per
@@ -2713,7 +2745,7 @@ def run_module(args, timeout):
 def phase_demo_cli(pt, out_dir):
     """`python -m cpupathtrace_tpu_torch.demo <png>` at its defaults (256x256,
     16-64 spp, the 20k stand-in dragon) on the card: rc 0, the PNG read back
-    (256, 256, 4) and lit; `--sharded` refused."""
+    (256, 256, 4) and lit (`--sharded`: phase 32)."""
     import re
 
     with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
@@ -2725,11 +2757,9 @@ def phase_demo_cli(pt, out_dir):
          f"the demo's PNG: {img.shape}, mean {float(img[..., :3].mean())}")
     rate = re.search(r"rendered in .*Mrays/s\)", res.stderr)
     scene = re.search(r"scene: .*", res.stderr)
-    sharded, _ = run_module(["cpupathtrace_tpu_torch.demo", "--sharded"], 120)
-    need(sharded.returncode != 0, "the demo accepted --sharded")
     return dict(seconds=secs, rc=res.returncode, scene=scene.group(0) if scene else None,
                 rendered=rate.group(0) if rate else None,
-                image_mean=float(img[..., :3].mean()), sharded_rc=sharded.returncode)
+                image_mean=float(img[..., :3].mean()))
 
 
 def phase_example():
@@ -3127,6 +3157,525 @@ def parent_figures(parent):
                 k1_frame_median_s=fr["k1"]["frame_median_s"])
 
 
+# ---------------------------------------------------------------------------
+# Phases 32-34: the sharded paths (cpupathtrace_tpu_torch/parallel/).
+# ---------------------------------------------------------------------------
+
+SHARD_SEED = 11
+SHARED_RANKS = 2
+# A world of ranks on the card: the deadline of the whole world, and the
+# timeout of each of its collectives.
+RANK_DEADLINE_S = 600
+RANK_TIMEOUT_S = 120
+# The 7.2M gp query's random rays; the rays of the frame each gp shard's
+# K4 is held to its plain version on.
+GP_QUERY_RAYS = 65536
+GP_CHECK_RAYS = 16384
+# The sharded training gradient against the serial oracle's, relative to
+# the largest entry: the record route's backward sums in its own order.
+SHARD_GRAD_RTOL = 1e-4
+
+
+def box_options(pt, spp=BOX_SPP):
+    return pt.RenderOptions(BOX_W, BOX_H, spp, spp, epsilon=1e-3, max_depth=MAX_DEPTH)
+
+
+def dragon_options(pt):
+    return pt.RenderOptions(DRAGON_W, DRAGON_H, DRAGON_SPP, DRAGON_SPP, epsilon=1e-3,
+                            max_depth=MAX_DEPTH)
+
+
+def grad_options(pt):
+    return pt.RenderOptions(GRAD_W, GRAD_H, GRAD_SPP, GRAD_SPP, epsilon=1e-3,
+                            max_depth=GRAD_DEPTH)
+
+
+def gp_query_rays(n=GP_QUERY_RAYS, seed=5):
+    """Random rays in the box (origins in [-0.9, 0.9]^3, uniform
+    directions) on the card."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return torch.from_numpy(o).cuda(), torch.from_numpy(d).cuda()
+
+
+def timed(fn, frames):
+    """(fn()'s first result, wall ms of `frames` further calls)."""
+    first = fn()
+    sync()
+    ms = []
+    for _ in range(frames):
+        sync()
+        t0 = time.perf_counter()
+        fn()
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return first, ms
+
+
+class Interrupted(Exception):
+    pass
+
+
+def phase_sharded_one_rank(pt, mk, scenes, ck, main_path, out_dir):
+    """One rank, NCCL, a world of one on the card: render_sharded of the box
+    (128x128 @ 256 spp, max_depth 40) through K1, bit-equal to render_chunk
+    with shard_seed(seed, 0, 0)'s generator, its frame beside phase 5's
+    render() frame; render_resumable(mesh=) stopped after chunk 2 and
+    resumed, bit-equal to the uninterrupted render; the demo with
+    --sharded by subprocess, its PNG read back."""
+    import re
+
+    import torch.distributed as dist
+
+    from cpupathtrace_tpu_torch.parallel import render as pr
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh
+
+    mesh = make_render_mesh(device_type="cuda")
+    need(dist.get_world_size() == 1 and dist.get_backend() == "nccl",
+         f"one rank: world {dist.get_world_size()}, backend {dist.get_backend()}")
+    box, cam = scenes.bench_box_scene(), scenes.bench_camera()
+    opts = box_options(pt)
+    mk.trace_megakernel.launches = mk.trace_megakernel_reference.calls = 0
+    img, ms = timed(lambda: pr.render_sharded(box, cam, opts, mesh, seed=SHARD_SEED),
+                    TIMED_FRAMES)
+    launches, twin = mk.trace_megakernel.launches, mk.trace_megakernel_reference.calls
+    need(launches == 1 + TIMED_FRAMES and twin == 0,
+         f"render_sharded: {launches} K1 launches, {twin} twin calls")
+    ref = pr.render_serial(box, cam, opts, (1, 1), seed=SHARD_SEED, device="cuda")
+    need(np.array_equal(img, ref) and bool((img[..., 3] == 1.0).all()),
+         "render_sharded on one rank is not render_chunk with shard_seed(seed, 0, 0)")
+    frame_ms = float(np.median(ms))
+    out = dict(mesh=tuple(mesh.shape), backend="nccl", bit_equal=True, k1_launches=launches,
+               frame_ms=ms, frame_median_ms=frame_ms,
+               mrays_per_s=BOX_W * BOX_H * BOX_SPP / frame_ms / 1e3,
+               render_frame_median_ms=main_path["frame_median_s"] * 1e3,
+               render_mrays_per_s=main_path["mrays_per_s"], image_mean=float(img[..., :3].mean()),
+               beside_render=sharded_beside_render(pt, pr, box, cam, opts, mesh))
+
+    ropts = box_options(pt, spp=16)
+    os.makedirs(os.path.join(ROOT, "build"), exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        path = os.path.join(tmp, "sharded.ckpt")
+        full = ck.render_resumable(box, cam, ropts, spp=16, seed=SHARD_SEED, spp_chunk=4,
+                                   mesh=mesh)
+
+        def stop(done, total):
+            if done == 2:
+                raise Interrupted
+
+        try:
+            ck.render_resumable(box, cam, ropts, spp=16, seed=SHARD_SEED, spp_chunk=4,
+                                checkpoint_path=path, progress_callback=stop, mesh=mesh)
+            stopped = False
+        except Interrupted:
+            stopped = True
+        resumed = ck.render_resumable(box, cam, ropts, spp=16, seed=SHARD_SEED, spp_chunk=4,
+                                      checkpoint_path=path, mesh=mesh)
+    need(stopped and resumed.chunks_done == 4
+         and np.array_equal(full.pixel_sum, resumed.pixel_sum)
+         and np.array_equal(full.sample_count, resumed.sample_count),
+         "render_resumable(mesh=) resumed is not the uninterrupted render")
+    out["resume"] = dict(bit_equal=True, chunks=4, stopped_after=2)
+
+    with tempfile.TemporaryDirectory(dir=os.path.join(ROOT, "build")) as tmp:
+        png = os.path.join(out_dir or tmp, "demo_sharded_torch.png")
+        res, secs = run_module(["cpupathtrace_tpu_torch.demo", png, "--sharded"], 600)
+        need(res.returncode == 0, f"demo --sharded exited {res.returncode}: {res.stderr[-2000:]}")
+        demo_img = pt.read_rgb_image(png)
+    need(demo_img.shape == (256, 256, 4) and float(demo_img[..., :3].mean()) > 0.01,
+         f"demo --sharded's PNG: {demo_img.shape}")
+    found = {k: re.search(p, res.stderr) for k, p in
+             (("mesh", r"mesh \(dp, sp\) = .*"), ("rendered", r"rendered in .*Mrays/s\)"))}
+    out["demo"] = dict(seconds=secs, rc=res.returncode,
+                       image_mean=float(demo_img[..., :3].mean()),
+                       **{k: m.group(0) if m else None for k, m in found.items()})
+    return out, mesh
+
+
+def sharded_beside_render(pt, pr, box, cam, opts, mesh):
+    """Where the one-rank sharded frame's time goes beside render()'s, the
+    box at the main path's size: both timed in one interleaved loop
+    (render, sharded, sharded, render, twice), then one frame of each
+    under torch.profiler (wall, device busy, K1's device time, the other
+    kernels), and the sharded frame's host pieces timed alone (the pixel
+    grid built and copied to the card, the image copied back and
+    normalised on the host)."""
+    fns = {"render": lambda: pt.render(box, cam, opts, seed=SHARD_SEED, device="cuda"),
+           "sharded": lambda: pr.render_sharded(box, cam, opts, mesh, seed=SHARD_SEED)}
+    ms = {k: [] for k in fns}
+    for k in ("render", "sharded", "sharded", "render") * 2:
+        sync()
+        t0 = time.perf_counter()
+        fns[k]()
+        sync()
+        ms[k].append((time.perf_counter() - t0) * 1e3)
+    prof = {k: profile_run(fn, "megakernel") for k, fn in fns.items()}
+
+    def host_ms(fn, n=5):
+        fn()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        sync()
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    x, y, n = pr.pixel_coords(opts, 1, "cuda")
+    s, c = pr.render_chunk_sharded(box, cam, opts, mesh, x, y, SHARD_SEED, 16)
+    out = {k: dict(frame_ms=v, frame_median_ms=float(np.median(v))) for k, v in ms.items()}
+    for k, p in prof.items():
+        out[k].update(profiled_wall_ms=p["wall_us"] / 1e3, device_busy_ms=p["device_busy_us"] / 1e3,
+                      k1_ms=sum(v for name, v in p["top_us"].items() if "megakernel" in name) / 1e3,
+                      kernels=p["n_kernels"], top_us=p["top_us"],
+                      host_only_ms=(p["wall_us"] - p["device_busy_us"]) / 1e3)
+    out["sharded_host_pieces_ms"] = dict(
+        pixel_coords=host_ms(lambda: pr.pixel_coords(opts, 1, "cuda")),
+        image=host_ms(lambda: pr._image(s, c, n, BOX_H, BOX_W)))
+    out["gap_ms"] = out["sharded"]["frame_median_ms"] - out["render"]["frame_median_ms"]
+    return out
+
+
+def _frames(pr, pd, mesh_barrier, mesh, scene, cam, opts, counters):
+    """A sharded frame (its image and the launches of `counters`), then
+    TIMED_FRAMES timed frames, each started together by the ranks: wall ms
+    and ms in collectives (each collective timed after a card sync)."""
+    for c in counters:
+        c.launches = 0
+    img = pr.render_sharded(scene, cam, opts, mesh, seed=SHARD_SEED)
+    sync()
+    launches = [c.launches for c in counters]
+    ms, coll = [], []
+    for _ in range(TIMED_FRAMES):
+        mesh_barrier(mesh)
+        sync()
+        pd.collective_stats(reset=True)
+        t0 = time.perf_counter()
+        pr.render_sharded(scene, cam, opts, mesh, seed=SHARD_SEED)
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        coll.append(pd.collective_stats()["seconds"] * 1e3)
+    stats = pd.collective_stats(reset=True)
+    return dict(image=img, frame_ms=ms, collective_ms=coll, launches=launches,
+                collectives_per_frame=stats["calls"], collective_bytes_per_frame=stats["bytes"])
+
+
+def shared_card_ranks(rank, world, files):
+    """One of two ranks sharing the card through gloo on CUDA tensors: the
+    work of phases 33 and 34 (the elastic failover last: rank 1 leaves)."""
+    import cpupathtrace_tpu_torch as pt
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.diff.render import get_material_params
+    from cpupathtrace_tpu_torch.integrator import checkpoint as ck
+    from cpupathtrace_tpu_torch.integrator import megakernel as mk
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.ops import intersect as oi
+    from cpupathtrace_tpu_torch.parallel import distributed as pd
+    from cpupathtrace_tpu_torch.parallel import failover as pf
+    from cpupathtrace_tpu_torch.parallel import geometry as pg
+    from cpupathtrace_tpu_torch.parallel import render as pr
+    from cpupathtrace_tpu_torch.parallel import train as ptr
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh, mesh_barrier
+    from cpupathtrace_tpu_torch.scene.cache import load_scene
+    from cpupathtrace_tpu_torch.scene.scene import KRN_FIELDS
+
+    pd.time_collectives(True)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    box, cam = scenes.bench_box_scene(), scenes.bench_camera()
+    dragon = load_scene(files["dragon"])
+    meshes = {"2x1": make_render_mesh(sample_axis=1, device_type="cuda"),
+              "1x2": make_render_mesh(sample_axis=2, device_type="cuda")}
+    alone = make_render_mesh([0], device_type="cuda")
+    gp2 = pg.make_gp_mesh(device_type="cuda")
+    out = {"backend": torch.distributed.get_backend(), "device": str(dev)}
+    k1, k2 = mk.trace_megakernel, sw.bounce
+    for name, scene, opts, shape, counters in (
+            ("box", box, box_options(pt), "2x1", (k1, k2)),
+            ("box", box, box_options(pt), "1x2", (k1, k2)),
+            ("dragon", dragon, dragon_options(pt), "2x1", (k1, k2))):
+        out[f"{name}_{shape}"] = _frames(pr, pd, mesh_barrier, meshes[shape], scene, cam, opts,
+                                         counters)
+    out["twin_calls"] = mk.trace_megakernel_reference.calls + sw.bounce_reference.calls
+
+    gopts = grad_options(pt)
+    x, y = ptr.pixel_grid(gopts, 1, device=dev)
+    target = torch.zeros((x.shape[0], 4), device=dev)
+    k2.record_launches = 0
+    params = get_material_params(box)
+    loss, grads = ptr.sharded_loss_and_grad(params, box, cam, gopts, meshes["1x2"], target, x, y,
+                                            SHARD_SEED, GRAD_SPP)
+    record_launches = k2.record_launches
+    _, ms = timed(lambda: ptr.sharded_loss_and_grad(params, box, cam, gopts, meshes["1x2"],
+                                                    target, x, y, SHARD_SEED, GRAD_SPP),
+                  TIMED_FRAMES)
+    out["train"] = dict(loss=float(loss), grads={k: v.cpu().numpy() for k, v in grads.items()},
+                        record_launches=record_launches, pass_ms=ms)
+
+    # Geometry parallel: the lean 200k dragon through the wavefront.
+    lean = load_scene(files["lean"], device="cpu")
+    prep = pg.shard_scene_kernel_geometry(lean, SHARED_RANKS)
+    dopts = dragon_options(pt)
+    kt.cluster_intersect.launches = oi.dense_intersect.launches = 0
+    kt.cluster_intersect_reference.calls = oi.dense_intersect_reference.calls = 0
+    pd.collective_stats(reset=True)
+    img, ms = timed(lambda: pg.render_gp(prep, cam, dopts, gp2, seed=SHARD_SEED), 1)
+    stats = pd.collective_stats(reset=True)
+    out["gp_200k"] = dict(image=img, frame_ms=ms, k4_launches=kt.cluster_intersect.launches // 2,
+                          k5_launches=oi.dense_intersect.launches // 2,
+                          plain_calls=(kt.cluster_intersect_reference.calls
+                                       + oi.dense_intersect_reference.calls),
+                          collectives_per_frame=stats["calls"] // 2,
+                          collective_ms_per_frame=stats["seconds"] * 1e3 / 2)
+    shard = pg.scene_shard(prep, rank).to(dev)
+    rays, _ = camera_state(sw, cam.to(dev), dopts, DRAGON_SPP, SHARD_SEED)
+    o = rays.origin[:GP_CHECK_RAYS].contiguous()
+    d = rays.direction[:GP_CHECK_RAYS].contiguous()
+    t_k, p_k, v_k = kt.cluster_intersect(shard, o, d, debug_visits=True)
+    t_r, p_r, v_r = kt.cluster_intersect_reference(shard, o, d, debug_visits=True)
+    sync()
+    out["gp_200k"]["k4_shard"] = dict(
+        superclusters=int(shard.krn_cl_bounds.shape[0]), hyper_pages=int(shard.krn_sup_bounds.shape[0]),
+        t_bit_equal=bits_equal(t_k, t_r), prim_equal=bool(torch.equal(p_k, p_r)),
+        counters_equal=bool(torch.equal(v_k, v_r)), hits=int((p_k >= 0).sum()),
+        max_abs_err=max_err(t_k, t_r),
+        ms=cuda_ms(lambda: kt.cluster_intersect(shard, o, d), 5),
+        plain_ms=cuda_ms(lambda: kt.cluster_intersect_reference(shard, o, d), 1))
+    del lean, prep, shard
+
+    # The 7.2M dragon from phase 24's cache: this rank's records and
+    # cluster bounds alone go to the card.
+    full, hit = scenes.dragon_full_scene(files["cache_dir"], device="cpu")
+    prep = pg.shard_scene_kernel_geometry(full, SHARED_RANKS)
+    del full
+    sync()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    tables = {f: getattr(prep, f)[rank].to(dev) for f in KRN_FIELDS}
+    sync()
+    table_bytes = torch.cuda.max_memory_allocated(dev) - base
+    shard = dataclasses.replace(pg.scene_shard(prep, rank, gp2.get_group("gp")),
+                                **tables).to(dev)
+    del prep
+    o, d = gp_query_rays()
+    kt.cluster_intersect.launches = 0
+    t, p = oi.scene_intersect(shard, o, d)
+    sync()
+    out["gp_7p2m"] = dict(cache_hit=hit, t=t.cpu().numpy(), prim=p.cpu().numpy(),
+                          table_bytes=int(table_bytes),
+                          shard_tables_bytes=sum(int(v.numel()) * 4 for v in tables.values()),
+                          k4_launches=kt.cluster_intersect.launches,
+                          max_memory_allocated=int(torch.cuda.max_memory_allocated(dev)))
+    del shard, tables
+
+    # The elastic failover: rank 1 loses its device after chunk 2, rank 0
+    # goes on alone from the checkpoint.
+    calls = {"n": 0}
+    render_chunk = pr.render_chunk
+
+    def counting(*args, **kw):
+        calls["n"] += 1
+        return render_chunk(*args, **kw)
+
+    pr.render_chunk = counting
+    failovers = []
+
+    def flaky(done, total):
+        if rank == 1 and done == 2:
+            raise RuntimeError("simulated device loss")
+
+    t0 = time.perf_counter()
+    try:
+        st = pf.render_resumable_elastic(
+            box, cam, box_options(pt, spp=16), spp=16,
+            checkpoint_path=os.path.join(files["tmp"], "elastic.ckpt"),
+            meshes=[meshes["2x1"], alone], seed=SHARD_SEED, spp_chunk=4,
+            progress_callback=flaky, on_failover=lambda mi, e: failovers.append((mi, repr(e)[:300])))
+        out["elastic"] = dict(result="done", chunks=st.chunks_done,
+                              all_spp=bool((st.sample_count == 16).all()),
+                              image_mean=float(st.image()[..., :3].mean()))
+    except RuntimeError as e:
+        out["elastic"] = dict(result="exhausted", error=str(e)[:300])
+    out["elastic"].update(render_chunk_calls=calls["n"], failovers=failovers,
+                          seconds=time.perf_counter() - t0)
+    return out
+
+
+def nccl_card_ranks(rank, world):
+    """One rank a card under NCCL: the box at (2, 1), and the failover's
+    refusal of an NCCL mesh."""
+    import cpupathtrace_tpu_torch as pt
+    from cpupathtrace_tpu_torch.models import scenes
+    from cpupathtrace_tpu_torch.parallel import failover as pf
+    from cpupathtrace_tpu_torch.parallel import render as pr
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh
+
+    mesh = make_render_mesh(sample_axis=1, device_type="cuda")
+    box, cam = scenes.bench_box_scene(), scenes.bench_camera()
+    img, ms = timed(lambda: pr.render_sharded(box, cam, box_options(pt), mesh, seed=SHARD_SEED),
+                    TIMED_FRAMES)
+    # The failover takes gloo meshes only: under NCCL a lost peer blocks
+    # the collective until the watchdog ends the process.
+    refused = {}
+    for name, call in (("ping_mesh", lambda: pf.ping_mesh(mesh)),
+                       ("render_resumable_elastic", lambda: pf.render_resumable_elastic(
+                           box, cam, box_options(pt, spp=16), 16, "unused.ckpt", [mesh]))):
+        try:
+            call()
+            refused[name] = None
+        except ValueError as e:
+            refused[name] = str(e)
+    return dict(image=img, frame_ms=ms, device=str(torch.cuda.current_device()),
+                failover_refused=refused)
+
+
+def phase_shared_card(pt, scenes, dragon, lean, cache_dir, ch):
+    """Phases 33 and 34: two ranks sharing the card (gloo on CUDA tensors),
+    spawned once; their results held here against the serial oracles run
+    on the card in this process (see the module docstring)."""
+    import torch.distributed as dist
+
+    from cpupathtrace_tpu_torch.accel.traverse import krn_intersect
+    from cpupathtrace_tpu_torch.diff.render import get_material_params
+    from cpupathtrace_tpu_torch.parallel import distributed as pd
+    from cpupathtrace_tpu_torch.parallel import geometry as pg
+    from cpupathtrace_tpu_torch.parallel import render as pr
+    from cpupathtrace_tpu_torch.parallel import train as ptr
+    from cpupathtrace_tpu_torch.scene.cache import save_scene
+
+    build = os.path.join(ROOT, "build")
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        files = dict(dragon=os.path.join(tmp, "dragon.ptxt"), lean=os.path.join(tmp, "lean.ptxt"),
+                     cache_dir=cache_dir, tmp=tmp)
+        save_scene(dragon, files["dragon"])
+        save_scene(lean, files["lean"])
+        t0 = time.perf_counter()
+        ranks = pd.spawn_ranks(shared_card_ranks, SHARED_RANKS, "gloo", args=(files,),
+                               deadline_s=RANK_DEADLINE_S, timeout_s=RANK_TIMEOUT_S, threads=2)
+        world_s = time.perf_counter() - t0
+    label = "two ranks sharing one card (gloo on CUDA tensors): not scaling"
+    box, cam = scenes.bench_box_scene(), scenes.bench_camera()
+    shared = dict(label=label, ranks=SHARED_RANKS, backend=ranks[0]["backend"],
+                  world_seconds=world_s, cases={})
+    for key, scene, opts in (("box_2x1", box, box_options(pt)), ("box_1x2", box, box_options(pt)),
+                             ("dragon_2x1", dragon, dragon_options(pt))):
+        shape = tuple(int(v) for v in key.split("_")[1].split("x"))
+        ref = pr.render_serial(scene, cam, opts, shape, seed=SHARD_SEED, device="cuda")
+        ours = [r[key]["image"] for r in ranks]
+        need(all(np.array_equal(img, ref) for img in ours),
+             f"{key}: the two ranks' frame is not the serial oracle's")
+        plain = pt.render(scene, cam, opts, seed=SHARD_SEED + 1, device="cuda")
+        gap, se = mean_gap(ours[0], plain)
+        need(abs(gap) <= 4 * se, f"{key}: frame mean {gap} from render()'s ({se} standard error)")
+        spp = opts.max_sample_count
+        shared["cases"][key] = dict(
+            bit_equal_to_serial_oracle=True, mean_gap=gap, std_err=se,
+            launches={"k1": ranks[0][key]["launches"][0], "k2": ranks[0][key]["launches"][1]},
+            **{f"rank{i}": dict(frame_ms=r[key]["frame_ms"], collective_ms=r[key]["collective_ms"],
+                                collectives_per_frame=r[key]["collectives_per_frame"],
+                                collective_bytes_per_frame=r[key]["collective_bytes_per_frame"])
+               for i, r in enumerate(ranks)},
+            frame_median_ms=float(np.median(ranks[0][key]["frame_ms"])),
+            mrays_per_s=BOX_W * BOX_H * spp / float(np.median(ranks[0][key]["frame_ms"])) / 1e3)
+    need(all(r["twin_calls"] == 0 for r in ranks), "a rank called a twin on the card")
+    c = shared["cases"]
+    need(c["box_2x1"]["launches"]["k1"] > 0 and c["dragon_2x1"]["launches"]["k2"] > 0
+         and c["box_2x1"]["launches"]["k2"] == 0, f"sharded launches: {c}")
+
+    gopts = grad_options(pt)
+    x, y = ptr.pixel_grid(gopts, 1, device="cuda")
+    target = torch.zeros((x.shape[0], 4), device="cuda")
+    leaves = {k: v.detach().clone().requires_grad_(True)
+              for k, v in get_material_params(box).items()}
+    loss = ptr.serial_image_loss(leaves, box, cam, gopts, (1, 2), target, x, y, SHARD_SEED,
+                                 GRAD_SPP)
+    loss.backward()
+    errs = {}
+    for i, r in enumerate(ranks):
+        tr = r["train"]
+        scale = max(float(v.grad.abs().max()) for v in leaves.values())
+        err = max(float(np.abs(tr["grads"][k] - v.grad.cpu().numpy()).max())
+                  for k, v in leaves.items())
+        errs[i] = err
+        need(err <= SHARD_GRAD_RTOL * scale and abs(tr["loss"] - float(loss.detach()))
+             <= 1e-6 * abs(float(loss.detach())),
+             f"rank {i}: the sharded gradient is {err} from the serial oracle's (scale {scale})")
+    need(ranks[0]["train"]["record_launches"] > 0, "the sharded step did not run K2's record form")
+    shared["train"] = dict(shape="1x2", loss=ranks[0]["train"]["loss"],
+                           oracle_loss=float(loss.detach()), grad_max_abs_err=errs,
+                           grad_scale=scale, record_launches=ranks[0]["train"]["record_launches"],
+                           pass_ms=ranks[0]["train"]["pass_ms"])
+    e0, e1 = ranks[0]["elastic"], ranks[1]["elastic"]
+    need(e0["result"] == "done" and e0["chunks"] == 4 and e0["all_spp"]
+         and e0["render_chunk_calls"] == 5 and [f[0] for f in e0["failovers"]] == [0]
+         and e1["result"] == "exhausted" and e1["render_chunk_calls"] == 2,
+         f"elastic failover: {e0} / {e1}")
+    shared["elastic"] = dict(rank0=e0, rank1=e1)
+
+    if torch.cuda.device_count() >= 2:
+        res = pd.spawn_ranks(nccl_card_ranks, 2, "nccl", deadline_s=RANK_DEADLINE_S,
+                             timeout_s=RANK_TIMEOUT_S)
+        ref = pr.render_serial(box, cam, box_options(pt), (2, 1), seed=SHARD_SEED, device="cuda")
+        need(all(np.array_equal(r["image"], ref) for r in res), "NCCL ranks: not the oracle")
+        need(all(v is not None and "failover needs gloo" in v
+                 for r in res for v in r["failover_refused"].values()),
+             f"NCCL ranks: the failover did not refuse the NCCL mesh: {res[0]['failover_refused']}")
+        shared["nccl_rank_per_card"] = dict(ran=True, frame_ms=[r["frame_ms"] for r in res],
+                                            failover_refused=res[0]["failover_refused"])
+    else:
+        shared["nccl_rank_per_card"] = dict(ran=False, reason=f"{torch.cuda.device_count()} card")
+    line(f"33 {label}", **shared)
+
+    # 34: geometry parallel. The 1-rank render in this process's world of one.
+    gp1 = pg.make_gp_mesh(device_type="cuda")
+    need(dist.get_world_size() == 1, "phase 34's one-rank gp mesh")
+    dopts = dragon_options(pt)
+    lean_cpu = lean.to("cpu")
+    one, one_ms = timed(lambda: pg.render_gp(pg.shard_scene_kernel_geometry(lean_cpu, 1), cam,
+                                             dopts, gp1, seed=SHARD_SEED), 1)
+    g = ranks[0]["gp_200k"]
+    need(all(np.array_equal(r["gp_200k"]["image"], one) for r in ranks),
+         "the 2-rank gp render is not the 1-rank one")
+    need(np.isfinite(one).all() and bool((one[..., 3] == 1.0).all()), "gp frame")
+    need(g["k4_launches"] > 0 and g["k5_launches"] > 0 and g["plain_calls"] == 0,
+         f"the gp frame's launches: {g}")
+    for i, r in enumerate(ranks):
+        k = r["gp_200k"]["k4_shard"]
+        need(k["t_bit_equal"] and k["prim_equal"] and k["counters_equal"],
+             f"rank {i}: K4 on its shard differs from its plain version: {k}")
+    full, hit = scenes.dragon_full_scene(cache_dir, device="cuda")
+    need(hit, "phase 34's 7.2M scene was rebuilt")
+    o, d = gp_query_rays()
+    t, p = krn_intersect(full, o, d)
+    t, p = t.cpu().numpy(), p.cpu().numpy()
+    unsharded = int(full.krn_records.numel() + full.krn_cl_bounds.numel()) * 4
+    del full
+    for i, r in enumerate(ranks):
+        q = r["gp_7p2m"]
+        need(q["cache_hit"] and np.array_equal(q["t"], t) and np.array_equal(q["prim"], p),
+             f"rank {i}: the 7.2M gp query is not the unsharded K4 query")
+        need(0.45 * unsharded <= q["shard_tables_bytes"] <= 0.55 * unsharded,
+             f"rank {i}: its records and cluster bounds are {q['shard_tables_bytes']} bytes of "
+             f"{unsharded}")
+    gp = dict(
+        label="two ranks sharing one card (gloo on CUDA tensors)",
+        dragon_200k_lean=dict(
+            bit_equal_to_one_rank=True, frame_ms=[r["gp_200k"]["frame_ms"] for r in ranks],
+            one_rank_frame_ms=one_ms, k4_launches=g["k4_launches"], k5_launches=g["k5_launches"],
+            collectives_per_frame=g["collectives_per_frame"],
+            collective_ms_per_frame=[r["gp_200k"]["collective_ms_per_frame"] for r in ranks],
+            k4_shards=[r["gp_200k"]["k4_shard"] for r in ranks], image_mean=float(one[..., :3].mean())),
+        dragon_7p2m=dict(
+            rays=GP_QUERY_RAYS, bit_equal_to_unsharded_k4=True, hits=int((p >= 0).sum()),
+            unsharded_records_and_bounds_bytes=unsharded,
+            **{f"rank{i}": {k: v for k, v in r["gp_7p2m"].items() if k not in ("t", "prim")}
+               for i, r in enumerate(ranks)}))
+    line("34 geometry parallel on the card", **gp)
+    dist.destroy_process_group()
+    return shared, gp
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
@@ -3338,13 +3887,20 @@ def main():
         line("30 the inverse-rendering example", **report["example"])
         report["frame_budget"] = phase_frame_budget(pt, sw, mk, kt, scenes, dragon, cache_dir,
                                                     args.out, best_ms)
+        # The sharded paths: one rank, then two ranks sharing the card.
+        report["sharded_one_rank"], _ = phase_sharded_one_rank(pt, mk, scenes, ck,
+                                                               report["main_path"], args.out)
+        line("32 sharded render, one rank (NCCL, a world of one)", **report["sharded_one_rank"])
+        report["sharded_shared"], report["gp"] = phase_shared_card(pt, scenes, dragon, lean,
+                                                                   cache_dir, ck)
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     if parent_report:
         # Phases 5-30 run the parent's work on the parent's inputs: every
         # bound they print is the parent's number.
         phases = [k for k in report if k not in ("device", "nvidia_smi", "torch", "cuda", "build",
-                                                  "kernel_vs_twin", "golden", "frame_budget")]
+                                                  "kernel_vs_twin", "golden", "frame_budget",
+                                                  "sharded_one_rank", "sharded_shared", "gp")]
         report["bounds_vs_parent"] = bounds_against_parent(report, parent_report, phases)
         line("31 bounds of phases 5-30 against the parent's", **report["bounds_vs_parent"])
         need(not report["bounds_vs_parent"]["differ"] and report["bounds_vs_parent"]["compared"],
@@ -3380,6 +3936,15 @@ def main():
         return {k: d[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by")}
 
     obj = report["obj_dragon"]
+    one, shared, gp = report["sharded_one_rank"], report["sharded_shared"], report["gp"]
+
+    def shared_row(case):
+        """A two-rank case of phase 33 for its kernel's row."""
+        c = shared["cases"][case]
+        return dict(label=shared["label"], launches=c["launches"],
+                    frame_median_ms=c["frame_median_ms"], mrays_per_s=c["mrays_per_s"],
+                    collective_ms=[c[f"rank{i}"]["collective_ms"] for i in range(SHARED_RANKS)],
+                    bit_equal_to_serial_oracle=c["bit_equal_to_serial_oracle"])
 
     def obj_figures(route, kernel):
         """A kernel's readings on the OBJ-loaded 200k dragon (phase 28)."""
@@ -3403,6 +3968,10 @@ def main():
         "lane_use": main_path["refill"]["lane_use"],
         "occupancy": main_path["refill"]["blocks_per_sm"],
         "budget": {"box": fb["box/k1"]["budget"]},
+        "sharded": {"one_rank": {k: one[k] for k in ("frame_median_ms", "mrays_per_s",
+                                                     "k1_launches", "bit_equal")},
+                    "two_ranks_sharing_the_card": {k: shared_row(k) for k in
+                                                   ("box_2x1", "box_1x2")}},
     }, {
         "name": "bounce", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -3420,6 +3989,7 @@ def main():
         "dragon_full": full_figures("sorted", ff["sorted"]["k2"], "k2"),
         "obj_dragon": obj_figures("sorted", "k2"),
         "budget": {k: fb[f"{k}/k2"]["budget"] for k in ("dragon_200k", "dragon_7p2m")},
+        "sharded": {"two_ranks_sharing_the_card": {"dragon_2x1": shared_row("dragon_2x1")}},
     }, {
         "name": "bounce_records", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/bounce.cu",
@@ -3428,6 +3998,8 @@ def main():
         "max_abs_err": max(report["records"]["max_abs_err"], krec["max_abs_err"],
                            krec["records_max_abs_err"]),
         **figures(krec), "library_ms": None, "kernel_ms": krec["kernel_ms"],
+        "sharded": {"train_1x2_sharing_the_card": {k: shared["train"][k] for k in (
+            "record_launches", "pass_ms", "grad_max_abs_err", "grad_scale")}},
     }, {
         "name": "cluster_query", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/cluster_query.cu",
@@ -3438,6 +4010,9 @@ def main():
         "max_abs_err": query["max_abs_err"],
         **figures(query), "best_ms": query["best_ms"], "library_ms": None,
         "frame_device_ms": lean["profile"]["kernels"]["cluster_query_kernel"]["us"] / 1e3,
+        "gp": {"dragon_200k_lean_2_ranks": {k: gp["dragon_200k_lean"][k] for k in (
+            "k4_launches", "frame_ms", "k4_shards")},
+               "dragon_7p2m_2_ranks": gp["dragon_7p2m"]},
     }, {
         "name": "dense_intersect", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/dense_query.cu",
@@ -3445,6 +4020,7 @@ def main():
         "launches": grad["wavefront"]["counts"]["k5"],
         "max_abs_err": k5["max_abs_err"],
         **figures(k5), "best_ms": k5["best_ms"], "library_ms": None,
+        "gp": {"dragon_200k_lean_2_ranks": {"k5_launches": gp["dragon_200k_lean"]["k5_launches"]}},
     }, {
         "name": "binned_cand", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/binned_cand.cu",
@@ -3515,7 +4091,7 @@ def main():
         **figures(r), "library_ms": r["library_ms"],
     } for form, r in xp["dot_formulations"].items()]}
     report["seconds"] = time.perf_counter() - t_start
-    line("32 total", seconds=report["seconds"])
+    line("35 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

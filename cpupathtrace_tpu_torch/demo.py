@@ -9,6 +9,12 @@ runs the kernels' plain versions on the CPU.
 Usage: python -m cpupathtrace_tpu_torch.demo [output.png] [--width N]
            [--height N] [--spp-min N] [--spp-max N]
            [--dragon path/to/xyzrgb_dragon.obj] [--no-dragon] [--cpu]
+           [--sharded]
+
+--sharded renders through parallel.render_sharded_adaptive over every rank
+of the world: under `torchrun --nproc-per-node=N`, or alone as a world of
+one. Rank 0 writes the PNG. The ranks run NCCL on the card (a rank per
+card) and gloo with --cpu.
 """
 from __future__ import annotations
 
@@ -31,13 +37,10 @@ def main(argv=None):
                    help="triangle count of the procedural dragon stand-in")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--sharded", action="store_true",
-                   help="fixed-spp render over all local devices (not ported yet)")
+                   help="adaptive render sharded over every rank of the world")
     p.add_argument("--cpu", action="store_true",
                    help="render on the CPU with the kernels' plain versions")
     args = p.parse_args(argv)
-    if args.sharded:
-        print("--sharded: the sharded render (parallel/) is not ported yet", file=sys.stderr)
-        return 2
 
     import torch
 
@@ -77,9 +80,35 @@ def main(argv=None):
         print(f"\r[{bar:<50}] {done}/{total}", end="", file=sys.stderr, flush=True)
 
     t0 = time.time()
-    img = pt.render(scene, camera, options, seed=args.seed, progress_callback=progress,
-                    device=device)
+    rank = 0
+    if args.sharded:
+        # The adaptive min / max-spp contract over the mesh: render()'s
+        # stopping rule, chunks sharded (dp over pixels, sp over samples).
+        import torch.distributed as dist
+
+        from cpupathtrace_tpu_torch.parallel import (
+            adaptive_sample_axis,
+            make_render_mesh,
+            render_sharded_adaptive,
+        )
+        from cpupathtrace_tpu_torch.parallel.distributed import initialize
+
+        initialize(backend="gloo" if args.cpu else "nccl")
+        world = dist.get_world_size() if dist.is_initialized() else 1
+        mesh = make_render_mesh(sample_axis=adaptive_sample_axis(options, world),
+                                device_type=device)
+        rank = dist.get_rank()
+        img = render_sharded_adaptive(scene, camera, options, mesh, seed=args.seed,
+                                      progress_callback=progress if rank == 0 else None)
+        if rank == 0:
+            print(f"mesh (dp, sp) = {tuple(mesh.shape)} over {world} rank(s)", file=sys.stderr)
+        dist.destroy_process_group()
+    else:
+        img = pt.render(scene, camera, options, seed=args.seed, progress_callback=progress,
+                        device=device)
     print(file=sys.stderr)
+    if rank != 0:
+        return 0
     dt = time.time() - t0
     rays = args.width * args.height * args.spp_max
     print(f"rendered in {dt:.1f}s (<= {rays/dt/1e6:.2f} Mrays/s)", file=sys.stderr)

@@ -133,11 +133,33 @@ def render_resumable(
     `chunk_seed(seed, c)`, so resumed and uninterrupted renders are bit for
     bit equal. A checkpoint is saved every `checkpoint_every` chunks and
     at the end; a checkpoint of another config (width, height, spp,
-    spp_chunk, seed) or fingerprint raises ValueError. `mesh` (the JAX
-    package's sharded form) waits for the port of `parallel/`."""
+    spp_chunk, seed) or fingerprint raises ValueError.
+
+    With `mesh` (a (dp, sp) mesh, parallel/mesh.py) each chunk renders
+    sharded over it (`parallel.render.render_chunk_sharded`): chunk c's
+    shards draw from shard_seed(chunk_seed(seed, c), dp_i, sp_i), every
+    rank of the mesh calls this with the same arguments and gets the same
+    state, and the mesh's rank (0, 0) writes the checkpoint of the
+    all-reduced film (the others wait for it). Resumed on the same mesh
+    shape the render is bit-equal to an uninterrupted one; on another shape
+    (an elastic restart) the remaining chunks draw from that shape's
+    streams, still an unbiased render. The device is the mesh's."""
+    writer = True
     if mesh is not None:
-        raise NotImplementedError("render_resumable(mesh=...): parallel/ is not ported yet")
-    dev = resolve_device(device)
+        from ..parallel.mesh import mesh_barrier, mesh_coords, mesh_device, mesh_dims
+        from ..parallel.render import render_chunk_sharded
+
+        dp, sp = mesh_dims(mesh)
+        chunk = min(spp_chunk, spp)
+        if chunk % sp != 0:
+            raise ValueError(f"spp_chunk {chunk} not divisible by the mesh's "
+                             f"sample-parallel axis sp={sp}")
+        if spp % chunk != 0 and (spp % chunk) % sp != 0:
+            raise ValueError(f"final chunk of {spp % chunk} spp not divisible by sp={sp}")
+        dev = mesh_device(mesh)
+        writer = mesh_coords(mesh) == (0, 0)
+    else:
+        dev = resolve_device(device)
     scene = scene.to(dev)
     camera = camera.to(dev)
     w, h = options.image_width, options.image_height
@@ -176,22 +198,38 @@ def render_resumable(
 
     xg, yg = np.meshgrid(np.arange(w, dtype=np.float32), np.arange(h, dtype=np.float32))
     x_cam, y_cam = pixel_camera_coords(options, xg.ravel(), yg.ravel())
+    n = x_cam.size
+    if mesh is not None:
+        pad = (-n) % dp
+        x_cam = np.concatenate([x_cam, np.zeros(pad, np.float32)])
+        y_cam = np.concatenate([y_cam, np.zeros(pad, np.float32)])
     x_cam = torch.from_numpy(np.ascontiguousarray(x_cam, np.float32)).to(dev)
     y_cam = torch.from_numpy(np.ascontiguousarray(y_cam, np.float32)).to(dev)
 
+    def save():
+        if writer:
+            save_checkpoint(checkpoint_path, state)
+        if mesh is not None:
+            mesh_barrier(mesh)
+
     for c in range(state.chunks_done, n_chunks):
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(chunk_seed(seed, c))
         chunk = min(spp_chunk, spp - c * spp_chunk)
-        s, cnt = render_chunk(scene, camera, options, x_cam, y_cam, generator, chunk)
+        if mesh is not None:
+            s, cnt = render_chunk_sharded(scene, camera, options, mesh, x_cam, y_cam,
+                                          chunk_seed(seed, c), chunk)
+            s, cnt = s[:n], cnt[:n]
+        else:
+            generator = torch.Generator(device=dev)
+            generator.manual_seed(chunk_seed(seed, c))
+            s, cnt = render_chunk(scene, camera, options, x_cam, y_cam, generator, chunk)
         state.pixel_sum += s.detach().cpu().numpy().astype(np.float64)
         state.sample_count += cnt.cpu().numpy().astype(np.int64)
         state.chunks_done = c + 1
         if checkpoint_path and (c + 1) % checkpoint_every == 0:
-            save_checkpoint(checkpoint_path, state)
+            save()
         if progress_callback is not None:
             progress_callback(c + 1, n_chunks)
 
     if checkpoint_path:
-        save_checkpoint(checkpoint_path, state)
+        save()
     return state

@@ -271,8 +271,16 @@ def _candidate_select(stats_means, stats_valid, cbc, fallback, min_count):
 
 def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
                 x_cam: torch.Tensor, y_cam: torch.Tensor,
-                generator: torch.Generator, pixel_order=None) -> torch.Tensor:
-    """Adaptive render of one pixel tile; returns [P,4] pixel values."""
+                generator: torch.Generator, pixel_order=None,
+                chunk_fns=None) -> torch.Tensor:
+    """Adaptive render of one pixel tile; returns [P,4] pixel values.
+
+    `chunk_fns`, when given, is a pair `(single, batched)` replacing the
+    chunk renderers (film.py:346-390): `single(generator, spp) -> (sum
+    [P,4], collected [P])` and `batched(generator, spp_batch, kb) ->
+    ([K,P,4], [K,P])`, each handed this call's `generator`, so the
+    sharded driver (parallel/render.py) runs the same stopping rule over
+    sharded launches."""
     p = x_cam.shape[0]
     dev = x_cam.device
     stats, cbc, check = adaptive_constants(options)
@@ -289,9 +297,15 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
     stats_means = torch.zeros((p, max(n_full, 1), 4), device=dev)
     stats_valid = torch.zeros((p, max(n_full, 1)), dtype=torch.bool, device=dev)
 
-    def single(spp):
-        return render_chunk(scene, camera, options, x_cam, y_cam, generator, spp,
-                            pixel_order)
+    if chunk_fns is None:
+        def single(k, spp):
+            return render_chunk(scene, camera, options, x_cam, y_cam, k, spp, pixel_order)
+
+        def batched(k, spp_batch, kb):
+            return render_chunk_batched(scene, camera, options, x_cam, y_cam, k, spp_batch,
+                                        kb, pixel_order)
+    else:
+        single, batched = chunk_fns
 
     fuse = max(1, int(os.environ.get("PTX_ADAPTIVE_FUSE", str(ADAPTIVE_FUSE))))
     # The all-frozen flag of launch L is read only after launch L + lag is
@@ -305,13 +319,10 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
     for _ in range(n_launches):
         kb = min(fuse, n_full - c0)
         if kb == 1:
-            s, coll = single(stats)
+            s, coll = single(generator, stats)
             s_b, coll_b = s[None], coll[None]
         else:
-            s_b, coll_b = render_chunk_batched(
-                scene, camera, options, x_cam, y_cam, generator, stats, kb,
-                pixel_order,
-            )
+            s_b, coll_b = batched(generator, stats, kb)
         (pixel_sum, n_collected, frozen, accepted, remaining,
          stats_means, stats_valid, flag) = _apply_stats_batches(
             s_b, coll_b, c0, pixel_sum, n_collected, frozen, accepted,
@@ -325,7 +336,7 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
                 break
 
     if remainder > 0:
-        s, coll = single(remainder)
+        s, coll = single(generator, remainder)
         live = ~frozen
         pixel_sum = torch.where(live[:, None], pixel_sum + s, pixel_sum)
         n_collected = torch.where(live, n_collected + coll, n_collected)

@@ -60,6 +60,15 @@ def chunk_seed(seed: int, chunk: int) -> int:
     return (int(hi) << 32) | int(lo)
 
 
+def shard_seed(seed: int, dp_i: int, sp_i: int) -> int:
+    """The torch.Generator seed of shard (dp_i, sp_i) of a sharded render
+    with `seed` (parallel/render.py), the port's counterpart of JAX's
+    fold_in(fold_in(key, dp_i), sp_i): `chunk_seed` folded twice. It
+    depends on its arguments alone; distinct shards of one seed get
+    distinct seeds (each fold is a bijection of its index below 2^32)."""
+    return chunk_seed(chunk_seed(seed, dp_i), sp_i)
+
+
 def seed_rng(seed, ray_index: torch.Tensor, block_rows: int = BLOCK_ROWS) -> torch.Tensor:
     """Initial state of global ray `ray_index` (int64) for int32 `seed`
     (a Python int or a 1-element tensor) in ray blocks of `block_rows` x

@@ -480,7 +480,29 @@ def query_tables(scene: SceneData):
 
 def _use_krn(scene: SceneData) -> bool:
     return scene.has_kernel_records and (
-        scene.lean or os.environ.get("PTX_WAVEFRONT_KRN", "0") == "1")
+        scene.gp_group is not None or scene.lean
+        or os.environ.get("PTX_WAVEFRONT_KRN", "0") == "1")
+
+
+# The prim a miss carries into the combine: no prim id reaches it.
+_NO_PRIM = torch.iinfo(torch.int64).max
+
+
+def gp_combine(t, p, group):
+    """Combine per-shard nearest hits over the geometry-parallel group
+    `group` (parallel/geometry.py; ops/intersect.py:511-524): misses
+    travel as +inf, the winning t is the MIN over the shards, and among
+    the shards' hits at that t the smallest prim wins (a MIN over int64).
+    Two all_reduces; every rank returns the same (t, prim), -1 / -1 on a
+    miss."""
+    from ..core.collectives import all_reduce
+
+    t_c = torch.where(p >= 0, t, float("inf"))
+    all_reduce(t_c, "min", group)
+    cand = torch.where((p >= 0) & (t <= t_c), p, _NO_PRIM)
+    all_reduce(cand, "min", group)
+    hit = torch.isfinite(t_c)
+    return torch.where(hit, t_c, -1.0), torch.where(hit, cand, -1)
 
 
 def scene_intersect(scene: SceneData, o, d, t_max=None, live=None, any_hit: bool = False,
@@ -491,18 +513,24 @@ def scene_intersect(scene: SceneData, o, d, t_max=None, live=None, any_hit: bool
     may return any result (the binned intersectors skip them). `any_hit`:
     the hit need not be the nearest (the binned intersectors stop early).
     `tables`: query_tables(scene), packed once by a caller that queries
-    many times."""
+    many times. A scene carrying a geometry-parallel group (`gp_group`)
+    holds one shard of the clusters: its local hits are combined over the
+    group (`gp_combine`), as JAX does at :469, :484 and :506."""
     if scene.accel == "binned":
         from ..accel.traverse import binned_intersect, krn_intersect
 
         if _use_krn(scene):
-            return krn_intersect(scene, o, d, t_max=t_max, live=live, any_hit=any_hit,
+            t, p = krn_intersect(scene, o, d, t_max=t_max, live=live, any_hit=any_hit,
                                  tables=tables)
-        if scene.lean:
+        elif scene.lean:
             raise ValueError("lean-built scene without kernel records: rebuild with "
                              "lean=False for the wavefront")
-        return binned_intersect(scene, o, d, t_max=t_max, live=live, any_hit=any_hit,
-                                tables=tables)
+        else:
+            t, p = binned_intersect(scene, o, d, t_max=t_max, live=live, any_hit=any_hit,
+                                    tables=tables)
+        if scene.gp_group is not None:
+            t, p = gp_combine(t, p, scene.gp_group)
+        return t, p
     if scene.accel == "sweep":
         t, p = sweep_intersect(scene, o, d, tables=tables)
     elif scene.accel == "cluster":
@@ -515,4 +543,6 @@ def scene_intersect(scene: SceneData, o, d, t_max=None, live=None, any_hit: bool
         miss = (t < 0.0) | (t >= t_max)
         t = torch.where(miss, -1.0, t)
         p = torch.where(miss, -1, p)
+    if scene.gp_group is not None:
+        t, p = gp_combine(t, p, scene.gp_group)
     return t, p

@@ -35,7 +35,7 @@ import numpy as np
 import torch
 
 from ..core.config import resolve_device
-from .scene import STATIC_FIELDS, SceneData
+from .scene import GP_FIELDS, STATIC_FIELDS, SceneData
 
 _MAGIC = b"PTXTORCH"
 # Bump when the SceneData field set or a table's layout changes.
@@ -53,7 +53,7 @@ SLICE_BYTES = 256 << 20
 
 META_FIELDS = STATIC_FIELDS + ("bvh_depth",)
 ARRAY_FIELDS = tuple(f.name for f in dataclasses.fields(SceneData)
-                     if f.name not in META_FIELDS)
+                     if f.name not in META_FIELDS + GP_FIELDS)
 
 
 def _numpy_dtype(dtype: torch.dtype) -> np.dtype:

@@ -189,6 +189,12 @@ class SceneData:
     bvh_depth: int = 1  # depth of the per-primitive BVH
     # Only the megakernel tables were packed (binned scenes, build(lean=True)).
     lean: bool = False
+    # Geometry parallelism (parallel/geometry.py): the shard count the
+    # cluster tables were prepared for (0: not prepared), and, on a rank
+    # that holds one shard, the process group whose ranks hold the others
+    # (scene_intersect combines their hits over it; None: no combine).
+    gp_shards: int = 0
+    gp_group: object = None
 
     @property
     def n_prims(self) -> int:
@@ -223,6 +229,8 @@ class SceneData:
 
 
 TENSOR_FIELDS = ARRAY_FIELDS + KRN_FIELDS + CLUSTER_FIELDS + BVH_FIELDS + TRV_FIELDS
+# The geometry-parallel fields: neither tensors nor saved with the scene.
+GP_FIELDS = ("gp_shards", "gp_group")
 
 
 def _placeholder_tiers():

@@ -277,8 +277,32 @@ def test_fingerprint_sees_every_tensor_element():
 
 
 def test_mesh_waits_for_the_parallel_port():
-    with pytest.raises(NotImplementedError, match="parallel"):
-        _resumable(*_setup(), spp=4, spp_chunk=4, mesh=object())
+    """parallel/ is ported: with a mesh of one rank (a world of one in this
+    process) chunk c renders through render_chunk_sharded, from
+    shard_seed(chunk_seed(seed, c), 0, 0). (tests/test_torch_failover.py
+    runs it on two ranks.)"""
+    import torch.distributed as dist
+
+    from cpupathtrace_tpu_torch.integrator.rng import shard_seed
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh
+
+    assert not dist.is_initialized()
+    try:
+        mesh = make_render_mesh(device_type=CPU)
+        scene, cam, opts = _setup()
+        state = tck.render_resumable(scene, cam, opts, spp=8, seed=2, spp_chunk=4, mesh=mesh)
+        x, y = (torch.from_numpy(np.ascontiguousarray(a, np.float32)) for a in
+                tck.pixel_camera_coords(opts, *(g.ravel() for g in np.meshgrid(
+                    np.arange(8, dtype=np.float32), np.arange(8, dtype=np.float32)))))
+        want = np.zeros((64, 4))
+        for c in range(2):
+            g = torch.Generator()
+            g.manual_seed(shard_seed(chunk_seed(2, c), 0, 0))
+            want += tck.render_chunk(scene, cam, opts, x, y, g, 4)[0].numpy().astype(np.float64)
+        np.testing.assert_array_equal(state.pixel_sum, want)
+        assert state.chunks_done == 2 and (state.sample_count == 8).all()
+    finally:
+        dist.destroy_process_group()
 
 
 def test_resumable_image_matches_jax():

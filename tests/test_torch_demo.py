@@ -89,9 +89,29 @@ def test_demo_writes_a_small_png(tmp_path):
     assert img.shape == (8, 8, 4) and np.isfinite(img).all()
 
 
-def test_demo_sharded_is_refused(capsys):
-    assert demo.main(["--sharded", "--cpu"]) != 0
-    assert "parallel/" in capsys.readouterr().err
+def test_demo_sharded_is_refused(tmp_path):
+    """--sharded renders now (below); without --cpu it runs on the card,
+    and with no card it raises rather than falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        demo.main([str(tmp_path / "x.png"), "--sharded", "--no-dragon", "--width", "8",
+                   "--height", "8"])
+
+
+def test_demo_sharded_renders_a_png_as_a_world_of_one(tmp_path):
+    """--sharded without a launcher: a world of one on the CPU (gloo),
+    through parallel.render_sharded_adaptive."""
+    out = tmp_path / "sharded.png"
+    res = subprocess.run(
+        [sys.executable, "-m", "cpupathtrace_tpu_torch.demo", str(out), "--width", "8",
+         "--height", "8", "--spp-min", "4", "--spp-max", "8", "--max-depth", "4",
+         "--no-dragon", "--cpu", "--sharded"],
+        cwd=ROOT, capture_output=True, text=True, timeout=180)
+    assert res.returncode == 0, res.stderr
+    assert "mesh (dp, sp) = (1, 1) over 1 rank(s)" in res.stderr
+    img = read_rgb_image(str(out))
+    assert img.shape == (8, 8, 4) and np.isfinite(img).all() and img[..., :3].mean() > 0
 
 
 def test_demo_defaults_to_the_card(tmp_path):

@@ -59,12 +59,29 @@ def test_sources_found():
     assert {"native/__init__.py", "demo.py", "examples/inverse_render.py"} <= rel, rel
     # ... and profiling and the roofline.
     assert {"utils/profiling.py", "utils/roofline.py"} <= rel, rel
+    # ... and the sharded paths and their scaling harness.
+    assert {"parallel/__init__.py", "parallel/mesh.py", "parallel/render.py",
+            "parallel/geometry.py", "parallel/train.py", "parallel/distributed.py",
+            "parallel/failover.py", "experiments/bench_scaling.py"} <= rel, rel
 
 
 @pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
 def test_no_jax_imports(path):
     bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
     assert not bad, (path, bad)
+
+
+def test_top_level_import_leaves_parallel_out():
+    """As the JAX package's __init__ does not import parallel/, the port's
+    does not: a plain import never loads the sharded paths."""
+    import subprocess
+    import sys
+
+    code = ("import sys, cpupathtrace_tpu_torch; "
+            "print(any(m.startswith('cpupathtrace_tpu_torch.parallel') for m in sys.modules))")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+                         timeout=120)
+    assert out.returncode == 0 and out.stdout.strip() == "False", out.stderr
 
 
 def test_public_names_follow_the_jax_package():

@@ -747,3 +747,312 @@ def ablation_values(setting):
     import; None: no switch."""
     ablate, skip = ABLATE_SETTINGS[setting] if setting else ("", "")
     return frozenset(x for x in ablate.split(",") if x), skip == "1"
+
+
+# ---------------------------------------------------------------------------
+# The sharded paths (cpupathtrace_tpu_torch/parallel/): the bodies of the
+# gloo ranks that tests/test_torch_parallel.py, test_torch_geometry_parallel.py
+# and test_torch_failover.py spawn (parallel.distributed.spawn_ranks). They
+# import the port only, so a rank starts without JAX.
+# ---------------------------------------------------------------------------
+
+# (width, height, min spp, max spp, max_depth)
+PAR_FIXED = (16, 13, 4, 4, 6)  # the sharded renders against the serial oracle
+PAR_ADAPTIVE = (16, 13, 8, 16, 6)
+PAR_SEED = 5
+PAR_SHAPES = ((2, 1), (1, 2), (2, 2), (1, 4))
+GATHER_H = 13  # an odd height, gathered over 2 and 3 ranks
+TRAIN_OPTS = (8, 8, 4, 4, 4)
+TRAIN_KEY, TRAIN_SPP, TRAIN_LR = 7, 4, 0.5
+GP_RAYS = 512
+GP_OPTS = (12, 12, 4, 4, 6)
+GP_SEED = 3
+
+
+def par_options(t):
+    from cpupathtrace_tpu_torch import RenderOptions
+
+    w, h, lo, hi, depth = t
+    return RenderOptions(w, h, lo, hi, epsilon=1e-3, max_depth=depth)
+
+
+def par_box():
+    from cpupathtrace_tpu_torch.models.scenes import bench_box_scene, bench_camera
+
+    return bench_box_scene(device=CPU), bench_camera(device=CPU)
+
+
+def inverse_setup():
+    """The inverse-rendering example's scene (white box, red wall,
+    emissive panel) at TRAIN_OPTS, its target image [P, 4] (a 32-spp
+    render of the true materials, the same in every process) and the
+    perturbed start (the red wall's diffuse grey)."""
+    import cpupathtrace_tpu_torch as pt
+    from cpupathtrace_tpu_torch.diff.render import get_material_params
+    from cpupathtrace_tpu_torch.parallel.render import render_chunk_serial
+    from cpupathtrace_tpu_torch.parallel.train import pixel_grid
+    from cpupathtrace_tpu_torch.scene.geometry import make_plane
+
+    b = pt.SceneBuilder()
+    white = b.add_material(diffuse=(1, 1, 1, 1))
+    red = b.add_material(diffuse=(0.9, 0.15, 0.15, 1))
+    light = b.add_material(diffuse=(1, 1, 1, 1), emission=(1.0, 0.9, 0.7, 1))
+    b.add_triangles(make_plane((1, -1, -1), (-1, -1, 1), True), white)
+    b.add_triangles(make_plane((-1, 1, -1), (1, 1, 1), True), white)
+    b.add_triangles(make_plane((-0.25, 0.99, -0.25), (0.25, 0.99, 0.25), True), light)
+    b.add_triangles(make_plane((-1, -1, -1), (1, 1, -1), True), white)
+    b.add_triangles(make_plane((-1, -1, -1), (-1, 1, 1), True), white)
+    b.add_triangles(make_plane((1, -1, 1), (-1, 1, 1), True), red)
+    b.add_triangles(make_plane((1, -1, 1), (1, 1, -1), True), white)
+    scene = b.build(device=CPU)
+    cam = pt.make_camera((0, 0, 0), (0, 0, 0.9), (0, 1, 0), 1.0, 1.0, 1.0, device=CPU)
+    opts = par_options(TRAIN_OPTS)
+    x, y = pixel_grid(opts, 1, device=CPU)
+    s, c = render_chunk_serial(scene, cam, opts, (1, 1), x, y, 99, 32)
+    target = s / c.clamp_min(1)[:, None]
+    init = {k: v.clone() for k, v in get_material_params(scene).items()}
+    init["mat_diffuse"][red] = torch.tensor([0.5, 0.5, 0.5, 1.0])
+    return scene, cam, opts, target, init
+
+
+def _errors(calls):
+    out = {}
+    for name, fn in calls.items():
+        try:
+            fn()
+            out[name] = None
+        except ValueError as e:
+            out[name] = str(e)
+    return out
+
+
+def parallel_ranks(rank, world, fixed_opts, adaptive_opts, frames):
+    """One rank of a world of 4: the box at every shape of PAR_SHAPES and
+    adaptive at (2, 1), `frames` frames at `fixed_opts` and
+    `adaptive_opts` for the statistics, the divisibility errors,
+    gather_image over 2 and 3 ranks, and the training step at (1, 2) and
+    (2, 1)."""
+    import torch.distributed as dist
+
+    from cpupathtrace_tpu_torch.parallel import distributed as pd
+    from cpupathtrace_tpu_torch.parallel import render as pr
+    from cpupathtrace_tpu_torch.parallel import train as ptr
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh
+
+    from cpupathtrace_tpu_torch.integrator.megakernel import trace_megakernel_reference
+
+    box, cam = par_box()
+    out = {"fixed": {}, "k1_twin_calls": {}}
+    meshes = {s: make_render_mesh(None if s[0] * s[1] == world else [0, 1], s[1], CPU)
+              for s in PAR_SHAPES}
+    for shape, m in meshes.items():
+        if m.get_coordinate() is not None:
+            trace_megakernel_reference.calls = 0
+            out["fixed"][shape] = pr.render_sharded(box, cam, par_options(PAR_FIXED), m,
+                                                    seed=PAR_SEED)
+            out["k1_twin_calls"][shape] = trace_megakernel_reference.calls
+    if rank < 2:
+        out["adaptive"] = pr.render_sharded_adaptive(box, cam, par_options(PAR_ADAPTIVE),
+                                                     meshes[(2, 1)], seed=3)
+    fo, ao = par_options(fixed_opts), par_options(adaptive_opts)
+    am = make_render_mesh(None, pr.adaptive_sample_axis(ao, world), CPU)
+    out["stat_mesh"] = (tuple(meshes[(2, 2)].shape), tuple(am.shape))
+    out["stat_fixed"] = np.stack([pr.render_sharded(box, cam, fo, meshes[(2, 2)], seed=s)
+                                  for s in range(frames)])
+    out["stat_adaptive"] = np.stack([pr.render_sharded_adaptive(box, cam, ao, am, seed=s)
+                                     for s in range(frames)])
+
+    m22 = meshes[(2, 2)]
+    x, y = ptr.pixel_grid(fo, 2, device=CPU)
+    out["errors"] = _errors({
+        "pixels": lambda: pr.render_chunk_sharded(box, cam, fo, m22, x[:-1], y[:-1], 0, 4),
+        "spp": lambda: pr.render_chunk_sharded(box, cam, fo, m22, x, y, 0, 3),
+        "stats": lambda: pr.render_chunk_batched_sharded(box, cam, fo, m22, x, y, 0, 3, 2),
+        "adaptive": lambda: pr.render_sharded_adaptive(box, cam, par_options((16, 13, 4, 8, 6)),
+                                                       m22),
+    })
+
+    rows = np.arange(GATHER_H * 5 * 4, dtype=np.float32).reshape(GATHER_H, 5, 4) + 0.5
+    out["gather"] = {}
+    for p in (2, 3):
+        group = dist.new_group(list(range(p)))
+        if rank < p:
+            lo, hi = pd.host_local_rows(GATHER_H, rank, p)
+            out["gather"][p] = (
+                (lo, hi), pd.gather_image(torch.from_numpy(rows[lo:hi]), GATHER_H, group).numpy(),
+                pd.gather_image(rows[lo:hi], GATHER_H, group))
+
+    if rank < 2:
+        scene, icam, opts, target, init = inverse_setup()
+        out["train"] = {}
+        for shape in ((1, 2), (2, 1)):
+            xs, ys = ptr.pixel_grid(opts, shape[0], device=CPU)
+            loss, grads = ptr.sharded_loss_and_grad(init, scene, icam, opts, meshes[shape],
+                                                    target, xs, ys, TRAIN_KEY, TRAIN_SPP)
+            out["train"][shape] = (float(loss), {k: v.numpy() for k, v in grads.items()})
+        m12 = meshes[(1, 2)]
+        xs, ys = ptr.pixel_grid(opts, 1, device=CPU)
+        params, losses = init, []
+        for _ in range(3):
+            params, loss = ptr.train_step_sharded(params, scene, icam, opts, m12, target, xs,
+                                                  ys, TRAIN_KEY, TRAIN_SPP, lr=TRAIN_LR)
+            losses.append(float(loss))
+        losses.append(float(ptr.sharded_image_loss(params, scene, icam, opts, m12, target, xs,
+                                                   ys, TRAIN_KEY, TRAIN_SPP).detach()))
+        out["steps"] = (losses, min(float(v.min()) for v in params.values()))
+    return out
+
+
+def gp_rays(n=GP_RAYS, seed=0):
+    """JAX's tests/test_geometry_parallel.py rays: origins inside the box,
+    uniform directions."""
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9, 0.9, (n, 3)).astype(np.float32)
+    d = rng.normal(size=(n, 3)).astype(np.float32)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def gp_combine_inputs(shards=4, n=96, seed=11):
+    """Per-shard (t [shards, n] f32, prim [shards, n] i32): hits, misses
+    (-1, -1), rays every shard misses, and rays whose least t two shards
+    share with different prims."""
+    rng = np.random.default_rng(seed)
+    t = rng.uniform(0.1, 4.0, (shards, n)).astype(np.float32)
+    p = rng.integers(0, 5000, (shards, n)).astype(np.int32)
+    miss = rng.random((shards, n)) < 0.3
+    miss[:, :8] = True  # every shard misses
+    t[:, 8:24] = 0.05  # a tie on the least t ...
+    p[:, 8:24] = rng.integers(0, 5000, (shards, 16))  # ... with different prims
+    miss[:, 8:24] = False
+    miss[0, 8:16] = True  # ties among the other shards only
+    t = np.where(miss, -1.0, t).astype(np.float32)
+    p = np.where(miss, -1, p).astype(np.int32)
+    return t, p
+
+
+def gp_ranks(rank, world):
+    """One rank of a world of 4: the gp query (nearest, any-hit with
+    t_max) of both paths at 4 and 2 shards, the gp renders at 2 shards and
+    (rank 0) at 1, and gp_combine on gp_combine_inputs."""
+    from cpupathtrace_tpu_torch.models.scenes import bench_camera, bench_dragon_scene
+    from cpupathtrace_tpu_torch.ops.intersect import gp_combine, scene_intersect
+    from cpupathtrace_tpu_torch.parallel import geometry as pg
+
+    o, d = (torch.from_numpy(a) for a in gp_rays())
+    lim = torch.full((GP_RAYS,), 1.2)
+    meshes = {n: pg.make_gp_mesh(list(range(n)), device_type=CPU) for n in (4, 2, 1)}
+    cam = bench_camera(device=CPU)
+    out = {}
+    for path, accel, prep in (("sweep", "sweep", pg.shard_scene_geometry),
+                              ("krn", "binned", pg.shard_scene_kernel_geometry)):
+        scene = bench_dragon_scene(dragon_tris=2000, accel=accel, device=CPU)
+        for n in (4, 2):
+            if rank < n:
+                sh = pg.local_shard(prep(scene, n), meshes[n])
+                near = scene_intersect(sh, o, d)
+                occ = scene_intersect(sh, o, d, t_max=lim, any_hit=True)
+                out[path, n] = [a.numpy() for a in near + occ]
+        for n in (2, 1):
+            if rank < n:
+                out[path, "img", n] = pg.render_gp(prep(scene, n), cam, par_options(GP_OPTS),
+                                                   meshes[n], seed=GP_SEED)
+    t, p = gp_combine_inputs()
+    ct, cp = gp_combine(torch.from_numpy(t[rank]), torch.from_numpy(p[rank]).long(),
+                        meshes[4].get_group("gp"))
+    out["combine"] = (ct.numpy(), cp.numpy())
+    return out
+
+
+def failover_ranks(rank, world, tmp):
+    """One rank of a world of 2 (tests/test_checkpoint.py:80-162 with ranks
+    for meshes): a sharded resume, the divisibility error, a healthy ping,
+    then the elastic failover in which rank 1 loses its device after chunk
+    2 (last: rank 1 then leaves)."""
+    import os
+
+    from cpupathtrace_tpu_torch.integrator.checkpoint import render_resumable
+    from cpupathtrace_tpu_torch.models import golden
+    from cpupathtrace_tpu_torch.parallel import failover as pf
+    from cpupathtrace_tpu_torch.parallel import render as pr
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh
+    import cpupathtrace_tpu_torch as pt
+
+    scene = golden.inward_box_scene(device=CPU)
+    cam = pt.make_camera(origin=(0, 0, 0), look_at=(0, 0, 0.9), up=(0, 1, 0), device=CPU)
+    opts = pt.RenderOptions(8, 8, 16, 16, max_depth=6)
+    mesh = make_render_mesh([0, 1], sample_axis=2, device_type=CPU)
+    out = {}
+    full = render_resumable(scene, cam, opts, spp=12, seed=3, spp_chunk=4, mesh=mesh)
+    ck = os.path.join(tmp, "sharded.ckpt")
+
+    class Interrupt(Exception):
+        pass
+
+    def bomb(done, total):
+        if done == 1:
+            raise Interrupt
+
+    try:
+        render_resumable(scene, cam, opts, spp=12, seed=3, spp_chunk=4, checkpoint_path=ck,
+                         progress_callback=bomb, mesh=mesh)
+        out["interrupted"] = False
+    except Interrupt:
+        out["interrupted"] = True
+    resumed = render_resumable(scene, cam, opts, spp=12, seed=3, spp_chunk=4,
+                               checkpoint_path=ck, mesh=mesh)
+    out["resume"] = (full.pixel_sum, full.sample_count, resumed.pixel_sum,
+                     resumed.sample_count, resumed.chunks_done)
+    out["bad_chunk"] = _errors({"chunk": lambda: render_resumable(
+        scene, cam, opts, spp=9, seed=0, spp_chunk=3, mesh=mesh)})["chunk"]
+    out["ping"] = pf.ping_mesh(mesh)
+
+    meshes = [make_render_mesh([0, 1], sample_axis=1, device_type=CPU),
+              make_render_mesh([0], device_type=CPU)]
+    calls = {"n": 0}
+    render_chunk = pr.render_chunk
+
+    def counting(*args, **kw):
+        calls["n"] += 1
+        return render_chunk(*args, **kw)
+
+    pr.render_chunk = counting
+    failovers = []
+
+    def flaky(done, total):
+        if rank == 1 and done == 2:
+            raise RuntimeError("simulated device loss")
+
+    try:
+        st = pf.render_resumable_elastic(
+            scene, cam, opts, spp=16, checkpoint_path=os.path.join(tmp, "elastic.ckpt"),
+            meshes=meshes, seed=4, spp_chunk=4, progress_callback=flaky,
+            on_failover=lambda mi, e: failovers.append((mi, repr(e)[:300])))
+        out["elastic"] = ("done", st.chunks_done, st.sample_count, st.image())
+    except RuntimeError as e:
+        out["elastic"] = ("exhausted", str(e)[:300])
+    out["elastic_calls"] = calls["n"]
+    out["failovers"] = failovers
+    return out
+
+
+def ping_ranks(rank, world, tmp, timeout_s):
+    """A world of 2 in which rank 0 pings a mesh of both and rank 1 never
+    joins (it waits for rank 0's flag file)."""
+    import os
+    import time
+
+    from cpupathtrace_tpu_torch.parallel.failover import ping_mesh
+    from cpupathtrace_tpu_torch.parallel.mesh import make_render_mesh
+
+    mesh = make_render_mesh([0, 1], device_type=CPU)
+    flag = os.path.join(tmp, "pinged")
+    if rank == 0:
+        out = ping_mesh(mesh, timeout_s=timeout_s)
+        with open(flag, "w") as f:
+            f.write("done")
+        return out
+    end = time.monotonic() + timeout_s + 60
+    while not os.path.exists(flag) and time.monotonic() < end:
+        time.sleep(0.05)
+    return None
