@@ -260,8 +260,20 @@ Phases, one line each; any failure exits non-zero:
      moves its half of the records and cluster bounds alone to the card
      (bytes, peak memory), and the combined query on 65,536 random rays is
      the unsharded K4 query bit for bit.
+ 35. the benchmark runner, `python -m cpupathtrace_tpu_torch.bench` at its
+     defaults (every workload, the parity gate on) by subprocess, with
+     PTX_SCENE_CACHE at phase 24's cache, after one of its box chunks
+     (render_chunk, 128x128 @ 64 spp) is shown to make no host read (sync
+     debug mode), so its frames overlap, and its box frame (4 chunks) and
+     one of a single 256-spp chunk are timed in this process (the host's
+     enqueue ms and the wall ms a frame, one frame profiled): rc 0;
+     bench.py's four metric
+     lines (renderSceneDragonBoxFull, renderSceneDragonBox,
+     renderSceneBoxGrad, renderSceneBox last), each verified, without
+     error, with a positive value, the three frame workloads with their
+     rooflines; the lines, the runner's log and its seconds
 With --parent, then every bound of phases 5-30 against the parent's.
-Then the script's seconds (35), one JSON line with the kernels' figures
+Then the script's seconds (36), one JSON line with the kernels' figures
 (the K2 and K1 binned rows also carry phase 25's 7.2M readings under
 "dragon_full" and phase 28's under "obj_dragon"; the K1 and K2 rows the
 budgets of phase 31 under "budget"; the K1, K2 and K2 record rows phases
@@ -2733,13 +2745,72 @@ def phase_obj_dragon(pt, sw, mk, kt, scenes, dragon):
     return out
 
 
-def run_module(args, timeout):
-    """`python -m <args>` from the checkout's root: (completed process,
-    seconds)."""
+def run_module(args, timeout, env=None):
+    """`python -m <args>` from the checkout's root (in `env`, default this
+    process's): (completed process, seconds)."""
     t0 = time.perf_counter()
     res = subprocess.run([sys.executable, "-m", *args], cwd=ROOT, capture_output=True,
-                         text=True, timeout=timeout)
+                         text=True, timeout=timeout, env=env)
     return res, time.perf_counter() - t0
+
+
+BENCH_METRICS = ("renderSceneDragonBoxFull_throughput", "renderSceneDragonBox_throughput",
+                 "renderSceneBoxGrad_throughput", "renderSceneBox_throughput")
+
+
+def phase_bench(pt, cms, scenes, cache_dir):
+    """`python -m cpupathtrace_tpu_torch.bench` at its defaults (every
+    workload, the parity gate on), the 7.2M scene from phase 24's cache:
+    rc 0, bench.py's four metric lines with the box last, each verified,
+    without error, with a positive value, the three frame workloads each
+    with its roofline. Before it, one of the runner's box chunks (128x128
+    @ 64 spp through render_chunk) makes no host read, so its frames
+    overlap, and its box frame is timed as 4 chunks and as one
+    (`bench_box_frame`)."""
+    box, cam = scenes.bench_box_scene(), scenes.bench_camera()
+    opts = pt.RenderOptions(BOX_W, BOX_H, BOX_SPP, BOX_SPP, epsilon=1e-3, max_depth=MAX_DEPTH)
+    x = torch.linspace(-1, 1, BOX_W * BOX_H, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    pt.render_chunk(box, cam, opts, x, x.flip(0), gen, 64)
+    chunk_syncs = cms.host_syncs(lambda: pt.render_chunk(box, cam, opts, x, x.flip(0), gen, 64))
+    need(chunk_syncs == 0, f"a box chunk made {chunk_syncs} host reads")
+    box_frames = {f"chunks_{n}": bench_box_frame(box, cam, opts, n) for n in (4, 1)}
+    res, secs = run_module(["cpupathtrace_tpu_torch.bench"], 600,
+                           env=dict(os.environ, PTX_SCENE_CACHE=cache_dir))
+    need(res.returncode == 0, f"the benchmark runner exited {res.returncode}: "
+                              f"{res.stdout[-2000:]} {res.stderr[-4000:]}")
+    lines = [json.loads(s) for s in res.stdout.splitlines() if s.startswith("{")]
+    need(tuple(r["metric"] for r in lines) == BENCH_METRICS,
+         f"the benchmark runner's lines: {[r.get('metric') for r in lines]}")
+    for r in lines:
+        need(r.get("parity_verified") is True and "error" not in r and r["value"] > 0,
+             f"the benchmark runner's line: {r}")
+        need(r["metric"] == "renderSceneBoxGrad_throughput" or "roofline" in r,
+             f"{r['metric']} has no roofline")
+    return dict(seconds=secs, rc=res.returncode, box_chunk_host_reads=chunk_syncs,
+                box_frames=box_frames, lines=lines,
+                log=[s for s in res.stderr.splitlines() if s.startswith("# ")])
+
+
+def bench_box_frame(box, cam, opts, n_chunks, frames=3):
+    """The runner's box frame (`bench._frame_fn`) as `n_chunks` chunks: per
+    frame the host's enqueue ms (the call's return; the chunks read nothing
+    from the card) and the wall ms to its sync, then one frame profiled."""
+    from cpupathtrace_tpu_torch import bench
+
+    frame = bench._frame_fn(box, cam, opts, BOX_W, BOX_H, BOX_SPP // n_chunks, n_chunks, "cuda")
+    frame(0)
+    enqueue, wall = [], []
+    for seed in range(1, frames + 1):
+        sync()
+        t0 = time.perf_counter()
+        frame(seed)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+        sync()
+        wall.append((time.perf_counter() - t0) * 1e3)
+    return dict(enqueue_ms=enqueue, wall_ms=wall,
+                profile=profile_run(lambda: frame(frames + 1), "megakernel"))
 
 
 def phase_demo_cli(pt, out_dir):
@@ -3893,6 +3964,11 @@ def main():
         line("32 sharded render, one rank (NCCL, a world of one)", **report["sharded_one_rank"])
         report["sharded_shared"], report["gp"] = phase_shared_card(pt, scenes, dragon, lean,
                                                                    cache_dir, ck)
+        # The benchmark runner in a process of its own, the 7.2M scene from
+        # phase 24's cache.
+        report["bench"] = phase_bench(pt, cms, scenes, cache_dir)
+        line("35 the benchmark runner (python -m cpupathtrace_tpu_torch.bench)",
+             **report["bench"])
     finally:
         shutil.rmtree(cache_dir, ignore_errors=True)
     if parent_report:
@@ -3900,7 +3976,8 @@ def main():
         # bound they print is the parent's number.
         phases = [k for k in report if k not in ("device", "nvidia_smi", "torch", "cuda", "build",
                                                   "kernel_vs_twin", "golden", "frame_budget",
-                                                  "sharded_one_rank", "sharded_shared", "gp")]
+                                                  "sharded_one_rank", "sharded_shared", "gp",
+                                                  "bench")]
         report["bounds_vs_parent"] = bounds_against_parent(report, parent_report, phases)
         line("31 bounds of phases 5-30 against the parent's", **report["bounds_vs_parent"])
         need(not report["bounds_vs_parent"]["differ"] and report["bounds_vs_parent"]["compared"],
@@ -4091,7 +4168,7 @@ def main():
         **figures(r), "library_ms": r["library_ms"],
     } for form, r in xp["dot_formulations"].items()]}
     report["seconds"] = time.perf_counter() - t_start
-    line("35 total", seconds=report["seconds"])
+    line("36 total", seconds=report["seconds"])
     if args.out:
         with open(os.path.join(args.out, "chip_smoke.json"), "w") as f:
             json.dump(dict(report, **kernels), f, indent=1, default=float)

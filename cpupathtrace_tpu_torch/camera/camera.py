@@ -188,7 +188,8 @@ def shoot_rays(
     # Thin lens (ref: camera.cpp:102-110); both branches computed, selected.
     base_dir = normalize(camera.origin - sensor_pos)
     denom = dot(camera.forward.expand_as(base_dir), base_dir)
-    fpd = torch.tensor(camera.focal_plane_dist, device=x.device)
+    # A fill on the device: a host value copied in would wait for the stream.
+    fpd = torch.full((), camera.focal_plane_dist, dtype=torch.float32, device=x.device)
     ray_target = camera.origin + base_dir * (fpd / denom)[:, None]
     dir_lens = normalize(ray_target - ray_origin)
     dir_pinhole = normalize(ray_origin - sensor_pos)

@@ -88,6 +88,40 @@ def test_render_goes_through_the_kernel():
 
 
 @pytest.mark.cuda
+def test_box_chunk_makes_no_host_sync():
+    """A box chunk through render_chunk (shoot_rays, K1, the sums) waits for
+    nothing on the card, so frames enqueued back to back overlap (the
+    camera's thin-lens distance once came from the host with a stream
+    sync): torch's sync debug mode sees no synchronising call."""
+    import warnings
+
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator.film import pixel_camera_coords, render_chunk
+    from cpupathtrace_tpu_torch.models import scenes
+
+    _require_cuda()
+    scene, camera = scenes.bench_box_scene(device="cuda"), scenes.bench_camera(device="cuda")
+    opts = RenderOptions(32, 32, 4, 4, max_depth=40)
+    xg, yg = np.meshgrid(np.arange(32, dtype=np.float32), np.arange(32, dtype=np.float32))
+    x, y = (torch.tensor(v, dtype=torch.float32, device="cuda")
+            for v in pixel_camera_coords(opts, xg.ravel(), yg.ravel()))
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    render_chunk(scene, camera, opts, x, y, gen, 4)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as seen:
+            warnings.simplefilter("always")
+            s, n = render_chunk(scene, camera, opts, x, y, gen, 4)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    assert not [w for w in seen if "synchroniz" in str(w.message)], [str(w.message) for w in seen]
+    # The closed box covers every pixel of the benchmark camera.
+    assert int(n.sum()) == 32 * 32 * 4 and bool(torch.isfinite(s).all())
+
+
+@pytest.mark.cuda
 def test_wrapper_checks_its_inputs():
     _require_cuda()
     from cpupathtrace_tpu_torch.core.config import RenderOptions

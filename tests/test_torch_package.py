@@ -57,6 +57,8 @@ def test_sources_found():
     assert {"integrator/checkpoint.py", "scene/cache.py"} <= rel, rel
     # ... and the host pipeline, the demo app and the example.
     assert {"native/__init__.py", "demo.py", "examples/inverse_render.py"} <= rel, rel
+    # ... and the benchmark runner.
+    assert "bench.py" in rel, rel
     # ... and profiling and the roofline.
     assert {"utils/profiling.py", "utils/roofline.py"} <= rel, rel
     # ... and the sharded paths and their scaling harness.
