@@ -285,13 +285,19 @@ tests below the root gate x 31 + per query the root test (31) + per
 ray-bounce (the nearest queries) 300 and the dense part's tests x 64.
 With --out, the demo PNGs and every measured figure are also written there
 (chip_smoke.json). With --parent, a parent commit's chip_smoke.json from
-the same machine, phase 2 holds every kernel instance's registers and
-spill stores to the parent's, the end every bound of phases 5-30 to the
-parent's, and phases 5, 7, 9, 11, 14, 16, 17, 18, 20, 21 and 23 also
-print its K1 dense ms and box frame, its K4 ms, its K2 per-bounce times
-and sum, its K5 ms, its gradient pass and K2 record-form ms, its K6 and K7
-ms, its K8 stage and launch ms, its frames' kernel counts and K5 / K6
-device time, its K1 binned ms, its X1 sweep and its X2 and X3 times.
+the same machine, phase 2 holds the registers and spill stores of every
+kernel instance that does not walk to the parent's (the walking ones,
+WALK_INSTANCES, are listed beside the parent's, and those the main path
+launches may not spill more or hold fewer blocks an SM), the end every bound of
+phases 5-30 to the parent's, and phases 5, 7, 9, 11, 14, 16, 17, 18, 20,
+21, 23 and 25 also print its K1 dense ms and box frame, its K4 ms, its K2
+per-bounce times and sum, its K5 ms, its gradient pass and K2
+record-form ms, its K6 and K7 ms, its K8 stage and launch ms, its frames'
+kernel counts and K5 / K6 device time, its K1 binned ms, its walks' lane
+use at a row and a slab step (200k and 7.2M), its 7.2M K1 binned and K2
+ms, its X1 sweep and its X2 and X3 times. Phase 31's budget lines carry
+the walks' ms in each binned tracer (t(base) - t(skip)) and their
+counted bound.
 """
 from __future__ import annotations
 
@@ -984,6 +990,7 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
                                            warp_steps=steps)
     frame = frame_bound(vis, n_paths, scene)
     frame.update(walk_figures(kt, scene, tables, vis, steps, "bounce_binned_kernel"))
+    frame["row_lane_use"], frame["slab_lane_use"] = row_lane_use(frame)
     sync()
     t0 = time.perf_counter()
     tspec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, reference=True)
@@ -1993,6 +2000,7 @@ def k1_binned_run(mk, dragon, rays, opts, whole_chunk_plain=True):
                                     warp_steps=steps)
     sync()
     out["walk"] = walk_figures(kt, dragon, tables, vis, steps, "megakernel_binned")
+    out["row_lane_use"], out["slab_lane_use"] = row_lane_use(out)
     flops, counts = traversal_flops(vis)
     rb = ray_bounces(vis)
     out.update(ray_bounces=rb, counts=counts,
@@ -2920,6 +2928,10 @@ def budget_run(pt, sw, mk, kt, scene, camera, opts, tracer, setting, rays, check
     out = dict(kernel_ms=kernel_ms, frame_median_ms=float(np.median(secs[1:])) * 1e3,
                ray_bounces=rb, ns_per_ray_bounce=kernel_ms * 1e6 / rb,
                frame_mean=mean, frame_std_err=std_err, frames=len(images), launches=launches)
+    if binned:
+        # The walks' counted work: K3's bound (slab tests and filled rows).
+        flops, counts = traversal_flops(vis)
+        out["walk_bound"] = dict(counts=counts, **bound(0, flops))
     if check_rays:
         sub = type(rays)(rays.origin[:check_rays].contiguous(),
                          rays.direction[:check_rays].contiguous())
@@ -2957,7 +2969,8 @@ def budget_shares(rows, dense):
     1 - t(nee) / t(base), the nearest walk = (t(nee) - t(nee+skip)) /
     t(base), the floor = t(nee+skip) / t(base) (binned) or the dense tests
     = 1 - t(bigpair) / t(base) (dense): once from the kernel's ms and once
-    from its ns per ray-bounce."""
+    from its ns per ray-bounce. Binned: also the walks' ms (K3's time,
+    t(base) - t(skip), and the nearest walk's, t(nee) - t(nee+skip))."""
     out = {}
     for unit, key in (("frame", "kernel_ms"), ("per_ray_bounce", "ns_per_ray_bounce")):
         t = {name: r[key] for name, r in rows.items()}
@@ -2970,6 +2983,11 @@ def budget_shares(rows, dense):
             shares["nearest_walk"] = (t["nee"] - t["nee_skip"]) / b
             shares["floor"] = t["nee_skip"] / b
         out[unit] = shares
+    if not dense:
+        # K3's time inside the tracer: t(base) - t(skip), the nearest and
+        # shadow walks.
+        t = {name: r["kernel_ms"] for name, r in rows.items()}
+        out["walks"] = dict(ms=t["base"] - t["skip"], nearest_ms=t["nee"] - t["nee_skip"])
     return out
 
 
@@ -3025,6 +3043,11 @@ def phase_frame_budget(pt, sw, mk, kt, scenes, dragon, cache_dir, out_dir, best_
                             trace_annotation)
                 line(f"31 {label}", **rows[setting])
             budget = budget_shares(rows, dense)
+            if not dense:
+                # K3's bound: base's counted walk work.
+                wb = rows["base"]["walk_bound"]
+                budget["walks"].update(bound_ms=wb["bound_ms"], bound_by=wb["bound_by"],
+                                       over_bound=budget["walks"]["ms"] / wb["bound_ms"])
             line(f"31 budget/{name}/{tracer}", **budget,
                  note="each setting changes the paths' lengths: read the per-ray-bounce shares")
             out[f"{name}/{tracer}"] = dict(rows=rows, budget=budget)
@@ -3101,17 +3124,65 @@ def ptxas_registers(summary):
     return out
 
 
-def ptxas_against_parent(ptxas, parent_ptxas):
+# The kernel instances that step the cluster walk (csrc/cluster_traverse.cuh
+# `Walk`): K1's binned form, K2's binned instances and K4, their ablation
+# instances too; for each, the place of its counting flag among its
+# template arguments, None for the ablation instances (profiling only).
+WALK_INSTANCES = {"megakernel_binned": 1, "megakernel_binned_ablate": None,
+                  "bounce_binned_kernel": 2, "bounce_binned_kernel_ablate": None,
+                  "cluster_query_kernel": 0}
+
+
+def walk_plain(inst):
+    """Whether a walking instance is one the main path launches: not an
+    ablation instance, its counting flag 0 (K2's record form included)."""
+    name, _, args = inst.partition("<")
+    pos = WALK_INSTANCES.get(name)
+    return pos is not None and int(args.rstrip(">").split(",")[pos]) == 0
+
+
+def ptxas_against_parent(ptxas, parent_ptxas, occupancy=None, parent_occupancy=None):
     """Every kernel instance of the parent's ptxas report against this
-    build's: registers and spill stores equal, instance by instance."""
-    compared, differ = 0, {}
+    build's: registers and spill stores equal, instance by instance, but
+    for the instances that walk (WALK_INSTANCES), whose (registers, spill
+    stores) are listed beside the parent's, with the walking instances
+    that only this build has. A walking instance that the main path
+    launches (walk_plain) is a regression where it spills more than the
+    parent's instance of its name (than nothing, where the parent has
+    none), or where it holds fewer blocks an SM than the parent's (its
+    registers past what its launch bounds allow), from the occupancy
+    listings (kernel_occupancy) where given."""
+    compared, differ, walking = 0, {}, {}
     for lib, summary in parent_ptxas.items():
         ours = ptxas_registers(ptxas.get(lib, ""))
         for inst, regs in ptxas_registers(summary).items():
+            if inst.split("<")[0] in WALK_INSTANCES:
+                walking[f"{lib}:{inst}"] = dict(parent=regs, ours=ours.get(inst))
+                continue
             compared += 1
             if ours.get(inst) != regs:
                 differ[f"{lib}:{inst}"] = dict(parent=regs, ours=ours.get(inst))
-    return dict(instances_compared=compared, differ=differ)
+    regressed = {}
+    for lib, summary in ptxas.items():
+        theirs = ptxas_registers(parent_ptxas.get(lib, ""))
+        for inst, regs in ptxas_registers(summary).items():
+            if inst.split("<")[0] not in WALK_INSTANCES:
+                continue
+            walking.setdefault(f"{lib}:{inst}", dict(parent=None, ours=regs))
+            if not walk_plain(inst):
+                continue
+            why = {}
+            spill = theirs[inst][1] if inst in theirs else 0
+            if regs[1] > spill:
+                why["spill_stores"] = dict(ours=regs[1], parent=spill)
+            if occupancy and parent_occupancy and inst in parent_occupancy:
+                if occupancy[inst][0] < parent_occupancy[inst][0]:
+                    why["blocks_per_sm"] = dict(ours=occupancy[inst][0],
+                                                parent=parent_occupancy[inst][0])
+            if why:
+                regressed[f"{lib}:{inst}"] = why
+    return dict(instances_compared=compared, differ=differ, walking=walking,
+                walk_regressed=regressed)
 
 
 def bounds_of(d, path=()):
@@ -3175,12 +3246,21 @@ def kernel_occupancy(mk, sw, kt, tt, oi, box, dense_smem, cand_clusters=512):
     out.update(k4_ring_depth=q_layout.depth, k4_threads=q_layout.threads,
                k4_ring_smem_bytes=q_ring)
     for count in (0, 1):
-        out[f"cluster_query_kernel<{count}>"] = kt.query_occupancy(q_ring, count)
+        for any_hit in (0, 1):
+            out[f"cluster_query_kernel<{count}, {any_hit}>"] = kt.query_occupancy(q_ring, count,
+                                                                                   any_hit)
     out["binned_isect_kernel"] = tt.isect_occupancy()
     for m in (1, CAND_M):
         out[f"binned_cand_kernel<{m}>"] = tt.cand_occupancy(m, cand_clusters)
     out["dense_query_kernel"] = oi.dense_occupancy(box.n_tri, box.n_sph)
     return out
+
+
+def row_lane_use(run):
+    """(lane use at a filled-row step, at a slab step) of a run's walk
+    figures (walk_figures, under "walk" or at the top)."""
+    u = run.get("walk", run)["lane_utilisation"]
+    return u["row_lane_utilisation"], u["slab_lane_utilisation"]
 
 
 def parent_figures(parent):
@@ -3205,6 +3285,7 @@ def parent_figures(parent):
                     k5_launches=ks["dense_query"]["launches"])
 
     k8, x1 = parent["cluster_major"], parent["experiments"]["supscan"]
+    ff = parent["dragon_full_frames"]
     x3, x2 = parent["experiments"]["record_variants"]["variants"], \
         parent["experiments"]["cond_fat"]
     return dict(device=parent.get("nvidia_smi"), k2_bounce_ms=dm["bounce_ms"],
@@ -3224,6 +3305,11 @@ def parent_figures(parent):
                 k2_records_ms=gr["record_kernel"]["ms"],
                 k2_frame_ms=sum(dm["bounce_ms"]), k2_depth1_unsorted_ms=depth1["kernel_ms"],
                 k1_binned_ms=k1["ms"], k1_binned_ms_cluster128=k1["cluster128"]["ms"],
+                k2_lane_use=row_lane_use(dm["frame"]), k1_binned_lane_use=row_lane_use(k1),
+                k1_binned_lane_use_cluster128=row_lane_use(k1["cluster128"]),
+                k2_7p2m_ms=ff["sorted"]["k2"]["ms"], k1_7p2m_ms=ff["k1"]["k1"]["ms"],
+                k2_7p2m_lane_use=row_lane_use(ff["sorted"]["k2"]["frame"]),
+                k1_7p2m_lane_use=row_lane_use(ff["k1"]["k1"]),
                 sorted_frame_median_s=fr["sorted"]["frame_median_s"],
                 k1_frame_median_s=fr["k1"]["frame_median_s"])
 
@@ -3752,9 +3838,10 @@ def main():
     ap.add_argument("--out", help="also write the demo PNGs and all figures here")
     ap.add_argument("--parent", help="a parent commit's chip_smoke.json (its --out), run on "
                                      "the same machine: phases 5, 7, 9, 11, 14, 16, 17, 18, "
-                                     "20, 21 and 23 print its figures; phase 2 holds the "
-                                     "kernels' registers and the end every bound of phases "
-                                     "5-30 to it")
+                                     "20, 21, 23 and 25 print its figures; phase 2 holds the "
+                                     "registers of the kernels that do not walk, the spills "
+                                     "and occupancy of the main path's walking ones, and the end "
+                                     "every bound of phases 5-30 to it")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)",
@@ -3811,12 +3898,17 @@ def main():
         with open(args.parent) as f:
             parent_report = json.load(f)
         parent = parent_figures(parent_report)
-        # The default instances stay as they were: every instance of the
-        # parent's build, register for register.
-        vs = ptxas_against_parent(ptxas, parent_report["build"]["ptxas"])
+        # The instances that do not walk stay as they were: every one of
+        # the parent's build, register for register; the walking ones the
+        # main path launches spill no more and hold as many blocks an SM.
+        vs = ptxas_against_parent(ptxas, parent_report["build"]["ptxas"],
+                                  report["build"]["occupancy"],
+                                  parent_report["build"]["occupancy"])
         report["build"]["ptxas_vs_parent"] = vs
         need(not vs["differ"] and vs["instances_compared"] > 0,
              f"kernel instances differ from the parent's ptxas: {vs}")
+        need(not vs["walk_regressed"],
+             f"walking instances spill more or hold fewer blocks than the parent's: {vs}")
     line("2 build", **report["build"])
 
     report["kernel_vs_twin"] = phase_kernel_vs_twin(mk, scenes, Rays, pt.RenderOptions)
@@ -3848,7 +3940,7 @@ def main():
     report["dragon_main_path"] = phase_dragon_main_path(pt, sw, mk, kt, scenes, dragon)
     if parent:
         report["dragon_main_path"]["parent"] = {k: parent[k] for k in (
-            "device", "k2_bounce_ms", "k2_frame_ms", "k2_depth1_unsorted_ms")}
+            "device", "k2_bounce_ms", "k2_frame_ms", "k2_depth1_unsorted_ms", "k2_lane_use")}
     line("9 dragon main path", **report["dragon_main_path"])
     sw.bounce.launches = 0
     sw.bounce_reference.calls = 0
@@ -3903,7 +3995,8 @@ def main():
     report["k1_binned"] = phase_k1_binned(mk, sw, scenes, dragon, pt.RenderOptions)
     if parent:
         report["k1_binned"]["parent"] = {k: parent[k] for k in (
-            "device", "k1_binned_ms", "k1_binned_ms_cluster128")}
+            "device", "k1_binned_ms", "k1_binned_ms_cluster128", "k1_binned_lane_use",
+            "k1_binned_lane_use_cluster128")}
     line("20 K1 binned form vs twin", **report["k1_binned"])
     report["dragon_k1_frame"] = phase_dragon_k1_frame(pt, sw, mk, scenes, dragon)
     # The two redesigned walks side by side: K2 on the sorted frame's own
@@ -3940,6 +4033,9 @@ def main():
                                                                     packed)
         line("24 renderSceneDragonBoxFull: cold build, cache, load", **report["dragon_full_cache"])
         report["dragon_full_frames"] = phase_dragon_full_frames(pt, sw, mk, kt, scenes, full)
+        if parent:
+            report["dragon_full_frames"]["parent"] = {k: parent[k] for k in (
+                "device", "k2_7p2m_ms", "k1_7p2m_ms", "k2_7p2m_lane_use", "k1_7p2m_lane_use")}
         line("25 renderSceneDragonBoxFull frames: sorted driver (K2) and K1 binned",
              **report["dragon_full_frames"])
         report["dragon_full_resume"] = phase_dragon_full_resume(pt, ck, sw, mk, scenes, full,

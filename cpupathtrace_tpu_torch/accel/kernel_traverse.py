@@ -751,16 +751,18 @@ def resident_grid(n_rays, threads, blocks_per_sm, sms):
     return max(1, min(-(-n_rays // threads), sms * blocks_per_sm))
 
 
-def query_occupancy(smem_bytes, count=False):
+def query_occupancy(smem_bytes, count=False, any_hit=False):
     """(resident blocks per SM, threads per block) of K4's plain or
-    counting instance at `smem_bytes` of dynamic shared memory, by
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current card."""
+    counting, nearest or any-hit instance at `smem_bytes` of dynamic shared
+    memory, by cudaOccupancyMaxActiveBlocksPerMultiprocessor on the current
+    card."""
     fn = _build.load("cluster_query").ptx_cluster_query_occupancy
     if fn.argtypes is None:
-        fn.argtypes = [_I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
+        fn.argtypes = [_I, _I, ctypes.c_longlong, ctypes.POINTER(_I), ctypes.POINTER(_I)]
         fn.restype = ctypes.c_int
     blocks, threads = ctypes.c_int(0), ctypes.c_int(0)
-    err = fn(int(bool(count)), int(smem_bytes), ctypes.byref(blocks), ctypes.byref(threads))
+    err = fn(int(bool(count)), int(bool(any_hit)), int(smem_bytes), ctypes.byref(blocks),
+             ctypes.byref(threads))
     if err:
         raise RuntimeError(f"cluster_query occupancy query failed: cudaError_t {err}")
     return blocks.value, threads.value
@@ -822,9 +824,9 @@ def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False
         next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
         with torch.cuda.device(dev):
             key = (_build.load("cluster_query")._name, torch.cuda.current_device(),
-                   bool(debug_visits), smem)
+                   bool(debug_visits), bool(any_hit), smem)
             if key not in _QUERY_RESIDENT:
-                _QUERY_RESIDENT[key] = query_occupancy(smem, debug_visits)
+                _QUERY_RESIDENT[key] = query_occupancy(smem, debug_visits, any_hit)
             per_sm, threads = _QUERY_RESIDENT[key]
             grid = resident_grid(r, threads, per_sm,
                                  torch.cuda.get_device_properties(dev).multi_processor_count)

@@ -167,6 +167,13 @@ def frame_rays(scene, camera, options, width, height, spp_chunk, seed, c, device
     return rays, _kernel_seed(gen, rays.origin.device)
 
 
+def _mrays(x):
+    """A rate as bench.py prints it, to 3 decimals, or to 3 significant
+    digits where 3 decimals would read 0 (a slow frame's rate stays
+    positive)."""
+    return round(x, 3) if x >= 5e-4 else float(f"{x:.3g}")
+
+
 def _batch_stats(batch_s, rays):
     """(Mrays/s of the median batch, the batches' spread over it)."""
     med = float(np.median(batch_s))
@@ -207,10 +214,10 @@ def run_workload(name, scene, camera, options, width, height, spp, spp_chunk, ba
     mrays, spread = _batch_stats(batch_s, rays)
     return {
         "metric": f"{name}_throughput",
-        "value": round(mrays, 3),
+        "value": _mrays(mrays),
         "unit": "Mrays/s",
         "vs_baseline": round(mrays / baseline, 2),
-        "best": round(rays / min(batch_s) / 1e6, 3),
+        "best": _mrays(rays / min(batch_s) / 1e6),
         "spread_pct": round(100 * spread, 1),
         "batch_ms_per_frame": [round(t * 1000, 3) for t in batch_s],
         "frames_per_batch": frames_per_batch,
@@ -379,7 +386,7 @@ def run_box_grad(batches=3, frames_per_batch=5, size=128, spp=16, max_depth=12, 
     log(f"# renderSceneBoxGrad: first pass {first_s:.2f}s, loss {float(loss):.5f}")
     return {
         "metric": "renderSceneBoxGrad_throughput",
-        "value": round(mrays, 3),
+        "value": _mrays(mrays),
         "unit": "Mrays/s",
         "vs_baseline": round(mrays / REFERENCE_CPU_BOX_MRAYS, 2),
         "spread_pct": round(100 * spread, 1),

@@ -10,8 +10,9 @@
 // Count: the traversal counter policy (NoVisits, or WarpVisits for
 // debug_visits); `near` counts the nearest queries, `shadow` the shadow
 // queries of one path; add_geo_visits writes them as the counters' row,
-// add_warp_steps the warp steps. The cluster walks stream their boxes and
-// rows through the thread's ring in shared memory (cluster_traverse.cuh).
+// add_warp_steps the warp steps. The cluster walks step the state machine
+// `Walk`, each lane its own, and stream their boxes and rows through the
+// thread's ring in shared memory (cluster_traverse.cuh).
 // kAblate (the ablation instances, bounce_body.cuh): `walks` false skips
 // both walks (PTX_SKIP_TRAVERSE); the nearest query still counts.
 #pragma once

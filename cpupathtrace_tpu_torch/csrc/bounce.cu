@@ -41,12 +41,16 @@
 // cluster_traverse.cuh): the latency of its row and box loads and divergent
 // per-thread descents, plus ~144 bytes of state traffic per live ray per
 // bounce. The design keeps every small table in shared memory, walks the
-// clusters per thread with per-ray pruning, streams each thread's rows and
-// cluster boxes through its cp.async ring in shared memory (kRingDepth - 1
-// in flight while one is tested), in blocks of kWalkThreads, 20 warps an
-// SM (cluster_traverse.cuh kWalkMinBlocks; capped to 24 warps the walk
-// spills and ran slower). It relies on the driver's per-bounce sort for
-// coherent warps and for packing live rays at the head.
+// clusters per thread with per-ray pruning, as the state machine of
+// cluster_traverse.cuh (`Walk`, one box or row test a step) that each lane
+// steps alone in one flat loop: the card runs the lanes that are in the
+// same kind of test together, where the nested loops' lanes ran one after
+// another. It streams each thread's rows and cluster boxes through its
+// cp.async ring in shared memory (kRingDepth - 1 in flight while one is
+// tested), in blocks of kWalkThreads, 20 warps an SM (cluster_traverse.cuh
+// kWalkMinBlocks; capped to 24 warps the walk spills and ran slower). It
+// relies on the driver's per-bounce sort for coherent warps and for
+// packing live rays at the head.
 //
 // Dense instances (the box through the sorted driver, and the gradient
 // pass's record form): no walk; each live thread runs K1's dense geometry,

@@ -24,17 +24,18 @@
 // What bounds it on this card: the walk's (see cluster_traverse.cuh), the
 // latency of its dependent loads and the divergence of its lanes; the query
 // adds 28 bytes of ray in and 8 bytes out per ray. Its work is small (on the
-// 200k dragon ~24 slab tests and ~18 filled rows a random ray). Run as the
-// nested loops of walk_clusters, a warp's lanes leave the loops at different
-// iterations and do not meet again before the walk ends: the counting
-// instance read one active lane per filled-row step (PERF.md §6), so the
-// lanes' tests ran one after another.
+// 200k dragon ~24 slab tests and ~18 filled rows a random ray). Run as
+// nested loops, a warp's lanes left the loops at different iterations and
+// did not meet again before the walk ended: the counting instance read one
+// active lane per filled-row step (PERF.md §6), so the lanes' tests ran one
+// after another.
 //
 // What the design does about it:
-//   - The walk is a state machine (Walk below) that does one test a step,
-//     a record row or a hyper, supercluster or cluster box, whichever loop
-//     the lane is in; every step the warp meets at the claim, so the lanes
-//     that test rows do so together, as do those that test boxes.
+//   - The walk is the state machine of cluster_traverse.cuh (`Walk`, one
+//     instance each for nearest and any-hit) that does one test a step, a
+//     record row or a hyper, supercluster or cluster box, whichever loop the
+//     lane is in; every step the warp meets at the claim, so the lanes that
+//     test rows do so together, as do those that test boxes.
 //   - Refilling persistent warps: the grid is the resident blocks (the
 //     wrapper sizes it from the occupancy); a lane whose ray ends writes its
 //     result and, at the next step, the warp's free lanes take the next ray
@@ -108,164 +109,44 @@ struct Params {
   int n_rays;
   ClusterTables cl;
   int tier_floats;
-  int any_hit;
   int* visits;               // [ceil(n / 1024), 4] or null
   unsigned long long* steps; // [kQueryStepCols] with visits
   int* next_ray;             // the refill counter, zeroed
 };
 
-// The walk of one ray as a state machine, one test a step: the nested loops
-// of walk_clusters (cluster_traverse.cuh) over hypers, superclusters, the 32
-// cluster boxes of a descended page and a visited cluster's record rows,
-// unrolled so that the lanes of a warp run their next tests together,
-// whichever loop each is in. Each ray takes the same tests in the same order
-// against the same running bound, through the same ring streams, as in the
-// nested walk, so its result and counters are those of cluster_nearest /
-// cluster_anyhit.
-enum Phase : int { kHyper, kSuper, kBox, kRow };
-
-template <class Count>
-struct Walk {
-  Ray r;
-  InvDir v;
-  float mx, my, mz;
-  float bound;  // nearest: the running t (from t_lim); any-hit: t_lim
-  float prim;   // nearest: the winner's prim column, -1 before one
-  int phase, h, s, g, k;
-  int64_t i = -1;  // the ray; -1 while the lane is free
-  Count count;
-
-  // Writes ray i's result and counters; the lane is free again.
-  __device__ __forceinline__ void finish(const Params& p, bool occluded) {
-    if (p.any_hit) {
-      p.t_out[i] = occluded ? 1.0f : -1.0f;
-      p.p_out[i] = occluded ? 0 : -1;
-    } else {
-      const int winner = static_cast<int>(prim);
-      p.t_out[i] = winner >= 0 ? bound : -1.0f;
-      p.p_out[i] = winner;
-    }
-    if constexpr (!std::is_same_v<Count, NoVisits>) {
-      add_visits(p.visits, 4, i, 0, count.descends);
-      add_visits(p.visits, 4, i, 1, count.records);
-      add_visits(p.visits, 4, i, 2, count.slabs);
-      add_visits(p.visits, 4, i, 3, count.rows);
-      static_cast<Visits&>(count) = Visits{};
-    }
-    i = -1;
+// Writes ray i's result and counters; the lane is free again.
+template <bool kAnyHit, class Count>
+__device__ __forceinline__ void finish(const Params& p, const Walk<kAnyHit>& w, Count& count,
+                                       int64_t& i) {
+  if constexpr (kAnyHit) {
+    const bool occluded = w.win >= 0;
+    p.t_out[i] = occluded ? 1.0f : -1.0f;
+    p.p_out[i] = occluded ? 0 : -1;
+  } else {
+    const int winner = static_cast<int>(w.prim);
+    p.t_out[i] = winner >= 0 ? w.bound : -1.0f;
+    p.p_out[i] = winner;
   }
-
-  // Ray j from the query's inputs; the root gate may end it at once.
-  __device__ __forceinline__ void start(const Params& p, const ClusterTables& T, int64_t j) {
-    i = j;
-    r = Ray{p.origin[3 * j], p.origin[3 * j + 1], p.origin[3 * j + 2],
-            p.direction[3 * j], p.direction[3 * j + 1], p.direction[3 * j + 2]};
-    v = InvDir{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
-    mx = r.oy * r.dz - r.oz * r.dy;
-    my = r.oz * r.dx - r.ox * r.dz;
-    mz = r.ox * r.dy - r.oy * r.dx;
-    bound = p.t_lim[j];
-    prim = -1.0f;
-    phase = kHyper;
-    h = 0;
-    if (!(slab_entry(T.root, r, v) < bound)) finish(p, false);
+  if constexpr (!std::is_same_v<Count, NoVisits>) {
+    add_visits(p.visits, 4, i, 0, count.descends);
+    add_visits(p.visits, 4, i, 1, count.records);
+    add_visits(p.visits, 4, i, 2, count.slabs);
+    add_visits(p.visits, 4, i, 3, count.rows);
+    static_cast<Visits&>(count) = Visits{};
   }
+  i = -1;
+}
 
-  // One test of the walk: a record row, or a hyper, supercluster or cluster
-  // box after stepping past the loops the last test ended.
-  __device__ __forceinline__ void step(const Params& p, const ClusterTables& T, QueryRing& rows) {
-    if (phase == kRow) {
-      const auto q = rows.template at<kRowPieces>(k);
-      count.row(q[kRecPrim]);
-      float sd, su, sv, st;
-      if (pair_quantities_rt(q, r, mx, my, mz, T.cull, sd, su, sv, st)) {
-        if (p.any_hit) {
-          if (st < bound * sd) {
-            rows.drain();  // the rows after it may be in flight
-            finish(p, true);
-            return;
-          }
-        } else {
-          const float tv = st / sd;
-          if (tv < bound) {
-            bound = tv;
-            prim = q[kRecPrim];
-          }
-        }
-      }
-      if (++k == T.rec_rows) {
-        // The page's box stream restarts after the visited box.
-        phase = kBox;
-        ++g;
-        rows.template begin<kBoxPieces>(T.clb + static_cast<size_t>(s) * kGroup * kBndCols,
-                                        kGroup, g);
-      }
-      return;
-    }
-    if (phase == kBox && g == kGroup) {
-      phase = kSuper;
-      ++s;
-    }
-    if (phase == kSuper && s == min(T.n_rec / kGroup, (h + 1) * kGroup2)) {
-      phase = kHyper;
-      ++h;
-    }
-    if (phase == kHyper && h == T.n_pages) {
-      finish(p, false);
-      return;
-    }
-    float b[kBndCols];
-    if (phase == kBox) {
-      const auto box = rows.template at<kBoxPieces>(g);
-#pragma unroll
-      for (int j = 0; j < kBndCols; ++j) b[j] = box[j];
-    } else {
-      const float* box = phase == kHyper ? T.hyp + h * kBndCols : T.sup + s * kBndCols;
-#pragma unroll
-      for (int j = 0; j < kBndCols; ++j) b[j] = box[j];
-    }
-    count.slab();
-    const bool enters = slab_entry(b, r, v) < bound;
-    if (phase == kHyper) {
-      if (enters) {
-        phase = kSuper;
-        s = h * kGroup2;
-      } else {
-        ++h;
-      }
-    } else if (phase == kSuper) {
-      if (enters) {
-        count.descend();
-        phase = kBox;
-        g = 0;
-        rows.template begin<kBoxPieces>(T.clb + static_cast<size_t>(s) * kGroup * kBndCols,
-                                        kGroup, 0);
-      } else {
-        ++s;
-      }
-    } else if (enters) {
-      // The visit's rows reuse the slots of the boxes in flight: wait for
-      // them first.
-      count.record(s * kGroup + g);
-      rows.drain();
-      phase = kRow;
-      k = 0;
-      rows.template begin<kRowPieces>(
-          T.rec + static_cast<size_t>(s * kGroup + g) * T.rec_rows * kKrnCols, T.rec_rows, 0);
-    } else {
-      ++g;
-    }
-  }
-};
-
-template <bool kCount>
+template <bool kCount, bool kAnyHit>
 __global__ void __launch_bounds__(kQueryThreads) cluster_query_kernel(const Params p) {
   extern __shared__ float smem[];
   ClusterTables cl = p.cl;
   stage_tiers(cl, smem, p.tier_floats);
   __syncthreads();
   QueryRing rows{reinterpret_cast<float4*>(smem + (p.tier_floats + 3) / 4 * 4) + threadIdx.x};
-  Walk<std::conditional_t<kCount, QuerySteps, NoVisits>> w;
+  Walk<kAnyHit> w;
+  std::conditional_t<kCount, QuerySteps, NoVisits> count;
+  int64_t i = -1;  // this lane's ray; -1 while the lane is free
   const unsigned lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
   bool more = true;  // warp-uniform: the counter may still hand out rays
@@ -273,7 +154,7 @@ __global__ void __launch_bounds__(kQueryThreads) cluster_query_kernel(const Para
   // atomicAdd (trace_refilling's claim, megakernel.cu), then every lane
   // with a ray runs one test of its walk; the warp meets again at the claim.
   for (;;) {
-    const bool free_lane = w.i < 0;
+    const bool free_lane = i < 0;
     const unsigned want = __ballot_sync(0xffffffffu, free_lane && more);
     if (want) {
       const int leader = __ffs(want) - 1;
@@ -283,45 +164,56 @@ __global__ void __launch_bounds__(kQueryThreads) cluster_query_kernel(const Para
       more = first + __popc(want) < p.n_rays;
       if (free_lane) {
         const int64_t j = first + __popc(want & below);
-        if (j < p.n_rays) w.start(p, cl, j);
+        if (j < p.n_rays) {
+          // Ray j; the root gate may end it at once.
+          i = j;
+          w.start(cl,
+                  Ray{p.origin[3 * j], p.origin[3 * j + 1], p.origin[3 * j + 2],
+                      p.direction[3 * j], p.direction[3 * j + 1], p.direction[3 * j + 2]},
+                  p.t_lim[j]);
+          if (w.done()) finish(p, w, count, i);
+        }
       }
     }
     // A claim's rays may all end at the root gate: the warp stops only when
     // no lane holds a ray and the counter is spent.
-    if (!__any_sync(0xffffffffu, w.i >= 0)) {
+    if (!__any_sync(0xffffffffu, i >= 0)) {
       if (!more) break;
       continue;
     }
-    if (w.i >= 0) w.step(p, cl, rows);
+    if (i >= 0) {
+      w.step(cl, rows, count);
+      if (w.done()) finish(p, w, count, i);
+    }
   }
-  if constexpr (kCount) w.count.add(p.steps);
+  if constexpr (kCount) count.add(p.steps);
 }
 
 // Past the 48 KB default, the instance's shared-memory limit is set to the
 // size of each launch (an occupancy query at another size may have set it
 // since).
-template <bool kCount>
+template <bool kCount, bool kAnyHit>
 cudaError_t allow_smem(size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(cluster_query_kernel<kCount>,
+  return cudaFuncSetAttribute(cluster_query_kernel<kCount, kAnyHit>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
-template <bool kCount>
+template <bool kCount, bool kAnyHit>
 cudaError_t launch(const Params& p, int grid, size_t smem, cudaStream_t stream) {
-  const cudaError_t err = allow_smem<kCount>(smem);
+  const cudaError_t err = allow_smem<kCount, kAnyHit>(smem);
   if (err != cudaSuccess) return err;
-  cluster_query_kernel<kCount><<<grid, kQueryThreads, smem, stream>>>(p);
+  cluster_query_kernel<kCount, kAnyHit><<<grid, kQueryThreads, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <bool kCount>
+template <bool kCount, bool kAnyHit>
 cudaError_t occupancy(size_t smem, int* blocks) {
-  const cudaError_t err = allow_smem<kCount>(smem);
+  const cudaError_t err = allow_smem<kCount, kAnyHit>(smem);
   if (err != cudaSuccess) return err;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cluster_query_kernel<kCount>,
-                                                       kQueryThreads, smem);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks, cluster_query_kernel<kCount, kAnyHit>, kQueryThreads, smem);
 }
 
 }  // namespace
@@ -349,22 +241,31 @@ extern "C" int ptx_cluster_query_launch(const float* origin, const float* direct
   const ClusterTables cl{rec, n_rec, rec_rows, clb, sup, n_pages, hyp, root, cull};
   const int tiers = n_pages * (kBndCols + kGroup2 * kBndCols);
   const Params p{origin, direction, t_lim, t_out, p_out, n_rays, cl,
-                 tiers <= kTierFloats ? tiers : 0, any_hit, visits, steps, next_ray};
+                 tiers <= kTierFloats ? tiers : 0, visits, steps, next_ray};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const cudaError_t err =
-      visits ? launch<true>(p, grid, smem, s) : launch<false>(p, grid, smem, s);
+  cudaError_t err;
+  if (any_hit)
+    err = visits ? launch<true, true>(p, grid, smem, s) : launch<false, true>(p, grid, smem, s);
+  else
+    err = visits ? launch<true, false>(p, grid, smem, s) : launch<false, false>(p, grid, smem, s);
   return static_cast<int>(err);
 }
 
-// Resident blocks per SM of the plain (count = 0) or counting instance at
-// `smem_bytes`, and its threads per block.
-extern "C" int ptx_cluster_query_occupancy(int count, long long smem_bytes, int* blocks,
-                                           int* threads) {
+// Resident blocks per SM of the plain (count = 0) or counting, nearest
+// (any_hit = 0) or any-hit instance at `smem_bytes`, and its threads per
+// block.
+extern "C" int ptx_cluster_query_occupancy(int count, int any_hit, long long smem_bytes,
+                                           int* blocks, int* threads) {
   using namespace ptx;
   *threads = kQueryThreads;
   const size_t smem = static_cast<size_t>(smem_bytes);
-  return static_cast<int>(count ? occupancy<true>(smem, blocks) : occupancy<false>(smem, blocks));
+  cudaError_t err;
+  if (any_hit)
+    err = count ? occupancy<true, true>(smem, blocks) : occupancy<false, true>(smem, blocks);
+  else
+    err = count ? occupancy<true, false>(smem, blocks) : occupancy<false, false>(smem, blocks);
+  return static_cast<int>(err);
 }
 
 // K4's shared-memory layout (accel/kernel_traverse.py walk_layout("cluster_query")):

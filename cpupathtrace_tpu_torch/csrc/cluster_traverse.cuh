@@ -21,16 +21,28 @@
 // the union of its lanes' record tests. Neither bytes nor operations bound
 // it: the 200k dragon's 4,128 records are 29.6 MB, which fits the 50 MB L2,
 // and a bounce does a few hundred flops per record row tested. What limits
-// it is how many row and box loads each SM keeps in flight.
+// it is how many row and box loads each SM keeps in flight, and how many
+// lanes of a warp test together. Run as nested loops (hypers, superclusters,
+// cluster boxes, rows), a warp's lanes left the loops at different
+// iterations and did not meet again before the walk ended: K1's binned form
+// and K2 read about one lane of 32 a filled-row step (PERF.md §6).
 //
 // What the design does about it: it is not the TPU's bitmask-and-DMA scan,
-// whose vector-to-scalar steps were the TPU's cost. Each thread runs a plain
-// nested loop over hypers, superclusters and clusters in ascending index
-// order and prunes each box against its own running nearest t (any-hit: its
-// t_lim, stopping at the first occluder), so it tests only records its own
-// ray enters; lanes in different clusters test rows at the same time. Hyper
-// and supercluster boxes are staged in shared memory by the launching kernel
-// (broadcast reads). Cluster boxes and record rows reach the test through a
+// whose vector-to-scalar steps were the TPU's cost. The walk is a state
+// machine (`Walk`) that does one test a step, a hyper, supercluster or
+// cluster box or a record row, in the order of the nested loops over hypers,
+// superclusters and clusters in ascending index order, pruning each box
+// against its own running nearest t (any-hit: its t_lim, stopping at the
+// first occluder), so it tests only records its own ray enters. In K1's
+// binned form and K2 each lane steps its own walk (cluster_nearest,
+// cluster_anyhit): one flat loop with one test a turn, in which the card
+// runs together the lanes that are in the same kind of test, whichever
+// loop of the nested walk each is in; K4 steps it on its refilling warps.
+// Stepping it converged (the lanes that reach a query together take one
+// test each a turn and meet again at a vote) was slower in every cell of
+// experiments/walk_stepping.py (PERF.md §6). Hyper and supercluster boxes
+// are staged in shared memory by the launching kernel (broadcast reads)
+// when they fit. Cluster boxes and record rows reach the test through a
 // row source (`Rows`), the ring `Ring<D, T>` of every walking kernel (K1's
 // binned form and K2 at WalkRing's D and T, K4 at its own): a per-thread
 // ring of D slots of 80 bytes in dynamic shared memory, filled by 16-byte
@@ -67,9 +79,12 @@
 // descended when any of its lanes needed it), so the two are not comparable.
 // WarpVisits (K1's and K2's counting instances) also counts the warp's
 // steps: once per slab test and once per test of filled rows that the warp
-// executes, by the lowest active lane, so lane utilisation is work / (32 x
-// steps). The walk names the cluster it visits (record(c)), for a policy
-// that reads which clusters a warp's lanes test together (K4's).
+// executes, by the lowest active lane (each turn of the stepped walk that
+// runs slab tests, and each that runs filled-row tests, counts once for
+// the lanes that run it together), so lane utilisation is work / (32 x
+// steps). The walk names the cluster it
+// visits (record(c)), for a policy that reads which clusters a warp's lanes
+// test together (K4's).
 #pragma once
 
 #include <float.h>
@@ -268,79 +283,166 @@ struct WarpVisits : Visits {
   }
 };
 
-// Walks the tiers in ascending index order and calls visit(record) for every
-// cluster whose box the ray enters below bound(); visit returns true to stop.
-// The cluster boxes of a descended page come from `rows`, as the visit's
-// record rows do.
-template <class Rows, class Bound, class Visit, class Count>
-__device__ __forceinline__ void walk_clusters(const ClusterTables& T, const Ray& r,
-                                              const InvDir& v, Bound bound, Visit visit,
-                                              Count& count, Rows& rows) {
-  if (!(slab_entry(T.root, r, v) < bound())) return;
-  const int n_sup = T.n_rec / kGroup;
-  for (int h = 0; h < T.n_pages; ++h) {
-    count.slab();
-    if (!(slab_entry(T.hyp + h * kBndCols, r, v) < bound())) continue;
-    const int s_end = min(n_sup, (h + 1) * kGroup2);
-    for (int s = h * kGroup2; s < s_end; ++s) {
-      count.slab();
-      if (!(slab_entry(T.sup + s * kBndCols, r, v) < bound())) continue;
-      count.descend();
-      const float* page = T.clb + static_cast<size_t>(s) * kGroup * kBndCols;
-      rows.template begin<kBoxPieces>(page, kGroup, 0);
-      for (int g = 0; g < kGroup; ++g) {
-        const auto b = rows.template at<kBoxPieces>(g);
-        count.slab();
-        if (!(slab_entry(b, r, v) < bound())) continue;
-        count.record(s * kGroup + g);
-        // The visit's rows reuse the slots of the boxes in flight: wait for
-        // them, visit, then restart the page's stream after this box.
-        rows.drain();
-        if (visit(s * kGroup + g)) return;
-        rows.template begin<kBoxPieces>(page, kGroup, g + 1);
+// The walk's phase: the loop of the nested walk (hypers, superclusters,
+// the 32 cluster boxes of a descended page, a visited cluster's record
+// rows) whose test comes next, or kWalkDone.
+enum WalkPhase : int { kWalkHyper, kWalkSuper, kWalkBox, kWalkRow, kWalkDone };
+
+// The walk of one ray as a state machine, one test a step: start(ray,
+// bound) applies the root gate; each step() runs one test, a record row or
+// a hyper, supercluster or cluster box, after stepping past the loops the
+// last test ended. The tests are those of the nested loops over hypers,
+// superclusters and clusters in ascending index order, each box pruned
+// against the running bound (nearest: the running t, from the initial
+// bound; any-hit: t_lim, stopping at the first occluding row), in the same
+// order and through the same ring streams; the cluster boxes of a
+// descended page and the visited clusters' rows come from the row source
+// `rows` (WalkRing in K1 and K2, QueryRing in K4), whose invariant (a
+// stream begins with no copy in flight, see the header) the drains keep.
+// Results: nearest, the running t in `bound`, the winning row `win` (c x
+// rec_rows + row, -1 for none), its prim column `prim` (-1 for none) and
+// its (sd, su, sv); any-hit, `win` the occluding row (occluded: win >= 0).
+// The compiler keeps only what a caller reads: K4 the prim in a register,
+// as its walk did before the move, cluster_nearest the row, whose normals
+// and material it reads.
+template <bool kAnyHit>
+struct Walk {
+  Ray r;
+  InvDir v;
+  float mx, my, mz;
+  float bound;
+  int phase, h, s, g, k;
+  int win;
+  float prim, sd, su, sv;
+
+  __device__ __forceinline__ bool done() const { return phase == kWalkDone; }
+
+  __device__ __forceinline__ void start(const ClusterTables& T, const Ray& ray, float b) {
+    r = ray;
+    v = InvDir{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
+    mx = r.oy * r.dz - r.oz * r.dy;
+    my = r.oz * r.dx - r.ox * r.dz;
+    mz = r.ox * r.dy - r.oy * r.dx;
+    bound = b;
+    win = -1;
+    prim = -1.0f;
+    h = 0;
+    phase = slab_entry(T.root, r, v) < bound ? kWalkHyper : kWalkDone;
+  }
+
+  __device__ __forceinline__ const float* page(const ClusterTables& T) const {
+    return T.clb + static_cast<size_t>(s) * kGroup * kBndCols;
+  }
+
+  template <class Rows, class Count>
+  __device__ __forceinline__ void step(const ClusterTables& T, Rows& rows, Count& count) {
+    if (phase == kWalkRow) {
+      const auto q = rows.template at<kRowPieces>(k);
+      count.row(q[kRecPrim]);
+      float qd, qu, qv, qt;
+      if (pair_quantities_rt(q, r, mx, my, mz, T.cull, qd, qu, qv, qt)) {
+        if constexpr (kAnyHit) {
+          // Division-free: t < t_lim <=> st < t_lim * sd. The rows after
+          // the occluder may be in flight: drain.
+          if (qt < bound * qd) {
+            rows.drain();
+            win = (s * kGroup + g) * T.rec_rows + k;
+            phase = kWalkDone;
+            return;
+          }
+        } else {
+          const float tv = qt / qd;
+          if (tv < bound) {
+            bound = tv;
+            win = (s * kGroup + g) * T.rec_rows + k;
+            prim = q[kRecPrim];
+            sd = qd;
+            su = qu;
+            sv = qv;
+          }
+        }
       }
+      if (++k == T.rec_rows) {
+        // The page's box stream restarts after the visited box.
+        phase = kWalkBox;
+        ++g;
+        rows.template begin<kBoxPieces>(page(T), kGroup, g);
+      }
+      return;
+    }
+    if (phase == kWalkBox && g == kGroup) {
+      phase = kWalkSuper;
+      ++s;
+    }
+    if (phase == kWalkSuper && s == min(T.n_rec / kGroup, (h + 1) * kGroup2)) {
+      phase = kWalkHyper;
+      ++h;
+    }
+    if (phase == kWalkHyper && h == T.n_pages) {
+      phase = kWalkDone;
+      return;
+    }
+    float b[kBndCols];
+    if (phase == kWalkBox) {
+      const auto box = rows.template at<kBoxPieces>(g);
+#pragma unroll
+      for (int j = 0; j < kBndCols; ++j) b[j] = box[j];
+    } else {
+      const float* box = phase == kWalkHyper ? T.hyp + h * kBndCols : T.sup + s * kBndCols;
+#pragma unroll
+      for (int j = 0; j < kBndCols; ++j) b[j] = box[j];
+    }
+    count.slab();
+    const bool enters = slab_entry(b, r, v) < bound;
+    if (phase == kWalkHyper) {
+      if (enters) {
+        phase = kWalkSuper;
+        s = h * kGroup2;
+      } else {
+        ++h;
+      }
+    } else if (phase == kWalkSuper) {
+      if (enters) {
+        count.descend();
+        phase = kWalkBox;
+        g = 0;
+        rows.template begin<kBoxPieces>(page(T), kGroup, 0);
+      } else {
+        ++s;
+      }
+    } else if (enters) {
+      // The visit's rows reuse the slots of the boxes in flight: wait for
+      // them first.
+      count.record(s * kGroup + g);
+      rows.drain();
+      phase = kWalkRow;
+      k = 0;
+      rows.template begin<kRowPieces>(
+          T.rec + static_cast<size_t>(s * kGroup + g) * T.rec_rows * kKrnCols, T.rec_rows, 0);
+    } else {
+      ++g;
     }
   }
-}
+};
 
 // Nearest hit over the cluster set, improving strictly on h (traverse_clusters).
-// kNormal: also resolve the winner's shading normal and material.
+// kNormal: also resolve the winner's shading normal and material. The lane
+// steps its walk to its end in one flat loop; the card runs together the
+// lanes of a warp that take the same branch of a step.
 template <bool kNormal, class Count, class Rows>
 __device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ray& r, Hit& h,
                                                 Count& count, Rows& rows) {
-  const InvDir v{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
-  const float mx = r.oy * r.dz - r.oz * r.dy;
-  const float my = r.oz * r.dx - r.ox * r.dz;
-  const float mz = r.ox * r.dy - r.oy * r.dx;
-  float bt = h.t, bsd = 0.0f, bsu = 0.0f, bsv = 0.0f;
-  const float* best = nullptr;
-  walk_clusters(T, r, v, [&] { return bt; }, [&](int c) {
-    const float* rec = T.rec + static_cast<size_t>(c) * T.rec_rows * kKrnCols;
-    rows.template begin<kRowPieces>(rec, T.rec_rows, 0);
-    for (int k = 0; k < T.rec_rows; ++k) {
-      const auto q = rows.template at<kRowPieces>(k);
-      count.row(q[kRecPrim]);
-      float sd, su, sv, st;
-      if (pair_quantities_rt(q, r, mx, my, mz, T.cull, sd, su, sv, st)) {
-        const float tv = st / sd;
-        if (tv < bt) {
-          bt = tv;
-          best = rec + k * kKrnCols;
-          bsd = sd;
-          bsu = su;
-          bsv = sv;
-        }
-      }
-    }
-    return false;
-  }, count, rows);
-  if (best == nullptr) return;
-  h.t = bt;
+  Walk<false> w;
+  w.start(T, r, h.t);
+  while (!w.done()) w.step(T, rows, count);
+  if (w.win < 0) return;
+  const float* best = T.rec + static_cast<size_t>(w.win) * kKrnCols;
+  h.t = w.bound;
   h.prim = static_cast<int>(__ldg(best + kRecPrim));
   if (kNormal) {
-    const float sdw = jmax(bsd, 1e-30f);
-    const float uw = bsu / sdw;
-    const float vw = bsv / sdw;
+    const float sdw = jmax(w.sd, 1e-30f);
+    const float uw = w.su / sdw;
+    const float vw = w.sv / sdw;
     const float w0 = 1.0f - uw - vw;
     float n[9];
 #pragma unroll
@@ -356,33 +458,15 @@ __device__ __forceinline__ void cluster_nearest(const ClusterTables& T, const Ra
   }
 }
 
-// Any-hit below t_lim over the cluster set (traverse_clusters_anyhit),
-// division-free: t < t_lim <=> st < t_lim * sd. t_lim <= 0 queries nothing.
-// At the occluding row the rows after it may be in flight: drain.
+// Any-hit below t_lim over the cluster set (traverse_clusters_anyhit).
+// t_lim <= 0 queries nothing (the root gate).
 template <class Count, class Rows>
 __device__ __forceinline__ bool cluster_anyhit(const ClusterTables& T, const Ray& r, float t_lim,
                                                Count& count, Rows& rows) {
-  const InvDir v{inv_dir(r.dx), inv_dir(r.dy), inv_dir(r.dz)};
-  const float mx = r.oy * r.dz - r.oz * r.dy;
-  const float my = r.oz * r.dx - r.ox * r.dz;
-  const float mz = r.ox * r.dy - r.oy * r.dx;
-  bool occ = false;
-  walk_clusters(T, r, v, [&] { return t_lim; }, [&](int c) {
-    const float* rec = T.rec + static_cast<size_t>(c) * T.rec_rows * kKrnCols;
-    rows.template begin<kRowPieces>(rec, T.rec_rows, 0);
-    for (int k = 0; k < T.rec_rows; ++k) {
-      const auto q = rows.template at<kRowPieces>(k);
-      count.row(q[kRecPrim]);
-      float sd, su, sv, st;
-      if (pair_quantities_rt(q, r, mx, my, mz, T.cull, sd, su, sv, st) && st < t_lim * sd) {
-        rows.drain();
-        occ = true;
-        return true;
-      }
-    }
-    return false;
-  }, count, rows);
-  return occ;
+  Walk<true> w;
+  w.start(T, r, t_lim);
+  while (!w.done()) w.step(T, rows, count);
+  return w.win >= 0;
 }
 
 // Rays per row of the counter output: a TPU ray block of 8 x 128 lanes.

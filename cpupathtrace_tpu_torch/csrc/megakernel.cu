@@ -51,9 +51,13 @@
 // in the tree as their paths scatter, and they end at different depths
 // (a mean of 3.8 bounces a path on the 200k dragon, up to max_depth); in
 // exchange a chunk is one launch, with no per-bounce state traffic, glue
-// kernels or host reads. Each thread streams its rows and cluster boxes
-// through its cp.async ring in shared memory (kRingDepth - 1 in flight
-// while one is tested), in blocks of kWalkThreads (cluster_traverse.cuh).
+// kernels or host reads. The walk is the state machine of
+// cluster_traverse.cuh (`Walk`), one box or row test a step; each lane
+// steps its own in one flat loop, whose lanes the card runs together while
+// they are in the same kind of test, where the nested loops' lanes ran one
+// after another. Each thread streams its rows and cluster boxes through
+// its cp.async ring in shared memory (kRingDepth - 1 in flight while one
+// is tested), in blocks of kWalkThreads (cluster_traverse.cuh).
 //
 // Counters (template flag kCount). Binned form (the JAX package's
 // debug_visits): each thread adds each path's nearest and shadow traversal

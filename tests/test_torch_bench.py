@@ -328,3 +328,12 @@ def test_options_follow_bench_py(bench_py, monkeypatch, capsys):
     with pytest.raises(SystemExit) as e:
         bench.main(["--workloads", "box,teapot"], device=CPU)
     assert e.value.code == 2 and "teapot" in capsys.readouterr().err
+
+
+@pytest.mark.parametrize("rate, want", [(338.12345, 338.123), (0.0123456, 0.012),
+                                        (0.000123456, 0.000123), (0.0, 0.0)])
+def test_rates_print_to_three_decimals_and_stay_positive(rate, want):
+    """A metric line's rate reads as bench.py's (3 decimals) where that is
+    not 0; a slower rate keeps 3 significant digits, so a slow frame on a
+    loaded host still prints a positive value."""
+    assert bench._mrays(rate) == want

@@ -968,17 +968,17 @@ def _warp_steps():
     return torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
 
 
-def _check_k1_binned(scene, n, seed=321):
-    """K1's binned form on `n` camera rays against its twin: spectrum and
-    collected bit-equal, counters equal, no ray left unwritten (the output
-    starts as NaN), the warp steps within their bounds. Returns the
-    counters."""
+def _check_k1_binned(scene, n, seed=321, state=None):
+    """K1's binned form on `n` camera rays (or the rays of `state`) against
+    its twin: spectrum and collected bit-equal, counters equal, no ray left
+    unwritten (the output starts as NaN), the warp steps within their
+    bounds. Returns the counters."""
     from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
     from cpupathtrace_tpu_torch.core.config import RenderOptions
     from cpupathtrace_tpu_torch.core.rays import Rays
     from cpupathtrace_tpu_torch.integrator import megakernel as mk
 
-    st = _camera_state(scene, n=n)
+    st = _camera_state(scene, n=n) if state is None else state
     rays = Rays(st[1:4].t().contiguous(), st[4:7].t().contiguous())
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
     steps = _warp_steps()
@@ -995,13 +995,13 @@ def _check_k1_binned(scene, n, seed=321):
     return kv
 
 
-def _check_bounce(scene, n, depths=(0, 1, 2)):
-    """K2's plain, counting and record forms on `n` camera rays against the
-    twin, bounce after bounce: the 18 planes and the live rays' record
-    planes bit-equal, the counters equal, the warp steps within their
-    bounds (none where the walks test nothing: the dragon box's camera
-    rays stop at the box before the dragon's root box), and counted in
-    some bounce."""
+def _check_bounce(scene, n, depths=(0, 1, 2), state=None):
+    """K2's plain, counting and record forms on `n` camera rays (or from
+    `state`) against the twin, bounce after bounce: the 18 planes and the
+    live rays' record planes bit-equal, the counters equal, the warp steps
+    within their bounds (none where the walks test nothing: the dragon
+    box's camera rays stop at the box before the dragon's root box), and
+    counted in some bounce."""
     from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
     from cpupathtrace_tpu_torch.core.config import RenderOptions
     from cpupathtrace_tpu_torch.integrator import megakernel as mk
@@ -1009,7 +1009,7 @@ def _check_bounce(scene, n, depths=(0, 1, 2)):
 
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
     tables = mk.pack_tables(scene)
-    st = _camera_state(scene, n=n)
+    st = _camera_state(scene, n=n) if state is None else state
     nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
     rows = -(-n // kt.VISIT_BLOCK)
     row_steps = 0
@@ -1107,6 +1107,123 @@ def test_ring_early_exits_leave_no_stale_rows():
     shadow_visits, shadow_rows = int(v[kt.SHADOW_COLS[1]]), int(v[kt.SHADOW_COLS[3]])
     assert shadow_visits > 1000
     assert shadow_rows < 0.8 * shadow_visits * rows_per_record
+
+
+def _walk_state(o, d, seed=41):
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    return sw.initial_state(torch.tensor(o, dtype=torch.float32, device="cuda"),
+                            torch.tensor(d, dtype=torch.float32, device="cuda"), seed)
+
+
+def _gate_rays(scene, n, seed=5):
+    """`n` rays in the box, even lanes aimed into the dragon's root box (the
+    glass dragon: specular hits, whose lanes skip the shadow walks), odd
+    lanes from above it pointing up and away (they fail the root gate of
+    their first nearest walk)."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    root = kt.root_box(scene.krn_hyp_bounds)[0].cpu().numpy().astype(np.float64)
+    lo, hi = root[:3], root[3:6]
+    rng = np.random.default_rng(seed)
+    o = rng.uniform(-0.9, 0.9, (n, 3))
+    target = lo + rng.uniform(0.3, 0.7, (n, 3)) * (hi - lo)
+    d = target - o
+    o[1::2, 1] = rng.uniform(hi[1] + 0.05, 0.9, o[1::2].shape[0])
+    d[1::2] = rng.normal(size=(o[1::2].shape[0], 3))
+    d[1::2, 1] = np.abs(d[1::2, 1]) + 0.3
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    return o, d
+
+
+def _floor_rays(n, seed=8):
+    """`n` rays from just above the plate scene's floor pointing down: each
+    hits the floor at once, and its shadow rays to the two lights cross the
+    plate of small triangles."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-0.75, 0.75, n), np.full(n, -0.99), rng.uniform(-0.75, 0.75, n)],
+                 axis=1)
+    d = np.tile([0.0, -1.0, 0.0], (n, 1))
+    return o, d
+
+
+def _plain_walk_counts(scene, o, d, t_lim=None):
+    """Per ray, the plain walk's counters [n, 4] (descends, record visits,
+    slab tests, filled rows) and its result: nearest (t, prim) without
+    `t_lim`, else the any-hit flags."""
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    cols = [torch.tensor(a[:, j], dtype=torch.float32) for a in (o, d) for j in range(3)]
+    tables = kt.kernel_tables(scene.to("cpu"))
+    n = o.shape[0]
+    vis = torch.zeros((n, kt.WALK_COLS), dtype=torch.int64)
+    if t_lim is not None:
+        occ = kt.traverse_clusters_anyhit(tables, *cols, torch.tensor(t_lim, dtype=torch.float32),
+                                          scene.krn_cull_mode, visits=vis)
+        return vis, occ
+    miss = torch.full((n,), -1, dtype=torch.int64)
+    z = torch.zeros(n)
+    t, p, *_ = kt.traverse_clusters(tables, *cols, (torch.full((n,), float("inf")), miss, z, z,
+                                                   z, miss), scene.krn_cull_mode,
+                                    want_normal_mat=False, visits=vis)
+    return vis, (t, p)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_lane", "ragged_33", "root_gate_and_specular",
+                                  "first_row_stops"])
+def test_stepped_walk_lanes_leave_at_different_turns(case):
+    """The stepped walk (csrc/cluster_traverse.cuh `Walk`, one test a step)
+    on warps whose lanes leave it at different turns: a warp of one lane
+    and a ragged count; every other lane failing the root gate while its
+    neighbours walk into the glass dragon (specular hits: those lanes skip
+    the shadow walks); shadow walks that stop in the plate of small
+    triangles, some at the first filled row they test. K1's binned form and
+    K2's plain, counting and record forms bit-equal to their twins with
+    equal counters and warp steps within their bounds; K4 exact on t, prim
+    and counters on the same walks."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+
+    if case != "first_row_stops":
+        scene = _dragon()
+        o, d = _gate_rays(scene, {"one_lane": 1, "ragged_33": 33,
+                                  "root_gate_and_specular": 4096 + 13}[case])
+        vis, (t, p) = _plain_walk_counts(scene, o, d)
+        assert not bool(vis[1::2].any())  # odd lanes: the root gate ends the walk
+        assert bool((vis[0::2, 2] > 0).all())  # even lanes walk
+        if o.shape[0] > 1000:
+            assert int((p[0::2] >= 0).sum()) > 1000  # glass hits
+        st = _walk_state(o, d)
+    else:
+        scene = _shadowed_plate_scene()
+        o, d = _floor_rays(8192)
+        st = _walk_state(o, d)
+        # The shadow rays of the floor points below the plate to its first
+        # light: some stop at the first filled row they test.
+        light = scene.light_pos[0].cpu().numpy().astype(np.float64)
+        f = o.copy()
+        f[:, 1] = -1.0
+        to = light - f
+        dist = np.linalg.norm(to, axis=1)
+        so, sd = f + 1e-3 * to / dist[:, None], to / dist[:, None]
+        vis, occ = _plain_walk_counts(scene, so, sd, dist - 1e-3)
+        first = occ & (vis[:, 3] == 1)
+        assert int(occ.sum()) > 4000 and int(first.sum()) > 10, (int(occ.sum()), int(first.sum()))
+        o, d = so, sd
+    n = o.shape[0]
+    _check_k1_binned(scene, n, state=st)
+    _check_bounce(scene, n, depths=(0, 1, 2), state=st)
+    od = [torch.tensor(a, dtype=torch.float32, device="cuda") for a in (o, d)]
+    lim = (torch.rand(n, device="cuda") * 1.5 + 0.05 if case != "first_row_stops"
+           else torch.tensor(dist - 1e-3, dtype=torch.float32, device="cuda"))
+    for any_hit in (False, True):
+        tk, pk, vk = kt.cluster_intersect(scene, *od, lim if any_hit else None, any_hit=any_hit,
+                                          debug_visits=True)
+        tp, pp, vp = kt.cluster_intersect_reference(scene, *od, lim if any_hit else None,
+                                                    any_hit=any_hit, debug_visits=True)
+        assert torch.equal(pk, pp) and torch.equal(tk.view(torch.int32), tp.view(torch.int32))
+        assert torch.equal(vk, vp)
 
 
 @pytest.mark.cuda

@@ -141,9 +141,11 @@ def test_budget_shares_from_the_settings_times():
         assert s["nee"] == pytest.approx(0.4) and s["nearest_walk"] == pytest.approx(0.5)
         assert s["floor"] == pytest.approx(0.1) and s["removed_by_mat"] == pytest.approx(-0.2)
         assert s["nee"] + s["nearest_walk"] + s["floor"] == pytest.approx(1.0)
+    assert b["walks"] == dict(ms=pytest.approx(7.0), nearest_ms=pytest.approx(5.0))
     dense = {k: rows[k] for k in ("base", "nee", "bigpair", "prop", "mat")}
-    d = cs.budget_shares(dense, dense=True)["frame"]
-    assert d["dense_tests"] == pytest.approx(0.5) and "floor" not in d
+    d = cs.budget_shares(dense, dense=True)
+    assert d["frame"]["dense_tests"] == pytest.approx(0.5) and "floor" not in d["frame"]
+    assert "walks" not in d
 
 
 def test_frame_stats_standard_error_is_the_noise_not_the_content():
@@ -171,12 +173,47 @@ def test_parent_comparisons_find_a_changed_instance_and_bound():
                "spill loads | Used 96 registers, used 1 barriers, 400 bytes cmem[0]")
     assert cs.ptxas_registers(summary) == {"megakernel<-1, 0>": (79, 0),
                                            "megakernel_binned<-1, 1>": (96, 20)}
+    # Instances that do not walk must equal the parent's; the walking ones
+    # (megakernel_binned, ...) are listed beside the parent's instead.
     same = cs.ptxas_against_parent({"megakernel": summary + " | megakernel_ablate<-1, 0> | Used "
                                     "78 registers"}, {"megakernel": summary})
-    assert same == {"instances_compared": 2, "differ": {}}
+    assert same == {"instances_compared": 1, "differ": {}, "walk_regressed": {}, "walking": {
+        "megakernel:megakernel_binned<-1, 1>": dict(parent=(96, 20), ours=(96, 20))}}
     moved = cs.ptxas_against_parent({"megakernel": summary.replace("79 registers", "80 registers")},
                                     {"megakernel": summary})
     assert list(moved["differ"]) == ["megakernel:megakernel<-1, 0>"]
+    walked = cs.ptxas_against_parent({"megakernel": summary.replace("96 registers", "94 registers")},
+                                     {"megakernel": summary})
+    assert walked["differ"] == {} and walked["walk_regressed"] == {} and walked["walking"] == {
+        "megakernel:megakernel_binned<-1, 1>": dict(parent=(96, 20), ours=(94, 20))}
+    # A walking instance the main path launches (counting flag 0, no
+    # ablation) may not spill more than the parent's, nor nothing where the
+    # parent has none by its name, nor hold fewer blocks an SM; counting
+    # and ablation instances are listed only.
+    plain = ("megakernel_binned<-1, 0> | 0 bytes stack frame, 0 bytes spill stores, 0 bytes "
+             "spill loads | Used 96 registers | cluster_query_kernel<0> | Used 48 registers")
+    spilled = ("megakernel_binned<-1, 0> | 8 bytes stack frame, 4 bytes spill stores, 4 bytes "
+               "spill loads | Used 96 registers | megakernel_binned<-1, 1> | 68 bytes spill "
+               "stores | Used 96 registers | megakernel_binned_ablate<-1, 0> | 4 bytes spill "
+               "stores | Used 96 registers | cluster_query_kernel<0, 1> | 8 bytes spill stores "
+               "| Used 47 registers | cluster_query_kernel<1, 1> | 8 bytes spill stores")
+    grew = cs.ptxas_against_parent({"k": spilled}, {"k": plain + " | " + summary})
+    assert grew["walk_regressed"] == {
+        "k:megakernel_binned<-1, 0>": {"spill_stores": dict(ours=4, parent=0)},
+        "k:cluster_query_kernel<0, 1>": {"spill_stores": dict(ours=8, parent=0)}}
+    occ = {"megakernel_binned<-1, 0>": [5, 128], "cluster_query_kernel<0, 1>": [9, 128]}
+    fewer = cs.ptxas_against_parent({"k": plain}, {"k": plain}, {
+        **occ, "megakernel_binned<-1, 0>": [4, 128]}, occ)
+    assert fewer["walk_regressed"] == {
+        "k:megakernel_binned<-1, 0>": {"blocks_per_sm": dict(ours=4, parent=5)}}
+    assert cs.ptxas_against_parent({"k": plain}, {"k": plain}, occ, occ)["walk_regressed"] == {}
+    # bounce_binned_kernel<CULL, kRec, kCount>: the record form is one the
+    # main path launches, the counting form is not.
+    assert [cs.walk_plain(i) for i in ("bounce_binned_kernel<1, 1, 0>",
+                                       "bounce_binned_kernel<1, 0, 1>",
+                                       "bounce_binned_kernel_ablate<1, 0>",
+                                       "cluster_query_kernel<0, 1>", "megakernel<-1, 0>")] == [
+        True, False, False, True, False]
     ours = {"main_path": {"bound_ms": 0.5, "k": [{"bound_ms": 1.0}]}, "frame_budget": {"bound_ms": 9}}
     parent = {"main_path": {"bound_ms": 0.5, "k": [{"bound_ms": 1.5}]}}
     out = cs.bounds_against_parent(ours, parent, ["main_path"])
