@@ -1,0 +1,9 @@
+"""device.idle_pct.grad: share of the traced window of gradient passes in
+which no kernel, copy or fill ran on the card."""
+
+
+def read(run):
+    t = run.timeline
+    if t is None or not t.device or t.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - t.busy_s() / t.window_s)

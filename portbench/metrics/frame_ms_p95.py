@@ -1,0 +1,7 @@
+"""frame_ms_p95: the 95th percentile (linear interpolation) of the wall
+time of every `render` call of the window, image on the host. Host clock."""
+import numpy as np
+
+
+def read(run):
+    return float(np.percentile(run.latencies, 95)) * 1e3

@@ -1,0 +1,6 @@
+"""mrays_per_s: width x height x spp of every frame the window completed,
+over the window's seconds, in millions. Host clock."""
+
+
+def read(run):
+    return run.steps * run.entry.work() / run.elapsed / 1e6
