@@ -28,6 +28,7 @@ from ..core.config import RenderOptions, resolve_device
 from ..integrator.film import pixel_camera_coords, render_chunk
 from ..integrator.rng import draw_source
 from ..scene.scene import SceneData
+from ..utils.profiling import trace_annotation
 
 #: The differentiable fields of a scene (ref Material fields:
 #: include/PathTrace/scene/material.h:12-77).
@@ -102,13 +103,15 @@ def loss_and_grad(params: dict, scene: SceneData, camera: Camera, options: Rende
                   target: torch.Tensor, key, spp: int):
     """(image_loss, {field: d loss / d params[field]}), as the JAX
     package's jax.value_and_grad(image_loss)."""
-    leaves = {f: v.detach().requires_grad_(True) for f, v in params.items()}
-    loss = image_loss(leaves, scene, camera, options, target, key, spp)
-    grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
-    return loss.detach(), {
-        f: torch.zeros_like(v) if g is None else g
-        for (f, v), g in zip(leaves.items(), grads)
-    }
+    with trace_annotation("diff.loss_and_grad"):
+        leaves = {f: v.detach().requires_grad_(True) for f, v in params.items()}
+        loss = image_loss(leaves, scene, camera, options, target, key, spp)
+        with trace_annotation("diff.grad"):
+            grads = torch.autograd.grad(loss, list(leaves.values()), allow_unused=True)
+        return loss.detach(), {
+            f: torch.zeros_like(v) if g is None else g
+            for (f, v), g in zip(leaves.items(), grads)
+        }
 
 
 def finite_difference_grad(params: dict, scene: SceneData, camera: Camera,

@@ -34,6 +34,7 @@ import torch
 
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
+from ..utils.profiling import trace_annotation
 from .megakernel import megakernel_supported, pack_tables
 from .sorted_wavefront import (
     bounce,
@@ -71,30 +72,39 @@ def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, 
     [max_depth, R, n_drec] f32). Depths the loop never reaches keep the
     no-contribution encoding (mid -1, all weights 0). `seed`: an int32
     Python int or a 1-element tensor."""
-    origin, direction = rays.origin, rays.direction
-    dev = origin.device
-    scene = scene.to(dev)
-    if tables is None:
-        tables = pack_tables(scene)
-    r = origin.shape[0]
-    max_depth = int(options.max_depth)
-    n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
-    st = initial_state(origin, direction, seed)
-    # Each bounce writes its depth's planes whole; the depths the loop
-    # never reaches are cleared after it.
-    planes = torch.empty((max_depth, n_drec, r), dtype=torch.float32, device=dev)
-    seed_depth = seed_depth_table(seed, max_depth, dev)
-    n_alive = r
-    depth = 0
-    while depth < max_depth and n_alive > 0:
-        bounce(scene, st, seed_depth[depth], options, tables, records=planes[depth])
-        n_alive = int((st[17] > 0.5).sum())  # the one host sync of the bounce
-        depth += 1
-    if depth < max_depth:
-        clear_records(planes[depth:].transpose(0, 1))
-    coll = st[16] > 0.5
-    spectrum = torch.stack([st[10], st[11], st[12], coll.float()], dim=-1)
-    return spectrum, coll, planes.permute(0, 2, 1)
+    with trace_annotation("diff.record"):
+        origin, direction = rays.origin, rays.direction
+        dev = origin.device
+        scene = scene.to(dev)
+        if tables is None:
+            tables = pack_tables(scene)
+        r = origin.shape[0]
+        max_depth = int(options.max_depth)
+        n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
+        st = initial_state(origin, direction, seed)
+        # Each bounce writes its depth's planes whole; the depths the loop
+        # never reaches are cleared after it.
+        planes = torch.empty((max_depth, n_drec, r), dtype=torch.float32, device=dev)
+        seed_depth = seed_depth_table(seed, max_depth, dev)
+        n_alive = r
+        depth = 0
+        while depth < max_depth and n_alive > 0:
+            trace_megakernel_diff.live_rays += n_alive
+            bounce(scene, st, seed_depth[depth], options, tables, records=planes[depth])
+            with trace_annotation("diff.live_read"):
+                n_alive = int((st[17] > 0.5).sum())  # the one host sync of the bounce
+            trace_megakernel_diff.host_reads += 1
+            depth += 1
+        if depth < max_depth:
+            clear_records(planes[depth:].transpose(0, 1))
+        coll = st[16] > 0.5
+        spectrum = torch.stack([st[10], st[11], st[12], coll.float()], dim=-1)
+        return spectrum, coll, planes.permute(0, 2, 1)
+
+
+# Per-process totals: host reads (one a bounce), rays entering each bounce.
+trace_megakernel_diff.host_reads = 0
+trace_megakernel_diff.live_rays = 0
 
 
 def replay_spectrum(mats: dict, recs, em_mid, light_spec, n_lights: int, em_k: int):
@@ -187,22 +197,24 @@ class _TraceDiff(torch.autograd.Function):
     @staticmethod
     def forward(ctx, dif, spc, emi, scene_ng, rays, options, seed):
         spectrum, coll, recs = trace_megakernel_diff(scene_ng, rays, options, seed)
-        ctx.pre = preprocess_records(
-            recs, em_material_ids(scene_ng), scene_ng.light_spectrum[:, :3],
-            scene_ng.num_materials, scene_ng.n_point_lights, scene_ng.emissive_sample_count,
-        )
+        with trace_annotation("diff.preprocess"):
+            ctx.pre = preprocess_records(
+                recs, em_material_ids(scene_ng), scene_ng.light_spectrum[:, :3],
+                scene_ng.num_materials, scene_ng.n_point_lights, scene_ng.emissive_sample_count,
+            )
         ctx.save_for_backward(dif, spc, emi)
         ctx.mark_non_differentiable(coll)
         return spectrum, coll
 
     @staticmethod
     def backward(ctx, g_spec, _g_coll):
-        leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-        with torch.enable_grad():
-            rgb = replay_fast(dict(zip(DIFF_FIELDS, leaves)), ctx.pre)
-            grads = torch.autograd.grad(rgb, leaves, g_spec[:, :3], allow_unused=True)
-        grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
-        return (*grads, None, None, None, None)
+        with trace_annotation("diff.backward"):
+            leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
+            with torch.enable_grad():
+                rgb = replay_fast(dict(zip(DIFF_FIELDS, leaves)), ctx.pre)
+                grads = torch.autograd.grad(rgb, leaves, g_spec[:, :3], allow_unused=True)
+            grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+            return (*grads, None, None, None, None)
 
 
 def trace_diff(scene: SceneData, rays, options: RenderOptions, seed):

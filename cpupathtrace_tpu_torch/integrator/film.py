@@ -27,6 +27,7 @@ import torch
 from ..camera.camera import Camera, shoot_rays
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
+from ..utils.profiling import trace_annotation
 from .diff_megakernel import diff_supported, trace_diff
 from .megakernel import megakernel_supported, trace_megakernel
 from .rng import RecordedDraws
@@ -123,10 +124,11 @@ def _trace_samples(scene, camera, options, x_cam, y_cam, generator, spp,
     else:
         xs = x_cam.repeat(spp)
         ys = y_cam.repeat(spp)
-    rays = shoot_rays(
-        camera, xs, ys, 1.0 / options.image_width, 1.0 / options.image_height,
-        generator,
-    )
+    with trace_annotation("camera.shoot"):
+        rays = shoot_rays(
+            camera, xs, ys, 1.0 / options.image_width, 1.0 / options.image_height,
+            generator,
+        )
     return _dispatch_trace(scene, rays, options, generator, differentiable)
 
 
@@ -140,23 +142,24 @@ def render_chunk(scene: SceneData, camera: Camera, options: RenderOptions,
     back, so the result is positionally that of the plain call.
     `differentiable` keeps the sums' graph to the scene's material
     tensors. `generator`: a torch.Generator or a RecordedDraws."""
-    p = x_cam.shape[0]
-    spectrum, collected = _trace_samples(
-        scene, camera, options, x_cam, y_cam, generator, spp, pixel_order, differentiable
-    )
-    if pixel_order is not None:
-        spectrum = spectrum.reshape(p, spp, 4)
-        collected = collected.reshape(p, spp)
-        s = torch.where(collected[..., None], spectrum, 0.0).sum(1)
-        c = collected.sum(1, dtype=torch.int32)
-        return (torch.zeros_like(s).index_copy_(0, pixel_order, s),
-                torch.zeros_like(c).index_copy_(0, pixel_order, c))
-    spectrum = spectrum.reshape(spp, p, 4)
-    collected = collected.reshape(spp, p)
-    return (
-        torch.where(collected[..., None], spectrum, 0.0).sum(0),
-        collected.sum(0, dtype=torch.int32),
-    )
+    with trace_annotation("film.chunk"):
+        p = x_cam.shape[0]
+        spectrum, collected = _trace_samples(
+            scene, camera, options, x_cam, y_cam, generator, spp, pixel_order, differentiable
+        )
+        if pixel_order is not None:
+            spectrum = spectrum.reshape(p, spp, 4)
+            collected = collected.reshape(p, spp)
+            s = torch.where(collected[..., None], spectrum, 0.0).sum(1)
+            c = collected.sum(1, dtype=torch.int32)
+            return (torch.zeros_like(s).index_copy_(0, pixel_order, s),
+                    torch.zeros_like(c).index_copy_(0, pixel_order, c))
+        spectrum = spectrum.reshape(spp, p, 4)
+        collected = collected.reshape(spp, p)
+        return (
+            torch.where(collected[..., None], spectrum, 0.0).sum(0),
+            collected.sum(0, dtype=torch.int32),
+        )
 
 
 def render_chunk_batched(scene: SceneData, camera: Camera,
@@ -165,25 +168,26 @@ def render_chunk_batched(scene: SceneData, camera: Camera,
                          spp_batch: int, k_batches: int, pixel_order=None):
     """`k_batches` stats batches in ONE launch of k_batches * spp_batch
     samples; returns per-batch (sums [K,P,4], counts [K,P])."""
-    p = x_cam.shape[0]
-    spectrum, collected = _trace_samples(
-        scene, camera, options, x_cam, y_cam, generator, spp_batch * k_batches,
-        pixel_order,
-    )
-    if pixel_order is not None:
-        # Pixel-major: [P, K, spp_batch] sample groups per pixel.
-        spectrum = spectrum.reshape(p, k_batches, spp_batch, 4)
-        collected = collected.reshape(p, k_batches, spp_batch)
-        s = torch.where(collected[..., None], spectrum, 0.0).sum(2).movedim(0, 1)
-        c = collected.sum(2, dtype=torch.int32).movedim(0, 1)
-        return (torch.zeros_like(s).index_copy_(1, pixel_order, s),
-                torch.zeros_like(c).index_copy_(1, pixel_order, c))
-    spectrum = spectrum.reshape(k_batches, spp_batch, p, 4)
-    collected = collected.reshape(k_batches, spp_batch, p)
-    return (
-        torch.where(collected[..., None], spectrum, 0.0).sum(1),
-        collected.sum(1, dtype=torch.int32),
-    )
+    with trace_annotation("film.chunk"):
+        p = x_cam.shape[0]
+        spectrum, collected = _trace_samples(
+            scene, camera, options, x_cam, y_cam, generator, spp_batch * k_batches,
+            pixel_order,
+        )
+        if pixel_order is not None:
+            # Pixel-major: [P, K, spp_batch] sample groups per pixel.
+            spectrum = spectrum.reshape(p, k_batches, spp_batch, 4)
+            collected = collected.reshape(p, k_batches, spp_batch)
+            s = torch.where(collected[..., None], spectrum, 0.0).sum(2).movedim(0, 1)
+            c = collected.sum(2, dtype=torch.int32).movedim(0, 1)
+            return (torch.zeros_like(s).index_copy_(1, pixel_order, s),
+                    torch.zeros_like(c).index_copy_(1, pixel_order, c))
+        spectrum = spectrum.reshape(k_batches, spp_batch, p, 4)
+        collected = collected.reshape(k_batches, spp_batch, p)
+        return (
+            torch.where(collected[..., None], spectrum, 0.0).sum(1),
+            collected.sum(1, dtype=torch.int32),
+        )
 
 
 def _apply_stats_batches(s_b, coll_b, c0, pixel_sum, n_collected, frozen,
@@ -281,73 +285,85 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
     ([K,P,4], [K,P])`, each handed this call's `generator`, so the
     sharded driver (parallel/render.py) runs the same stopping rule over
     sharded launches."""
-    p = x_cam.shape[0]
-    dev = x_cam.device
-    stats, cbc, check = adaptive_constants(options)
-    min_sc = max(options.min_sample_count, 2)
-    max_sc = options.max_sample_count
-    n_full = max_sc // stats
-    remainder = max_sc - n_full * stats
+    with trace_annotation("film.tile"):
+        p = x_cam.shape[0]
+        dev = x_cam.device
+        stats, cbc, check = adaptive_constants(options)
+        min_sc = max(options.min_sample_count, 2)
+        max_sc = options.max_sample_count
+        n_full = max_sc // stats
+        remainder = max_sc - n_full * stats
 
-    pixel_sum = torch.zeros((p, 4), device=dev)
-    n_collected = torch.zeros(p, dtype=torch.int32, device=dev)
-    frozen = torch.zeros(p, dtype=torch.bool, device=dev)
-    accepted = torch.zeros(p, dtype=torch.bool, device=dev)
-    remaining = torch.full((p,), check, dtype=torch.int32, device=dev)
-    stats_means = torch.zeros((p, max(n_full, 1), 4), device=dev)
-    stats_valid = torch.zeros((p, max(n_full, 1)), dtype=torch.bool, device=dev)
+        pixel_sum = torch.zeros((p, 4), device=dev)
+        n_collected = torch.zeros(p, dtype=torch.int32, device=dev)
+        frozen = torch.zeros(p, dtype=torch.bool, device=dev)
+        accepted = torch.zeros(p, dtype=torch.bool, device=dev)
+        remaining = torch.full((p,), check, dtype=torch.int32, device=dev)
+        stats_means = torch.zeros((p, max(n_full, 1), 4), device=dev)
+        stats_valid = torch.zeros((p, max(n_full, 1)), dtype=torch.bool, device=dev)
 
-    if chunk_fns is None:
-        def single(k, spp):
-            return render_chunk(scene, camera, options, x_cam, y_cam, k, spp, pixel_order)
+        if chunk_fns is None:
+            def single(k, spp):
+                return render_chunk(scene, camera, options, x_cam, y_cam, k, spp, pixel_order)
 
-        def batched(k, spp_batch, kb):
-            return render_chunk_batched(scene, camera, options, x_cam, y_cam, k, spp_batch,
-                                        kb, pixel_order)
-    else:
-        single, batched = chunk_fns
-
-    fuse = max(1, int(os.environ.get("PTX_ADAPTIVE_FUSE", str(ADAPTIVE_FUSE))))
-    # The all-frozen flag of launch L is read only after launch L + lag is
-    # enqueued, so the device has work while the host waits on the flag
-    # (film.py:398). Frozen pixels stop accumulating, so extra launches
-    # change nothing.
-    flag_lag = 3 if fuse == 1 else 1
-    pending_flags: list = []
-    n_launches = math.ceil(n_full / fuse) if n_full else 0
-    c0 = 0
-    for _ in range(n_launches):
-        kb = min(fuse, n_full - c0)
-        if kb == 1:
-            s, coll = single(generator, stats)
-            s_b, coll_b = s[None], coll[None]
+            def batched(k, spp_batch, kb):
+                return render_chunk_batched(scene, camera, options, x_cam, y_cam, k, spp_batch,
+                                            kb, pixel_order)
         else:
-            s_b, coll_b = batched(generator, stats, kb)
-        (pixel_sum, n_collected, frozen, accepted, remaining,
-         stats_means, stats_valid, flag) = _apply_stats_batches(
-            s_b, coll_b, c0, pixel_sum, n_collected, frozen, accepted,
-            remaining, stats_means, stats_valid, kb=kb, min_sc=min_sc,
-            check=check,
-        )
-        c0 += kb
-        if max_sc > min_sc and c0 >= (min_sc // stats):
-            pending_flags.append(flag)
-            if len(pending_flags) > flag_lag and bool(pending_flags.pop(0)):
-                break
+            single, batched = chunk_fns
 
-    if remainder > 0:
-        s, coll = single(generator, remainder)
-        live = ~frozen
-        pixel_sum = torch.where(live[:, None], pixel_sum + s, pixel_sum)
-        n_collected = torch.where(live, n_collected + coll, n_collected)
+        fuse = max(1, int(os.environ.get("PTX_ADAPTIVE_FUSE", str(ADAPTIVE_FUSE))))
+        # The all-frozen flag of launch L is read only after launch L + lag is
+        # enqueued, so the device has work while the host waits on the flag
+        # (film.py:398). Frozen pixels stop accumulating, so extra launches
+        # change nothing.
+        flag_lag = 3 if fuse == 1 else 1
+        pending_flags: list = []
+        n_launches = math.ceil(n_full / fuse) if n_full else 0
+        c0 = 0
+        for _ in range(n_launches):
+            kb = min(fuse, n_full - c0)
+            if kb == 1:
+                s, coll = single(generator, stats)
+                s_b, coll_b = s[None], coll[None]
+            else:
+                s_b, coll_b = batched(generator, stats, kb)
+            with trace_annotation("film.fold"):
+                (pixel_sum, n_collected, frozen, accepted, remaining,
+                 stats_means, stats_valid, flag) = _apply_stats_batches(
+                    s_b, coll_b, c0, pixel_sum, n_collected, frozen, accepted,
+                    remaining, stats_means, stats_valid, kb=kb, min_sc=min_sc,
+                    check=check,
+                )
+            render_tile.stats_batches += kb
+            c0 += kb
+            if max_sc > min_sc and c0 >= (min_sc // stats):
+                pending_flags.append(flag)
+                if len(pending_flags) > flag_lag:
+                    render_tile.flag_reads += 1
+                    with trace_annotation("film.flag_read"):
+                        all_frozen = bool(pending_flags.pop(0))
+                    if all_frozen:
+                        break
 
-    pixel_value = pixel_sum / n_collected.clamp_min(1)[:, None]
-    if options.allow_bias:
-        min_count = max((cbc * 3) // 4, 2)
-        biased = _candidate_select(stats_means, stats_valid, cbc, pixel_value, min_count)
-        pixel_value = torch.where(accepted[:, None], pixel_value, biased)
-    # Pixels that never collected anything stay exactly zero.
-    return torch.where((n_collected > 0)[:, None], pixel_value, 0.0)
+        if remainder > 0:
+            s, coll = single(generator, remainder)
+            live = ~frozen
+            pixel_sum = torch.where(live[:, None], pixel_sum + s, pixel_sum)
+            n_collected = torch.where(live, n_collected + coll, n_collected)
+
+        pixel_value = pixel_sum / n_collected.clamp_min(1)[:, None]
+        if options.allow_bias:
+            min_count = max((cbc * 3) // 4, 2)
+            biased = _candidate_select(stats_means, stats_valid, cbc, pixel_value, min_count)
+            pixel_value = torch.where(accepted[:, None], pixel_value, biased)
+        # Pixels that never collected anything stay exactly zero.
+        return torch.where((n_collected > 0)[:, None], pixel_value, 0.0)
+
+
+# Per-process totals: stats batches folded, all-frozen flags read.
+render_tile.stats_batches = 0
+render_tile.flag_reads = 0
 
 
 def render(scene: SceneData, camera: Camera, options: RenderOptions,
@@ -357,41 +373,43 @@ def render(scene: SceneData, camera: Camera, options: RenderOptions,
     [H, W, 4] float32 image (RGB radiance + any-hit alpha). Runs on
     `device` (default: the scene's); tiles of rows hold up to
     `rays_per_launch` rays per stats batch."""
-    w, h = options.image_width, options.image_height
-    if w <= 0 or h <= 0:
-        return np.zeros((max(h, 0), max(w, 0), 4), np.float32)
-    dev = torch.device(device) if device is not None else scene.device
-    scene = scene.to(dev)
-    camera = camera.to(dev)
-    generator = torch.Generator(device=dev)
-    generator.manual_seed(int(seed))
+    with trace_annotation("film.render"):
+        w, h = options.image_width, options.image_height
+        if w <= 0 or h <= 0:
+            return np.zeros((max(h, 0), max(w, 0), 4), np.float32)
+        dev = torch.device(device) if device is not None else scene.device
+        scene = scene.to(dev)
+        camera = camera.to(dev)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(int(seed))
 
-    stats, _, _ = adaptive_constants(options)
-    rows_per_tile = max(1, min(h, rays_per_launch // max(w * stats, 1)))
-    n_tiles = math.ceil(h / rows_per_tile)
-    px = np.arange(w, dtype=np.float32)
-    image = np.zeros((h, w, 4), np.float32)
-    order = use_pixel_order(scene, dev)
-    perm_cache: dict = {}  # tile height -> device permutation
-    for i in range(n_tiles):
-        y0 = i * rows_per_tile
-        rows = min(rows_per_tile, h - y0)
-        py = np.arange(y0, y0 + rows, dtype=np.float32)
-        xg, yg = np.meshgrid(px, py)
-        perm = None
-        if order:
-            perm = perm_cache.get(rows)
-            if perm is None:
-                perm = torch.from_numpy(morton_perm(xg.ravel(), yg.ravel() - y0)).to(dev)
-                perm_cache[rows] = perm
-        x_cam, y_cam = pixel_camera_coords(options, xg.ravel(), yg.ravel())
-        tile = render_tile(
-            scene, camera, options,
-            torch.from_numpy(np.ascontiguousarray(x_cam, np.float32)).to(dev),
-            torch.from_numpy(np.ascontiguousarray(y_cam, np.float32)).to(dev),
-            generator, pixel_order=perm,
-        )
-        image[y0:y0 + rows] = tile.reshape(rows, w, 4).cpu().numpy()
-        if progress_callback is not None:
-            progress_callback(i + 1, n_tiles)
-    return image
+        stats, _, _ = adaptive_constants(options)
+        rows_per_tile = max(1, min(h, rays_per_launch // max(w * stats, 1)))
+        n_tiles = math.ceil(h / rows_per_tile)
+        px = np.arange(w, dtype=np.float32)
+        image = np.zeros((h, w, 4), np.float32)
+        order = use_pixel_order(scene, dev)
+        perm_cache: dict = {}  # tile height -> device permutation
+        for i in range(n_tiles):
+            y0 = i * rows_per_tile
+            rows = min(rows_per_tile, h - y0)
+            py = np.arange(y0, y0 + rows, dtype=np.float32)
+            xg, yg = np.meshgrid(px, py)
+            perm = None
+            if order:
+                perm = perm_cache.get(rows)
+                if perm is None:
+                    perm = torch.from_numpy(morton_perm(xg.ravel(), yg.ravel() - y0)).to(dev)
+                    perm_cache[rows] = perm
+            x_cam, y_cam = pixel_camera_coords(options, xg.ravel(), yg.ravel())
+            tile = render_tile(
+                scene, camera, options,
+                torch.from_numpy(np.ascontiguousarray(x_cam, np.float32)).to(dev),
+                torch.from_numpy(np.ascontiguousarray(y_cam, np.float32)).to(dev),
+                generator, pixel_order=perm,
+            )
+            with trace_annotation("film.image_read"):
+                image[y0:y0 + rows] = tile.reshape(rows, w, 4).cpu().numpy()
+            if progress_callback is not None:
+                progress_callback(i + 1, n_tiles)
+        return image

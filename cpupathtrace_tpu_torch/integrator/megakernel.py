@@ -80,6 +80,7 @@ from ..accel.pair_record import C_MAT, C_N0, C_PRIM, REC_USED_COLS
 from ..ops.intersect import table_nearest
 from ..scene.scene import BSDF_GLASS, BSDF_MIRROR, SceneData
 from ..utils.math import PI
+from ..utils.profiling import trace_annotation
 from .rng import BINNED_BLOCK_ROWS, BLOCK_ROWS, next_u01, seed_rng
 
 PD_CUTOFF = 1e-20
@@ -820,105 +821,107 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
     CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its
     binned form for a scene with kernel records, and its ablation instances
     while a switch is set (`ablation_mask`, read at the call)."""
-    origin, direction = rays.origin, rays.direction
-    dev = origin.device
-    binned = scene.has_kernel_records
-    if warp_steps is not None:
-        if not debug_visits or not binned:
-            raise ValueError("trace_megakernel: warp_steps count binned scenes with debug_visits")
-        check_warp_steps(warp_steps, dev)
-    if bounce_steps is not None:
-        if binned:
-            raise ValueError("trace_megakernel: bounce_steps count dense scenes")
+    with trace_annotation("k1.trace"):
+        origin, direction = rays.origin, rays.direction
+        dev = origin.device
+        binned = scene.has_kernel_records
+        if warp_steps is not None:
+            if not debug_visits or not binned:
+                raise ValueError("trace_megakernel: warp_steps count binned scenes with "
+                                 "debug_visits")
+            check_warp_steps(warp_steps, dev)
+        if bounce_steps is not None:
+            if binned:
+                raise ValueError("trace_megakernel: bounce_steps count dense scenes")
+            if dev.type != "cuda":
+                raise ValueError("bounce_steps: the warps' steps are counted on the card only")
+            check_tensor("bounce_steps", bounce_steps, dev, torch.int64, (BOUNCE_STEP_COLS,))
+        if dev.type == "cpu":
+            return trace_megakernel_reference(scene, rays, options, seed, tables, debug_visits)
         if dev.type != "cuda":
-            raise ValueError("bounce_steps: the warps' steps are counted on the card only")
-        check_tensor("bounce_steps", bounce_steps, dev, torch.int64, (BOUNCE_STEP_COLS,))
-    if dev.type == "cpu":
-        return trace_megakernel_reference(scene, rays, options, seed, tables, debug_visits)
-    if dev.type != "cuda":
-        raise ValueError(f"trace_megakernel: no kernel for device {dev}")
-    if binned and scene.big_v0.shape[0] > scene.krn_big_pair.shape[0]:
-        # pallas_megakernel.py:1219-1229: the big partition outgrew the one
-        # pair record.
-        raise ValueError(
-            f"megakernel unsupported: {scene.big_v0.shape[0]} dense triangles exceed "
-            f"the pair record ({scene.krn_big_pair.shape[0]} rows)"
-        )
-    if not megakernel_supported(scene):
-        raise ValueError(
-            "trace_megakernel: scene exceeds the kernel's limits (see "
-            "megakernel_supported / PERF.md)"
-        )
-    check_tensor("origin", origin, dev, torch.float32, (None, 3))
-    check_tensor("direction", direction, dev, torch.float32, (origin.shape[0], 3))
-    scene = scene.to(dev)
-    if tables is None:
-        tables = pack_tables(scene)
-    tri, sph, mat, lgt, em = tables
-    for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS),
-                       ("mat", mat, MAT_COLS), ("lgt", lgt, LGT_COLS),
-                       ("em", em, EM_COLS)):
-        check_tensor(name, t, dev, torch.float32, (None, c))
-    if scene.dense_pair:
-        rec = scene.krn_big_pair
-        check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
-        rec_ptr, rec_rows, rec_stride = rec.data_ptr(), rec.shape[0], rec.shape[1]
-        n_tri = 0
-    else:
-        rec_ptr, rec_rows, rec_stride = None, 0, 0
-        n_tri = tri.shape[0]
-    if binned:
-        ktables = kernel_tables(scene)
-        check_tables(ktables, dev)
-        tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
-    else:
-        tier_args = NO_TIERS
-    if isinstance(seed, torch.Tensor):
-        seed_t = seed.to(device=dev, dtype=torch.int32).reshape(-1)[:1].contiguous()
-    else:
-        seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
-
-    smem = block_smem_bytes(scene, tables, walk_layout("megakernel") if binned else None)
-    n = origin.shape[0]
-    # The warps hand rays out from a counter: the output starts as NaN, so
-    # a ray that no lane traced shows.
-    spectrum = torch.full((n, 4), float("nan"), device=dev)
-    visits = (torch.zeros((-(-n // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32, device=dev)
-              if debug_visits else None)
-    count = binned and debug_visits
-    if count and warp_steps is None:
-        warp_steps = torch.zeros(WARP_STEP_COLS, dtype=torch.int64, device=dev)
-    steps = warp_steps if count else bounce_steps
-    # The refill counter: the next ray index to hand out.
-    next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
-    # A dense table form has no record: its instances are the per-row class.
-    cull = int(scene.krn_big_cull_mode) if binned or rec_rows else -1
-    ablate = ablation_mask(binned)
-    # Temporaries made here (seed_t, tables) may be freed before the
-    # kernel runs: the caching allocator reuses memory in the order of
-    # the current stream, which the launch is on.
-    if n:
-        with torch.cuda.device(dev):
-            per_sm, threads = resident_blocks(smem, binned, steps is not None, cull,
-                                              bool(ablate))
-            grid = resident_grid(n, threads, per_sm,
-                                 torch.cuda.get_device_properties(dev).multi_processor_count)
-            err = _library()(
-                origin.data_ptr(), direction.data_ptr(), spectrum.data_ptr(), n,
-                tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
-                mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
-                em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
-                rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode), int(binned),
-                *tier_args, visits.data_ptr() if count else None,
-                None if steps is None else steps.data_ptr(), next_ray.data_ptr(),
-                seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), grid, smem,
-                ablate, torch.cuda.current_stream(dev).cuda_stream,
+            raise ValueError(f"trace_megakernel: no kernel for device {dev}")
+        if binned and scene.big_v0.shape[0] > scene.krn_big_pair.shape[0]:
+            # pallas_megakernel.py:1219-1229: the big partition outgrew the one
+            # pair record.
+            raise ValueError(
+                f"megakernel unsupported: {scene.big_v0.shape[0]} dense triangles exceed "
+                f"the pair record ({scene.krn_big_pair.shape[0]} rows)"
             )
-        if err:
-            raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
-        trace_megakernel.launches += 1
-    coll = spectrum[:, 3] > 0.5
-    return (spectrum, coll, visits) if debug_visits else (spectrum, coll)
+        if not megakernel_supported(scene):
+            raise ValueError(
+                "trace_megakernel: scene exceeds the kernel's limits (see "
+                "megakernel_supported / PERF.md)"
+            )
+        check_tensor("origin", origin, dev, torch.float32, (None, 3))
+        check_tensor("direction", direction, dev, torch.float32, (origin.shape[0], 3))
+        scene = scene.to(dev)
+        if tables is None:
+            tables = pack_tables(scene)
+        tri, sph, mat, lgt, em = tables
+        for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS),
+                           ("mat", mat, MAT_COLS), ("lgt", lgt, LGT_COLS),
+                           ("em", em, EM_COLS)):
+            check_tensor(name, t, dev, torch.float32, (None, c))
+        if scene.dense_pair:
+            rec = scene.krn_big_pair
+            check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
+            rec_ptr, rec_rows, rec_stride = rec.data_ptr(), rec.shape[0], rec.shape[1]
+            n_tri = 0
+        else:
+            rec_ptr, rec_rows, rec_stride = None, 0, 0
+            n_tri = tri.shape[0]
+        if binned:
+            ktables = kernel_tables(scene)
+            check_tables(ktables, dev)
+            tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
+        else:
+            tier_args = NO_TIERS
+        if isinstance(seed, torch.Tensor):
+            seed_t = seed.to(device=dev, dtype=torch.int32).reshape(-1)[:1].contiguous()
+        else:
+            seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
+
+        smem = block_smem_bytes(scene, tables, walk_layout("megakernel") if binned else None)
+        n = origin.shape[0]
+        # The warps hand rays out from a counter: the output starts as NaN, so
+        # a ray that no lane traced shows.
+        spectrum = torch.full((n, 4), float("nan"), device=dev)
+        visits = (torch.zeros((-(-n // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32, device=dev)
+                  if debug_visits else None)
+        count = binned and debug_visits
+        if count and warp_steps is None:
+            warp_steps = torch.zeros(WARP_STEP_COLS, dtype=torch.int64, device=dev)
+        steps = warp_steps if count else bounce_steps
+        # The refill counter: the next ray index to hand out.
+        next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
+        # A dense table form has no record: its instances are the per-row class.
+        cull = int(scene.krn_big_cull_mode) if binned or rec_rows else -1
+        ablate = ablation_mask(binned)
+        # Temporaries made here (seed_t, tables) may be freed before the
+        # kernel runs: the caching allocator reuses memory in the order of
+        # the current stream, which the launch is on.
+        if n:
+            with torch.cuda.device(dev):
+                per_sm, threads = resident_blocks(smem, binned, steps is not None, cull,
+                                                  bool(ablate))
+                grid = resident_grid(n, threads, per_sm,
+                                     torch.cuda.get_device_properties(dev).multi_processor_count)
+                err = _library()(
+                    origin.data_ptr(), direction.data_ptr(), spectrum.data_ptr(), n,
+                    tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
+                    mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
+                    em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
+                    rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode), int(binned),
+                    *tier_args, visits.data_ptr() if count else None,
+                    None if steps is None else steps.data_ptr(), next_ray.data_ptr(),
+                    seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), grid, smem,
+                    ablate, torch.cuda.current_stream(dev).cuda_stream,
+                )
+            if err:
+                raise RuntimeError(f"megakernel launch failed: cudaError_t {err}")
+            trace_megakernel.launches += 1
+        coll = spectrum[:, 3] > 0.5
+        return (spectrum, coll, visits) if debug_visits else (spectrum, coll)
 
 
 trace_megakernel.launches = 0

@@ -56,6 +56,7 @@ from ..accel.kernel_traverse import (
 )
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
+from ..utils.profiling import trace_annotation
 from .megakernel import (
     EM_COLS,
     LGT_COLS,
@@ -406,70 +407,79 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     `warp_steps` ([2] int64, zeroed, on the card; binned, with
     `debug_visits`): the warp steps of every bounce are added to it. The
     driver reads the host
-    once per bounce (counted in `trace_megakernel_sorted.host_reads`)."""
-    origin, direction = rays.origin, rays.direction
-    dev = origin.device
-    scene = scene.to(dev)
-    if not megakernel_supported(scene):
-        raise ValueError("trace_megakernel_sorted: the scene exceeds the kernels' limits "
-                         "(megakernel_supported)")
-    binned = scene.has_kernel_records
-    if tables is None:
-        tables = pack_tables(scene)
-    ktables = kernel_tables(scene) if binned else None
-    ctx = _Ctx(scene, tables, options, dev) if reference or dev.type == "cpu" else None
-    if warp_steps is not None and (not (debug_visits and binned) or ctx is not None):
-        raise ValueError("trace_megakernel_sorted: warp_steps count the kernel's binned "
-                         "bounces with debug_visits")
-    r = origin.shape[0]
-    st = initial_state(origin, direction, seed)
-    idx = torch.arange(r, device=dev)
-    max_depth = int(options.max_depth)
-    seed_depth = seed_depth_table(seed, max_depth, dev)
-    threshold = min(_SORT_MIN_ALIVE, max(r // 4, 1))
-    vis = (torch.zeros((max_depth, -(-r // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32,
-                       device=dev)
-           if debug_visits else None)
-    # A dense scene has nothing to count: its bounces run the plain form.
-    count = vis is not None and binned
-    if timing is not None:
-        timing.update(bounce_ms=[], sort_ms=[])
-    n_alive = r
-    depth = 0
-    while depth < max_depth and n_alive > 0:
+    once per bounce (counted in `trace_megakernel_sorted.host_reads`; the
+    rays entering each bounce in `trace_megakernel_sorted.live_rays`)."""
+    with trace_annotation("sorted.trace"):
+        origin, direction = rays.origin, rays.direction
+        dev = origin.device
+        scene = scene.to(dev)
+        if not megakernel_supported(scene):
+            raise ValueError("trace_megakernel_sorted: the scene exceeds the kernels' limits "
+                             "(megakernel_supported)")
+        binned = scene.has_kernel_records
+        if tables is None:
+            tables = pack_tables(scene)
+        ktables = kernel_tables(scene) if binned else None
+        ctx = _Ctx(scene, tables, options, dev) if reference or dev.type == "cpu" else None
+        if warp_steps is not None and (not (debug_visits and binned) or ctx is not None):
+            raise ValueError("trace_megakernel_sorted: warp_steps count the kernel's binned "
+                             "bounces with debug_visits")
+        r = origin.shape[0]
+        st = initial_state(origin, direction, seed)
+        idx = torch.arange(r, device=dev)
+        max_depth = int(options.max_depth)
+        seed_depth = seed_depth_table(seed, max_depth, dev)
+        threshold = min(_SORT_MIN_ALIVE, max(r // 4, 1))
+        vis = (torch.zeros((max_depth, -(-r // VISIT_BLOCK), GEO_VISIT_COLS), dtype=torch.int32,
+                           device=dev)
+               if debug_visits else None)
+        # A dense scene has nothing to count: its bounces run the plain form.
+        count = vis is not None and binned
         if timing is not None:
-            e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            e[0].record()
-        v = vis[depth] if count else None
-        if ctx is not None:
-            bounce_reference(scene, st, depth, options, ctx=ctx, visits=v)
-        else:
-            bounce(scene, st, seed_depth[depth], options, tables, ktables, visits=v,
-                   warp_steps=warp_steps if count else None)
-        if timing is not None:
-            e[1].record()
-        alive = st[17] > 0.5
-        # The one host sync of the bounce: loop test and sort threshold.
-        n_alive = int(alive.sum())
-        trace_megakernel_sorted.host_reads += 1
-        if sort and n_alive >= threshold:
-            key = _sort_key(st[1], st[2], st[3], st[4], st[5], st[6], st[17],
-                            scene.root_lo, scene.root_hi)
-            order = torch.argsort(key, stable=True)
-            st = st[:, order]
-            idx = idx[order]
-        if timing is not None:
-            e[2].record()
-            e[2].synchronize()
-            timing["bounce_ms"].append(e[0].elapsed_time(e[1]))
-            timing["sort_ms"].append(e[1].elapsed_time(e[2]))
-        depth += 1
-    # Un-permute: scatter each ray's sums back to its original index.
-    out = torch.empty((4, r), dtype=torch.float32, device=dev)
-    out[:, idx] = st[[10, 11, 12, 16]]
-    coll = out[3] > 0.5
-    spectrum = torch.stack([out[0], out[1], out[2], coll.float()], dim=-1)
-    return (spectrum, coll, vis) if debug_visits else (spectrum, coll)
+            timing.update(bounce_ms=[], sort_ms=[])
+        n_alive = r
+        depth = 0
+        while depth < max_depth and n_alive > 0:
+            if timing is not None:
+                e = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                e[0].record()
+            v = vis[depth] if count else None
+            trace_megakernel_sorted.live_rays += n_alive
+            with trace_annotation("sorted.bounce"):
+                if ctx is not None:
+                    bounce_reference(scene, st, depth, options, ctx=ctx, visits=v)
+                else:
+                    bounce(scene, st, seed_depth[depth], options, tables, ktables, visits=v,
+                           warp_steps=warp_steps if count else None)
+            if timing is not None:
+                e[1].record()
+            # The one host sync of the bounce: loop test and sort threshold.
+            with trace_annotation("sorted.live_read"):
+                alive = st[17] > 0.5
+                n_alive = int(alive.sum())
+            trace_megakernel_sorted.host_reads += 1
+            if sort and n_alive >= threshold:
+                with trace_annotation("sorted.sort"):
+                    key = _sort_key(st[1], st[2], st[3], st[4], st[5], st[6], st[17],
+                                    scene.root_lo, scene.root_hi)
+                    order = torch.argsort(key, stable=True)
+                    st = st[:, order]
+                    idx = idx[order]
+            if timing is not None:
+                e[2].record()
+                e[2].synchronize()
+                timing["bounce_ms"].append(e[0].elapsed_time(e[1]))
+                timing["sort_ms"].append(e[1].elapsed_time(e[2]))
+            depth += 1
+        # Un-permute: scatter each ray's sums back to its original index.
+        with trace_annotation("sorted.unpermute"):
+            out = torch.empty((4, r), dtype=torch.float32, device=dev)
+            out[:, idx] = st[[10, 11, 12, 16]]
+            coll = out[3] > 0.5
+            spectrum = torch.stack([out[0], out[1], out[2], coll.float()], dim=-1)
+        return (spectrum, coll, vis) if debug_visits else (spectrum, coll)
 
 
+# Per-process totals: host reads (one a bounce), rays entering each bounce.
 trace_megakernel_sorted.host_reads = 0
+trace_megakernel_sorted.live_rays = 0

@@ -7,7 +7,17 @@ external google-benchmark counters. The GPU equivalents here:
   * `trace_annotation` / `profile_to` — `torch.profiler` integration: a
     Chrome trace of the host ops and the card's kernels, with the
     annotated regions as ranges (and NVTX ranges on the card, which an
-    `nsys` trace shows).
+    `nsys` trace shows). A span records only while a torch.profiler
+    session is recording; otherwise it is a shared no-op context, so the
+    spans stay on the hot path. The program's spans, `<layer>.<what>`:
+    `film.render` (a frame's root), `film.tile`, `film.chunk`,
+    `camera.shoot`, `film.fold`, `film.flag_read`, `film.image_read`;
+    `k1.trace`; `sorted.trace`, `sorted.bounce`, `sorted.live_read`,
+    `sorted.sort`, `sorted.unpermute`; `diff.loss_and_grad` (a gradient
+    pass's root), `diff.grad`, `diff.record`, `diff.live_read`,
+    `diff.preprocess`, `diff.backward` (on autograd's thread for CUDA).
+  * `counters` — one snapshot of the hot path's counters (function
+    attributes of the drivers and kernel wrappers) under layer names.
   * `RayCounter` — per-phase ray/sample throughput accounting, the analog of
     benchmark::SetItemsProcessed (ref: benchmark/main.cpp:30).
   * `progress_printer` — a console progress bar callback compatible with
@@ -24,11 +34,23 @@ import time
 import torch
 
 
-@contextlib.contextmanager
+# Shared by every span while no profiler records: nullcontext is reentrant.
+_OFF = contextlib.nullcontext()
+
+
 def trace_annotation(name: str):
-    """Annotate a host-side region in the trace: a `record_function` range
-    in any torch.profiler trace and, where there is a card, an NVTX range
-    (an NVTX failure there raises)."""
+    """Annotate a host-side region in the trace. While a torch.profiler
+    session records (the module flag `_is_profiler_enabled`), a
+    `record_function` range, on the profiler's clock beside the card's
+    kernels and copies, and where there is a card an NVTX range (an NVTX
+    failure there raises); otherwise a shared no-op context, at once."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _OFF
+    return _recorded(name)
+
+
+@contextlib.contextmanager
+def _recorded(name: str):
     with torch.profiler.record_function(name):
         if torch.cuda.is_available():
             with torch.cuda.nvtx.range(name):
@@ -56,6 +78,39 @@ def profile_to(logdir: str):
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof.stop()
+
+
+def counters() -> dict[str, int]:
+    """One snapshot of every hot-path counter of the port, under layer
+    names: kernel launches (K1-K8), the drivers' host reads, the live rays
+    entering each launched bounce, the film's stats batches and flag
+    reads. Each is a function attribute its code adds to; take two
+    snapshots and subtract. Stores nothing of its own."""
+    from ..accel import cluster_major, kernel_traverse, traverse
+    from ..integrator import diff_megakernel, film, megakernel, sorted_wavefront
+    from ..ops import intersect
+
+    sorted_trace = sorted_wavefront.trace_megakernel_sorted
+    record_trace = diff_megakernel.trace_megakernel_diff
+    return {
+        "k1.launches": megakernel.trace_megakernel.launches,
+        "k2.launches": sorted_wavefront.bounce.launches,
+        "k2.record_launches": sorted_wavefront.bounce.record_launches,
+        "k4.launches": kernel_traverse.cluster_intersect.launches,
+        "k5.launches": intersect.dense_intersect.launches,
+        "k6.launches": traverse.candidates.launches,
+        # binned_intersect's reads of the count and flags that gate the
+        # K6 / K7 rounds.
+        "k6.host_reads": traverse.binned_intersect.host_reads,
+        "k7.launches": traverse.isect.launches,
+        "k8.launches": cluster_major.test_candidates.launches,
+        "sorted.host_reads": sorted_trace.host_reads,
+        "sorted.live_rays": sorted_trace.live_rays,
+        "diff.host_reads": record_trace.host_reads,
+        "diff.live_rays": record_trace.live_rays,
+        "film.stats_batches": film.render_tile.stats_batches,
+        "film.flag_reads": film.render_tile.flag_reads,
+    }
 
 
 @dataclasses.dataclass
