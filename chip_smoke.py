@@ -77,6 +77,15 @@ Phases, one line each; any failure exits non-zero:
      K2's record form on one bounce of the pass's rays against its twin,
      timed as whole calls, as the launch alone (`best_ms`) and beside the
      two-kernel fill its wrapper no longer makes
+ 14b. the replay vjp (csrc/replay_vjp.cu) at the box-grad cell's shape: K2's
+     planes of one 512x512 @ 16 spp pass at max_depth 12 (4,194,304 rays x
+     the depths it reached x 7 planes): against its twin, two calls
+     bit-equal, timed as whole calls and as the launches alone (`best_ms`)
+     beside its bound (the planes' and the spectrum gradient's colour
+     bytes), the warp slices' sums (the tables padded to 5 materials), the
+     twin, and the path it replaced (`preprocess_records` and the autograd
+     of `replay_fast`) with that path's peak memory; registers, spills and
+     blocks per SM
  15. inverse_render: 10 Adam steps at 32x32 @ 8 spp on the card
  16. the binned wavefront's kernels against their plain versions on the
      200k dragon built with lean=False: the candidate scan K6 and the
@@ -354,9 +363,19 @@ PATH_RAYS = 16384
 # every ray.
 PLANE_FRAC = 0.999
 KERNELS = ("megakernel", "bounce", "cluster_query", "dense_query", "binned_cand",
-           "binned_isect", "cluster_major", "bvh_build", "mesh_native", "exp_supscan",
-           "exp_record_variants",
+           "binned_isect", "cluster_major", "replay_vjp", "bvh_build", "mesh_native",
+           "exp_supscan", "exp_record_variants",
            "exp_smem_tables", "exp_cond_fat", "exp_dot_formulations")
+# Phase 14b: the replay vjp at the box-grad cell's pass (portbench/traffic/
+# box-grad.json: 512x512 @ 16 spp, max_depth 12), held to its twin within
+# VJP_RTOL of each gradient's largest entry (float32 sums against the
+# twin's float64 sums of the same float32 terms).
+VJP_W = VJP_H = 512
+VJP_SPP = 16
+VJP_DEPTH = 12
+VJP_RTOL = 2e-5
+# The materials the warp slices' timing pads the tables to.
+VJP_PAD_MAT = 5
 # renderSceneBoxGrad (bench.py:253-260) and the FD / inverse-rendering
 # checks on the card.
 GRAD_W = GRAD_H = 128
@@ -1294,6 +1313,8 @@ def grad_checks(diff, golden, RenderOptions, scene=None, cam=None, entries=None)
 def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
     """renderSceneBoxGrad through loss_and_grad (bench.py:240-319), the
     record route and then the wavefront route."""
+    from cpupathtrace_tpu_torch.integrator import diff_megakernel as dm
+
     scene, camera = scenes.bench_box_scene(), scenes.bench_camera()
     opts = RenderOptions(GRAD_W, GRAD_H, GRAD_SPP, GRAD_SPP, epsilon=1e-3, max_depth=GRAD_DEPTH)
     params = diff.get_material_params(scene)
@@ -1306,11 +1327,13 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
     def counts_zero():
         sw.bounce.launches = sw.bounce.record_launches = sw.bounce_reference.calls = 0
         oi.dense_intersect.launches = oi.dense_intersect_reference.calls = 0
+        dm.replay_vjp.launches = dm.replay_vjp_reference.calls = 0
 
     def counts():
         return dict(k2=sw.bounce.launches, k2_records=sw.bounce.record_launches,
                     k2_twin=sw.bounce_reference.calls, k5=oi.dense_intersect.launches,
-                    k5_plain=oi.dense_intersect_reference.calls)
+                    k5_plain=oi.dense_intersect_reference.calls, vjp=dm.replay_vjp.launches,
+                    vjp_twin=dm.replay_vjp_reference.calls)
 
     def run_route(batches, per_batch, warm):
         counts_zero()
@@ -1343,13 +1366,15 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
     c = out["replay"]["counts"]
     need(c["k2_records"] > 0 and c["k2_twin"] == 0,
          f"renderSceneBoxGrad did not run K2's record form alone: {c}")
+    need(c["vjp"] == 1 and c["vjp_twin"] == 0,
+         f"renderSceneBoxGrad's pass did not take one replay vjp launch alone: {c}")
     out["replay"]["profile"] = profile_run(lambda: one(99), "bounce_kernel")
     out["replay"]["fd"] = grad_checks(diff, golden, RenderOptions)
     os.environ["PTX_DIFF_MEGAKERNEL"] = "0"
     try:
         out["wavefront"] = run_route(1, 3, 1)
         c = out["wavefront"]["counts"]
-        need(c["k5"] > 0 and c["k5_plain"] == 0 and c["k2"] == 0,
+        need(c["k5"] > 0 and c["k5_plain"] == 0 and c["k2"] == 0 and c["vjp"] == 0,
              f"renderSceneBoxGrad's wavefront route: {c}")
         out["wavefront"]["profile"] = profile_run(lambda: one(98), "dense_query")
         out["wavefront"]["fd"] = grad_checks(diff, golden, RenderOptions)
@@ -1397,6 +1422,97 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
                             + VERTEX_FLOPS)))
     out["record_kernel"] = kr
     return out
+
+
+def phase_replay_vjp(sw, scenes, best_ms):
+    """The replay vjp at the box-grad cell's shape (see the module note,
+    phase 14b)."""
+    from cpupathtrace_tpu_torch import _build
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.integrator import diff_megakernel as dm
+
+    scene, camera = scenes.bench_box_scene(), scenes.bench_camera()
+    opts = RenderOptions(VJP_W, VJP_H, VJP_SPP, VJP_SPP, epsilon=1e-3, max_depth=VJP_DEPTH)
+    rays, _ = camera_state(sw, camera, opts, VJP_SPP, 5)
+    # The planes of the depths the pass reached, as `_TraceDiff` saves them.
+    _, _, full, reached = dm.record_pass(scene, rays, opts, 5)
+    planes = full[:reached]
+    depth, nd, n = planes.shape
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    # The loss's gradient of a pass stands in: signed, as an L2 loss's is.
+    g = torch.rand((n, 4), device="cuda", generator=gen) - 0.25
+    nl, k = scene.n_point_lights, scene.emissive_sample_count
+    em = dm.em_material_ids(scene).int()
+    ls = scene.light_spectrum[:nl, :3].contiguous()
+    tables = (scene.mat_diffuse, scene.mat_specular, scene.mat_emission)
+    args = (planes, g, *tables, em, ls, nl, k)
+
+    launches = dm.replay_vjp.launches
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    out = dm.replay_vjp(*args)
+    again = dm.replay_vjp(*args)
+    sync()
+    res = dict(rays=n, depth=depth, planes=nd, materials=scene.num_materials,
+               launches=dm.replay_vjp.launches - launches,
+               extra_peak_gb=(torch.cuda.max_memory_allocated() - base) / 1e9,
+               bit_equal_across_calls=all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                                          for a, b in zip(out, again)))
+    t0 = time.perf_counter()
+    twin = dm.replay_vjp_reference(*args)
+    sync()
+    res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+    rel = [float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+           for a, b in zip(out, twin)]
+    res.update(max_rel_err=max(rel), max_abs_err=max(float((a - b).abs().max())
+                                                     for a, b in zip(out, twin)),
+               grad=[[round(float(v), 6) for v in t[:, :3].flatten()] for t in out])
+    need(res["bit_equal_across_calls"] and res["launches"] == 2 and max(rel) <= VJP_RTOL,
+         f"the replay vjp against its twin at box-grad's shape: {res}")
+    res["ms"] = cuda_ms(lambda: dm.replay_vjp(*args), 20)
+    res["kernel_ms"] = best_ms(lambda: dm.replay_vjp(*args), 20)
+    # The bytes the vjp needs: the planes and g's three colour columns.
+    res.update(bound(planes.numel() * 4 + n * 3 * 4, 0))
+    threads, smem, per_sm = dm.vjp_block(depth, scene.num_materials, em.shape[0], nl)
+    res.update(threads=threads, smem_bytes=smem, blocks_per_sm=per_sm,
+               ptxas=_build.ptxas_instances(_build.ptxas_report.get("replay_vjp", "")))
+    # The warp slices' sums on the same planes: the tables padded with rows
+    # no plane names, past the register sums' limit.
+    pad = [torch.cat([t, t[:1].expand(VJP_PAD_MAT - t.shape[0], -1)]).contiguous()
+           for t in tables]
+    wide = (planes, g, *pad, em, ls, nl, k)
+    out_w = dm.replay_vjp(*wide)
+    sync()
+    rel_w = [float((a[:3] - b).abs().max()) / max(float(b.abs().max()), 1e-30)
+             for a, b in zip(out_w, twin)]
+    need(max(rel_w) <= VJP_RTOL and all(float(a[3:].abs().max()) == 0.0 for a in out_w),
+         f"the replay vjp's warp slices against its twin: {rel_w}")
+    res.update(warp_slices_max_rel_err=max(rel_w),
+               warp_slices_kernel_ms=best_ms(lambda: dm.replay_vjp(*wide), 20),
+               warp_slices_block=dm.vjp_block(depth, VJP_PAD_MAT, em.shape[0], nl))
+
+    # The path it replaced: preprocess_records and the autograd of
+    # replay_fast (the parent's backward), on the same planes.
+    recs = planes.permute(0, 2, 1)
+
+    def replaced():
+        pre = dm.preprocess_records(recs, em.long(), ls, scene.num_materials, nl, k)
+        leaves = [t.detach().requires_grad_(True) for t in tables]
+        with torch.enable_grad():
+            rgb = dm.replay_fast(dict(zip(dm.DIFF_FIELDS, leaves)), pre)
+            return torch.autograd.grad(rgb, leaves, g[:, :3], allow_unused=True)
+
+    old = replaced()
+    sync()
+    rel_old = [float((a[:, :3] - b[:, :3]).abs().max()) / max(float(b.abs().max()), 1e-30)
+               for a, b in zip(old, twin) if a is not None]
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res["library_ms"] = cuda_ms(replaced, 3)
+    res["library_extra_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+    res["library_max_rel_err"] = max(rel_old)
+    return res
 
 
 def phase_inverse_render(diff, golden, RenderOptions):
@@ -3965,6 +4081,8 @@ def main():
         report["box_grad"]["parent"] = {k: parent[k] for k in (
             "device", "grad_ms_per_pass", "k2_records_ms")}
     line("14 renderSceneBoxGrad", **report["box_grad"])
+    report["replay_vjp"] = phase_replay_vjp(sw, scenes, best_ms)
+    line("14b the replay vjp at box-grad's shape", **report["replay_vjp"])
     report["inverse_render"] = phase_inverse_render(diff, golden, pt.RenderOptions)
     line("15 inverse_render", **report["inverse_render"])
 
@@ -4173,6 +4291,15 @@ def main():
         **figures(krec), "library_ms": None, "kernel_ms": krec["kernel_ms"],
         "sharded": {"train_1x2_sharing_the_card": {k: shared["train"][k] for k in (
             "record_launches", "pass_ms", "grad_max_abs_err", "grad_scale")}},
+    }, {
+        "name": "replay_vjp", "route": "cuda",
+        "source": "cpupathtrace_tpu_torch/csrc/replay_vjp.cu",
+        "replaces": None,
+        "replaces_library": "preprocess_records + the autograd of replay_fast",
+        "launches": grad["replay"]["counts"]["vjp"],
+        "max_abs_err": report["replay_vjp"]["max_abs_err"],
+        **figures(report["replay_vjp"]), "kernel_ms": report["replay_vjp"]["kernel_ms"],
+        "library_ms": report["replay_vjp"]["library_ms"],
     }, {
         "name": "cluster_query", "route": "cuda",
         "source": "cpupathtrace_tpu_torch/csrc/cluster_query.cu",

@@ -20,22 +20,38 @@ and detached quantities: [mid, W, chain selector] + one weight per point
 light + (CDF row, weight) per emitter draw. The backward is the
 vector-Jacobian product of a replay of the two sums over those records,
 with no traversal, sampling or BSDF logic (`trace_diff`, a
-torch.autograd.Function). The replay reproduces the kernel's sums term by
-term, so analytic gradients match finite differences of the forward under
-common random numbers up to float32 reassociation (diff/render.py's
-contract; its roulette caveat past depth 4 applies unchanged).
+torch.autograd.Function). It is taken in closed form (`replay_vjp`): one
+CUDA kernel over K2's planes on the card (csrc/replay_vjp.cu), its plain
+twin `replay_vjp_reference` on the CPU. With g the spectrum's gradient,
+G_v = g * S_v, E_v = sum_l E_l * w_vl the NEE spectrum, a_v the vertex's
+two terms above and, backwards, B_D = 0, B_v = a_v + C_v * B_{v+1}:
+
+    d emission[mid_v]         += G_v * W_v
+    d diffuse[mid_v]          += G_v * E_v
+    d emission[emitter of l]  += G_v * diffuse[mid_v] * w_vl   (emitter draws)
+    d C_v                     += G_v * B_{v+1}                 (diffuse or specular)
+
+The replay reproduces the kernel's sums term by term, so analytic
+gradients match finite differences of the forward under common random
+numbers up to float32 reassociation (diff/render.py's contract; its
+roulette caveat past depth 4 applies unchanged). `replay_spectrum` and
+`replay_fast` (the JAX package's replays) stay as the references the
+vjp is tested against.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
 import os
 
 import torch
 
+from .. import _build
+from ..accel.kernel_traverse import SMEM_LIMIT, check_tensor
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
 from ..utils.profiling import trace_annotation
-from .megakernel import megakernel_supported, pack_tables
+from .megakernel import MAX_EM, MAX_LIGHTS, MAX_MAT, megakernel_supported, pack_tables
 from .sorted_wavefront import (
     bounce,
     clear_records,
@@ -65,13 +81,13 @@ def em_material_ids(scene: SceneData) -> torch.Tensor:
     return torch.where(is_sph, scene.sph_material[si], scene.tri_material[ti]).long()
 
 
-def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, tables=None):
+def record_pass(scene: SceneData, rays, options: RenderOptions, seed, tables=None):
     """The forward of the gradient path: K2 in its record form once per
     bounce over the unpermuted path state (the twin on the CPU). Returns
-    (spectrum [R, 4] with alpha = collected, collected [R] bool, records
-    [max_depth, R, n_drec] f32). Depths the loop never reaches keep the
-    no-contribution encoding (mid -1, all weights 0). `seed`: an int32
-    Python int or a 1-element tensor."""
+    (spectrum [R, 4] with alpha = collected, collected [R] bool, planes
+    [max_depth, n_drec, R] f32 as K2 wrote them, depth): the loop stops at
+    `depth`, once no ray is alive, and the planes past it are left
+    unwritten. `seed`: an int32 Python int or a 1-element tensor."""
     with trace_annotation("diff.record"):
         origin, direction = rays.origin, rays.direction
         dev = origin.device
@@ -82,8 +98,6 @@ def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, 
         max_depth = int(options.max_depth)
         n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
         st = initial_state(origin, direction, seed)
-        # Each bounce writes its depth's planes whole; the depths the loop
-        # never reaches are cleared after it.
         planes = torch.empty((max_depth, n_drec, r), dtype=torch.float32, device=dev)
         seed_depth = seed_depth_table(seed, max_depth, dev)
         n_alive = r
@@ -95,11 +109,21 @@ def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, 
                 n_alive = int((st[17] > 0.5).sum())  # the one host sync of the bounce
             trace_megakernel_diff.host_reads += 1
             depth += 1
-        if depth < max_depth:
-            clear_records(planes[depth:].transpose(0, 1))
         coll = st[16] > 0.5
         spectrum = torch.stack([st[10], st[11], st[12], coll.float()], dim=-1)
-        return spectrum, coll, planes.permute(0, 2, 1)
+        return spectrum, coll, planes, depth
+
+
+def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, tables=None):
+    """`record_pass` with every depth's records: (spectrum [R, 4],
+    collected [R] bool, records [max_depth, R, n_drec] f32, a view of the
+    planes). Depths the loop never reaches get the no-contribution encoding
+    (mid -1, all weights 0)."""
+    spectrum, coll, planes, depth = record_pass(scene, rays, options, seed, tables)
+    if depth < planes.shape[0]:
+        with trace_annotation("diff.record"):
+            clear_records(planes[depth:].transpose(0, 1))
+    return spectrum, coll, planes.permute(0, 2, 1)
 
 
 # Per-process totals: host reads (one a bounce), rays entering each bounce.
@@ -190,30 +214,200 @@ def replay_fast(mats: dict, pre: dict):
     return out
 
 
+def replay_vjp_reference(planes, g_spec, dif, spc, emi, em_mid, light_spec, n_lights: int,
+                         em_k: int):
+    """The plain version of the replay vjp (csrc/replay_vjp.cu): the
+    gradients of sum(g_spec[:, :3] * replay_spectrum(...)) in the material
+    tables [M, C], in closed form, from K2's planes as written [D, n_drec,
+    R]. A forward sweep over the depths takes S_v and each term of d a_v, a
+    reverse one B_{v+1} and the chain's terms (the module note). Each term
+    is the kernel's float32 product in the kernel's order; the terms are
+    summed in float64 and rounded once. Columns past 3 get 0. A row with
+    mid -1 adds nothing and does not advance. Calls are counted in
+    `replay_vjp_reference.calls`."""
+    replay_vjp_reference.calls += 1
+    tables = (dif, spc, emi)
+    n_mat = dif.shape[0]
+    dev = planes.device
+    d3, s3, e3 = (t.detach()[:, :3] for t in tables)
+    g = g_spec[:, :3]
+    em_mid = em_mid.long()
+    n_em = em_mid.shape[0]
+    sums = torch.zeros((3, n_mat, 3), dtype=torch.float64, device=dev)
+
+    def add(field, mask, m, val):
+        sums[field].index_add_(0, m[mask], val[mask].double())
+
+    s = torch.ones_like(g)
+    stash = []
+    for plane in planes:
+        mid = plane[0].long()
+        hit = mid >= 0
+        m = mid.clamp(0, n_mat - 1)
+        w = plane[1, :, None]
+        sel = plane[2].long()
+        big_g = g * s
+        d_m = d3[m]
+        e = torch.zeros_like(g)
+        for li in range(n_lights):
+            e = e + light_spec[li][None, :] * plane[3 + li, :, None]
+        col = 3 + n_lights
+        for _ in range(em_k):
+            em = em_mid[plane[col].long().clamp(0, n_em - 1)]
+            wk = plane[col + 1, :, None]
+            e = e + e3[em] * wk
+            add(2, hit, em, (big_g * d_m) * wk)
+            col += 2
+        add(2, hit, m, big_g * w)
+        add(0, hit, m, big_g * e)
+        a = torch.where(hit[:, None], e3[m] * w + d_m * e, 0.0)
+        kind = torch.where(hit & ((sel == 1) | (sel == 2)), sel, 0)
+        c = torch.where((kind == 1)[:, None], d_m,
+                        torch.where((kind == 2)[:, None], s3[m], torch.ones_like(d_m)))
+        s = torch.where((kind > 0)[:, None], c * s, s)
+        stash.append((a, big_g, kind, m, c))
+    b = torch.zeros_like(g)
+    for a, big_g, kind, m, c in reversed(stash):
+        add(0, kind == 1, m, big_g * b)
+        add(1, kind == 2, m, big_g * b)
+        b = a + c * b
+    out = [torch.zeros_like(t) for t in tables]
+    for f, o in enumerate(out):
+        o[:, :3] = sums[f].to(o.dtype)
+    return tuple(out)
+
+
+replay_vjp_reference.calls = 0
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# Per (device, depth, materials, emitter rows, lights): (threads, dynamic
+# shared memory, resident blocks per SM) of the vjp's block.
+_VJP_SHAPES: dict = {}
+
+
+def _vjp_lib():
+    lib = _build.load("replay_vjp")
+    fn = lib.ptx_replay_vjp_launch
+    if fn.argtypes is None:
+        fn.argtypes = [_P, _I, _I, _LL, _P, _I, _P, _P, _P, _I, _I, _I, _I, _P, _I, _P, _I, _I,
+                       _P, _I, _I, _P, _P, _P, _P]
+        fn.restype = ctypes.c_int
+        occ = lib.ptx_replay_vjp_occupancy
+        occ.argtypes = [_I, _I, _I, _I, _I, ctypes.POINTER(_LL), ctypes.POINTER(_I)]
+        occ.restype = ctypes.c_int
+    return lib
+
+
+def vjp_block(depth: int, n_mat: int, n_em: int, n_lights: int):
+    """(threads, dynamic shared memory, resident blocks per SM) of the vjp's
+    block on the current card: 128 threads, or 64 or 32 where a block of
+    128 would hold more than SMEM_LIMIT bytes (its stash is [depth, 7,
+    threads] words); ValueError where none fits."""
+    key = (torch.cuda.current_device(), depth, n_mat, n_em, n_lights)
+    if key not in _VJP_SHAPES:
+        occ = _vjp_lib().ptx_replay_vjp_occupancy
+        for threads in (128, 64, 32):
+            smem, blocks = _LL(0), _I(0)
+            err = occ(depth, n_mat, n_em, n_lights, threads, ctypes.byref(smem),
+                      ctypes.byref(blocks))
+            if smem.value > SMEM_LIMIT:
+                continue
+            if err or blocks.value < 1:
+                raise RuntimeError(f"replay_vjp occupancy query failed: cudaError_t {err}, "
+                                   f"{blocks.value} blocks of {threads} threads")
+            _VJP_SHAPES[key] = (threads, smem.value, blocks.value)
+            break
+        else:
+            raise ValueError(f"replay_vjp: {depth} depths need more than {SMEM_LIMIT} bytes "
+                             "of shared memory in a block of 32 threads")
+    return _VJP_SHAPES[key]
+
+
+def replay_vjp(planes, g_spec, dif, spc, emi, em_mid, light_spec, n_lights: int, em_k: int):
+    """The material gradients (d diffuse, d specular, d emission, each the
+    shape of its table [M, C], columns past 3 zero) of sum(g_spec[:, :3] *
+    replay), from K2's planes as written, [D, n_drec, R] float32. CPU
+    tensors take `replay_vjp_reference`; CUDA ones launch the kernel
+    (csrc/replay_vjp.cu) and its fold, one call counted in
+    `replay_vjp.launches`, or raise: contiguous float32 planes, g_spec [R,
+    >= 3], tables [M, >= 3] and light_spec [n_lights, 3], int32 em_mid
+    [n_em], all on the planes' card, within the megakernels' limits."""
+    dev = planes.device
+    n_drec = 3 + n_lights + 2 * em_k
+    if planes.dim() != 3 or planes.shape[1] != n_drec or tuple(light_spec.shape) != (n_lights, 3):
+        raise ValueError(f"replay_vjp: planes {tuple(planes.shape)} and light_spec "
+                         f"{tuple(light_spec.shape)} for {n_lights} lights, {em_k} draws")
+    if dev.type == "cpu":
+        return replay_vjp_reference(planes, g_spec, dif, spc, emi, em_mid, light_spec,
+                                    n_lights, em_k)
+    if dev.type != "cuda":
+        raise ValueError(f"replay_vjp: no kernel for device {dev}")
+    check_tensor("planes", planes, dev, torch.float32, (None, n_drec, None))
+    depth, _, r = planes.shape
+    check_tensor("g_spec", g_spec, dev, torch.float32, (r, None))
+    n_mat = dif.shape[0]
+    for name, t in (("dif", dif), ("spc", spc), ("emi", emi)):
+        check_tensor(name, t, dev, torch.float32, (n_mat, None))
+    check_tensor("em_mid", em_mid, dev, torch.int32, (None,))
+    check_tensor("light_spec", light_spec, dev, torch.float32, (n_lights, 3))
+    n_em = em_mid.shape[0]
+    if g_spec.shape[1] < 3 or min(t.shape[1] for t in (dif, spc, emi)) < 3:
+        raise ValueError("replay_vjp: g_spec and the tables need 3 colour columns")
+    if not (1 <= n_mat <= MAX_MAT and n_em <= MAX_EM and n_lights <= MAX_LIGHTS) or (
+            em_k > 0 and n_em < 1):
+        raise ValueError(f"replay_vjp: {n_mat} materials, {n_em} emitter rows, {n_lights} "
+                         f"lights, {em_k} emitter draws: outside the kernel's limits")
+    outs = [torch.empty_like(t) for t in (dif, spc, emi)]
+    if depth == 0 or r == 0:
+        return tuple(o.zero_() for o in outs)
+    with torch.cuda.device(dev):
+        threads, _, per_sm = vjp_block(depth, n_mat, n_em, n_lights)
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        grid = max(1, min(-(-r // threads), sms * per_sm))
+        partial = torch.empty((grid, 3, n_mat, 3), dtype=torch.float32, device=dev)
+        err = _vjp_lib().ptx_replay_vjp_launch(
+            planes.data_ptr(), depth, n_drec, r, g_spec.data_ptr(), g_spec.shape[1],
+            dif.data_ptr(), spc.data_ptr(), emi.data_ptr(), dif.shape[1], spc.shape[1],
+            emi.shape[1], n_mat, em_mid.data_ptr(), n_em, light_spec.data_ptr(), n_lights,
+            em_k, partial.data_ptr(), grid, threads, *(o.data_ptr() for o in outs),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err:
+        raise RuntimeError(f"replay_vjp launch failed: cudaError_t {err}")
+    replay_vjp.launches += 1
+    return tuple(outs)
+
+
+replay_vjp.launches = 0
+
+
 class _TraceDiff(torch.autograd.Function):
-    """Forward: K2 with records; backward: the vjp of `replay_fast` over the
-    preprocessed records saved by the forward."""
+    """Forward: K2 with records (`record_pass`); backward: the replay's vjp
+    (`replay_vjp`) over the planes K2 wrote, saved by the forward."""
 
     @staticmethod
     def forward(ctx, dif, spc, emi, scene_ng, rays, options, seed):
-        spectrum, coll, recs = trace_megakernel_diff(scene_ng, rays, options, seed)
+        spectrum, coll, planes, depth = record_pass(scene_ng, rays, options, seed)
         with trace_annotation("diff.preprocess"):
-            ctx.pre = preprocess_records(
-                recs, em_material_ids(scene_ng), scene_ng.light_spectrum[:, :3],
-                scene_ng.num_materials, scene_ng.n_point_lights, scene_ng.emissive_sample_count,
-            )
-        ctx.save_for_backward(dif, spc, emi)
+            em_mid = em_material_ids(scene_ng).to(torch.int32)
+            light_spec = scene_ng.light_spectrum[:scene_ng.n_point_lights, :3].contiguous()
+        ctx.n_lights = scene_ng.n_point_lights
+        ctx.em_k = scene_ng.emissive_sample_count
+        # The depths the loop reached (still contiguous): those past it add
+        # nothing to the replay.
+        ctx.save_for_backward(dif, spc, emi, planes[:depth], em_mid, light_spec)
         ctx.mark_non_differentiable(coll)
         return spectrum, coll
 
     @staticmethod
     def backward(ctx, g_spec, _g_coll):
         with trace_annotation("diff.backward"):
-            leaves = [t.detach().requires_grad_(True) for t in ctx.saved_tensors]
-            with torch.enable_grad():
-                rgb = replay_fast(dict(zip(DIFF_FIELDS, leaves)), ctx.pre)
-                grads = torch.autograd.grad(rgb, leaves, g_spec[:, :3], allow_unused=True)
-            grads = [torch.zeros_like(x) if g is None else g for g, x in zip(grads, leaves)]
+            dif, spc, emi, planes, em_mid, light_spec = ctx.saved_tensors
+            grads = replay_vjp(planes, g_spec.contiguous(),
+                               *(t.detach().contiguous() for t in (dif, spc, emi)),
+                               em_mid, light_spec, ctx.n_lights, ctx.em_k)
             return (*grads, None, None, None, None)
 
 

@@ -82,9 +82,9 @@ def profile_to(logdir: str):
 
 def counters() -> dict[str, int]:
     """One snapshot of every hot-path counter of the port, under layer
-    names: kernel launches (K1-K8), the drivers' host reads, the live rays
-    entering each launched bounce, the film's stats batches and flag
-    reads. Each is a function attribute its code adds to; take two
+    names: kernel launches (K1-K8, the replay vjp), the drivers' host
+    reads, the live rays entering each launched bounce, the film's stats
+    batches and flag reads. Each is a function attribute its code adds to; take two
     snapshots and subtract. Stores nothing of its own."""
     from ..accel import cluster_major, kernel_traverse, traverse
     from ..integrator import diff_megakernel, film, megakernel, sorted_wavefront
@@ -108,6 +108,7 @@ def counters() -> dict[str, int]:
         "sorted.live_rays": sorted_trace.live_rays,
         "diff.host_reads": record_trace.host_reads,
         "diff.live_rays": record_trace.live_rays,
+        "diff.vjp_launches": diff_megakernel.replay_vjp.launches,
         "film.stats_batches": film.render_tile.stats_batches,
         "film.flag_reads": film.render_tile.flag_reads,
     }
