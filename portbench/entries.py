@@ -7,9 +7,15 @@ A traffic file names its entry: "render" (frames through
 loss and gradient copied to the host). Frame or pass i draws from a torch
 seed made of the run's seed and i, so the same seed gives the same work.
 
+A render traffic file gives `spp`, or `min_spp` and `max_spp` with
+min_spp < max_spp for adaptive frames (the film's stopping rule between
+stats batches), and `allow_bias` (the film's biased candidate selection,
+default false); `min_spp` and `max_spp` default to `spp`.
+
 After the window a sample drawn from the seed is compared with the plain
 reference (reference/), which traces the same paths from the configuration
-and the seeds alone.
+and the seeds alone, through the configuration module's own reference
+camera and tracer where it gives them.
 """
 from __future__ import annotations
 
@@ -19,7 +25,6 @@ import numpy as np
 import torch
 
 from .reference import film
-from .reference.intersect import Geometry
 from .reference.scene import material_rows
 
 # A pixel's gap is relative to its reference value plus this radiance, so
@@ -84,7 +89,12 @@ class Entry:
         self.seed = int(seed)
         self.device = torch.device(device)
         self.width, self.height = self.tr["width"], self.tr["height"]
-        self.spp = self.tr["spp"]
+        self.spp = self.tr.get("spp")
+        self.min_spp = self.tr.get("min_spp", self.spp)
+        self.max_spp = self.tr.get("max_spp", self.spp)
+        self.allow_bias = bool(self.tr.get("allow_bias", False))
+        if self.min_spp is None or self.max_spp is None or self.min_spp > self.max_spp:
+            raise ValueError(f"traffic needs spp, or min_spp <= max_spp: {self.tr}")
         self.max_depth = self.tr.get("max_depth", self.cfg["max_depth"])
         self.outputs: list = []
         self.ref_entering: list[int] = []
@@ -96,24 +106,43 @@ class Entry:
         self.pt = pt
         self.scene, self.camera = self.cell.module.program_scene(self.cfg, self.device,
                                                                  str(self.cell.cache_dir))
-        self.options = pt.RenderOptions(self.width, self.height, self.spp, self.spp,
-                                        epsilon=self.cfg["epsilon"], max_depth=self.max_depth)
+        self.options = pt.RenderOptions(self.width, self.height, self.min_spp, self.max_spp,
+                                        epsilon=self.cfg["epsilon"], allow_bias=self.allow_bias,
+                                        max_depth=self.max_depth)
 
     def release(self):
         """Drop the program's scene: the reference runs after it."""
         self.scene = self.camera = None
 
     def reference(self, dtype=torch.float32):
-        """The reference's scene (built once) and its queries in `dtype`."""
+        """The reference's scene (built once) and its tracer in `dtype`: the
+        configuration module's `reference_tracer(cfg, scene, dtype)` where
+        it has one, else the frozen triangle tracer."""
         if self._ref is None:
             self._ref = self.cell.module.reference_scene(self.cfg, self.device)
-        return self._ref, Geometry(self._ref, dtype=dtype)
+        own = getattr(self.cell.module, "reference_tracer", None)
+        if own is not None:
+            return self._ref, own(self.cfg, self._ref, dtype)
+        return self._ref, film.triangle_tracer(self._ref, dtype)
+
+    def reference_camera(self):
+        """The configuration module's `reference_camera(cfg)` where it has
+        one, else the frozen pinhole of the configuration's "camera"."""
+        own = getattr(self.cell.module, "reference_camera", None)
+        return own(self.cfg) if own is not None else film.Pinhole(self.cfg["camera"])
 
 
 class RenderEntry(Entry):
+    @property
+    def adaptive(self) -> bool:
+        """Does the film's stopping rule or candidate selection act?"""
+        return self.min_spp < self.max_spp or self.allow_bias
+
     def work(self) -> int:
-        """Rays of one frame (width x height x spp)."""
-        return self.width * self.height * self.spp
+        """Rays of one frame (width x height x spp); for an adaptive frame
+        width x height x min_spp, a constant of the traffic, whatever the
+        film launched."""
+        return self.width * self.height * self.min_spp
 
     def warm(self):
         self.pt.render(self.scene, self.camera, self.options, seed=step_seed(self.seed, -1))
@@ -132,14 +161,20 @@ class RenderEntry(Entry):
         return [int(f) for f in frames], pixels
 
     def reference_frames(self, frames, pixels, dtype=torch.float32):
-        ref, geo = self.reference(dtype)
+        _, tracer = self.reference(dtype)
+        camera = self.reference_camera()
         pixel_major = self.cfg["stream"]["pixel_major_on_card"] and self.device.type == "cuda"
+        rest = (pixels, self.cfg["stream"]["seed_layout"], pixel_major, self.max_depth,
+                self.cfg["epsilon"], self.device)
         out = []
         for f in frames:
-            val, ent = film.render_pixels(
-                ref, geo, self.cfg["camera"], self.width, self.height, self.spp,
-                step_seed(self.seed, f), pixels, self.cfg["stream"]["seed_layout"], pixel_major,
-                self.max_depth, self.cfg["epsilon"], self.device, dtype)
+            if self.adaptive:
+                val, ent = film.render_pixels_adaptive(
+                    tracer, camera, self.width, self.height, self.min_spp, self.max_spp,
+                    self.allow_bias, step_seed(self.seed, f), *rest)
+            else:
+                val, ent = film.render_pixels(tracer, camera, self.width, self.height,
+                                              self.max_spp, step_seed(self.seed, f), *rest)
             out.append(val)
             self.ref_entering = film.add_counts(self.ref_entering, ent)
         return out
@@ -150,6 +185,26 @@ class RenderEntry(Entry):
             return {"pixel_gap_median": float("inf")}
         prog = [self.outputs[f].reshape(-1, 4)[pixels, :3].astype(np.float64) for f in frames]
         return render_numbers(prog, self.reference_frames(frames, pixels))
+
+    def launch_plan(self, i: int):
+        """Samples per launch of frame i. An adaptive frame's launches are
+        those the program made: frame i is rendered once more and the
+        film's counter of stats batches read around it."""
+        if not self.adaptive:
+            return film.launch_plan(self.max_spp, self.width, self.height)
+        from cpupathtrace_tpu_torch.utils.profiling import counters
+
+        before = counters()["film.stats_batches"]
+        self.pt.render(self.scene, self.camera, self.options, seed=step_seed(self.seed, i))
+        batches = counters()["film.stats_batches"] - before
+        plan, c0 = [], 0
+        for samples, kb in film.adaptive_plan(self.min_spp, self.max_spp, self.width,
+                                              self.height):
+            if kb and c0 >= batches:
+                continue
+            plan.append(samples)
+            c0 += kb
+        return plan
 
     def launch_rays(self, i: int):
         """The rays and path seed of each launch of frame i, as `render`
@@ -165,7 +220,7 @@ class RenderEntry(Entry):
         if pfilm.use_pixel_order(self.scene, dev):
             perm = torch.as_tensor(film.morton_perm(self.width, self.height), device=dev)
         out = []
-        for s in film.launch_plan(self.spp, self.width, self.height):
+        for s in self.launch_plan(i):
             xs = x[perm].repeat_interleave(s) if perm is not None else x.repeat(s)
             ys = y[perm].repeat_interleave(s) if perm is not None else y.repeat(s)
             rays = self.pt.shoot_rays(self.camera, xs, ys, 1.0 / self.width, 1.0 / self.height,
@@ -216,10 +271,10 @@ class GradEntry(Entry):
                                            min(self.tr["check_steps"], len(self.outputs)),
                                            replace=False)]
 
-    def reference_pass(self, i: int):
-        ref, geo = self.reference()
+    def reference_pass(self, i: int, dtype=torch.float32):
+        ref, tracer = self.reference(dtype)
         loss, grads, ent = film.loss_and_grad(
-            ref, geo, self.cfg["camera"], self.width, self.height, self.spp,
+            tracer, self.reference_camera(), self.width, self.height, self.spp,
             step_seed(self.seed, i), self.params, self.target, self.max_depth,
             self.cfg["epsilon"], self.device)
         self.ref_entering = ent

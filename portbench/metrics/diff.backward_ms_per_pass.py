@@ -1,7 +1,7 @@
 """diff.backward_ms_per_pass: device milliseconds a gradient pass launches
-under the program's `diff.backward` span (`_TraceDiff.backward`:
-`replay_fast` over the preprocessed records and its vector-Jacobian
-product, on autograd's thread), in the profile of portbench/spans.py."""
+under the program's `diff.backward` span (`_TraceDiff.backward`: the replay
+vjp kernel over K2's record planes and its fold, on autograd's thread), in
+the profile of portbench/spans.py."""
 from portbench import spans
 
 NAME = "diff.backward_ms_per_pass"

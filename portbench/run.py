@@ -11,6 +11,17 @@ shape, drives the entry point in a closed loop (one client, the next step
 as soon as the last returns) for --seconds, or with --trace 1 profiles a
 fixed number of steps, then compares a sample of what the window produced
 with the plain reference and prints one JSON line.
+
+A configuration's .py gives `program_scene(cfg, device, cache_dir)` (the
+program's scene and camera) and `reference_scene(cfg, device)`. It may also
+give the reference its own camera, `reference_camera(cfg)`, and its own
+tracer, `reference_tracer(cfg, scene, dtype)` over the scene that its
+`reference_scene` returned (the callables that reference/film.py
+describes: the uniforms a launch draws from the frame's generator and the
+rays of the chosen ray indices; the radiance, collected flag and entering
+counts of the given rays). Where it gives neither, the frozen pinhole and
+triangle tracer run. The film (the launch plan, the stopping rule of
+adaptive frames and the pixel sums) is the reference's own, shared by all.
 """
 from __future__ import annotations
 

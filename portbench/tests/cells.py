@@ -12,6 +12,8 @@ SMALL = {
     "box-final": ({"width": 16, "height": 16, "spp": 64, "check_pixels": 64}, None),
     "dragonbox-final": ({"width": 16, "height": 16, "spp": 8, "check_pixels": 64}, 20000),
     "box-grad": ({"width": 16, "height": 16, "spp": 4}, None),
+    "box-upstream": ({"width": 16, "height": 16, "spp": 32, "check_pixels": 64}, None),
+    "box-adaptive": ({"width": 16, "height": 16, "check_pixels": 256}, None),
 }
 
 

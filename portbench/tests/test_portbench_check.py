@@ -4,10 +4,11 @@ sound run is correct; the control (the reference in bfloat16 in the
 program's place) and each fault planted in the timed path are not."""
 from __future__ import annotations
 
+import numpy as np
 import pytest
 import torch
 
-from portbench import control, run
+from portbench import control, entries, faults, run
 from portbench.tests.cells import SMALL, manifest, small_cell
 
 CELLS = list(SMALL)
@@ -95,6 +96,69 @@ def test_planted_fault_is_not_correct(name, fault, tmp_path, monkeypatch):
     assert not out["correct"], out["checks"]
 
 
+def _adaptive_cell(tmp_path, allow_bias):
+    cell = small_cell("box-adaptive", tmp_path)
+    cell.traffic["allow_bias"] = allow_bias
+    return cell
+
+
+@pytest.mark.parametrize("allow_bias", [False, True])
+def test_adaptive_reference_gives_the_programs_pixels(allow_bias, tmp_path):
+    """16x16 at 16-64 spp: every pixel of two frames, the stopping rule's
+    frozen pixels and (with allow_bias) the candidates' values, as the
+    program gives them."""
+    cell = _adaptive_cell(tmp_path, allow_bias)
+    e = entries.RenderEntry(cell, 3_000_000_789, "cpu")
+    e.setup()
+    e.step(0)
+    e.step(1)
+    e.release()
+    pixels = np.arange(e.width * e.height)
+    for f, ref in zip((0, 1), e.reference_frames([0, 1], pixels)):
+        prog = e.outputs[f].reshape(-1, 4)[:, :3].astype(np.float64)
+        assert float(entries.pixel_gaps(prog, ref).max()) < 1e-5
+
+
+def test_adaptive_frames_freeze_some_pixels_and_not_others(tmp_path, monkeypatch):
+    """The small adaptive cell exercises both sides of the stopping rule,
+    so that each adaptive fault below has pixels to change."""
+    from portbench.reference import film
+
+    e = entries.RenderEntry(_adaptive_cell(tmp_path, False), 3_000_000_789, "cpu")
+    seen = []
+    real = film.fold_batch
+
+    def fold(st, *a):
+        real(st, *a)
+        seen.append(int(st["frozen"].sum()))
+
+    monkeypatch.setattr(film, "fold_batch", fold)
+    e.reference_frames([0], np.arange(e.width * e.height))
+    assert 0 < seen[-1] < e.width * e.height, seen
+
+
+ADAPTIVE_FAULTS = [("frozen_at_min", False), ("never_frozen", False), ("never_frozen", True),
+                   ("no_candidates", True)]
+
+
+@pytest.mark.parametrize("fault,allow_bias", ADAPTIVE_FAULTS)
+def test_adaptive_fault_is_not_correct(fault, allow_bias, tmp_path, monkeypatch):
+    cell = _adaptive_cell(tmp_path, allow_bias)
+    faults.FAULTS[fault](monkeypatch.setattr)
+    out = run.run_cell(cell, 3_000_000_321, 0.2, False, device="cpu")
+    assert not out["correct"], out["checks"]
+
+
+@pytest.mark.parametrize("fault", ["frozen_at_min", "never_frozen"])
+def test_adaptive_fault_planted_for_the_card_controls_is_undone(fault, tmp_path):
+    """`faults.planted`, as control.py plants a fault on the card: frames
+    inside fail, the program is whole again after."""
+    cell = _adaptive_cell(tmp_path, False)
+    with faults.planted(fault):
+        assert not _within(control.render_sound(cell, 11, "cpu"), cell.traffic["limits"])
+    assert _within(control.render_sound(cell, 11, "cpu"), cell.traffic["limits"])
+
+
 @pytest.fixture
 def card():
     if not torch.cuda.is_available():
@@ -103,15 +167,16 @@ def card():
 
 
 @pytest.mark.cuda
-def test_tf32_control_fails_on_the_card(card, tmp_path):
-    """At the cell's own size: TF32's error in the replay's products grows
-    with the pass (1.2e-5 at 64x64x16, 1.3e-3 at 512x512x16)."""
+def test_gradient_controls_fail_on_the_card(card, tmp_path):
+    """At the cell's own size: the pass with its gradients rounded to
+    bfloat16 fails grad_gap, the sound pass does not. (The control with
+    TF32 on went with the replay's matrix products: the vjp kernel runs
+    none.)"""
     cell = run.Cell(manifest(), "box-grad")
     cell.cache_dir = tmp_path
-    nums = control.grad_program(cell, 2_900_000_002, card, tf32=True)
-    assert not _within(nums, cell.traffic["limits"]), nums
-    assert _within(control.grad_program(cell, 2_900_000_002, card, tf32=False),
-                   cell.traffic["limits"])
+    nums = control.grad_program(cell, 2_900_000_002, card, round_bf16=True)
+    assert nums["grad_gap"] > cell.traffic["limits"]["grad_gap"], nums
+    assert _within(control.grad_program(cell, 2_900_000_002, card), cell.traffic["limits"])
 
 
 @pytest.mark.cuda

@@ -53,18 +53,70 @@ def test_each_cell_found_by_name_reports_its_metrics(name):
     assert set(cell.traffic["limits"]) and all(v > 0 for v in cell.traffic["limits"].values())
 
 
-def test_a_cell_config_and_metric_added_as_files_only(tmp_path):
+OWN_REFERENCE = '''"""A throwaway configuration whose module gives the reference its own
+camera and tracer: the frozen ones, counted, the radiance times SCALE."""
+from portbench.reference import film
+from portbench.reference.scene import from_config
+
+SCALE = {scale}
+CALLS = {{"camera": 0, "tracer": 0}}
+
+
+def program_scene(cfg, device, cache_dir):
+    from cpupathtrace_tpu_torch.models.scenes import bench_box_scene, bench_camera
+
+    return bench_box_scene(device=device), bench_camera(device=device)
+
+
+def reference_scene(cfg, device):
+    return from_config(cfg, device)
+
+
+def reference_camera(cfg):
+    pinhole = film.Pinhole(cfg["camera"])
+
+    def camera(*args):
+        CALLS["camera"] += 1
+        return pinhole(*args)
+
+    return camera
+
+
+def reference_tracer(cfg, scene, dtype):
+    tracer = film.triangle_tracer(scene, dtype)
+
+    def run(origin, direction, state, max_depth, eps, params=None):
+        CALLS["tracer"] += 1
+        out, collected, entering = tracer(origin, direction, state, max_depth, eps, params)
+        return out * SCALE, collected, entering
+
+    return run
+'''
+
+
+@pytest.mark.parametrize("case", ["plain", "own_reference", "faulty_tracer"])
+def test_a_cell_config_and_metric_added_as_files_only(case, tmp_path):
     """A later change adds a configuration, a traffic mix and a metric as new
-    files and manifest entries; no file the benchmark has is edited."""
+    files and manifest entries; no file the benchmark has is edited. With
+    "own_reference" the configuration's module gives its own reference
+    camera and tracer and the traffic is adaptive (min_spp < max_spp); with
+    "faulty_tracer" that tracer's radiance is 1% high, and the run is not
+    correct."""
     root = tmp_path / "portbench"
     for d in ("configs", "traffic", "metrics"):
         shutil.copytree(REPO / "portbench" / d, root / d)
     cfg = json.loads((root / "configs" / "box.json").read_text())
     cfg["name"] = "box2"
     (root / "configs" / "box2.json").write_text(json.dumps(cfg))
-    shutil.copy(root / "configs" / "box.py", root / "configs" / "box2.py")
-    (root / "traffic" / "box2-final.json").write_text(
-        (root / "traffic" / "box-final.json").read_text())
+    traffic = json.loads((root / "traffic" / "box-final.json").read_text())
+    if case == "plain":
+        shutil.copy(root / "configs" / "box.py", root / "configs" / "box2.py")
+    else:
+        (root / "configs" / "box2.py").write_text(
+            OWN_REFERENCE.format(scale=1.0 if case == "own_reference" else 1.01))
+        del traffic["spp"]
+        traffic.update(min_spp=16, max_spp=64)
+    (root / "traffic" / "box2-final.json").write_text(json.dumps(traffic))
     (root / "metrics" / "frames_in_window.py").write_text(
         '"""frames_in_window: frames the window completed."""\n\n\n'
         "def read(run):\n    return run.steps\n")
@@ -75,7 +127,14 @@ def test_a_cell_config_and_metric_added_as_files_only(tmp_path):
     m["end_to_end"].append({"name": "frames_in_window", "unit": "frames", "better": "higher",
                             "bound": 0.05, "source": "host_clock", "workloads": ["box2-final"]})
     cell = small_cell("box2-final", tmp_path / "cache", m, root)
+    if case != "plain":
+        cell.traffic.pop("spp")
     out = run.run_cell(cell, 5, 0.2, False, device="cpu")
-    assert out["correct"]
+    assert out["correct"] == (case != "faulty_tracer"), out["checks"]
     assert out["metrics"]["frames_in_window"]["value"] == out["attempted"] > 0
     assert set(out["metrics"]) == {"setup_s", "frames_in_window"}
+    if case != "plain":
+        calls = cell.module.CALLS
+        # A camera call a launch, 4 launches a checked frame.
+        frames = min(cell.traffic["check_frames"], out["attempted"])
+        assert calls["camera"] == 4 * frames and calls["tracer"] >= 4 * frames, calls
