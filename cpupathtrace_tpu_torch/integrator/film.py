@@ -354,16 +354,20 @@ def render_tile(scene: SceneData, camera: Camera, options: RenderOptions,
 
         pixel_value = pixel_sum / n_collected.clamp_min(1)[:, None]
         if options.allow_bias:
-            min_count = max((cbc * 3) // 4, 2)
-            biased = _candidate_select(stats_means, stats_valid, cbc, pixel_value, min_count)
-            pixel_value = torch.where(accepted[:, None], pixel_value, biased)
+            render_tile.candidate_selects += 1
+            with trace_annotation("film.candidate"):
+                min_count = max((cbc * 3) // 4, 2)
+                biased = _candidate_select(stats_means, stats_valid, cbc, pixel_value, min_count)
+                pixel_value = torch.where(accepted[:, None], pixel_value, biased)
         # Pixels that never collected anything stay exactly zero.
         return torch.where((n_collected > 0)[:, None], pixel_value, 0.0)
 
 
-# Per-process totals: stats batches folded, all-frozen flags read.
+# Per-process totals: stats batches folded, all-frozen flags read, tiles
+# that ran the candidate selection.
 render_tile.stats_batches = 0
 render_tile.flag_reads = 0
+render_tile.candidate_selects = 0
 
 
 def render(scene: SceneData, camera: Camera, options: RenderOptions,

@@ -11,6 +11,8 @@
     renderSceneDragonBox benchmark (ref: benchmark/main.cpp:59-105)
   * dragon_full_scene: its 7.2M-triangle lean form, renderSceneDragonBoxFull,
     through the scene cache (bench.py:442-512)
+  * cornell_full_scene: the demo scene with the dragon at that triangle
+    count, lean binned through the scene cache in the same way
 
 The reference's xyzrgb_dragon.obj is not in the repository. A path to it
 (`dragon_obj`) loads it through `load_mesh`, as the JAX package does;
@@ -57,11 +59,14 @@ def cornell_demo_scene(
     dragon_obj: str | None = None,
     dragon_tris: int = 20000,
     include_dragon: bool = True,
+    accel: str | None = None,
+    lean: bool = False,
     device=None,
 ) -> SceneData:
     """The demo scene (ref: demo/main.cpp:50-205), with the dragon of
     `dragon_obj` (an OBJ path, file object or text) or else a `dragon_tris`
-    stand-in, unless `include_dragon` is False."""
+    stand-in, unless `include_dragon` is False. `accel` and `lean` go to
+    `SceneBuilder.build`."""
     b = SceneBuilder()
     epsilon = 1e-3
     light_intensity = 1.0
@@ -119,7 +124,7 @@ def cornell_demo_scene(
     )
     box = transform_triangles(make_box((-0.3, -0.3, -0.3), (0.3, 0.3, 0.3)), transform)
     b.add_triangles(box, white)
-    return b.build(device=device)
+    return b.build(accel=accel, lean=lean, device=device)
 
 
 def cornell_demo_options(width: int = 256, height: int = 256, **kw) -> RenderOptions:
@@ -207,19 +212,39 @@ def dragon_full_scene(cache_dir, dragon_tris: int = DRAGON_FULL_TRIS,
     `cache_dir`, keyed ("dragonfull", dragon_tris, "binned", "lean") and the
     PTX_KRN_* knobs. DRAGON_FULL_KNOBS default the knobs (a value already
     set wins, as in bench.py) for the call and are restored after it."""
+    return _full_scene(
+        "dragonfull", dragon_tris,
+        lambda device: bench_dragon_scene(dragon_tris=dragon_tris, accel="binned", lean=True,
+                                          device=device),
+        cache_dir, device)
+
+
+def cornell_full_scene(cache_dir, dragon_tris: int = DRAGON_FULL_TRIS,
+                       device=None) -> tuple[SceneData, bool]:
+    """(the demo scene at the upstream dragon's triangle count on `device`,
+    cache hit): the lean binned `cornell_demo_scene` through
+    `scene/cache.py:cached_build` under `cache_dir`, keyed ("cornellfull",
+    dragon_tris, "binned", "lean") and the PTX_KRN_* knobs, which
+    DRAGON_FULL_KNOBS default for the call as in `dragon_full_scene`."""
+    return _full_scene(
+        "cornellfull", dragon_tris,
+        lambda device: cornell_demo_scene(dragon_tris=dragon_tris, accel="binned", lean=True,
+                                          device=device),
+        cache_dir, device)
+
+
+def _full_scene(name: str, dragon_tris: int, build, cache_dir, device):
+    """`build` through the scene cache, keyed (name, dragon_tris, "binned",
+    "lean"), with DRAGON_FULL_KNOBS defaulted (a value already set wins, as
+    in bench.py) for the call and restored after it."""
     from ..scene.cache import build_cache_key, cached_build
 
     saved = {k: os.environ.get(k) for k in DRAGON_FULL_KNOBS}
     for k, v in DRAGON_FULL_KNOBS.items():
         os.environ.setdefault(k, v)
     try:
-        key = build_cache_key("dragonfull", dragon_tris, "binned", "lean")
-        return cached_build(
-            key,
-            lambda device: bench_dragon_scene(dragon_tris=dragon_tris, accel="binned",
-                                              lean=True, device=device),
-            cache_dir, device,
-        )
+        key = build_cache_key(name, dragon_tris, "binned", "lean")
+        return cached_build(key, build, cache_dir, device)
     finally:
         for k, v in saved.items():
             if v is None:

@@ -11,7 +11,8 @@ external google-benchmark counters. The GPU equivalents here:
     session is recording; otherwise it is a shared no-op context, so the
     spans stay on the hot path. The program's spans, `<layer>.<what>`:
     `film.render` (a frame's root), `film.tile`, `film.chunk`,
-    `camera.shoot`, `film.fold`, `film.flag_read`, `film.image_read`;
+    `camera.shoot`, `film.fold`, `film.flag_read`, `film.candidate`,
+    `film.image_read`;
     `k1.trace`; `sorted.trace`, `sorted.bounce`, `sorted.live_read`,
     `sorted.sort`, `sorted.unpermute`; `diff.loss_and_grad` (a gradient
     pass's root), `diff.grad`, `diff.record`, `diff.live_read`,
@@ -84,8 +85,9 @@ def counters() -> dict[str, int]:
     """One snapshot of every hot-path counter of the port, under layer
     names: kernel launches (K1-K8, the replay vjp), the drivers' host
     reads, the live rays entering each launched bounce, the film's stats
-    batches and flag reads. Each is a function attribute its code adds to; take two
-    snapshots and subtract. Stores nothing of its own."""
+    batches, flag reads and candidate selections (one a tile). Each is a
+    function attribute its code adds to; take two snapshots and subtract.
+    Stores nothing of its own."""
     from ..accel import cluster_major, kernel_traverse, traverse
     from ..integrator import diff_megakernel, film, megakernel, sorted_wavefront
     from ..ops import intersect
@@ -111,6 +113,7 @@ def counters() -> dict[str, int]:
         "diff.vjp_launches": diff_megakernel.replay_vjp.launches,
         "film.stats_batches": film.render_tile.stats_batches,
         "film.flag_reads": film.render_tile.flag_reads,
+        "film.candidate_selects": film.render_tile.candidate_selects,
     }
 
 

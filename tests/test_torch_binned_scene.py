@@ -3,7 +3,12 @@ big/small partition, the root box, the 56-triangle clustering and its
 traversal tiers, byte for byte on the columns the port keeps (records
 0-27, bounds 0-6; the port's compact layout drops the TPU's 128-lane
 padding and half-record bounds), and the megakernel tables of the binned
-branch."""
+branch; the demo also lean under DRAGON_FULL_KNOBS, as the cornell
+configuration builds it."""
+import contextlib
+import os
+from unittest import mock
+
 import numpy as np
 import pytest
 
@@ -25,9 +30,36 @@ from tests.torch_util import CPU, dragon_scene, jax_scene_numpy, mixed_cull_scen
 USED_COLS = dict(zip(KRN_FIELDS, (28, 7, 7, 7)))
 
 
+@contextlib.contextmanager
+def _lean_demo_build(pkg):
+    """The demo as `cornell_full_scene` builds it: lean binned under
+    DRAGON_FULL_KNOBS (128-triangle records). The JAX package's demo calls
+    `build()` bare, so its SceneBuilder's build is given the same arguments."""
+    from cpupathtrace_tpu.scene.scene import SceneBuilder as JaxBuilder
+    from cpupathtrace_tpu_torch.models.scenes import DRAGON_FULL_KNOBS
+
+    with mock.patch.dict(os.environ, DRAGON_FULL_KNOBS):
+        if pkg != "jax":
+            yield
+            return
+        build = JaxBuilder.build
+        with mock.patch.object(JaxBuilder, "build",
+                               lambda self, **kw: build(self, accel="binned", lean=True, **kw)):
+            yield
+
+
 def _scene(name, pkg):
     if name == "mixed_cull":
         return mixed_cull_scene(pkg)
+    if name == "demo6000lean":
+        with _lean_demo_build(pkg):
+            if pkg == "jax":
+                from cpupathtrace_tpu.models.scenes import cornell_demo_scene
+
+                return cornell_demo_scene(dragon_tris=6000)
+            from cpupathtrace_tpu_torch.models.scenes import cornell_demo_scene
+
+            return cornell_demo_scene(dragon_tris=6000, accel="binned", lean=True, device=CPU)
     if name.startswith("demo"):
         # The smallest stand-in dragon that makes the demo binned (from
         # 4096 small triangles; the 2000-triangle demo is a sweep scene).
@@ -41,7 +73,8 @@ def _scene(name, pkg):
     return dragon_scene(pkg, int(name[6:]))
 
 
-@pytest.fixture(scope="module", params=["dragon1200", "dragon2000", "demo6000", "mixed_cull"])
+@pytest.fixture(scope="module",
+                params=["dragon1200", "dragon2000", "demo6000", "demo6000lean", "mixed_cull"])
 def pair(request):
     return request.param, _scene(request.param, "jax"), _scene(request.param, "port")
 
@@ -55,7 +88,9 @@ def test_binned_build_matches_jax(pair):
         assert a.tobytes() == b.tobytes(), f
     for f in STATIC_FIELDS:
         assert getattr(ours, f) == getattr(ref, f), f
-    assert ours.has_kernel_records and ours.krn_cluster_size == 56
+    assert ours.has_kernel_records
+    assert ours.krn_cluster_size == (128 if name.endswith("lean") else 56)
+    assert ours.lean == name.endswith("lean")
 
 
 def test_tiers_match_jax_on_used_columns(pair):
