@@ -1071,9 +1071,10 @@ def walk_figures(kt, scene, tables, vis, steps, kernel):
     """The walk's shape and resources for K1's binned form (`kernel`
     "megakernel_binned") or K2 ("bounce_binned_kernel"): ring depth,
     threads a block, the plain instance's registers and spills (ptxas),
-    its resident blocks and warps a SM at the scene's shared memory, and
-    the lane utilisation of the counted run's warp steps (within their
-    bounds, kernel_traverse.warp_utilisation)."""
+    its resident blocks and warps a SM at the scene's shared memory, the
+    lane utilisation of the counted run's warp steps (within their bounds,
+    kernel_traverse.warp_utilisation) and the record visits each served
+    record stream tested rows for (walk_together)."""
     from cpupathtrace_tpu_torch import _build
     from cpupathtrace_tpu_torch.integrator import megakernel as mk
     from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
@@ -1088,7 +1089,8 @@ def walk_figures(kt, scene, tables, vis, steps, kernel):
         util = kt.warp_utilisation(vis, steps)
     except ValueError as e:
         raise SmokeFailure(f"{kernel}: warp steps out of their bounds: {e}")
-    need(util["row_steps"] > 0 and util["slab_steps"] > 0, f"{kernel}: no warp steps counted")
+    need(util["row_steps"] > 0 and util["slab_steps"] > 0 and util["record_streams"] > 0,
+         f"{kernel}: no warp steps or record streams counted")
     # ptxas reports only what this process built (phase 2 builds cold).
     inst = _build.ptxas_instances(_build.ptxas_report.get("megakernel" if k1 else "bounce", ""))
     plain = f"{kernel}<{cull}, 0>" if k1 else f"{kernel}<{cull}, 0, 0>"
@@ -1098,7 +1100,7 @@ def walk_figures(kt, scene, tables, vis, steps, kernel):
     return dict(ring_depth=layout.depth, threads=threads, smem_bytes=smem,
                 blocks_per_sm=blocks, warps_per_sm=blocks * threads // 32, instance=plain,
                 registers=regs.get("registers"), spill_stores=regs.get("spill_stores"),
-                lane_utilisation=util)
+                lane_utilisation=util, visits_per_stream=util["visits_per_stream"])
 
 
 def twin_ray_bounces(sw, scene, camera, opts, n_rays):

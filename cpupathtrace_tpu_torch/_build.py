@@ -132,6 +132,7 @@ def load_host(name: str) -> ctypes.CDLL:
 
 # A kernel entry in ptxas's report: its mangled name after _Z or _ZN.
 PTXAS_ENTRY = re.compile(r"entry function '_ZN?(\w+)'")
+PTXAS_PROPS = re.compile(r"Function properties for _ZN?(\w+)")
 
 
 def instance_name(mangled):
@@ -159,19 +160,27 @@ def instance_name(mangled):
 
 def ptxas_instances(text):
     """Per kernel instance of a library's ptxas report: its registers and
-    spill stores."""
-    out, cur = {}, None
+    spill stores (its own, not those of a function it calls, whose
+    properties ptxas prints after the instance's)."""
+    out, cur, entry, own = {}, None, None, False
     for ln in text.splitlines():
         m = PTXAS_ENTRY.search(ln)
         if m:
-            cur = out.setdefault(instance_name(m.group(1)), {})
-        elif cur is not None:
-            r = re.search(r"Used (\d+) registers", ln)
-            if r:
-                cur["registers"] = int(r.group(1))
-            sp = re.search(r"(\d+) bytes spill stores", ln)
-            if sp:
-                cur["spill_stores"] = int(sp.group(1))
+            entry = m.group(1)
+            cur = out.setdefault(instance_name(entry), {})
+            continue
+        props = PTXAS_PROPS.search(ln)
+        if props:
+            own = props.group(1) == entry
+            continue
+        if cur is None:
+            continue
+        r = re.search(r"Used (\d+) registers", ln)
+        if r:
+            cur["registers"] = int(r.group(1))
+        sp = re.search(r"(\d+) bytes spill stores", ln)
+        if sp and own:
+            cur["spill_stores"] = int(sp.group(1))
     return out
 
 

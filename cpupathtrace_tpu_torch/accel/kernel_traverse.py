@@ -590,26 +590,31 @@ QUERY_COL = 8
 # The walk's warp steps (csrc/binned_geo.cuh kWarpStepCols), counted by
 # K1's binned form and K2 beside their counters: the slab-test steps and the
 # filled-row steps the warps execute (once per step, by the lowest active
-# lane), summed over a launch. They depend on how the card schedules lanes,
-# so no plain version reproduces them. K4's counting instance
-# (csrc/cluster_query.cu kQueryStepCols) adds, at each filled-row step, the
-# distinct clusters among the warp's active lanes and the active lanes.
-WARP_STEP_COLS = 2
+# lane; a served record's round once for each lane it serves), and the
+# record streams (a visited record's rows streamed once for the lanes that
+# posted it, or by a lane for itself), summed over a launch. They depend on how the
+# card schedules lanes, so no plain version reproduces them. K4's counting
+# instance (csrc/cluster_query.cu kQueryStepCols) counts the slab-test and
+# filled-row steps and, at each filled-row step, the distinct clusters
+# among the warp's active lanes and the active lanes.
+WARP_STEP_COLS = 3
 QUERY_STEP_COLS = 4
 WARP_LANES = 32
 
 
 def warp_utilisation(visits, steps):
     """Lane utilisation of the walks of K1 / K2 counters `visits` [..., 9]
-    against their warp steps `steps` [2] (slab-test steps, filled-row
-    steps), or of K4 counters [..., 4] against K4's steps [4] (the same
-    two, then the clusters and the active lanes summed over the filled-row
-    steps): work / (32 x steps) for the slab tests and the filled rows
-    tested, and for K4 the mean distinct clusters and active lanes per
-    filled-row step. Raises ValueError unless steps <= work <= 32 x steps
-    for each, which also makes steps > 0 wherever work > 0, and for K4
-    unless row steps <= clusters <= active lanes <= 32 x row steps and
-    filled rows <= active lanes."""
+    against their warp steps `steps` [3] (slab-test steps, filled-row
+    steps, record streams), or of K4 counters [..., 4] against K4's steps
+    [4] (the first two, then the clusters and the active lanes summed over
+    the filled-row steps): work / (32 x steps) for the slab tests and the
+    filled rows tested; for K1 / K2 the record visits (nearest and shadow)
+    per record stream; for K4 the mean distinct clusters and active lanes
+    per filled-row step. Raises ValueError unless steps <= work <= 32 x
+    steps for each, which also makes steps > 0 wherever work > 0, for K1 /
+    K2 unless streams <= record visits <= 32 x streams, and for K4 unless
+    row steps <= clusters <= active lanes <= 32 x row steps and filled rows
+    <= active lanes."""
     cols = torch.as_tensor(visits).shape[-1]
     v = torch.as_tensor(visits).reshape(-1, cols).long().sum(0).tolist()
     st = torch.as_tensor(steps).reshape(-1).long().tolist()
@@ -637,6 +642,13 @@ def warp_utilisation(visits, steps):
         out.update(row_clusters=clusters, row_active_lanes=active,
                    clusters_per_row_step=clusters / n if n else None,
                    active_lanes_per_row_step=active / n if n else None)
+    else:
+        streams, visited = st[2], v[NEAR_COLS[1]] + v[SHADOW_COLS[1]]
+        if not streams <= visited <= WARP_LANES * streams:
+            raise ValueError(f"{streams} record streams against {visited} record visits: need "
+                             f"streams <= visits <= {WARP_LANES} x streams")
+        out.update(record_visits=visited, record_streams=streams,
+                   visits_per_stream=visited / streams if streams else None)
     return out
 
 

@@ -11,10 +11,18 @@
 // debug_visits); `near` counts the nearest queries, `shadow` the shadow
 // queries of one path; add_geo_visits writes them as the counters' row,
 // add_warp_steps the warp steps. The cluster walks step the state machine
-// `Walk`, each lane its own, and stream their boxes and rows through the
-// thread's ring in shared memory (cluster_traverse.cuh).
+// `Walk`, each lane its own boxes, and the warp tests the rows of the
+// records its lanes visit together (walk_together), streaming boxes and
+// rows through each thread's ring in shared memory (cluster_traverse.cuh).
 // kAblate (the ablation instances, bounce_body.cuh): `walks` false skips
 // both walks (PTX_SKIP_TRAVERSE); the nearest query still counts.
+// kTogether: the walks that test a visited record's rows across the warp
+// (walk_together), bit 0 the nearest walk, bit 1 the shadow walks; the
+// others test them each lane alone. K2 both; K1's binned form the nearest
+// walk (inside its refilling loop the plain instance does not hold both
+// walks' rounds in 96 registers without spilling, and its unsorted lanes
+// seldom share a record); K2's record form neither (likewise; no cell runs
+// it on a binned scene). PERF.md §6.
 #pragma once
 
 #include "cluster_traverse.cuh"
@@ -22,7 +30,7 @@
 
 namespace ptx {
 
-template <int BIG_CULL, class Count = NoVisits, bool kAblate = false>
+template <int BIG_CULL, class Count = NoVisits, bool kAblate = false, int kTogether = 3>
 struct BinnedGeo {
   const float* rec;
   int rec_rows;
@@ -40,7 +48,7 @@ struct BinnedGeo {
     near.query();
     if (kAblate && !walks) return;
     WalkRing rows{ring};
-    cluster_nearest<true>(cl, r, h, near, rows);
+    cluster_nearest<true, (kTogether & 1) != 0>(cl, r, h, near, rows);
   }
 
   __device__ __forceinline__ bool occluded(const Ray& r, float t_max) const {
@@ -48,7 +56,7 @@ struct BinnedGeo {
     if (pair_anyhit<BIG_CULL>(rec, rec_rows, r, jmax(t_max, 0.0f))) return true;
     if (kAblate && !walks) return false;
     WalkRing rows{ring};
-    return cluster_anyhit(cl, r, t_max, shadow, rows);
+    return cluster_anyhit<(kTogether & 2) != 0>(cl, r, t_max, shadow, rows);
   }
 };
 
@@ -84,14 +92,15 @@ __device__ __forceinline__ void add_geo_visits(int* out, int64_t i, const Geo& g
 }
 
 // The warp steps of the counting instances ([kWarpStepCols] int64, summed
-// over the launch): slab-test steps, then filled-row steps, of the nearest
-// and shadow walks together (WarpVisits).
-constexpr int kWarpStepCols = 2;
+// over the launch): slab-test steps, filled-row steps, then served record
+// streams, of the nearest and shadow walks together (WarpVisits).
+constexpr int kWarpStepCols = 3;
 
 template <class Geo>
 __device__ __forceinline__ void add_warp_steps(unsigned long long* out, const Geo& geo) {
   const int v[kWarpStepCols] = {geo.near.slab_steps + geo.shadow.slab_steps,
-                                geo.near.row_steps + geo.shadow.row_steps};
+                                geo.near.row_steps + geo.shadow.row_steps,
+                                geo.near.streams + geo.shadow.streams};
 #pragma unroll
   for (int c = 0; c < kWarpStepCols; ++c)
     if (v[c]) atomicAdd(out + c, static_cast<unsigned long long>(v[c]));

@@ -26,7 +26,7 @@
 // Counters (template flag kCount, binned scenes without records; the JAX
 // package's debug_visits): each thread adds its nearest and shadow traversal
 // counts to its 1024-ray block's row of `visits` [n_blocks, 9]
-// (binned_geo.cuh kGeoVisitCols), and its warp steps to `steps` [2] int64
+// (binned_geo.cuh kGeoVisitCols), and its warp steps to `steps` [3] int64
 // (kWarpStepCols).
 //
 // Record form (template flag kRec; `_make_megakernel(diff_records=True)`):
@@ -42,14 +42,19 @@
 // per-thread descents, plus ~144 bytes of state traffic per live ray per
 // bounce. The design keeps every small table in shared memory, walks the
 // clusters per thread with per-ray pruning, as the state machine of
-// cluster_traverse.cuh (`Walk`, one box or row test a step) that each lane
-// steps alone in one flat loop: the card runs the lanes that are in the
-// same kind of test together, where the nested loops' lanes ran one after
-// another. It streams each thread's rows and cluster boxes through its
-// cp.async ring in shared memory (kRingDepth - 1 in flight while one is
-// tested), in blocks of kWalkThreads, 20 warps an SM (cluster_traverse.cuh
-// kWalkMinBlocks; capped to 24 warps the walk spills and ran slower). It
-// relies on the driver's per-bounce sort for coherent warps and for
+// cluster_traverse.cuh (`Walk`, one box or row test a step), each lane
+// stepping its own boxes. The rows of a visited record, stepped by the
+// visiting lane alone, were most of the walk's steps and ran a few lanes of
+// 32 at a time; so the warp tests them together (`walk_together`): a lane
+// whose cluster box passes posts the cluster, and the warp serves it once
+// for every lane that posted it, one row a lane in ceil(rec_rows / 32)
+// rounds (4 at 128 rows), with 32 x (kRingDepth - 2) rows in flight. What
+// is left is the box descent, which each lane still steps alone. Each
+// thread streams its rows and cluster boxes through its cp.async ring in
+// shared memory, in blocks of kWalkThreads, 20 warps an SM
+// (cluster_traverse.cuh kWalkMinBlocks; capped to 24 warps the walk spills
+// and ran slower). It relies on the driver's per-bounce sort for coherent
+// warps (lanes that post the same cluster share its stream) and for
 // packing live rays at the head.
 //
 // Dense instances (the box through the sorted driver, and the gradient
@@ -128,7 +133,8 @@ __device__ __forceinline__ bool run_body(const Params& p, float* smem, const flo
                                          int64_t i) {
   if constexpr (kBinned) {
     using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
-    const BinnedGeo<CULL, Count, kAblate> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
+    const BinnedGeo<CULL, Count, kAblate, Rec::kOn ? 0 : 3> geo{
+        s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
                                               s_sph, p.n_sph, cl,
                                               ring_base(smem, smem_floats(p)), {}, {},
                                               !(kAblate && (p.ablate & kSkipTraverse))};
@@ -314,7 +320,7 @@ cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
 // [n_drec, n_rays], every column of which the launch writes, or null.
 // visits: the counters [ceil(n_rays / 1024), 9] int32, zeroed by the
 // caller, or null (binned scenes without records only); steps: the warp
-// steps [2] int64, zeroed by the caller, with visits. smem_bytes: the
+// steps [3] int64, zeroed by the caller, with visits. smem_bytes: the
 // block's dynamic shared memory, sized by the wrapper (kernel_traverse.py
 // kernel_smem_bytes, from ptx_walk_layout). ablate: the ablation mask
 // (bounce_body.cuh kAblate*); nonzero launches the form's ablation instance,

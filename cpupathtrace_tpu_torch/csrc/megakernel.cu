@@ -53,16 +53,20 @@
 // exchange a chunk is one launch, with no per-bounce state traffic, glue
 // kernels or host reads. The walk is the state machine of
 // cluster_traverse.cuh (`Walk`), one box or row test a step; each lane
-// steps its own in one flat loop, whose lanes the card runs together while
-// they are in the same kind of test, where the nested loops' lanes ran one
-// after another. Each thread streams its rows and cluster boxes through
-// its cp.async ring in shared memory (kRingDepth - 1 in flight while one
-// is tested), in blocks of kWalkThreads (cluster_traverse.cuh).
+// steps its own boxes, and the warp tests the rows of the records its
+// nearest walks visit together (`walk_together`), one row a lane in rounds.
+// Unsorted, the lanes seldom visit the same record at once, so each stream
+// mostly serves one lane, but its rows run 32 at a time instead of one. The
+// shadow walks test their rows each lane alone (BinnedGeo's kTogether 1):
+// with both walks' rounds the plain instance spilled at 96 registers. Each thread
+// streams its rows and cluster boxes through its cp.async ring in shared
+// memory (kRingDepth - 1 in flight while one is tested), in blocks of
+// kWalkThreads (cluster_traverse.cuh).
 //
 // Counters (template flag kCount). Binned form (the JAX package's
 // debug_visits): each thread adds each path's nearest and shadow traversal
 // counts to its ray's 1024-ray block's row of `visits` [n_blocks, 9]
-// (binned_geo.cuh kGeoVisitCols), and its warp steps to `steps` [2] int64
+// (binned_geo.cuh kGeoVisitCols), and its warp steps to `steps` [3] int64
 // (kWarpStepCols). Dense form: `steps` [2] int64 gets the bounce steps the
 // warps execute (once per step, by the lowest active lane) and the
 // ray-bounces, so lane use = ray-bounces / (32 x steps).
@@ -117,7 +121,7 @@ struct Params {
   ClusterTables cl;  // binned form: the traversal tiers
   int tier_floats;   // shared floats for the staged tiers (0: read from global)
   int* visits;       // binned: [ceil(n_rays / 1024), 9] traversal counters, or null
-  unsigned long long* steps;  // [2] warp steps (counting instances), or null
+  unsigned long long* steps;  // binned [3] warp steps, dense [2] bounce steps (counting), or null
   int* next_ray;     // the refill counter, zeroed by the wrapper
   float eps;
   int ablate;        // the ablation mask (bounce_body.cuh kAblate*); 0 in the default instances
@@ -304,7 +308,7 @@ __device__ __forceinline__ void binned_form(const Params& p) {
   const float* s_rec = smem;
   const float* s_sph = s_rec + p.rec_rows * kRecCols + p.n_tri * kTriCols;
   using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
-  const BinnedGeo<CULL, Count, kAblate> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
+  const BinnedGeo<CULL, Count, kAblate, 1> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
                                             s_sph, p.n_sph, cl,
                                             ring_base(smem, smem_floats(p)), {}, {},
                                             !(kAblate && (p.ablate & kSkipTraverse))};
@@ -414,7 +418,7 @@ cudaError_t occupancy_form(int cull, bool count, size_t smem, int* blocks) {
 // binned = 1: rec is the big partition's pair record (cull_mode its class),
 // krec ... root the cluster tiers (cl_cull their class), visits the zeroed
 // counters [ceil(n_rays / 1024), 9] int32 or null, steps the zeroed warp
-// steps [2] int64 with visits. next_ray: the zeroed refill counter [1]
+// steps [3] int64 with visits. next_ray: the zeroed refill counter [1]
 // int32. grid: the blocks of the launch (the resident blocks, at most one
 // thread per ray). smem_bytes: the block's dynamic shared memory, sized by
 // the wrapper (kernel_traverse.py kernel_smem_bytes, from ptx_walk_layout).

@@ -34,8 +34,8 @@ the nearest queries, one per ray-bounce (accel/kernel_traverse.py
 GEO_VISIT_COLS). The TPU counted per ray block (a block descended when any
 lane needed it), so the numbers do not compare with the JAX package's.
 On the card the counting form also adds the walks' warp steps to
-`warp_steps` ([2] int64: slab-test steps, filled-row steps;
-kernel_traverse.warp_utilisation), which no plain version reproduces.
+`warp_steps` ([3] int64: slab-test steps, filled-row steps, served
+record streams; kernel_traverse.warp_utilisation), which no plain version reproduces.
 
 Both forms launch only the resident blocks (`resident_grid`, from the
 instance's occupancy, queried once per card and size by
@@ -184,7 +184,7 @@ def block_smem_bytes(scene: SceneData, tables, layout=None) -> int:
 
 def check_warp_steps(warp_steps, device):
     """The warp-step output of a counting launch: zeroed by the caller,
-    [2] int64 on the card."""
+    [WARP_STEP_COLS] int64 on the card."""
     if device.type != "cuda":
         raise ValueError("warp_steps: the warps' steps are counted on the card only")
     check_tensor("warp_steps", warp_steps, device, torch.int64, (WARP_STEP_COLS,))
@@ -815,7 +815,7 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
     counters [ceil(R / 1024), 9] int32 (zero for a dense scene). `seed`
     is an int32 Python int or a 1-element tensor (read on the device, so
     drawing it costs no sync). `warp_steps` (binned, with `debug_visits`,
-    on the card): a zeroed [2] int64 tensor the walks' warp steps are added
+    on the card): a zeroed [3] int64 tensor the walks' warp steps are added
     to. `bounce_steps` (dense, on the card): a zeroed [2] int64 tensor the
     warps' bounce steps and the ray-bounces are added to (`lane_use`).
     CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its

@@ -280,7 +280,7 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
     encoding of `clear_records`), so it may come uninitialised. `visits`
     ([ceil(R / 1024), 9] int32, or None) selects the counting form: the
     traversal counts are added to it (binned scenes, not with records), and
-    `warp_steps` ([2] int64, zeroed by the caller, on the card) gets the
+    `warp_steps` ([3] int64, zeroed by the caller, on the card) gets the
     walks' warp steps (kernel_traverse.warp_utilisation).
     CPU state runs `bounce_reference`; CUDA state launches csrc/bounce.cu,
     with the cluster traversal for a binned scene and K1's dense geometry
@@ -404,7 +404,7 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     for CPU rays), or with `reference` the twin on any device. A `timing`
     dict (CUDA only) gets the milliseconds of each bounce's kernel
     ("bounce_ms") and of its sort + gather ("sort_ms"), by CUDA events.
-    `warp_steps` ([2] int64, zeroed, on the card; binned, with
+    `warp_steps` ([3] int64, zeroed, on the card; binned, with
     `debug_visits`): the warp steps of every bounce are added to it. The
     driver reads the host
     once per bounce (counted in `trace_megakernel_sorted.host_reads`; the

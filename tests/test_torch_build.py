@@ -117,3 +117,25 @@ def test_failed_native_build_raises(monkeypatch, tmp_path):
     with pytest.raises(RuntimeError, match="build failed"):
         port_build.build_bvh(lo, hi)
     assert build_bvh.runs["numpy"] == before["numpy"]
+
+
+PTXAS_REPORT = """\
+ptxas info    : Compiling entry function '_ZN3ptx6kernelILi1EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3ptx6kernelILi1EEEvv
+    56 bytes stack frame, 24 bytes spill stores, 40 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers, 56 bytes cumulative stack size
+ptxas info    : Function properties for _ZN3ptx6calleeEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Compiling entry function '_ZN3ptx6kernelILi0EEEvv' for 'sm_90a'
+ptxas info    : Function properties for _ZN3ptx6kernelILi0EEEvv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 80 registers, used 1 barriers
+"""
+
+
+def test_ptxas_instances_keep_each_entry_its_own_spills():
+    """An instance's spill stores are those ptxas gives the instance, not
+    those of a function it calls, printed after it."""
+    inst = _build.ptxas_instances(PTXAS_REPORT)
+    assert inst == {"kernel<1>": {"spill_stores": 24, "registers": 96},
+                    "kernel<0>": {"spill_stores": 0, "registers": 80}}

@@ -1269,6 +1269,68 @@ def test_ring_bounce_forms_on_the_200k_dragon(cluster, n):
     _check_bounce(_dragon_200k(cluster), n)
 
 
+def _sorted(scene, st):
+    """A state in the sorted driver's order (its coherence key)."""
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+
+    key = sw._sort_key(st[1], st[2], st[3], st[4], st[5], st[6], st[17], scene.root_lo,
+                       scene.root_hi)
+    return st[:, torch.argsort(key, stable=True)].contiguous()
+
+
+def _random_state(n, seed=13):
+    """`n` rays from uniform points of the box in uniform directions: the
+    lanes of a warp enter few clusters together."""
+    o, d = _query_rays(n, seed)
+    return _walk_state(o.cpu().numpy(), d.cpu().numpy())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rays", ["sorted_camera", "random"])
+@pytest.mark.parametrize("cluster", [56, 128])
+def test_warp_rounds_on_the_200k_dragon(cluster, rays):
+    """The rows of the records the walks visit, tested by the warp in rounds
+    (walk_together), on the 200k dragon at 56- and 128-row records, with
+    the camera rays in the sorted driver's order (lanes post the same
+    cluster) and with random rays (few do): K1's binned form and K2's
+    plain, counting and record forms bit-equal to their twins with equal
+    counters; over a frame of 65,536 such rays (the sorted driver, sorting
+    between bounces for the camera rays, not for the random ones) the
+    counting K2's record streams within their bounds (one stream serves 1
+    to 32 record visits), serving more than one visit a stream on the
+    sorted rays, and its lane use at a row step above 0.3 on the sorted
+    camera rays at 128 rows."""
+    _require_cuda()
+    from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
+    from cpupathtrace_tpu_torch.core.config import RenderOptions
+    from cpupathtrace_tpu_torch.core.rays import Rays
+    from cpupathtrace_tpu_torch.experiments.dense_sweep import box_frame_rays
+    from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
+    from cpupathtrace_tpu_torch.models import scenes
+
+    scene = _dragon_200k(cluster)
+    camera = rays == "sorted_camera"
+    n = 4096 if camera else 4096 + 77
+    st = _sorted(scene, _camera_state(scene, n=n)) if camera else _random_state(n)
+    _check_k1_binned(scene, n, state=st)
+    _check_bounce(scene, n, depths=(0, 1, 2), state=st)
+    opts = RenderOptions(128, 128, 4, 4, epsilon=1e-3, max_depth=40)
+    if camera:
+        frame = box_frame_rays(scenes, opts, 4, 5)
+    else:
+        o, d = _query_rays(128 * 128 * 4, seed=14)
+        frame = Rays(o, d)
+    steps = _warp_steps()
+    _, _, vis = sw.trace_megakernel_sorted(scene, frame, opts, 9, sort=camera, debug_visits=True,
+                                           warp_steps=steps)
+    u = kt.warp_utilisation(vis, steps.cpu())
+    assert u["record_streams"] > 0 and u["visits_per_stream"] >= 1
+    if camera:
+        assert u["visits_per_stream"] > 1.0, u
+        if cluster == 128:
+            assert u["row_lane_utilisation"] > 0.3, u
+
+
 def _shadowed_plate_scene():
     """A binned scene built to end shadow walks early: a white box, an
     opaque plate of 8,192 small triangles between the floor and two point

@@ -121,38 +121,48 @@ def test_tiers_past_64_kb_stay_in_global_memory():
 # ---------------------------------------------------------------------------
 
 
-def _visits(slabs, rows):
-    """K1 / K2 counters with the given slab tests and filled rows, split
-    between the nearest and shadow walks."""
+def _visits(slabs, rows, records=40):
+    """K1 / K2 counters with the given slab tests, filled rows and record
+    visits, split between the nearest and shadow walks."""
     v = torch.zeros((3, kt.GEO_VISIT_COLS), dtype=torch.int32)
     v[0, kt.NEAR_COLS[2]], v[1, kt.SHADOW_COLS[2]] = slabs - slabs // 3, slabs // 3
     v[2, kt.NEAR_COLS[3]], v[0, kt.SHADOW_COLS[3]] = rows - rows // 4, rows // 4
+    v[1, kt.NEAR_COLS[1]], v[2, kt.SHADOW_COLS[1]] = records - records // 5, records // 5
     v[:, kt.NEAR_COLS[0]] = 7  # other columns do not enter
     return v
 
 
 @pytest.mark.parametrize("slabs,rows,steps", [
-    (3200, 640, (100, 20)),    # every lane busy
-    (3200, 640, (3200, 640)),  # one lane a step
-    (1000, 0, (40, 0)),        # no filled row tested
-    (0, 0, (0, 0)),
+    (3200, 640, (100, 20, 5)),     # every lane busy, 8 rays a record stream
+    (3200, 640, (3200, 640, 40)),  # one lane a step, one ray a stream
+    (1000, 0, (40, 0, 0)),         # no record visited
+    (0, 0, (0, 0, 0)),
 ])
 def test_warp_utilisation_accepts_consistent_counts(slabs, rows, steps):
-    u = kt.warp_utilisation(_visits(slabs, rows), torch.tensor(steps))
+    records = 40 if steps[2] else 0
+    u = kt.warp_utilisation(_visits(slabs, rows, records), torch.tensor(steps))
     assert (u["slab_tests"], u["row_tests"]) == (slabs, rows)
-    assert (u["slab_steps"], u["row_steps"]) == steps
+    assert (u["slab_steps"], u["row_steps"]) == steps[:2]
     for name, work, n in (("slab", slabs, steps[0]), ("row", rows, steps[1])):
         util = u[f"{name}_lane_utilisation"]
         assert (util is None) if n == 0 else (util == pytest.approx(work / (32 * n))
                                              and 1 / 32 <= util <= 1)
+    assert (u["record_visits"], u["record_streams"]) == (records, steps[2])
+    per = u["visits_per_stream"]
+    assert (per is None) if steps[2] == 0 else (per == pytest.approx(records / steps[2])
+                                               and 1 <= per <= 32)
 
 
 @pytest.mark.parametrize("slabs,rows,steps", [
-    (3200, 640, (3201, 20)),  # slab steps > slab tests
-    (3200, 640, (100, 641)),  # row steps > rows tested
-    (3200, 640, (99, 20)),    # slab tests > 32 x slab steps
-    (3200, 640, (100, 19)),   # rows > 32 x row steps
-    (3200, 640, (100, 0)),    # rows tested, no row step
+    (3200, 640, (3201, 20, 5)),  # slab steps > slab tests
+    (3200, 640, (100, 641, 5)),  # row steps > rows tested
+    (3200, 640, (99, 20, 5)),    # slab tests > 32 x slab steps
+    (3200, 640, (100, 19, 5)),   # rows > 32 x row steps
+    (3200, 640, (100, 0, 5)),    # rows tested, no row step
+    (3200, 640, (100, 20, 41)),  # record streams > record visits
+    (3200, 640, (100, 20, 1)),   # record visits > 32 x streams
+    (3200, 640, (100, 20, 0)),   # records visited, no stream
+    (3200, 640, (100, 20)),      # the two columns of the lane-alone walk
 ])
 def test_warp_utilisation_rejects_inconsistent_counts(slabs, rows, steps):
     with pytest.raises(ValueError):
