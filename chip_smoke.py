@@ -616,15 +616,15 @@ def phase_main_path(pt, mk, sw, scenes, best_ms):
     rays = shoot_rays(camera.to("cuda"), torch.tensor(x, device="cuda").repeat(BOX_SPP),
                       torch.tensor(y, device="cuda").repeat(BOX_SPP),
                       1.0 / BOX_W, 1.0 / BOX_H, gen)
-    tables = mk.pack_tables(sc)
-    k_spec, _ = mk.trace_megakernel(sc, rays, opts, 99, tables)
-    kernel_ms = cuda_ms(lambda: mk.trace_megakernel(sc, rays, opts, 99, tables), 5)
+    ks = mk.kernel_scene(sc)
+    k_spec, _ = mk.trace_megakernel(sc, rays, opts, 99, ks)
+    kernel_ms = cuda_ms(lambda: mk.trace_megakernel(sc, rays, opts, 99, ks), 5)
     # The seed on the card: a host int would be copied from pageable memory,
     # which waits for the stream, and best_ms needs the host ahead.
     seed_t = torch.tensor([99], dtype=torch.int32, device="cuda")
-    kernel_best_ms = best_ms(lambda: mk.trace_megakernel(sc, rays, opts, seed_t, tables), 5)
-    plain_ms = cuda_ms(lambda: mk.trace_megakernel_reference(sc, rays, opts, 99, tables), 1)
-    t_spec, _ = mk.trace_megakernel_reference(sc, rays, opts, 99, tables)
+    kernel_best_ms = best_ms(lambda: mk.trace_megakernel(sc, rays, opts, seed_t, ks), 5)
+    plain_ms = cuda_ms(lambda: mk.trace_megakernel_reference(sc, rays, opts, 99, ks), 1)
+    t_spec, _ = mk.trace_megakernel_reference(sc, rays, opts, 99, ks)
     agree = compare(k_spec, t_spec)
     agree["bit_equal"] = bits_equal(k_spec, t_spec)
     check_agreement("main-path shape", agree)
@@ -638,17 +638,17 @@ def phase_main_path(pt, mk, sw, scenes, best_ms):
     # bounce steps (the prediction for one path per thread from the twin's
     # live counts beside it), and a ragged count below one resident wave
     # (not a multiple of 32 or of the block), each bit-equal to the twin.
-    smem = mk.block_smem_bytes(sc, tables)
+    smem = ks.smem_bytes()
     per_sm, threads = mk.occupancy(smem, False, False, sc.krn_big_cull_mode)
     steps = torch.zeros(mk.BOUNCE_STEP_COLS, dtype=torch.int64, device="cuda")
-    c_spec, _ = mk.trace_megakernel(sc, rays, opts, 99, tables, bounce_steps=steps)
+    c_spec, _ = mk.trace_megakernel(sc, rays, opts, 99, ks, bounce_steps=steps)
     sync()
     need(bits_equal(c_spec, k_spec), "K1 dense: the counting instance differs from the plain one")
     sms = torch.cuda.get_device_properties(0).multi_processor_count
     wave = sms * per_sm * threads
     ragged = wave // 3 // 32 * 32 + 17
     head = type(rays)(rays.origin[:ragged].contiguous(), rays.direction[:ragged].contiguous())
-    r_spec, _ = mk.trace_megakernel(sc, head, opts, 99, tables)
+    r_spec, _ = mk.trace_megakernel(sc, head, opts, 99, ks)
     sync()
     need(not bool(torch.isnan(r_spec).any()), "K1 dense left a ray of the ragged count unwritten")
     need(bits_equal(r_spec, t_spec[:ragged]), "K1 dense on the ragged count is not bit-equal")
@@ -915,15 +915,15 @@ def compare_planes(k_state, t_state):
 def phase_bounce_vs_twin(sw, mk, scenes, scene, RenderOptions):
     camera = scenes.bench_camera(device="cuda")
     opts = RenderOptions(DRAGON_W, DRAGON_H, 1, 1, epsilon=1e-3, max_depth=MAX_DEPTH)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     rays, st = camera_state(sw, camera, opts, 1, 77)
     need(rays.origin.shape[0] == PATH_RAYS, "camera state size")
     out = {}
     for depth in (0, 5):
         k, t = st.clone(), st.clone()
         sw.bounce(scene, k, torch.tensor([77, depth], dtype=torch.int32, device="cuda"),
-                  opts, tables)
-        sw.bounce_reference(scene, t, depth, opts, tables)
+                  opts, ks)
+        sw.bounce_reference(scene, t, depth, opts, ks)
         sync()
         res = compare_planes(k, t)
         res["alive_after"] = int((k[17] > 0.5).sum())
@@ -979,25 +979,25 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
     # time, and K2 / sort+gather per bounce by CUDA events: K2's eight
     # launches on the frame's own (sorted) state.
     rays, st = camera_state(sw, camera, opts, DRAGON_SPP, 3)
-    tables = mk.pack_tables(scene)
-    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables)
+    ks = mk.kernel_scene(scene)
+    sw.trace_megakernel_sorted(scene, rays, opts, 3, ks)
     sync()
     t0 = time.perf_counter()
-    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables)
+    sw.trace_megakernel_sorted(scene, rays, opts, 3, ks)
     sync()
     driver_s = time.perf_counter() - t0
     timing: dict = {}
-    spec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, timing=timing)
+    spec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, timing=timing)
     events_ms = sum(timing["bounce_ms"]) + sum(timing["sort_ms"])
     # The same without the sort: its event time after each K2 is the one
     # host sync of the bounce (the alive count) with its two small kernels.
     sync()
     t0 = time.perf_counter()
-    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, sort=False)
+    sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, sort=False)
     sync()
     unsorted = dict(driver_wall_ms=(time.perf_counter() - t0) * 1e3)
     timing_u: dict = {}
-    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, sort=False, timing=timing_u)
+    sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, sort=False, timing=timing_u)
     unsorted.update(bounce_ms=timing_u["bounce_ms"], sync_ms=timing_u["sort_ms"])
 
     # The frame's bound from its counters (the counting form on the same
@@ -1005,14 +1005,14 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
     # frame through the twin's driver: its time, and the spectra held at the
     # K1 bounds.
     steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
-    _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, debug_visits=True,
+    _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, debug_visits=True,
                                            warp_steps=steps)
     frame = frame_bound(vis, n_paths, scene)
-    frame.update(walk_figures(kt, scene, tables, vis, steps, "bounce_binned_kernel"))
+    frame.update(walk_figures(kt, scene, ks, vis, steps, "bounce_binned_kernel"))
     frame["row_lane_use"], frame["slab_lane_use"] = row_lane_use(frame)
     sync()
     t0 = time.perf_counter()
-    tspec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, reference=True)
+    tspec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, reference=True)
     sync()
     frame_plain_ms = (time.perf_counter() - t0) * 1e3
     frame_agree = compare(spec, tspec)
@@ -1022,21 +1022,21 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
     # A single-kernel reading and the per-plane check, on a state the main
     # path does not launch: depth 1 of the frame's camera rays after bounce
     # 0 in place, unsorted (the bounce that costs most).
-    sw.bounce(scene, st, torch.tensor([3, 0], dtype=torch.int32, device="cuda"), opts, tables)
+    sw.bounce(scene, st, torch.tensor([3, 0], dtype=torch.int32, device="cuda"), opts, ks)
     sd = torch.tensor([3, 1], dtype=torch.int32, device="cuda")
     k = st.clone()
-    sw.bounce(scene, k, sd, opts, tables)
+    sw.bounce(scene, k, sd, opts, ks)
     t = st.clone()
     sync()
     t0 = time.perf_counter()
-    sw.bounce_reference(scene, t, 1, opts, tables)
+    sw.bounce_reference(scene, t, 1, opts, ks)
     sync()
     plain_ms = (time.perf_counter() - t0) * 1e3
     agree = compare_planes(k, t)
     agree["alive_in"] = int((st[17] > 0.5).sum())
     need(agree["min_plane_equal"] >= PLANE_FRAC, f"K2 at the main path's shape: {agree}")
     copies = iter([st.clone() for _ in range(5)])
-    kernel_ms = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables), 5)
+    kernel_ms = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, ks), 5)
     profile = profile_frame(pt, scene, camera, opts, kernel="bounce_binned_kernel")
     line("9 profile", **profile)
     # That bounce's bound from its counters (the counting form on the same
@@ -1045,8 +1045,8 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
     n_blocks = -(-n_paths // 1024)
     vk = torch.zeros((n_blocks, sw.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
     vt = torch.zeros_like(vk)
-    sw.bounce(scene, st.clone(), sd, opts, tables, visits=vk)
-    sw.bounce_reference(scene, st.clone(), 1, opts, tables, visits=vt)
+    sw.bounce(scene, st.clone(), sd, opts, ks, visits=vk)
+    sw.bounce_reference(scene, st.clone(), 1, opts, ks, visits=vt)
     need(torch.equal(vk, vt), "K2's counters differ from its twin's")
     need(ray_bounces(vk) == live, f"K2 counted {ray_bounces(vk)} nearest queries, {live} live")
     flops, counts = traversal_flops(vk)
@@ -1067,7 +1067,7 @@ def phase_dragon_main_path(pt, sw, mk, kt, scenes, scene):
                 busy_share=profile["busy_share"])
 
 
-def walk_figures(kt, scene, tables, vis, steps, kernel):
+def walk_figures(kt, scene, ks, vis, steps, kernel):
     """The walk's shape and resources for K1's binned form (`kernel`
     "megakernel_binned") or K2 ("bounce_binned_kernel"): ring depth,
     threads a block, the plain instance's registers and spills (ptxas),
@@ -1081,7 +1081,7 @@ def walk_figures(kt, scene, tables, vis, steps, kernel):
 
     k1 = kernel == "megakernel_binned"
     layout = kt.walk_layout("megakernel" if k1 else "bounce")
-    smem = mk.block_smem_bytes(scene, tables, layout)
+    smem = ks.smem_bytes(layout)
     cull = int(scene.krn_big_cull_mode)
     blocks, threads = (mk.occupancy(smem, True, cull=cull) if k1
                        else sw.bounce_occupancy(smem, cull=cull))
@@ -1259,7 +1259,7 @@ def phase_records(sw, mk, scenes, dragon, RenderOptions):
     opts = RenderOptions(DRAGON_W, DRAGON_H, 1, 1, epsilon=1e-3, max_depth=MAX_DEPTH)
     out = {}
     for name, scene in (("box", scenes.bench_box_scene()), ("dragon", dragon)):
-        tables = mk.pack_tables(scene)
+        ks = mk.kernel_scene(scene)
         _, st = camera_state(sw, camera, opts, 1, 77)
         n = st.shape[1]
         for depth in (0, 5):
@@ -1270,9 +1270,9 @@ def phase_records(sw, mk, scenes, dragon, RenderOptions):
             k, t, plain = st.clone(), st.clone(), st.clone()
             rk, rt = nan_records(sw, scene, n), nan_records(sw, scene, n)
             sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
-            sw.bounce(scene, k, sd, opts, tables, records=rk)
-            sw.bounce(scene, plain, sd, opts, tables)
-            sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
+            sw.bounce(scene, k, sd, opts, ks, records=rk)
+            sw.bounce(scene, plain, sd, opts, ks)
+            sw.bounce_reference(scene, t, depth, opts, ks, records=rt)
             sync()
             res = compare_planes(k, t)
             res["records_equal"], res["records_max_abs_err"] = compare_records(rk, rt)
@@ -1386,19 +1386,19 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
     # K2's record form alone on the pass's rays at depth 1, beside its twin.
     from cpupathtrace_tpu_torch.integrator import megakernel as mk
 
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     _, st = camera_state(sw, camera, opts, GRAD_SPP, 5)
     nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
     rec = torch.empty((nd, n_rays), device="cuda")
-    sw.bounce(scene, st, torch.tensor([5, 0], dtype=torch.int32, device="cuda"), opts, tables,
+    sw.bounce(scene, st, torch.tensor([5, 0], dtype=torch.int32, device="cuda"), opts, ks,
               records=rec)
     sd = torch.tensor([5, 1], dtype=torch.int32, device="cuda")
     k, t = st.clone(), st.clone()
     rk, rt = nan_records(sw, scene, n_rays), nan_records(sw, scene, n_rays)
-    sw.bounce(scene, k, sd, opts, tables, records=rk)
+    sw.bounce(scene, k, sd, opts, ks, records=rk)
     sync()
     t0 = time.perf_counter()
-    sw.bounce_reference(scene, t, 1, opts, tables, records=rt)
+    sw.bounce_reference(scene, t, 1, opts, ks, records=rt)
     sync()
     kr = dict(plain_ms=(time.perf_counter() - t0) * 1e3, alive_in=int((st[17] > 0.5).sum()))
     kr.update(compare_planes(k, t))
@@ -1410,12 +1410,12 @@ def phase_box_grad(diff, sw, oi, scenes, golden, RenderOptions, best_ms):
     # `fill_ms`: the two-kernel fill of the record planes that preceded
     # each launch until the kernel wrote every column itself.
     copies = iter([st.clone() for _ in range(5)])
-    kr["ms"] = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, tables, records=rk), 5)
+    kr["ms"] = cuda_ms(lambda: sw.bounce(scene, next(copies), sd, opts, ks, records=rk), 5)
     copies = iter([st.clone() for _ in range(11)])
     kr["kernel_ms"] = best_ms(
-        lambda: sw.bounce(scene, next(copies), sd, opts, tables, records=rk), 10)
+        lambda: sw.bounce(scene, next(copies), sd, opts, ks, records=rk), 10)
     kr["fill_ms"] = best_ms(lambda: sw.clear_records(rk), 10)
-    smem = mk.block_smem_bytes(scene, tables)
+    smem = ks.smem_bytes()
     kr["blocks_per_sm"], kr["threads"] = sw.bounce_occupancy(smem, False,
                                                              scene.krn_big_cull_mode, True)
     live = kr["alive_in"]
@@ -2091,13 +2091,13 @@ def k1_binned_run(mk, dragon, rays, opts, whole_chunk_plain=True):
     from cpupathtrace_tpu_torch.accel import kernel_traverse as kt
 
     n = int(rays.origin.shape[0])
-    tables = mk.pack_tables(dragon)
+    ks = mk.kernel_scene(dragon)
     sub = type(rays)(rays.origin[:K1B_CHECK_RAYS].contiguous(),
                      rays.direction[:K1B_CHECK_RAYS].contiguous())
-    k, kc, kv = mk.trace_megakernel(dragon, sub, opts, 21, tables, debug_visits=True)
+    k, kc, kv = mk.trace_megakernel(dragon, sub, opts, 21, ks, debug_visits=True)
     sync()
     t0 = time.perf_counter()
-    t, tc, tv = mk.trace_megakernel_reference(dragon, sub, opts, 21, tables, debug_visits=True)
+    t, tc, tv = mk.trace_megakernel_reference(dragon, sub, opts, 21, ks, debug_visits=True)
     sync()
     subset_plain_ms = (time.perf_counter() - t0) * 1e3
     out = dict(check_rays=K1B_CHECK_RAYS, rays=n,
@@ -2109,15 +2109,15 @@ def k1_binned_run(mk, dragon, rays, opts, whole_chunk_plain=True):
          f"K1's binned form disagrees with its twin: {out}")
     # The whole chunk: the main path's shape. The binned form's output
     # starts as NaN, so a ray its refilling warps missed shows.
-    spec, _ = mk.trace_megakernel(dragon, rays, opts, 21, tables)
+    spec, _ = mk.trace_megakernel(dragon, rays, opts, 21, ks)
     sync()
     need(not bool(torch.isnan(spec).any()), "K1's binned form left rays unwritten (NaN)")
-    out["ms"] = cuda_ms(lambda: mk.trace_megakernel(dragon, rays, opts, 21, tables), 3)
+    out["ms"] = cuda_ms(lambda: mk.trace_megakernel(dragon, rays, opts, 21, ks), 3)
     steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
-    _, _, vis = mk.trace_megakernel(dragon, rays, opts, 21, tables, debug_visits=True,
+    _, _, vis = mk.trace_megakernel(dragon, rays, opts, 21, ks, debug_visits=True,
                                     warp_steps=steps)
     sync()
-    out["walk"] = walk_figures(kt, dragon, tables, vis, steps, "megakernel_binned")
+    out["walk"] = walk_figures(kt, dragon, ks, vis, steps, "megakernel_binned")
     out["row_lane_use"], out["slab_lane_use"] = row_lane_use(out)
     flops, counts = traversal_flops(vis)
     rb = ray_bounces(vis)
@@ -2126,7 +2126,7 @@ def k1_binned_run(mk, dragon, rays, opts, whole_chunk_plain=True):
     out.update(plain_ms=subset_plain_ms, plain_rays=K1B_CHECK_RAYS)
     if whole_chunk_plain:
         t0 = time.perf_counter()
-        tspec, _ = mk.trace_megakernel_reference(dragon, rays, opts, 21, tables)
+        tspec, _ = mk.trace_megakernel_reference(dragon, rays, opts, 21, ks)
         sync()
         out.update(plain_ms=(time.perf_counter() - t0) * 1e3, plain_rays=n)
         out["chunk"] = compare(spec, tspec)
@@ -2571,13 +2571,13 @@ def k2_sorted_run(sw, mk, kt, scene, rays, opts, n_paths):
     K1B_CHECK_RAYS rays (spectrum bit-equal, per-bounce counters equal);
     then on the frame's rays K2's launches timed by CUDA events, the frame's
     bound from its counters and the walk's figures."""
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     sub = type(rays)(rays.origin[:K1B_CHECK_RAYS].contiguous(),
                      rays.direction[:K1B_CHECK_RAYS].contiguous())
-    k, kc, kv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables, debug_visits=True)
+    k, kc, kv = sw.trace_megakernel_sorted(scene, sub, opts, 21, ks, debug_visits=True)
     sync()
     t0 = time.perf_counter()
-    t, tc, tv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables, reference=True,
+    t, tc, tv = sw.trace_megakernel_sorted(scene, sub, opts, 21, ks, reference=True,
                                            debug_visits=True)
     sync()
     out = dict(check_rays=K1B_CHECK_RAYS, plain_ms=(time.perf_counter() - t0) * 1e3,
@@ -2588,17 +2588,17 @@ def k2_sorted_run(sw, mk, kt, scene, rays, opts, n_paths):
                max_abs_err=max_err(k, t))
     need(out["spectrum_bit_equal"] == 1.0 and out["collected_equal"] and out["counters_equal"],
          f"K2 disagrees with its twin on the 7.2M scene: {out}")
-    sw.trace_megakernel_sorted(scene, rays, opts, 3, tables)
+    sw.trace_megakernel_sorted(scene, rays, opts, 3, ks)
     timing: dict = {}
-    spec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, timing=timing)
+    spec, _ = sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, timing=timing)
     sync()
     need(bool(torch.isfinite(spec).all()), "K2's 7.2M chunk has non-finite values")
     steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
-    _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, 3, tables, debug_visits=True,
+    _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, 3, ks, debug_visits=True,
                                            warp_steps=steps)
     sync()
     frame = frame_bound(vis, n_paths, scene)
-    frame.update(walk_figures(kt, scene, tables, vis, steps, "bounce_binned_kernel"))
+    frame.update(walk_figures(kt, scene, ks, vis, steps, "bounce_binned_kernel"))
     out.update(bounces=len(timing["bounce_ms"]), bounce_ms=timing["bounce_ms"],
                sort_gather_ms=timing["sort_ms"], ms=sum(timing["bounce_ms"]), frame=frame,
                bound_ms=frame["bound_ms"], bound_by=frame["bound_by"])
@@ -3018,23 +3018,23 @@ def budget_run(pt, sw, mk, kt, scene, camera, opts, tracer, setting, rays, check
          and np.isfinite(frames).all(), f"budget {tracer}: non-finite frame")
     lum = frames[..., :3].mean(-1).reshape(len(images), -1).astype(np.float64)
     mean, std_err = frame_stats(lum)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     if tracer == "k1":
         seed_t = torch.tensor([seed], dtype=torch.int32, device="cuda")
         if binned:
-            _, _, vis = mk.trace_megakernel(scene, rays, opts, seed_t, tables, debug_visits=True)
+            _, _, vis = mk.trace_megakernel(scene, rays, opts, seed_t, ks, debug_visits=True)
             rb = ray_bounces(vis)
         else:
             steps = torch.zeros(mk.BOUNCE_STEP_COLS, dtype=torch.int64, device="cuda")
-            mk.trace_megakernel(scene, rays, opts, seed_t, tables, bounce_steps=steps)
+            mk.trace_megakernel(scene, rays, opts, seed_t, ks, bounce_steps=steps)
             rb = int(steps[1])
-        kernel_ms = best_ms(lambda: mk.trace_megakernel(scene, rays, opts, seed_t, tables), 3)
+        kernel_ms = best_ms(lambda: mk.trace_megakernel(scene, rays, opts, seed_t, ks), 3)
     else:
-        sw.trace_megakernel_sorted(scene, rays, opts, seed, tables)
+        sw.trace_megakernel_sorted(scene, rays, opts, seed, ks)
         timing: dict = {}
-        sw.trace_megakernel_sorted(scene, rays, opts, seed, tables, timing=timing)
+        sw.trace_megakernel_sorted(scene, rays, opts, seed, ks, timing=timing)
         kernel_ms = sum(timing["bounce_ms"])
-        _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, seed, tables, debug_visits=True)
+        _, _, vis = sw.trace_megakernel_sorted(scene, rays, opts, seed, ks, debug_visits=True)
         rb = ray_bounces(vis)
     need(rb > 0, f"budget {tracer}: no ray-bounce counted")
     if binned:
@@ -3054,13 +3054,13 @@ def budget_run(pt, sw, mk, kt, scene, camera, opts, tracer, setting, rays, check
         sub = type(rays)(rays.origin[:check_rays].contiguous(),
                          rays.direction[:check_rays].contiguous())
         if tracer == "k1":
-            k, kc, kv = mk.trace_megakernel(scene, sub, opts, 21, tables, debug_visits=True)
-            t, tc, tv = mk.trace_megakernel_reference(scene, sub, opts, 21, tables,
+            k, kc, kv = mk.trace_megakernel(scene, sub, opts, 21, ks, debug_visits=True)
+            t, tc, tv = mk.trace_megakernel_reference(scene, sub, opts, 21, ks,
                                                       debug_visits=True)
         else:
-            k, kc, kv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables,
+            k, kc, kv = sw.trace_megakernel_sorted(scene, sub, opts, 21, ks,
                                                    debug_visits=True)
-            t, tc, tv = sw.trace_megakernel_sorted(scene, sub, opts, 21, tables, reference=True,
+            t, tc, tv = sw.trace_megakernel_sorted(scene, sub, opts, 21, ks, reference=True,
                                                    debug_visits=True)
         sync()
         out["twin"] = dict(rays=check_rays, spectrum_bit_equal=bits_equal(k, t),
@@ -4010,7 +4010,7 @@ def main():
                            compiler_seconds=dict(_build.build_seconds), ptxas=ptxas,
                            occupancy=kernel_occupancy(
                                mk, sw, kt, tt, oi, box,
-                               mk.block_smem_bytes(box, mk.pack_tables(box))))
+                               mk.kernel_scene(box).smem_bytes()))
     parent_report = parent = None
     if args.parent:
         with open(args.parent) as f:

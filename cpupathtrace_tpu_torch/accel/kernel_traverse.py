@@ -547,25 +547,28 @@ def check_tables(tables, device):
         raise ValueError(f"record height {rec.shape[1]}: need a multiple of 8, <= 128")
 
 
-# table_args' place holders for a dense scene (no tiers), with cull mode -1.
-NO_TIERS = (None, 0, 0, None, None, 0, None, 0, None, -1)
+class ClusterTables(ctypes.Structure):
+    """The traversal tiers as K1, K2 and K4 take them: the ctypes mirror of
+    csrc/cluster_traverse.cuh `ClusterTables`, field for field."""
+
+    _fields_ = [("rec", _P), ("n_rec", _I), ("rec_rows", _I), ("clb", _P), ("sup", _P),
+                ("n_pages", _I), ("hyp", _P), ("root", _P), ("cull", _I)]
 
 
-def table_args(tables):
-    """The tables as the kernels' C arguments: rec, n_rec, rec_rows, clb,
-    sup, n_pages, hyp, hyp_rows, root."""
+def cluster_tables(tables, cull):
+    """The `ClusterTables` of checked traversal `tables` of cull class
+    `cull`: their pointers, so the caller keeps `tables` alive."""
     rec, clb, sup, hyp, root = tables
-    return (rec.data_ptr(), rec.shape[0], rec.shape[1], clb.data_ptr(), sup.data_ptr(),
-            sup.shape[0], hyp.data_ptr(), hyp.shape[0], root.data_ptr())
+    return ClusterTables(rec.data_ptr(), rec.shape[0], rec.shape[1], clb.data_ptr(),
+                         sup.data_ptr(), sup.shape[0], hyp.data_ptr(), root.data_ptr(), int(cull))
 
 
 def _query_fn():
     lib = _build.load("cluster_query")
     fn = lib.ptx_cluster_query_launch
     if fn.argtypes is None:
-        fn.argtypes = ([_P, _P, _P, _P, _P, _I]  # origin direction t_lim t prim n
-                       + [_P, _I, _I, _P, _P, _I, _P, _I, _P]  # tables, root box
-                       + [_I, _I, _P, _P, _P]  # cull mode, any_hit, visits, steps, next ray
+        fn.argtypes = ([ctypes.POINTER(ClusterTables), _P, _P, _P, _P, _P, _I]  # tiers, rays
+                       + [_I, _P, _P, _P]  # any_hit, visits, steps, next ray
                        + [_I, ctypes.c_longlong, _P])  # grid, shared bytes, stream
         fn.restype = ctypes.c_int
     return fn
@@ -843,8 +846,8 @@ def cluster_intersect(scene, o, d, t_max=None, any_hit=False, debug_visits=False
             grid = resident_grid(r, threads, per_sm,
                                  torch.cuda.get_device_properties(dev).multi_processor_count)
             err = _query_fn()(
-                o.data_ptr(), d.data_ptr(), lim.data_ptr(), t.data_ptr(), p.data_ptr(), r,
-                *table_args(tables), int(scene.krn_cull_mode), int(bool(any_hit)),
+                ctypes.byref(cluster_tables(tables, scene.krn_cull_mode)), o.data_ptr(),
+                d.data_ptr(), lim.data_ptr(), t.data_ptr(), p.data_ptr(), r, int(bool(any_hit)),
                 None if vis is None else vis.data_ptr(),
                 None if vis is None else warp_steps.data_ptr(), next_ray.data_ptr(), grid, smem,
                 torch.cuda.current_stream(dev).cuda_stream,

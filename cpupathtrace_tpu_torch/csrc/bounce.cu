@@ -81,6 +81,7 @@
 #include "cluster_traverse.cuh"
 #include "dense_intersect.cuh"
 #include "rng.cuh"
+#include "scene_args.cuh"
 
 namespace ptx {
 namespace {
@@ -96,34 +97,12 @@ struct Params {
   int n_rays;
   const int* seed_depth;  // [2] on the device: seed, depth
   float* drec;  // [n_drec, n_rays] record planes (record form), else null
-  const float* tri;  // dense table form: [n_tri, 24]; n_tri = 0 otherwise
-  int n_tri;
-  const float* sph;
-  int n_sph;
-  const float* mat;
-  int n_mat;
-  const float* lgt;
-  int n_lights;
-  const float* em;
-  int n_em;
-  int em_k;
-  const float* rec;  // big-partition pair record [rec_rows, rec_stride]
-  int rec_rows;
-  int rec_stride;
-  ClusterTables cl;
-  int tier_floats;  // shared floats for the staged tiers (0: read from global)
+  SceneArgs scene;
   int* visits;      // [ceil(n_rays / 1024), 9] traversal counters, or null
   unsigned long long* steps;  // [kWarpStepCols] warp steps (with visits), or null
   float eps;
   int ablate;  // the ablation mask (bounce_body.cuh kAblate*); 0 in the default instances
 };
-
-__device__ __forceinline__ size_t smem_floats(const Params& p) {
-  return static_cast<size_t>(p.rec_rows) * kRecCols + static_cast<size_t>(p.n_tri) * kTriCols +
-         static_cast<size_t>(p.n_sph) * kSphCols +
-         static_cast<size_t>(p.n_mat) * kMatCols + static_cast<size_t>(p.n_lights) * kLgtCols +
-         static_cast<size_t>(p.n_em) * kEmCols + static_cast<size_t>(p.tier_floats);
-}
 
 template <bool kBinned, int CULL, bool kCount, bool kAblate, class Rec>
 __device__ __forceinline__ bool run_body(const Params& p, float* smem, const float* s_rec,
@@ -134,9 +113,9 @@ __device__ __forceinline__ bool run_body(const Params& p, float* smem, const flo
   if constexpr (kBinned) {
     using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
     const BinnedGeo<CULL, Count, kAblate, Rec::kOn ? 0 : 3> geo{
-        s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
-                                              s_sph, p.n_sph, cl,
-                                              ring_base(smem, smem_floats(p)), {}, {},
+        s_rec, pair_rows<kAblate>(p.scene.rec_rows, p.ablate),
+                                              s_sph, p.scene.n_sph, cl,
+                                              ring_base(smem, smem_floats(p.scene)), {}, {},
                                               !(kAblate && (p.ablate & kSkipTraverse))};
     const bool alive = bounce_body<true, kAblate>(geo, sh, p.seed_depth[1], s, rec);
     if constexpr (kCount) {
@@ -145,8 +124,8 @@ __device__ __forceinline__ bool run_body(const Params& p, float* smem, const flo
     }
     return alive;
   } else {
-    const DenseGeo<CULL> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate), s_tri, p.n_tri,
-                             s_sph, p.n_sph};
+    const DenseGeo<CULL> geo{s_rec, pair_rows<kAblate>(p.scene.rec_rows, p.ablate), s_tri,
+                             p.scene.n_tri, s_sph, p.scene.n_sph};
     return bounce_body<true, kAblate>(geo, sh, p.seed_depth[1], s, rec);
   }
 }
@@ -157,21 +136,22 @@ __device__ __forceinline__ bool run_body(const Params& p, float* smem, const flo
 template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate = false>
 __device__ __forceinline__ void bounce_thread(const Params& p) {
   extern __shared__ float smem[];
+  const SceneArgs& sc = p.scene;
   float* s_rec = smem;
-  float* s_tri = s_rec + p.rec_rows * kRecCols;
-  float* s_sph = s_tri + p.n_tri * kTriCols;
-  float* s_mat = s_sph + p.n_sph * kSphCols;
-  float* s_lgt = s_mat + p.n_mat * kMatCols;
-  float* s_em = s_lgt + p.n_lights * kLgtCols;
-  float* s_tiers = s_em + p.n_em * kEmCols;
-  stage_rows(s_rec, p.rec, p.rec_rows, kRecCols, p.rec_stride);
-  stage_rows(s_tri, p.tri, p.n_tri, kTriCols, kTriCols);
-  stage_rows(s_sph, p.sph, p.n_sph, kSphCols, kSphCols);
-  stage_rows(s_mat, p.mat, p.n_mat, kMatCols, kMatCols);
-  stage_rows(s_lgt, p.lgt, p.n_lights, kLgtCols, kLgtCols);
-  stage_rows(s_em, p.em, p.n_em, kEmCols, kEmCols);
-  ClusterTables cl = p.cl;
-  if (kBinned) stage_tiers(cl, s_tiers, p.tier_floats);
+  float* s_tri = s_rec + sc.rec_rows * kRecCols;
+  float* s_sph = s_tri + sc.n_tri * kTriCols;
+  float* s_mat = s_sph + sc.n_sph * kSphCols;
+  float* s_lgt = s_mat + sc.n_mat * kMatCols;
+  float* s_em = s_lgt + sc.n_lights * kLgtCols;
+  float* s_tiers = s_em + sc.n_em * kEmCols;
+  stage_rows(s_rec, sc.rec, sc.rec_rows, kRecCols, sc.rec_stride);
+  stage_rows(s_tri, sc.tri, sc.n_tri, kTriCols, kTriCols);
+  stage_rows(s_sph, sc.sph, sc.n_sph, kSphCols, kSphCols);
+  stage_rows(s_mat, sc.mat, sc.n_mat, kMatCols, kMatCols);
+  stage_rows(s_lgt, sc.lgt, sc.n_lights, kLgtCols, kLgtCols);
+  stage_rows(s_em, sc.em, sc.n_em, kEmCols, kEmCols);
+  ClusterTables cl = sc.cl;
+  if (kBinned) stage_tiers(cl, s_tiers, sc.tier_floats);
   __syncthreads();
 
   const int64_t i = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
@@ -179,11 +159,11 @@ __device__ __forceinline__ void bounce_thread(const Params& p) {
   const int64_t n = p.n_rays;
   float* st = p.state + i;
   if (!(st[17 * n] > 0.5f)) {  // dead: the state stays as it is
-    if constexpr (kRec) Records{p.drec + i, n, p.n_lights}.none(p.em_k);
+    if constexpr (kRec) Records{p.drec + i, n, sc.n_lights}.none(sc.em_k);
     return;
   }
 
-  Shading sh{s_mat, p.n_mat, s_lgt, p.n_lights, s_em, p.n_em, p.em_k, p.eps};
+  Shading sh{s_mat, sc.n_mat, s_lgt, sc.n_lights, s_em, sc.n_em, sc.em_k, p.eps};
   if constexpr (kAblate) sh = ablated_shading(sh, p.ablate);
   PathState s;
   s.rng = __float_as_uint(st[0]);
@@ -203,7 +183,7 @@ __device__ __forceinline__ void bounce_thread(const Params& p) {
   if constexpr (kRec) {
     static_assert(!kAblate, "the record form has no ablation instance");
     alive = run_body<kBinned, CULL, kCount, false>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
-                                                   Records{p.drec + i, n, p.n_lights}, i);
+                                                   Records{p.drec + i, n, sc.n_lights}, i);
   } else {
     alive = run_body<kBinned, CULL, kCount, kAblate>(p, smem, s_rec, s_tri, s_sph, cl, sh, s,
                                                      NoRecords{}, i);
@@ -269,11 +249,8 @@ constexpr auto kernel_of() {
 template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate>
 cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
   const auto kernel = kernel_of<kBinned, CULL, kRec, kCount, kAblate>();
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   constexpr int threads = kBinned ? kWalkThreads : kDenseThreads;
   const int blocks = (p.n_rays + threads - 1) / threads;
   kernel<<<blocks, threads, smem, stream>>>(p);
@@ -285,13 +262,8 @@ cudaError_t launch(const Params& p, size_t smem, cudaStream_t stream) {
 template <bool kBinned, int CULL, bool kRec, bool kCount, bool kAblate>
 cudaError_t occupancy(size_t smem, int* blocks) {
   const auto kernel = kernel_of<kBinned, CULL, kRec, kCount, kAblate>();
-  // Only ever raised past the 48 KB default, as launch does: a query must
-  // not lower the limit a later launch relies on.
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
-  }
+  const cudaError_t err = allow_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
       blocks, kernel, kBinned ? kWalkThreads : kDenseThreads, smem);
 }
@@ -315,33 +287,26 @@ cudaError_t occupancy_cull(int cull, size_t smem, int* blocks) {
 
 // Plain C entry point for ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing, returns the launch's cudaError_t.
-// binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else
-// the triangle table), the traversal tables unused. drec: the record planes
-// [n_drec, n_rays], every column of which the launch writes, or null.
-// visits: the counters [ceil(n_rays / 1024), 9] int32, zeroed by the
-// caller, or null (binned scenes without records only); steps: the warp
-// steps [3] int64, zeroed by the caller, with visits. smem_bytes: the
-// block's dynamic shared memory, sized by the wrapper (kernel_traverse.py
-// kernel_smem_bytes, from ptx_walk_layout). ablate: the ablation mask
-// (bounce_body.cuh kAblate*); nonzero launches the form's ablation instance,
-// and is refused with drec.
-extern "C" int ptx_bounce_launch(float* state, int n_rays, const int* seed_depth, float* drec,
-                                 const float* tri, int n_tri, const float* sph, int n_sph,
-                                 const float* mat, int n_mat, const float* lgt, int n_lights,
-                                 const float* em, int n_em, int em_k, const float* rec,
-                                 int rec_rows, int rec_stride, int big_cull, int binned,
-                                 const float* krec, int n_rec, int krec_rows, const float* clb,
-                                 const float* sup, int n_pages, const float* hyp, int hyp_rows,
-                                 const float* root, int cl_cull, int* visits,
+// scene: the kernels' scene (scene_args.cuh; binned = 0 a dense scene, whose
+// pair record or triangle table it holds, binned = 1 with the cluster tiers;
+// rec_cull picks the instance). drec: the record planes [n_drec, n_rays],
+// every column of which the launch writes, or null. visits: the counters
+// [ceil(n_rays / 1024), 9] int32, zeroed by the caller, or null (binned
+// scenes without records only); steps: the warp steps [3] int64, zeroed by
+// the caller, with visits. smem_bytes: the block's dynamic shared memory,
+// sized by the wrapper (megakernel.py KernelScene.smem_bytes, from
+// ptx_walk_layout). ablate: the ablation mask (bounce_body.cuh kAblate*);
+// nonzero launches the form's ablation instance, and is refused with drec.
+extern "C" int ptx_bounce_launch(const ptx::SceneArgs* scene, float* state, int n_rays,
+                                 const int* seed_depth, float* drec, int* visits,
                                  unsigned long long* steps, float epsilon, long long smem_bytes,
                                  int ablate, void* stream) {
   using namespace ptx;
-  (void)hyp_rows;
-  const ClusterTables cl{krec, n_rec, krec_rows, clb, sup, n_pages, hyp, root, cl_cull};
-  const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
-  const Params p{state, n_rays, seed_depth, drec, tri, n_tri, sph, n_sph, mat, n_mat, lgt,
-                 n_lights, em, n_em, em_k, rec, rec_rows, rec_stride, cl,
-                 tiers <= kTierFloats ? tiers : 0, visits, steps, epsilon, ablate};
+  if (!scene) return static_cast<int>(cudaErrorInvalidValue);
+  const bool binned = scene->binned;
+  const int big_cull = scene->rec_cull;
+  const Params p{state, n_rays, seed_depth, drec, launch_scene(*scene), visits, steps, epsilon,
+                 ablate};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (visits && (!binned || drec || !steps)) return static_cast<int>(cudaErrorInvalidValue);

@@ -221,27 +221,23 @@ cudaError_t occupancy(size_t smem, int* blocks) {
 
 // Plain C entry point for ctypes. Launches `grid` blocks (the resident
 // blocks, kernel_traverse.resident_grid) on `stream`, does not synchronise,
-// allocates nothing, returns the launch's cudaError_t. visits: the zeroed
-// counters [ceil(n_rays / 1024), 4] int32, or null; steps: the zeroed warp
-// steps [4] int64 with visits, else null. next_ray: the zeroed refill
-// counter [1] int32. smem_bytes: the block's dynamic shared memory, sized by
-// the wrapper (kernel_traverse.kernel_smem_bytes from ptx_walk_layout).
-extern "C" int ptx_cluster_query_launch(const float* origin, const float* direction,
-                                        const float* t_lim, float* t_out, int* p_out,
-                                        int n_rays, const float* rec, int n_rec, int rec_rows,
-                                        const float* clb, const float* sup, int n_pages,
-                                        const float* hyp, int hyp_rows, const float* root,
-                                        int cull, int any_hit, int* visits,
-                                        unsigned long long* steps, int* next_ray, int grid,
-                                        long long smem_bytes, void* stream) {
+// allocates nothing, returns the launch's cudaError_t. cl: the scene's
+// traversal tiers (kernel_traverse.py ClusterTables; cl->cull their cull
+// class). visits: the zeroed counters [ceil(n_rays / 1024), 4] int32, or
+// null; steps: the zeroed warp steps [4] int64 with visits, else null.
+// next_ray: the zeroed refill counter [1] int32. smem_bytes: the block's
+// dynamic shared memory, sized by the wrapper (kernel_traverse.
+// kernel_smem_bytes from ptx_walk_layout).
+extern "C" int ptx_cluster_query_launch(const ptx::ClusterTables* cl, const float* origin,
+                                        const float* direction, const float* t_lim,
+                                        float* t_out, int* p_out, int n_rays, int any_hit,
+                                        int* visits, unsigned long long* steps, int* next_ray,
+                                        int grid, long long smem_bytes, void* stream) {
   using namespace ptx;
-  (void)hyp_rows;
-  if (!next_ray || grid < 1 || (visits != nullptr) != (steps != nullptr))
+  if (!cl || !next_ray || grid < 1 || (visits != nullptr) != (steps != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const ClusterTables cl{rec, n_rec, rec_rows, clb, sup, n_pages, hyp, root, cull};
-  const int tiers = n_pages * (kBndCols + kGroup2 * kBndCols);
-  const Params p{origin, direction, t_lim, t_out, p_out, n_rays, cl,
-                 tiers <= kTierFloats ? tiers : 0, visits, steps, next_ray};
+  const Params p{origin, direction, t_lim, t_out, p_out, n_rays, *cl,
+                 staged_tier_floats(*cl, kTierFloats), visits, steps, next_ray};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

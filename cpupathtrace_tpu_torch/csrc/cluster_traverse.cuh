@@ -738,6 +738,13 @@ __device__ __forceinline__ void add_visits(int* out, int cols, int64_t i, int co
   if (v) atomicAdd(out + (i / kVisitBlock) * cols + col, v);
 }
 
+// The floats stage_tiers stages of `T` within `budget_floats`: every hyper
+// and supercluster box, or 0 (the launches of K1, K2 and K4 size with it).
+__host__ __device__ inline int staged_tier_floats(const ClusterTables& T, int budget_floats) {
+  const int n = T.n_pages * (kBndCols + kGroup2 * kBndCols);
+  return n <= budget_floats ? n : 0;
+}
+
 // Stage the hyper and supercluster boxes in shared memory when they fit
 // `budget_floats`; otherwise the thread reads them from global memory.
 // Returns the floats used. Every thread of the block must call it, followed

@@ -87,6 +87,7 @@
 #include "cluster_traverse.cuh"
 #include "dense_intersect.cuh"
 #include "rng.cuh"
+#include "scene_args.cuh"
 
 namespace ptx {
 namespace {
@@ -102,24 +103,9 @@ struct Params {
   const float* direction;  // [n_rays, 3]
   float* spectrum;         // [n_rays, 4]: r, g, b, collected
   int n_rays;
-  const float* tri;  // [n_tri, 24]; n_tri = 0 in the pair form
-  int n_tri;
-  const float* sph;  // [n_sph, 8]
-  int n_sph;
-  const float* mat;  // [n_mat, 12]
-  int n_mat;
-  const float* lgt;  // [n_lights, 8]
-  int n_lights;
-  const float* em;  // [n_em, 24]
-  int n_em;
-  int em_k;
-  const float* rec;  // [rec_rows, rec_stride]; rec_rows = 0 in the table form
-  int rec_rows;
-  int rec_stride;
+  SceneArgs scene;
   const int* seed;  // [1], on the device
   int max_depth;
-  ClusterTables cl;  // binned form: the traversal tiers
-  int tier_floats;   // shared floats for the staged tiers (0: read from global)
   int* visits;       // binned: [ceil(n_rays / 1024), 9] traversal counters, or null
   unsigned long long* steps;  // binned [3] warp steps, dense [2] bounce steps (counting), or null
   int* next_ray;     // the refill counter, zeroed by the wrapper
@@ -127,39 +113,33 @@ struct Params {
   int ablate;        // the ablation mask (bounce_body.cuh kAblate*); 0 in the default instances
 };
 
-__device__ __forceinline__ size_t smem_floats(const Params& p) {
-  return static_cast<size_t>(p.rec_rows) * kRecCols + static_cast<size_t>(p.n_tri) * kTriCols +
-         static_cast<size_t>(p.n_sph) * kSphCols + static_cast<size_t>(p.n_mat) * kMatCols +
-         static_cast<size_t>(p.n_lights) * kLgtCols + static_cast<size_t>(p.n_em) * kEmCols +
-         static_cast<size_t>(p.tier_floats);
-}
-
 // Stages the tables of a block in shared memory (the tiers when binned);
 // every thread calls it, then __syncthreads().
 template <bool kBinned>
-__device__ __forceinline__ ClusterTables stage_tables(const Params& p, float* smem) {
+__device__ __forceinline__ ClusterTables stage_tables(const SceneArgs& sc, float* smem) {
   float* s_rec = smem;
-  float* s_tri = s_rec + p.rec_rows * kRecCols;
-  float* s_sph = s_tri + p.n_tri * kTriCols;
-  float* s_mat = s_sph + p.n_sph * kSphCols;
-  float* s_lgt = s_mat + p.n_mat * kMatCols;
-  float* s_em = s_lgt + p.n_lights * kLgtCols;
-  stage_rows(s_rec, p.rec, p.rec_rows, kRecCols, p.rec_stride);
-  stage_rows(s_tri, p.tri, p.n_tri, kTriCols, kTriCols);
-  stage_rows(s_sph, p.sph, p.n_sph, kSphCols, kSphCols);
-  stage_rows(s_mat, p.mat, p.n_mat, kMatCols, kMatCols);
-  stage_rows(s_lgt, p.lgt, p.n_lights, kLgtCols, kLgtCols);
-  stage_rows(s_em, p.em, p.n_em, kEmCols, kEmCols);
-  ClusterTables cl = p.cl;
-  if (kBinned) stage_tiers(cl, s_em + p.n_em * kEmCols, p.tier_floats);
+  float* s_tri = s_rec + sc.rec_rows * kRecCols;
+  float* s_sph = s_tri + sc.n_tri * kTriCols;
+  float* s_mat = s_sph + sc.n_sph * kSphCols;
+  float* s_lgt = s_mat + sc.n_mat * kMatCols;
+  float* s_em = s_lgt + sc.n_lights * kLgtCols;
+  stage_rows(s_rec, sc.rec, sc.rec_rows, kRecCols, sc.rec_stride);
+  stage_rows(s_tri, sc.tri, sc.n_tri, kTriCols, kTriCols);
+  stage_rows(s_sph, sc.sph, sc.n_sph, kSphCols, kSphCols);
+  stage_rows(s_mat, sc.mat, sc.n_mat, kMatCols, kMatCols);
+  stage_rows(s_lgt, sc.lgt, sc.n_lights, kLgtCols, kLgtCols);
+  stage_rows(s_em, sc.em, sc.n_em, kEmCols, kEmCols);
+  ClusterTables cl = sc.cl;
+  if (kBinned) stage_tiers(cl, s_em + sc.n_em * kEmCols, sc.tier_floats);
   return cl;
 }
 
 __device__ __forceinline__ Shading shading(const Params& p, const float* smem) {
-  const float* s_mat = smem + p.rec_rows * kRecCols + p.n_tri * kTriCols + p.n_sph * kSphCols;
-  const float* s_lgt = s_mat + p.n_mat * kMatCols;
-  const float* s_em = s_lgt + p.n_lights * kLgtCols;
-  return Shading{s_mat, p.n_mat, s_lgt, p.n_lights, s_em, p.n_em, p.em_k, p.eps};
+  const SceneArgs& sc = p.scene;
+  const float* s_mat = smem + sc.rec_rows * kRecCols + sc.n_tri * kTriCols + sc.n_sph * kSphCols;
+  const float* s_lgt = s_mat + sc.n_mat * kMatCols;
+  const float* s_em = s_lgt + sc.n_lights * kLgtCols;
+  return Shading{s_mat, sc.n_mat, s_lgt, sc.n_lights, s_em, sc.n_em, sc.em_k, p.eps};
 }
 
 // A fresh path of ray i.
@@ -271,15 +251,16 @@ __device__ __forceinline__ Shading block_shading(const Params& p, const float* s
 template <int CULL, bool kCount, bool kAblate>
 __device__ __forceinline__ void dense_form(const Params& p) {
   extern __shared__ float smem[];
-  stage_tables<false>(p, smem);
+  const SceneArgs& sc = p.scene;
+  stage_tables<false>(sc, smem);
   __syncthreads();
 
   const Shading sh = block_shading<kAblate>(p, smem);
   const float* s_rec = smem;
-  const float* s_tri = s_rec + p.rec_rows * kRecCols;
-  const float* s_sph = s_tri + p.n_tri * kTriCols;
-  const DenseGeo<CULL> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate), s_tri, p.n_tri,
-                           s_sph, p.n_sph};
+  const float* s_tri = s_rec + sc.rec_rows * kRecCols;
+  const float* s_sph = s_tri + sc.n_tri * kTriCols;
+  const DenseGeo<CULL> geo{s_rec, pair_rows<kAblate>(sc.rec_rows, p.ablate), s_tri, sc.n_tri,
+                           s_sph, sc.n_sph};
   std::conditional_t<kCount, BounceSteps, NoSteps> steps;
   trace_refilling<kBlockRows, kAblate>(p, geo, sh, [&] { steps.step(); }, [](int64_t) {});
   steps.add(p.steps);
@@ -301,16 +282,17 @@ __global__ void __launch_bounds__(kDenseThreads, kDenseMinBlocks)
 template <int CULL, bool kCount, bool kAblate>
 __device__ __forceinline__ void binned_form(const Params& p) {
   extern __shared__ float smem[];
-  const ClusterTables cl = stage_tables<true>(p, smem);
+  const SceneArgs& sc = p.scene;
+  const ClusterTables cl = stage_tables<true>(sc, smem);
   __syncthreads();
 
   const Shading sh = block_shading<kAblate>(p, smem);
   const float* s_rec = smem;
-  const float* s_sph = s_rec + p.rec_rows * kRecCols + p.n_tri * kTriCols;
+  const float* s_sph = s_rec + sc.rec_rows * kRecCols + sc.n_tri * kTriCols;
   using Count = std::conditional_t<kCount, WarpVisits, NoVisits>;
-  const BinnedGeo<CULL, Count, kAblate, 1> geo{s_rec, pair_rows<kAblate>(p.rec_rows, p.ablate),
-                                            s_sph, p.n_sph, cl,
-                                            ring_base(smem, smem_floats(p)), {}, {},
+  const BinnedGeo<CULL, Count, kAblate, 1> geo{s_rec, pair_rows<kAblate>(sc.rec_rows, p.ablate),
+                                            s_sph, sc.n_sph, cl,
+                                            ring_base(smem, smem_floats(sc)), {}, {},
                                             !(kAblate && (p.ablate & kSkipTraverse))};
   trace_refilling<kBinnedBlockRows, kAblate>(p, geo, sh, [] {}, [&](int64_t i) {
     if constexpr (kCount) {
@@ -348,16 +330,6 @@ constexpr auto kernel_of() {
 
 template <bool kBinned>
 constexpr int kThreadsOf = kBinned ? kWalkThreads : kDenseThreads;
-
-// Past the 48 KB default, an instance's shared-memory limit must be set to
-// the size of each launch (an occupancy query at another size may have set
-// it since).
-template <class K>
-cudaError_t allow_smem(K kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              static_cast<int>(smem));
-}
 
 // Resident blocks per SM of an instance at `smem` bytes.
 template <bool kBinned, int CULL, bool kCount, bool kAblate>
@@ -412,45 +384,32 @@ cudaError_t occupancy_form(int cull, bool count, size_t smem, int* blocks) {
 
 // Plain C entry point for ctypes. Launches on `stream`, does not
 // synchronise, allocates nothing, returns the launch's cudaError_t.
-// binned = 0: a dense scene (rec_rows > 0: the pair form, n_tri = 0; else the
-// table form; cull_mode the record's class), the traversal tables unused;
-// steps: the zeroed bounce steps [2] int64 (the counting instance) or null.
-// binned = 1: rec is the big partition's pair record (cull_mode its class),
-// krec ... root the cluster tiers (cl_cull their class), visits the zeroed
-// counters [ceil(n_rays / 1024), 9] int32 or null, steps the zeroed warp
-// steps [3] int64 with visits. next_ray: the zeroed refill counter [1]
-// int32. grid: the blocks of the launch (the resident blocks, at most one
-// thread per ray). smem_bytes: the block's dynamic shared memory, sized by
-// the wrapper (kernel_traverse.py kernel_smem_bytes, from ptx_walk_layout).
+// scene: the kernels' scene (scene_args.cuh; binned = 0 a dense scene, whose
+// pair record or triangle table it holds, binned = 1 with the cluster tiers;
+// rec_cull picks the instance). visits: binned, the zeroed counters
+// [ceil(n_rays / 1024), 9] int32 or null; steps: the zeroed warp steps [3]
+// int64 with visits (binned), or the bounce steps [2] int64 of the dense
+// counting instance, or null. next_ray: the zeroed refill counter [1] int32.
+// grid: the blocks of the launch (the resident blocks, at most one thread
+// per ray). smem_bytes: the block's dynamic shared memory, sized by the
+// wrapper (megakernel.py KernelScene.smem_bytes, from ptx_walk_layout).
 // ablate: the ablation mask (bounce_body.cuh kAblate*); nonzero launches
 // the form's ablation instance.
-extern "C" int ptx_megakernel_launch(const float* origin, const float* direction,
-                                     float* spectrum, int n_rays, const float* tri, int n_tri,
-                                     const float* sph, int n_sph, const float* mat, int n_mat,
-                                     const float* lgt, int n_lights, const float* em, int n_em,
-                                     int em_k, const float* rec, int rec_rows, int rec_stride,
-                                     int cull_mode, int binned, const float* krec, int n_rec,
-                                     int krec_rows, const float* clb, const float* sup,
-                                     int n_pages, const float* hyp, int hyp_rows,
-                                     const float* root, int cl_cull, int* visits,
-                                     unsigned long long* steps, int* next_ray, const int* seed,
-                                     int max_depth, float epsilon, int grid,
+extern "C" int ptx_megakernel_launch(const ptx::SceneArgs* scene, const float* origin,
+                                     const float* direction, float* spectrum, int n_rays,
+                                     int* visits, unsigned long long* steps, int* next_ray,
+                                     const int* seed, int max_depth, float epsilon, int grid,
                                      long long smem_bytes, int ablate, void* stream) {
   using namespace ptx;
-  (void)hyp_rows;
-  if (!next_ray || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (!scene || !next_ray || grid < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const bool binned = scene->binned;
   if (binned ? (visits != nullptr) != (steps != nullptr) : visits != nullptr)
     return static_cast<int>(cudaErrorInvalidValue);
-  const ClusterTables cl{krec, n_rec, krec_rows, clb, sup, n_pages, hyp, root, cl_cull};
-  const int tiers = binned ? n_pages * (kBndCols + kGroup2 * kBndCols) : 0;
-  const Params p{origin, direction, spectrum, n_rays, tri, n_tri, sph, n_sph,
-                 mat, n_mat, lgt, n_lights, em, n_em, em_k, rec, rec_rows, rec_stride,
-                 seed, max_depth, cl, tiers <= kTierFloats ? tiers : 0, visits, steps,
-                 next_ray, epsilon, ablate};
+  const Params p{origin, direction, spectrum, n_rays, launch_scene(*scene), seed, max_depth,
+                 visits, steps, next_ray, epsilon, ablate};
   const size_t smem = static_cast<size_t>(smem_bytes);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  // A dense table form has no record: its instances are the per-row class.
-  const int cull = binned || rec_rows ? cull_mode : -1;
+  const int cull = scene->rec_cull;
   cudaError_t err;
   if (binned)
     err = ablate ? launch_form<true, true>(p, cull, grid, smem, s)

@@ -185,29 +185,29 @@ class Cases:
 
         self.mk, self.sw = mk, sw
         self.scene = scenes.bench_box_scene()
-        self.tables = mk.pack_tables(self.scene)
-        self.smem = mk.block_smem_bytes(self.scene, self.tables)
+        self.kscene = mk.kernel_scene(self.scene)
+        self.smem = self.kscene.smem_bytes()
         self.cull = int(self.scene.krn_big_cull_mode)
         self.k1_opts = pt.RenderOptions(BOX_W, BOX_H, BOX_SPP, BOX_SPP, epsilon=1e-3,
                                         max_depth=MAX_DEPTH)
         self.rays = box_frame_rays(scenes, self.k1_opts, BOX_SPP, 0)
         self.seed = torch.tensor([99], dtype=torch.int32, device="cuda")
         self.k1_twin, _ = mk.trace_megakernel_reference(self.scene, self.rays, self.k1_opts, 99,
-                                                        self.tables)
+                                                        self.kscene)
         self.k2_opts = pt.RenderOptions(BOX_W, BOX_H, GRAD_SPP, GRAD_SPP, epsilon=1e-3,
                                         max_depth=GRAD_DEPTH)
         grad_rays = box_frame_rays(scenes, self.k2_opts, GRAD_SPP, 5)
         st = sw.initial_state(grad_rays.origin, grad_rays.direction, 5)
         self.n_drec = sw.n_diff_records(self.scene.n_point_lights,
                                         self.scene.emissive_sample_count)
-        sw.bounce_reference(self.scene, st, 0, self.k2_opts, self.tables,
+        sw.bounce_reference(self.scene, st, 0, self.k2_opts, self.kscene,
                             records=self.records(st.shape[1]))
         self.state = st
         self.live = st[17] > 0.5
         self.sd = torch.tensor([5, 1], dtype=torch.int32, device="cuda")
         self.k2_twin = st.clone()
         self.k2_twin_rec = self.records()
-        sw.bounce_reference(self.scene, self.k2_twin, 1, self.k2_opts, self.tables,
+        sw.bounce_reference(self.scene, self.k2_twin, 1, self.k2_opts, self.kscene,
                             records=self.k2_twin_rec)
         torch.cuda.synchronize()
 
@@ -221,11 +221,11 @@ class Cases:
         # memory, which waits for the stream, and best_ms needs the host
         # ahead of the card.
         return self.mk.trace_megakernel(self.scene, self.rays, self.k1_opts, self.seed,
-                                        self.tables, **kw)[0]
+                                        self.kscene, **kw)[0]
 
     def k2(self, records):
         st = self.state.clone()
-        self.sw.bounce(self.scene, st, self.sd, self.k2_opts, self.tables, records=records)
+        self.sw.bounce(self.scene, st, self.sd, self.k2_opts, self.kscene, records=records)
         return st
 
     def check(self, parent):
@@ -256,7 +256,7 @@ class Cases:
         rec = self.records()
         copies = iter([self.state.clone() for _ in range(REPS + 1)])
         return best_ms(lambda: self.sw.bounce(self.scene, next(copies), self.sd, self.k2_opts,
-                                              self.tables, records=rec), REPS)
+                                              self.kscene, records=rec), REPS)
 
 
 def use(libs):

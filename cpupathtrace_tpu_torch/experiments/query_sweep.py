@@ -126,9 +126,12 @@ class ParentK4:
         lim = torch.full((n,), float("inf"), device="cuda") if lim is None else lim
         t = torch.empty(n, device="cuda")
         p = torch.empty(n, dtype=torch.int32, device="cuda")
+        rec, clb, sup, hyp, root = kt.kernel_tables(scene)
         err = self.fn(o.data_ptr(), d.data_ptr(), lim.data_ptr(), t.data_ptr(), p.data_ptr(), n,
-                      *kt.table_args(kt.kernel_tables(scene)), int(scene.krn_cull_mode),
-                      int(any_hit), None, torch.cuda.current_stream().cuda_stream)
+                      rec.data_ptr(), rec.shape[0], rec.shape[1], clb.data_ptr(), sup.data_ptr(),
+                      sup.shape[0], hyp.data_ptr(), hyp.shape[0], root.data_ptr(),
+                      int(scene.krn_cull_mode), int(any_hit), None,
+                      torch.cuda.current_stream().cuda_stream)
         if err:
             raise RuntimeError(f"parent K4: cudaError_t {err}")
         return t, p.long()

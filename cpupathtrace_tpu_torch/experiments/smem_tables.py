@@ -86,12 +86,12 @@ def check_configurations(device):
 def k1_box_tables(device):
     """(x [4,194,304] ones, the tables K1 stages for the box) at K1's launch
     shape: the pair record (28 of its columns), spheres, materials, lights
-    and emitters of pack_tables; tables without rows are left out."""
-    from ..integrator.megakernel import pack_tables
+    and emitters of kernel_scene; tables without rows are left out."""
+    from ..integrator.megakernel import kernel_scene
     from ..models.scenes import bench_box_scene
 
     scene = bench_box_scene(device=device)
-    _, sph, mat, lgt, em = pack_tables(scene)
+    _, sph, mat, lgt, em = kernel_scene(scene).tables
     staged = [(scene.krn_big_pair, 28), (sph, sph.shape[1]), (mat, mat.shape[1]),
               (lgt, lgt.shape[1]), (em, em.shape[1])]
     x = torch.ones(K1_RAYS, dtype=torch.float32, device=device)

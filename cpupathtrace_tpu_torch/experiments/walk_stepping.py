@@ -180,8 +180,8 @@ def main():
     rays = box_frame_rays(scenes, opts, FRAME_SPP, 3)
     dragon = scenes.bench_dragon_scene(dragon_tris=DRAGON_TRIS, device="cuda")
     full, _ = scenes.dragon_full_scene(args.cache, device="cuda")
-    cells = {"dragon_200k": (dragon, mk.pack_tables(dragon)),
-             "dragon_7p2m": (full, mk.pack_tables(full))}
+    cells = {"dragon_200k": (dragon, mk.kernel_scene(dragon)),
+             "dragon_7p2m": (full, mk.kernel_scene(full))}
 
     def use(name):
         for lib in LIBS:
@@ -190,22 +190,22 @@ def main():
     # The seed on the card: a host number would be copied with a sync.
     seed = torch.tensor([SEED], dtype=torch.int32, device="cuda")
 
-    def k1(scene, tables):
-        return mk.trace_megakernel(scene, rays, opts, seed, tables)[0]
+    def k1(scene, ks):
+        return mk.trace_megakernel(scene, rays, opts, seed, ks)[0]
 
-    def k2(scene, tables, timing=None):
-        return sw.trace_megakernel_sorted(scene, rays, opts, SEED, tables, timing=timing)[0]
+    def k2(scene, ks, timing=None):
+        return sw.trace_megakernel_sorted(scene, rays, opts, SEED, ks, timing=timing)[0]
 
-    def counted(scene, tables):
+    def counted(scene, ks):
         """The counting instances' walk figures: K1's, then K2's frame."""
         out = {}
         for tracer in ("k1", "k2"):
             steps = torch.zeros(kt.WARP_STEP_COLS, dtype=torch.int64, device="cuda")
             if tracer == "k1":
-                vis = mk.trace_megakernel(scene, rays, opts, seed, tables, debug_visits=True,
+                vis = mk.trace_megakernel(scene, rays, opts, seed, ks, debug_visits=True,
                                           warp_steps=steps)[2]
             else:
-                vis = sw.trace_megakernel_sorted(scene, rays, opts, SEED, tables,
+                vis = sw.trace_megakernel_sorted(scene, rays, opts, SEED, ks,
                                                  debug_visits=True, warp_steps=steps)[2]
             out[tracer] = walk_counts(vis.cpu(), steps.cpu())
         return out
@@ -217,14 +217,14 @@ def main():
     first = {}
     for name in names:
         use(name)
-        for cell, (scene, tables) in cells.items():
+        for cell, (scene, ks) in cells.items():
             for tracer, fn in (("k1", k1), ("k2", k2)):
-                out = fn(scene, tables)
+                out = fn(scene, ks)
                 torch.cuda.synchronize()
                 ref = first.setdefault((cell, tracer), out)
                 if not bits_equal(out, ref):
                     raise RuntimeError(f"{name}: {tracer} on {cell} differs from {names[0]}")
-            figures[name]["counts"][cell] = counted(scene, tables)
+            figures[name]["counts"][cell] = counted(scene, ks)
     # In turns: the parent first and last, the configurations forward then
     # backward.
     steps = list(STEPPINGS)
@@ -233,12 +233,12 @@ def main():
     for name in order:
         use(name)
         ms = figures[name]["ms"]
-        for cell, (scene, tables) in cells.items():
-            ms.setdefault(f"{cell} k1", []).append(best_ms(lambda: k1(scene, tables), REPS))
+        for cell, (scene, ks) in cells.items():
+            ms.setdefault(f"{cell} k1", []).append(best_ms(lambda: k1(scene, ks), REPS))
             frames = []
             for _ in range(REPS):
                 timing: dict = {}
-                k2(scene, tables, timing)
+                k2(scene, ks, timing)
                 frames.append(sum(timing["bounce_ms"]))
             ms.setdefault(f"{cell} k2", []).append(min(frames))
     for fig in figures.values():

@@ -51,7 +51,7 @@ from ..accel.kernel_traverse import SMEM_LIMIT, check_tensor
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
 from ..utils.profiling import trace_annotation
-from .megakernel import MAX_EM, MAX_LIGHTS, MAX_MAT, megakernel_supported, pack_tables
+from .megakernel import MAX_EM, MAX_LIGHTS, MAX_MAT, kernel_scene, megakernel_supported
 from .sorted_wavefront import (
     bounce,
     clear_records,
@@ -81,19 +81,20 @@ def em_material_ids(scene: SceneData) -> torch.Tensor:
     return torch.where(is_sph, scene.sph_material[si], scene.tri_material[ti]).long()
 
 
-def record_pass(scene: SceneData, rays, options: RenderOptions, seed, tables=None):
+def record_pass(scene: SceneData, rays, options: RenderOptions, seed, kscene=None):
     """The forward of the gradient path: K2 in its record form once per
     bounce over the unpermuted path state (the twin on the CPU). Returns
     (spectrum [R, 4] with alpha = collected, collected [R] bool, planes
     [max_depth, n_drec, R] f32 as K2 wrote them, depth): the loop stops at
     `depth`, once no ray is alive, and the planes past it are left
-    unwritten. `seed`: an int32 Python int or a 1-element tensor."""
+    unwritten. `seed`: an int32 Python int or a 1-element tensor.
+    `kscene`: the scene's KernelScene on the rays' device (built here when
+    None), handed to every bounce."""
     with trace_annotation("diff.record"):
         origin, direction = rays.origin, rays.direction
         dev = origin.device
         scene = scene.to(dev)
-        if tables is None:
-            tables = pack_tables(scene)
+        ks = kernel_scene(scene) if kscene is None else kscene
         r = origin.shape[0]
         max_depth = int(options.max_depth)
         n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
@@ -104,7 +105,7 @@ def record_pass(scene: SceneData, rays, options: RenderOptions, seed, tables=Non
         depth = 0
         while depth < max_depth and n_alive > 0:
             trace_megakernel_diff.live_rays += n_alive
-            bounce(scene, st, seed_depth[depth], options, tables, records=planes[depth])
+            bounce(scene, st, seed_depth[depth], options, ks, records=planes[depth])
             with trace_annotation("diff.live_read"):
                 n_alive = int((st[17] > 0.5).sum())  # the one host sync of the bounce
             trace_megakernel_diff.host_reads += 1
@@ -114,12 +115,12 @@ def record_pass(scene: SceneData, rays, options: RenderOptions, seed, tables=Non
         return spectrum, coll, planes, depth
 
 
-def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, tables=None):
+def trace_megakernel_diff(scene: SceneData, rays, options: RenderOptions, seed, kscene=None):
     """`record_pass` with every depth's records: (spectrum [R, 4],
     collected [R] bool, records [max_depth, R, n_drec] f32, a view of the
     planes). Depths the loop never reaches get the no-contribution encoding
     (mid -1, all weights 0)."""
-    spectrum, coll, planes, depth = record_pass(scene, rays, options, seed, tables)
+    spectrum, coll, planes, depth = record_pass(scene, rays, options, seed, kscene)
     if depth < planes.shape[0]:
         with trace_annotation("diff.record"):
             clear_records(planes[depth:].transpose(0, 1))

@@ -43,8 +43,10 @@ instance's occupancy, queried once per card and size by
 (csrc/megakernel.cu); the output starts as NaN, so a ray that no lane
 traced shows. Binned blocks and K2's hold each thread's ring of record
 rows and cluster boxes in shared memory beside the tables, sized by
-`block_smem_bytes`. On the card the dense form counts its warps' bounce
-steps and ray-bounces into `bounce_steps` (`lane_use`).
+`KernelScene.smem_bytes`. On the card the dense form counts its warps'
+bounce steps and ray-bounces into `bounce_steps` (`lane_use`). Each trace
+call builds one `kernel_scene`, whose `SceneArgs` every K1 and K2 launch of
+it takes (csrc/scene_args.cuh).
 """
 from __future__ import annotations
 
@@ -57,21 +59,21 @@ from .. import _build
 from ..accel.kernel_traverse import (
     GEO_VISIT_COLS,
     NEAR_COLS,
-    NO_TIERS,
     QUERY_COL,
     SHADOW_COLS,
     VISIT_BLOCK,
     WALK_COLS,
     WARP_LANES,
     WARP_STEP_COLS,
+    ClusterTables,
     block_sums,
     check_tables,
     check_tensor,
+    cluster_tables,
     kernel_smem_bytes,
     kernel_tables,
     pair_quantities,
     resident_grid,
-    table_args,
     traverse_clusters,
     traverse_clusters_anyhit,
     walk_layout,
@@ -163,23 +165,6 @@ def megakernel_supported(scene: SceneData) -> bool:
         and scene.n_point_lights <= MAX_LIGHTS
         and scene.n_emissive <= MAX_EM
     )
-
-
-def block_smem_bytes(scene: SceneData, tables, layout=None) -> int:
-    """Dynamic shared memory of a K1 or K2 block on `scene` with its packed
-    `tables` (kernel_traverse.kernel_smem_bytes): the pair record, triangle,
-    sphere, material, light and emitter tables, and for a binned scene the
-    staged tiers and the walks' rings, laid out by the kernel's
-    `layout` (kernel_traverse.walk_layout). Raises ValueError when it
-    exceeds what a block can use."""
-    tri, sph, mat, _, _ = tables
-    rec_rows = scene.krn_big_pair.shape[0] if scene.dense_pair else 0
-    n_tri = 0 if scene.dense_pair else tri.shape[0]
-    floats = (rec_rows * REC_USED_COLS + n_tri * TRI_COLS + sph.shape[0] * SPH_COLS
-              + mat.shape[0] * MAT_COLS + scene.n_point_lights * LGT_COLS
-              + scene.n_emissive * EM_COLS)
-    n_pages = scene.krn_sup_bounds.shape[0] if scene.has_kernel_records else None
-    return kernel_smem_bytes(floats, n_pages, layout)
 
 
 def check_warp_steps(warp_steps, device):
@@ -296,6 +281,79 @@ def pack_tables(scene: SceneData):
         dim=1,
     )
     return tri, sph, mat, lgt, em
+
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+
+
+class SceneArgs(ctypes.Structure):
+    """The kernels' view of a scene as K1 and K2 take it: the ctypes mirror
+    of csrc/scene_args.cuh `SceneArgs`, field for field. `tier_floats`
+    stays 0: each launch derives it (scene_args.cuh launch_scene)."""
+
+    _fields_ = [("tri", _P), ("n_tri", _I), ("sph", _P), ("n_sph", _I), ("mat", _P),
+                ("n_mat", _I), ("lgt", _P), ("n_lights", _I), ("em", _P), ("n_em", _I),
+                ("em_k", _I), ("rec", _P), ("rec_rows", _I), ("rec_stride", _I),
+                ("rec_cull", _I), ("binned", _I), ("cl", ClusterTables), ("tier_floats", _I)]
+
+
+class KernelScene:
+    """The kernels' view of `scene` on its `device`, checked once a trace
+    and handed to each launch (K1, K2) and twin of it: `tables`
+    (pack_tables' tri, sph, mat, lgt, em), a binned scene's `clusters`
+    (kernel_tables), the pair record `rec` (None in the table form) and
+    `args`, the SceneArgs each launch takes by pointer; it keeps every
+    tensor whose pointer `args` holds. Raises ValueError on a table
+    without the kernels' layout."""
+
+    def __init__(self, scene: SceneData, tables):
+        self.device = dev = scene.device
+        self.tables = tri, sph, mat, lgt, em = tuple(tables)
+        for name, t, c in zip(("tri", "sph", "mat", "lgt", "em"), self.tables,
+                              (TRI_COLS, SPH_COLS, MAT_COLS, LGT_COLS, EM_COLS)):
+            check_tensor(name, t, dev, torch.float32, (None, c))
+        self.binned = scene.has_kernel_records
+        self.clusters = kernel_tables(scene) if self.binned else None
+        cl = ClusterTables(cull=-1)
+        if self.binned:
+            check_tables(self.clusters, dev)
+            cl = cluster_tables(self.clusters, scene.krn_cull_mode)
+        self.rec = rec = scene.krn_big_pair if scene.dense_pair else None
+        if rec is not None:
+            check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
+        self.args = SceneArgs(
+            tri=tri.data_ptr(), n_tri=0 if rec is not None else tri.shape[0],
+            sph=sph.data_ptr(), n_sph=sph.shape[0], mat=mat.data_ptr(), n_mat=mat.shape[0],
+            lgt=lgt.data_ptr(), n_lights=scene.n_point_lights, em=em.data_ptr(),
+            n_em=scene.n_emissive, em_k=scene.emissive_sample_count,
+            rec=None if rec is None else rec.data_ptr(),
+            rec_rows=0 if rec is None else rec.shape[0],
+            rec_stride=0 if rec is None else rec.shape[1],
+            # A dense table form has no record: its instances are the per-row class.
+            rec_cull=int(scene.krn_big_cull_mode) if self.binned or rec is not None else -1,
+            binned=int(self.binned), cl=cl)
+
+    def check_device(self, device):
+        """Raise unless this scene lies on `device`, a launch's."""
+        if self.device != device:
+            raise ValueError(f"kscene: the kernel scene lies on {self.device}, not {device}")
+
+    def smem_bytes(self, layout=None) -> int:
+        """Dynamic shared memory of a K1 or K2 block on this scene
+        (kernel_traverse.kernel_smem_bytes): its tables, and a binned
+        scene's staged tiers and rings as the kernel's `layout`
+        (walk_layout) lays them out. ValueError past what a block can use."""
+        a = self.args
+        floats = (a.rec_rows * REC_USED_COLS + a.n_tri * TRI_COLS + a.n_sph * SPH_COLS
+                  + a.n_mat * MAT_COLS + a.n_lights * LGT_COLS + a.n_em * EM_COLS)
+        return kernel_smem_bytes(floats, a.cl.n_pages if self.binned else None, layout)
+
+
+def kernel_scene(scene: SceneData) -> KernelScene:
+    """The KernelScene of `scene` on its device, its tables packed by
+    `pack_tables`: every trace call builds one for all its launches."""
+    return KernelScene(scene, pack_tables(scene))
 
 
 # ---------------------------------------------------------------------------
@@ -703,19 +761,20 @@ def _bounce(ctx, depth, s, rec=None):
 _OUT_FIELDS = ("out_r", "out_g", "out_b", "collected")
 
 
-def trace_megakernel_reference(scene: SceneData, rays, options, seed, tables=None,
+def trace_megakernel_reference(scene: SceneData, rays, options, seed, kscene=None,
                                debug_visits=False):
     """The twin of the CUDA kernel: returns (spectrum [R,4] with alpha =
     collected, collected [R] bool), and with `debug_visits` the traversal
-    counters [ceil(R / 1024), 9] int32. A ray leaves the loop when it dies,
-    as a kernel thread does; dead rays never change their sums, so this
-    equals the TPU's whole-block exit."""
+    counters [ceil(R / 1024), 9] int32. `kscene`: the scene's KernelScene
+    on the rays' device (built here when None). A ray leaves the loop when
+    it dies, as a kernel thread does; dead rays never change their sums, so
+    this equals the TPU's whole-block exit."""
     trace_megakernel_reference.calls += 1
     origin, direction = rays.origin, rays.direction
     dev = origin.device
-    if tables is None:
-        tables = pack_tables(scene.to(dev))
-    ctx = _Ctx(scene.to(dev), tables, options, dev)
+    scene = scene.to(dev)
+    ks = kernel_scene(scene) if kscene is None else kscene
+    ctx = _Ctx(scene, ks.tables, options, dev)
     n = origin.shape[0]
     f32 = torch.float32
     idx = torch.arange(n, device=dev)
@@ -758,17 +817,6 @@ trace_megakernel_reference.calls = 0
 # The CUDA kernel's wrapper.
 # ---------------------------------------------------------------------------
 
-_P = ctypes.c_void_p
-_I = ctypes.c_int
-_ARGTYPES = (
-    [_P, _P, _P, _I]  # origin, direction, spectrum, n_rays
-    + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
-    + [_P, _I, _I, _I, _I]  # rec, rec_rows, rec_stride, cull_mode; binned
-    + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I, _P]  # traversal tables, cull mode; visits
-    + [_P, _P]  # warp steps, refill counter
-    + [_P, _I, ctypes.c_float]  # seed, max_depth, epsilon
-    + [_I, ctypes.c_longlong, _I, _P]  # grid, smem, ablation mask, stream
-)
 # The dense counting instance's output (csrc/megakernel.cu BounceSteps):
 # the bounce steps the warps execute, then the ray-bounces.
 BOUNCE_STEP_COLS = 2
@@ -778,7 +826,9 @@ def _library():
     lib = _build.load("megakernel")
     fn = lib.ptx_megakernel_launch
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = ([ctypes.POINTER(SceneArgs), _P, _P, _P, _I]  # scene, rays, spectrum
+                       + [_P, _P, _P, _P, _I, ctypes.c_float]  # counters, refill, seed, depth, eps
+                       + [_I, ctypes.c_longlong, _I, _P])  # grid, smem, ablation mask, stream
         fn.restype = ctypes.c_int
     return fn
 
@@ -808,19 +858,21 @@ def predicted_lane_use(live, lanes=WARP_LANES):
     return float(p.sum() / (1.0 - (1.0 - p) ** lanes).sum())
 
 
-def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_visits=False,
+def trace_megakernel(scene: SceneData, rays, options, seed, kscene=None, debug_visits=False,
                      warp_steps=None, bounce_steps=None):
     """Full-path trace of a ray batch: (spectrum [R,4] with alpha =
     collected, collected [R] bool), and with `debug_visits` the traversal
     counters [ceil(R / 1024), 9] int32 (zero for a dense scene). `seed`
     is an int32 Python int or a 1-element tensor (read on the device, so
-    drawing it costs no sync). `warp_steps` (binned, with `debug_visits`,
-    on the card): a zeroed [3] int64 tensor the walks' warp steps are added
-    to. `bounce_steps` (dense, on the card): a zeroed [2] int64 tensor the
-    warps' bounce steps and the ray-bounces are added to (`lane_use`).
-    CPU rays go to the twin; CUDA rays launch csrc/megakernel.cu, its
-    binned form for a scene with kernel records, and its ablation instances
-    while a switch is set (`ablation_mask`, read at the call)."""
+    drawing it costs no sync). `kscene`: the scene's KernelScene on the
+    rays' device (built here when None). `warp_steps` (binned, with
+    `debug_visits`, on the card): a zeroed [3] int64 tensor the walks' warp
+    steps are added to. `bounce_steps` (dense, on the card): a zeroed [2]
+    int64 tensor the warps' bounce steps and the ray-bounces are added to
+    (`lane_use`). CPU rays go to the twin; CUDA rays launch
+    csrc/megakernel.cu, its binned form for a scene with kernel records,
+    and its ablation instances while a switch is set (`ablation_mask`, read
+    at the call)."""
     with trace_annotation("k1.trace"):
         origin, direction = rays.origin, rays.direction
         dev = origin.device
@@ -837,7 +889,7 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
                 raise ValueError("bounce_steps: the warps' steps are counted on the card only")
             check_tensor("bounce_steps", bounce_steps, dev, torch.int64, (BOUNCE_STEP_COLS,))
         if dev.type == "cpu":
-            return trace_megakernel_reference(scene, rays, options, seed, tables, debug_visits)
+            return trace_megakernel_reference(scene, rays, options, seed, kscene, debug_visits)
         if dev.type != "cuda":
             raise ValueError(f"trace_megakernel: no kernel for device {dev}")
         if binned and scene.big_v0.shape[0] > scene.krn_big_pair.shape[0]:
@@ -854,34 +906,14 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
             )
         check_tensor("origin", origin, dev, torch.float32, (None, 3))
         check_tensor("direction", direction, dev, torch.float32, (origin.shape[0], 3))
-        scene = scene.to(dev)
-        if tables is None:
-            tables = pack_tables(scene)
-        tri, sph, mat, lgt, em = tables
-        for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS),
-                           ("mat", mat, MAT_COLS), ("lgt", lgt, LGT_COLS),
-                           ("em", em, EM_COLS)):
-            check_tensor(name, t, dev, torch.float32, (None, c))
-        if scene.dense_pair:
-            rec = scene.krn_big_pair
-            check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
-            rec_ptr, rec_rows, rec_stride = rec.data_ptr(), rec.shape[0], rec.shape[1]
-            n_tri = 0
-        else:
-            rec_ptr, rec_rows, rec_stride = None, 0, 0
-            n_tri = tri.shape[0]
-        if binned:
-            ktables = kernel_tables(scene)
-            check_tables(ktables, dev)
-            tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
-        else:
-            tier_args = NO_TIERS
+        ks = kernel_scene(scene.to(dev)) if kscene is None else kscene
+        ks.check_device(dev)
         if isinstance(seed, torch.Tensor):
             seed_t = seed.to(device=dev, dtype=torch.int32).reshape(-1)[:1].contiguous()
         else:
             seed_t = torch.tensor([int(seed)], dtype=torch.int32, device=dev)
 
-        smem = block_smem_bytes(scene, tables, walk_layout("megakernel") if binned else None)
+        smem = ks.smem_bytes(walk_layout("megakernel") if binned else None)
         n = origin.shape[0]
         # The warps hand rays out from a counter: the output starts as NaN, so
         # a ray that no lane traced shows.
@@ -894,25 +926,19 @@ def trace_megakernel(scene: SceneData, rays, options, seed, tables=None, debug_v
         steps = warp_steps if count else bounce_steps
         # The refill counter: the next ray index to hand out.
         next_ray = torch.zeros(1, dtype=torch.int32, device=dev)
-        # A dense table form has no record: its instances are the per-row class.
-        cull = int(scene.krn_big_cull_mode) if binned or rec_rows else -1
         ablate = ablation_mask(binned)
-        # Temporaries made here (seed_t, tables) may be freed before the
-        # kernel runs: the caching allocator reuses memory in the order of
-        # the current stream, which the launch is on.
+        # Temporaries made here (seed_t, a KernelScene built here) may be
+        # freed before the kernel runs: the caching allocator reuses memory in
+        # the order of the current stream, which the launch is on.
         if n:
             with torch.cuda.device(dev):
-                per_sm, threads = resident_blocks(smem, binned, steps is not None, cull,
-                                                  bool(ablate))
+                per_sm, threads = resident_blocks(smem, binned, steps is not None,
+                                                  ks.args.rec_cull, bool(ablate))
                 grid = resident_grid(n, threads, per_sm,
                                      torch.cuda.get_device_properties(dev).multi_processor_count)
                 err = _library()(
-                    origin.data_ptr(), direction.data_ptr(), spectrum.data_ptr(), n,
-                    tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
-                    mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
-                    em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
-                    rec_ptr, rec_rows, rec_stride, int(scene.krn_big_cull_mode), int(binned),
-                    *tier_args, visits.data_ptr() if count else None,
+                    ctypes.byref(ks.args), origin.data_ptr(), direction.data_ptr(),
+                    spectrum.data_ptr(), n, visits.data_ptr() if count else None,
                     None if steps is None else steps.data_ptr(), next_ray.data_ptr(),
                     seed_t.data_ptr(), int(options.max_depth), float(options.epsilon), grid, smem,
                     ablate, torch.cuda.current_stream(dev).cuda_stream,

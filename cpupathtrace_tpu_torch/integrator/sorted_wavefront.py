@@ -44,32 +44,23 @@ import torch
 from .. import _build
 from ..accel.kernel_traverse import (
     GEO_VISIT_COLS,
-    NO_TIERS,
     VISIT_BLOCK,
     WARP_STEP_COLS,
     block_sums,
-    check_tables,
     check_tensor,
-    kernel_tables,
-    table_args,
     walk_layout,
 )
 from ..core.config import RenderOptions
 from ..scene.scene import SceneData
 from ..utils.profiling import trace_annotation
 from .megakernel import (
-    EM_COLS,
-    LGT_COLS,
-    MAT_COLS,
-    SPH_COLS,
-    TRI_COLS,
+    SceneArgs,
     _bounce,
     _Ctx,
     ablation_mask,
-    block_smem_bytes,
     check_warp_steps,
+    kernel_scene,
     megakernel_supported,
-    pack_tables,
 )
 from .rng import MASK32, fmix32, mul32
 
@@ -207,18 +198,18 @@ def clear_records(records: torch.Tensor) -> None:
 
 
 def bounce_reference(scene: SceneData, state: torch.Tensor, depth: int, options,
-                     tables=None, ctx=None, records=None, visits=None) -> None:
+                     kscene=None, ctx=None, records=None, visits=None) -> None:
     """One bounce over `state` [18, R] in place: the twin's body for the
     rays alive on entry; dead rays are left as they are (the kernel's
-    threads of dead rays return at once). `records` [n_drec, R]: cleared,
-    then the live rays' record planes are written. `visits`
-    [ceil(R / 1024), 9] int32: the live rays' traversal counts are added
-    to the rows of their state positions."""
+    threads of dead rays return at once). The twin reads its tables from
+    `ctx`, else from `kscene` (the scene's KernelScene), else from one
+    built here. `records` [n_drec, R]: cleared, then the live rays' record
+    planes are written. `visits` [ceil(R / 1024), 9] int32: the live rays'
+    traversal counts are added to the rows of their state positions."""
     bounce_reference.calls += 1
     if ctx is None:
-        if tables is None:
-            tables = pack_tables(scene)
-        ctx = _Ctx(scene, tables, options, state.device)
+        ks = kernel_scene(scene) if kscene is None else kscene
+        ctx = _Ctx(scene, ks.tables, options, state.device)
     if records is not None:
         clear_records(records)
     idx = (state[17] > 0.5).nonzero(as_tuple=True)[0]
@@ -251,45 +242,42 @@ bounce_reference.calls = 0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
-_ARGTYPES = (
-    [_P, _I, _P, _P]  # state, n_rays, seed_depth, records
-    + [_P, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I]  # tri sph mat lgt em, em_k
-    + [_P, _I, _I, _I, _I]  # pair record, rows, stride, cull mode; binned
-    + [_P, _I, _I, _P, _P, _I, _P, _I, _P, _I]  # traversal tables, cull mode
-    + [_P, _P, ctypes.c_float, ctypes.c_longlong]  # visits, steps, epsilon, smem
-    + [_I, _P]  # ablation mask, stream
-)
 
 
 def _bounce_fn():
     lib = _build.load("bounce")
     fn = lib.ptx_bounce_launch
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES
+        fn.argtypes = ([ctypes.POINTER(SceneArgs), _P, _I, _P, _P]  # scene, state, depth, planes
+                       + [_P, _P, ctypes.c_float, ctypes.c_longlong]  # visits, steps, eps, smem
+                       + [_I, _P])  # ablation mask, stream
         fn.restype = ctypes.c_int
     return fn
 
 
 def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, options,
-           tables=None, ktables=None, records=None, visits=None, warp_steps=None) -> None:
+           kscene=None, records=None, visits=None, warp_steps=None) -> None:
     """One bounce over `state` [18, R] in place. `seed_depth` is a [2]
     int32 tensor (seed, depth) on the state's device: the kernel reads the
-    depth there, so the host need not sync to hand it over. `records`
-    ([n_diff_records, R] f32, or None) selects K2's record form; every
-    column is written (a ray dead on entry gets the no-contribution
-    encoding of `clear_records`), so it may come uninitialised. `visits`
-    ([ceil(R / 1024), 9] int32, or None) selects the counting form: the
-    traversal counts are added to it (binned scenes, not with records), and
-    `warp_steps` ([3] int64, zeroed by the caller, on the card) gets the
-    walks' warp steps (kernel_traverse.warp_utilisation).
-    CPU state runs `bounce_reference`; CUDA state launches csrc/bounce.cu,
-    with the cluster traversal for a binned scene and K1's dense geometry
-    otherwise, and its ablation instances while a switch is set
-    (megakernel.ablation_mask, read at the call). The record form has none
-    and raises ValueError then (the JAX kernel asserts, pallas_megakernel.py
-    :885; under PTX_SKIP_TRAVERSE alone JAX records without the walks)."""
+    depth there, so the host need not sync to hand it over. `kscene`: the
+    scene's KernelScene on the state's device, built once a trace by its
+    driver (here when None). `records` ([n_diff_records, R] f32, or None)
+    selects K2's record form; every column is written (a ray dead on entry
+    gets the no-contribution encoding of `clear_records`), so it may come
+    uninitialised. `visits` ([ceil(R / 1024), 9] int32, or None) selects
+    the counting form: the traversal counts are added to it (binned scenes,
+    not with records), and `warp_steps` ([3] int64, zeroed by the caller,
+    on the card) gets the walks' warp steps
+    (kernel_traverse.warp_utilisation). CPU state runs `bounce_reference`;
+    CUDA state launches csrc/bounce.cu, with the cluster traversal for a
+    binned scene and K1's dense geometry otherwise, and its ablation
+    instances while a switch is set (megakernel.ablation_mask, read at the
+    call). The record form has none and raises ValueError then (the JAX
+    kernel asserts, pallas_megakernel.py:885; under PTX_SKIP_TRAVERSE alone
+    JAX records without the walks)."""
     dev = state.device
-    ablate = ablation_mask(scene.has_kernel_records)
+    binned = scene.has_kernel_records
+    ablate = ablation_mask(binned)
     if records is not None and ablate:
         raise ValueError("bounce: the record form runs no ablation (PTX_ABLATE / "
                          "PTX_SKIP_TRAVERSE are set)")
@@ -298,7 +286,7 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
             raise ValueError("bounce: warp_steps count with visits")
         check_warp_steps(warp_steps, dev)
     if dev.type == "cpu":
-        return bounce_reference(scene, state, int(seed_depth[1]), options, tables,
+        return bounce_reference(scene, state, int(seed_depth[1]), options, kscene,
                                 records=records, visits=visits)
     if dev.type != "cuda":
         raise ValueError(f"bounce: no kernel for device {dev}")
@@ -307,29 +295,8 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
     check_tensor("state", state, dev, torch.float32, (N_STATE, None))
     check_tensor("seed_depth", seed_depth, dev, torch.int32, (2,))
     n = state.shape[1]
-    scene = scene.to(dev)
-    if tables is None:
-        tables = pack_tables(scene)
-    tri, sph, mat, lgt, em = tables
-    for name, t, c in (("tri", tri, TRI_COLS), ("sph", sph, SPH_COLS), ("mat", mat, MAT_COLS),
-                       ("lgt", lgt, LGT_COLS), ("em", em, EM_COLS)):
-        check_tensor(name, t, dev, torch.float32, (None, c))
-    binned = scene.has_kernel_records
-    if binned:
-        if ktables is None:
-            ktables = kernel_tables(scene)
-        check_tables(ktables, dev)
-        tier_args = (*table_args(ktables), int(scene.krn_cull_mode))
-    else:
-        tier_args = NO_TIERS
-    if scene.dense_pair:
-        rec = scene.krn_big_pair
-        check_tensor("krn_big_pair", rec, dev, torch.float32, (None, None))
-        rec_args = (rec.data_ptr(), rec.shape[0], rec.shape[1])
-        n_tri = 0
-    else:
-        rec_args = (None, 0, 0)
-        n_tri = tri.shape[0]
+    ks = kernel_scene(scene.to(dev)) if kscene is None else kscene
+    ks.check_device(dev)
     rec_ptr = None
     if records is not None:
         n_drec = n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
@@ -343,16 +310,12 @@ def bounce(scene: SceneData, state: torch.Tensor, seed_depth: torch.Tensor, opti
         vis_ptr = visits.data_ptr()
         if warp_steps is None:
             warp_steps = torch.zeros(WARP_STEP_COLS, dtype=torch.int64, device=dev)
-    smem = block_smem_bytes(scene, tables, walk_layout("bounce") if binned else None)
+    smem = ks.smem_bytes(walk_layout("bounce") if binned else None)
     if n:
         with torch.cuda.device(dev):
             err = _bounce_fn()(
-                state.data_ptr(), n, seed_depth.data_ptr(), rec_ptr,
-                tri.data_ptr(), n_tri, sph.data_ptr(), sph.shape[0],
-                mat.data_ptr(), mat.shape[0], lgt.data_ptr(), scene.n_point_lights,
-                em.data_ptr(), scene.n_emissive, scene.emissive_sample_count,
-                *rec_args, int(scene.krn_big_cull_mode), int(binned),
-                *tier_args, vis_ptr, None if vis_ptr is None else warp_steps.data_ptr(),
+                ctypes.byref(ks.args), state.data_ptr(), n, seed_depth.data_ptr(), rec_ptr,
+                vis_ptr, None if vis_ptr is None else warp_steps.data_ptr(),
                 float(options.epsilon), smem, ablate, torch.cuda.current_stream(dev).cuda_stream,
             )
         if err:
@@ -390,7 +353,7 @@ def bounce_occupancy(smem_bytes, binned=True, cull=-1, rec=False, count=False, a
 
 
 def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed,
-                            tables=None, sort: bool = True, timing: dict | None = None,
+                            kscene=None, sort: bool = True, timing: dict | None = None,
                             reference: bool = False, debug_visits: bool = False,
                             warp_steps=None):
     """Full-path trace of a ray batch with per-bounce coherence sorting.
@@ -399,9 +362,11 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
     counters [max_depth, ceil(R / 1024), 9] int32 (JAX
     sorted_wavefront.py:486-489; rows are blocks of state positions, zero
     for a dense scene). `seed` is an int32 Python int or a 1-element
-    tensor. `sort=False` skips the permutation; the result is the same ray
-    for ray. Each bounce runs `bounce` (the kernel for CUDA rays, the twin
-    for CPU rays), or with `reference` the twin on any device. A `timing`
+    tensor. `kscene`: the scene's KernelScene on the rays' device (built
+    here when None), handed to every bounce. `sort=False` skips the
+    permutation; the result is the same ray for ray. Each bounce runs
+    `bounce` (the kernel for CUDA rays, the twin for CPU rays), or with
+    `reference` the twin on any device. A `timing`
     dict (CUDA only) gets the milliseconds of each bounce's kernel
     ("bounce_ms") and of its sort + gather ("sort_ms"), by CUDA events.
     `warp_steps` ([3] int64, zeroed, on the card; binned, with
@@ -417,10 +382,8 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
             raise ValueError("trace_megakernel_sorted: the scene exceeds the kernels' limits "
                              "(megakernel_supported)")
         binned = scene.has_kernel_records
-        if tables is None:
-            tables = pack_tables(scene)
-        ktables = kernel_tables(scene) if binned else None
-        ctx = _Ctx(scene, tables, options, dev) if reference or dev.type == "cpu" else None
+        ks = kernel_scene(scene) if kscene is None else kscene
+        ctx = _Ctx(scene, ks.tables, options, dev) if reference or dev.type == "cpu" else None
         if warp_steps is not None and (not (debug_visits and binned) or ctx is not None):
             raise ValueError("trace_megakernel_sorted: warp_steps count the kernel's binned "
                              "bounces with debug_visits")
@@ -449,7 +412,7 @@ def trace_megakernel_sorted(scene: SceneData, rays, options: RenderOptions, seed
                 if ctx is not None:
                     bounce_reference(scene, st, depth, options, ctx=ctx, visits=v)
                 else:
-                    bounce(scene, st, seed_depth[depth], options, tables, ktables, visits=v,
+                    bounce(scene, st, seed_depth[depth], options, ks, visits=v,
                            warp_steps=warp_steps if count else None)
             if timing is not None:
                 e[1].record()

@@ -268,13 +268,13 @@ def test_bounce_matches_twin_per_plane():
 
     scene = _dragon()
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     st = _camera_state(scene)
     for depth in (0, 5):
         k, t = st.clone(), st.clone()
         sw.bounce(scene, k, torch.tensor([77, depth], dtype=torch.int32, device="cuda"),
-                  opts, tables)
-        sw.bounce_reference(scene, t, depth, opts, tables)
+                  opts, ks)
+        sw.bounce_reference(scene, t, depth, opts, ks)
         same = (k.view(torch.int32) == t.view(torch.int32)).float().mean(1)
         assert (same >= 0.999).all(), (depth, same.tolist())
         st = k
@@ -372,7 +372,7 @@ def test_bounce_records_match_twin(name):
 
     scene = _scene("box") if name == "box" else _dragon()
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     st = _camera_state(scene)
     nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
     for depth in (0, 5):
@@ -380,9 +380,9 @@ def test_bounce_records_match_twin(name):
         rk = torch.empty((nd, st.shape[1]), device="cuda")
         rt = torch.empty_like(rk)
         sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
-        sw.bounce(scene, k, sd, opts, tables, records=rk)
-        sw.bounce(scene, plain, sd, opts, tables)
-        sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
+        sw.bounce(scene, k, sd, opts, ks, records=rk)
+        sw.bounce(scene, plain, sd, opts, ks)
+        sw.bounce_reference(scene, t, depth, opts, ks, records=rt)
         live = st[17] > 0.5
         assert torch.equal(k.view(torch.int32), t.view(torch.int32)), depth
         assert torch.equal(k.view(torch.int32), plain.view(torch.int32)), depth
@@ -873,15 +873,15 @@ def test_bounce_and_query_counters_match_plain():
 
     scene = _dragon()
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     st = _camera_state(scene, n=4096)
-    sw.bounce(scene, st, torch.tensor([77, 0], dtype=torch.int32, device="cuda"), opts, tables)
+    sw.bounce(scene, st, torch.tensor([77, 0], dtype=torch.int32, device="cuda"), opts, ks)
     k, t = st.clone(), st.clone()
     kv = torch.zeros((4, kt.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
     tv = torch.zeros_like(kv)
     sd = torch.tensor([77, 1], dtype=torch.int32, device="cuda")
-    sw.bounce(scene, k, sd, opts, tables, visits=kv)
-    sw.bounce_reference(scene, t, 1, opts, tables, visits=tv)
+    sw.bounce(scene, k, sd, opts, ks, visits=kv)
+    sw.bounce_reference(scene, t, 1, opts, ks, visits=tv)
     assert torch.equal(k.view(torch.int32), t.view(torch.int32))
     assert torch.equal(kv, tv) and int(kv.sum()) > 0
     assert int(kv[:, kt.QUERY_COL].sum()) == int((st[17] > 0.5).sum())
@@ -1220,7 +1220,7 @@ def _check_bounce(scene, n, depths=(0, 1, 2), state=None):
     from cpupathtrace_tpu_torch.integrator import sorted_wavefront as sw
 
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     st = _camera_state(scene, n=n) if state is None else state
     nd = sw.n_diff_records(scene.n_point_lights, scene.emissive_sample_count)
     rows = -(-n // kt.VISIT_BLOCK)
@@ -1233,10 +1233,10 @@ def _check_bounce(scene, n, depths=(0, 1, 2), state=None):
         rk = torch.empty((nd, n), device="cuda")
         rt = torch.empty_like(rk)
         steps = _warp_steps()
-        sw.bounce(scene, k, sd, opts, tables)
-        sw.bounce(scene, c, sd, opts, tables, visits=kv, warp_steps=steps)
-        sw.bounce(scene, r, sd, opts, tables, records=rk)
-        sw.bounce_reference(scene, t, depth, opts, tables, records=rt, visits=tv)
+        sw.bounce(scene, k, sd, opts, ks)
+        sw.bounce(scene, c, sd, opts, ks, visits=kv, warp_steps=steps)
+        sw.bounce(scene, r, sd, opts, ks, records=rk)
+        sw.bounce_reference(scene, t, depth, opts, ks, records=rt, visits=tv)
         live = st[17] > 0.5
         for form in (k, c, r):
             assert torch.equal(form.view(torch.int32), t.view(torch.int32)), depth
@@ -1653,7 +1653,7 @@ def _dense_wave(scene):
     """The threads of one resident wave of K1's dense form on `scene`."""
     from cpupathtrace_tpu_torch.integrator import megakernel as mk
 
-    smem = mk.block_smem_bytes(scene, mk.pack_tables(scene))
+    smem = mk.kernel_scene(scene).smem_bytes()
     cull = scene.krn_big_cull_mode if scene.dense_pair else -1
     per_sm, threads = mk.occupancy(smem, False, False, cull)
     return torch.cuda.get_device_properties(0).multi_processor_count * per_sm * threads
@@ -1733,7 +1733,7 @@ def test_record_form_writes_every_dead_column_without_a_fill(name):
 
     scene = _scene("box") if name == "box" else _dragon()
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
-    tables = mk.pack_tables(scene)
+    ks = mk.kernel_scene(scene)
     st = _camera_state(scene, n=16384 + 77)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
@@ -1745,8 +1745,8 @@ def test_record_form_writes_every_dead_column_without_a_fill(name):
         rk = torch.full((nd, st.shape[1]), float("nan"), device="cuda")
         rt = torch.full_like(rk, float("nan"))
         sd = torch.tensor([77, depth], dtype=torch.int32, device="cuda")
-        sw.bounce(scene, k, sd, opts, tables, records=rk)
-        sw.bounce_reference(scene, t, depth, opts, tables, records=rt)
+        sw.bounce(scene, k, sd, opts, ks, records=rk)
+        sw.bounce_reference(scene, t, depth, opts, ks, records=rt)
         torch.cuda.synchronize()
         assert not bool(torch.isnan(rk).any()), depth
         assert (rk[0, dead] == -1).all() and (rk[1:, dead] == 0).all(), depth
@@ -2161,7 +2161,7 @@ def test_k2_ablation_instances_bit_equal_to_twin(setting, monkeypatch):
     opts = RenderOptions(8, 8, 1, 1, epsilon=1e-3, max_depth=40)
     for scene in (_dragon_200k(56), _scene("box")):
         binned = scene.has_kernel_records
-        tables = mk.pack_tables(scene)
+        ks = mk.kernel_scene(scene)
         n = 4096 + 77
         st = _camera_state(scene, n=n)
         rows = -(-n // kt.VISIT_BLOCK)
@@ -2170,14 +2170,14 @@ def test_k2_ablation_instances_bit_equal_to_twin(setting, monkeypatch):
             k, c, t = st.clone(), st.clone(), st.clone()
             kv = torch.zeros((rows, kt.GEO_VISIT_COLS), dtype=torch.int32, device="cuda")
             tv = torch.zeros_like(kv)
-            sw.bounce(scene, k, sd, opts, tables)
+            sw.bounce(scene, k, sd, opts, ks)
             if binned:
-                sw.bounce(scene, c, sd, opts, tables, visits=kv, warp_steps=_warp_steps())
-                sw.bounce_reference(scene, t, depth, opts, tables, visits=tv)
+                sw.bounce(scene, c, sd, opts, ks, visits=kv, warp_steps=_warp_steps())
+                sw.bounce_reference(scene, t, depth, opts, ks, visits=tv)
                 assert torch.equal(c.view(torch.int32), k.view(torch.int32)), depth
                 assert torch.equal(kv, tv), depth
             else:
-                sw.bounce_reference(scene, t, depth, opts, tables)
+                sw.bounce_reference(scene, t, depth, opts, ks)
             assert torch.equal(k.view(torch.int32), t.view(torch.int32)), (depth, binned)
             st = k
 

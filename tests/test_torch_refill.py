@@ -57,12 +57,12 @@ def test_dense_block_past_the_shared_memory_limit_is_refused():
     """The box's tables fit a dense block; a sphere table of 8,000 rows
     (256 KB) does not, and the size is refused before any launch."""
     box = scenes.bench_box_scene(device=CPU)
-    tables = mk.pack_tables(box)
-    assert 0 < mk.block_smem_bytes(box, tables) < 16 * 1024
-    tri, sph, mat, lgt, em = tables
+    ks = mk.kernel_scene(box)
+    assert 0 < ks.smem_bytes() < 16 * 1024
+    tri, sph, mat, lgt, em = ks.tables
     big = torch.zeros((8000, sph.shape[1]))
     with pytest.raises(ValueError, match="shared memory"):
-        mk.block_smem_bytes(box, (tri, big, mat, lgt, em))
+        mk.KernelScene(box, (tri, big, mat, lgt, em)).smem_bytes()
 
 
 # ---------------------------------------------------------------------------

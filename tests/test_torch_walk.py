@@ -57,8 +57,8 @@ def test_main_path_scenes_fit_a_block(name):
     """The 200k dragon at both record heights and the box fit a block at the
     kept ring depth and block size; the dragon's rings are the bulk of it."""
     scene = _scene(name)
-    tables = mk.pack_tables(scene)
-    smem = mk.block_smem_bytes(scene, tables, BUILT)
+    ks = mk.kernel_scene(scene)
+    smem = ks.smem_bytes(BUILT)
     assert 0 < smem <= kt.SMEM_LIMIT
     ring = kt.walk_smem_bytes(BUILT)
     assert ring == 3 * 80 * 128
@@ -68,7 +68,7 @@ def test_main_path_scenes_fit_a_block(name):
         assert ring < smem <= ring + 4 * tiers + 8 * 1024
     else:
         assert smem < 8 * 1024
-        assert mk.block_smem_bytes(scene, tables) == smem  # no ring, no layout
+        assert ks.smem_bytes() == smem  # no ring, no layout
 
 
 @pytest.mark.parametrize("threads,depth,fits", [
